@@ -21,8 +21,26 @@ non-zero without one. Phases, each printing one line or more:
    and the device's busy share;
 6. times at the serving shape (CUDA events, median of 30): kernel, plain
    version, ``scaled_dot_product_attention`` as a yardstick, and the
-   card's bound. The second-to-last line is the kernels' JSON record, the
-   last line ``{"ok": true, "device": {...}}``.
+   card's bound;
+7. the reshard row kernels (pack_rows, scatter_rows, relayout_rows,
+   unpack_rows) against their plain versions, byte for byte, on the CPU
+   tests' cases in f32/bf16/int8 and at the elastic path's shapes, and the
+   refusal of starts that leave the array;
+8. elastic serving at full width: qwen3-1.7b, 8 requests of 512-token
+   prompts and 32 greedy tokens on dp2tp2, resized mid-generation to
+   dp1tp2, dp1tp4 and dp2tp2; params and the live KV cache move through
+   the planner, the reshard engine and the row kernels. Checks the launches
+   of each commit, every migrated tensor against its source, the staging
+   bound, and the tokens against an uninterrupted run; prints each
+   commit's pause, plan time, bytes, data-plane rate and peak memory;
+9. the data plane of the two byte-moving resizes replayed alone: wall
+   time, and under ``torch.profiler`` the device time by kernel class;
+10. the row kernels' times (median of 20 calls, CUDA events; and the kernel
+   alone on the device, from the profiler) at the elastic path's per-layer
+   move and at 4096 scattered embedding rows, beside their plain versions,
+   one PyTorch call each and the HBM bound.
+The second-to-last line is the kernels' JSON record, the last line
+``{"ok": true, "device": {...}}``.
 
 Any failure raises; nothing is caught.
 """
@@ -38,14 +56,22 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs.base import ParallelConfig  # noqa: E402
+from repro_torch.core.events import ResizeEvent  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import ref as R  # noqa: E402
+from repro_torch.kernels import reshard_pack as rp  # noqa: E402
 from repro_torch.kernels.ref import flash_attention_ref  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
+from repro_torch.serve import controller as serve_controller  # noqa: E402
+from repro_torch.serve.controller import LiveServeController  # noqa: E402
 from repro_torch.serve.driver import demo_batch, serve_once  # noqa: E402
+from repro_torch.serve.loop import ServeSession  # noqa: E402
 
 # H100 SXM data sheet: HBM3 bandwidth and dense bf16 tensor-core peak
 HBM_BYTES_PER_S = 3.35e12
@@ -327,6 +353,384 @@ def phase_times(launches: int, serve_err: float) -> dict:
         "library_ms": library_ms,
     }
 
+# ---------------------------------------------------------------------------
+# Reshard row kernels and the elastic serving path
+# ---------------------------------------------------------------------------
+
+ROW_KERNELS = ("pack_rows", "scatter_rows", "relayout_rows", "unpack_rows")
+# the file:line of each TPU kernel's pallas_call
+ROW_REPLACES = {
+    "pack_rows": "src/repro/kernels/reshard_pack.py:60",
+    "unpack_rows": "src/repro/kernels/reshard_pack.py:95",
+    "relayout_rows": "src/repro/kernels/reshard_pack.py:134",
+    "scatter_rows": "src/repro/kernels/reshard_pack.py:180",
+}
+ROW_DTYPES = (torch.float32, torch.bfloat16, torch.int8)
+EMBED = (151936, 2048)  # qwen3-1.7b's embedding table
+CACHE_ROW = (28, 8 * 544 * 8 * 128)  # a stacked cache leaf, 8 slots x 544 positions, flattened
+OVERLAP_STARTS = [[3, 17, 5, 5, 29], [30, 1, 12, 9, 2]]  # unaligned, overlapping, repeated
+ELASTIC = dict(n_slots=8, prompt_len=512, max_seq=544, gen=32)
+ELASTIC_TRACE = [(8.0, (1, 2)), (16.0, (1, 4)), (24.0, (2, 2))]  # (time, (dp, tp)); starts on dp2tp2
+
+
+def rand_rows(shape, dtype, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    if dtype == torch.int8:
+        return torch.randint(-128, 128, shape, generator=g, device="cuda", dtype=torch.int8)
+    return torch.randn(shape, generator=g, device="cuda").to(dtype)
+
+
+def row_kernel_vs_plain(kind, rows, C, dtype, starts, block_rows, seed) -> None:
+    """One row kernel against its plain version on the same inputs: the
+    outputs must be equal byte for byte."""
+    nb = len(starts)
+    src, dst = rand_rows((rows, C), dtype, seed), rand_rows((rows, C), dtype, seed + 1)
+    buf = rand_rows((nb * block_rows, C), dtype, seed + 2)
+    if kind == "pack_rows":
+        got, want = rp.pack_rows_cuda(src, starts, block_rows), R.pack_rows_ref(src, starts, block_rows)
+    elif kind == "scatter_rows":
+        got = rp.scatter_rows_cuda(dst.clone(), buf, starts, block_rows)
+        want = R.scatter_rows_ref(dst.clone(), buf, starts, block_rows)
+    elif kind == "relayout_rows":
+        got = rp.relayout_rows_cuda(dst.clone(), src, starts, block_rows)
+        want = R.relayout_rows_ref(dst.clone(), src, starts, block_rows)
+    else:
+        got, want = rp.unpack_rows_cuda(buf, starts, block_rows, rows), R.unpack_rows_ref(buf, starts, block_rows, rows)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and torch.equal(got, want), (
+        f"{kind} disagrees with its plain version: rows {rows}, C {C}, {dtype}, starts {list(starts)[:8]}, "
+        f"block_rows {block_rows}")
+
+
+def phase_row_cases() -> None:
+    """The four row kernels against their plain versions, exact equality:
+    the CPU tests' sweeps and unaligned/overlapping cases in three dtypes,
+    then the elastic path's shapes, scattered, repeated and overlapping
+    starts at the embedding's size, and the refusal of bad starts."""
+    rng = np.random.default_rng(0)
+    n = 0
+    for dtype in ROW_DTYPES:
+        for seed in range(5):
+            for kind in ROW_KERNELS:
+                nb = int(rng.integers(1, 7))
+                block = int(rng.choice([8, 16] if kind in ("pack_rows", "unpack_rows") else [1, 8]))
+                R_ = block * int(rng.integers(max(nb, 2), 13))
+                starts = [int(x) for x in rng.choice(R_ // block, size=nb, replace=False) * block]
+                row_kernel_vs_plain(kind, R_, 128, dtype, starts, block, seed)
+                n += 1
+        for kind in ROW_KERNELS:
+            row_kernel_vs_plain(kind, 16, 128, dtype, [4, 4, 9], 1, 7)
+            n += 1
+            for C in (1, 3, 130):
+                for starts in OVERLAP_STARTS:
+                    row_kernel_vs_plain(kind, 40, C, dtype, starts, 8, C)
+                    n += 1
+        log("rows", f"{str(dtype)[6:]}: {n} cases equal (JAX sweeps with C=128; repeated starts; "
+                    "unaligned and overlapping starts, block 8, C in 1/3/130)")
+        n = 0
+    scattered = [int(x) for x in rng.permutation(EMBED[0])[:4096]]
+    repeated = [int(x) for x in rng.integers(0, EMBED[0], 4096)] + scattered[:64]
+    overlapping = sorted(int(x) for x in rng.integers(0, EMBED[0] - 16, 512))
+    overlapping += [s + 3 for s in overlapping[:64]]
+    for kind in ROW_KERNELS:
+        row_kernel_vs_plain(kind, *CACHE_ROW, torch.bfloat16, [5], 1, 11)
+        row_kernel_vs_plain(kind, *EMBED, torch.bfloat16, scattered, 1, 12)
+        row_kernel_vs_plain(kind, *EMBED, torch.bfloat16, repeated, 1, 13)
+        row_kernel_vs_plain(kind, *EMBED, torch.bfloat16, overlapping, 8, 14)
+        # one run of half the table, as the elastic path's embedding moves
+        row_kernel_vs_plain(kind, *EMBED, torch.bfloat16, [EMBED[0] // 4], EMBED[0] // 2, 15)
+        log("rows", f"{kind}: equal on a cache row {CACHE_ROW} bf16, 4096 scattered embedding rows "
+                    f"{EMBED} bf16, 4160 starts with repeats, 576 overlapping blocks of 8, one run of "
+                    f"{EMBED[0] // 2} rows")
+    src = rand_rows((64, 8), torch.float32, 0)
+    bad = {
+        "pack_rows start 64": lambda: rp.pack_rows_cuda(src, [64], 1),
+        "scatter_rows start -1": lambda: rp.scatter_rows_cuda(src, src[:1], [-1], 1),
+        "relayout_rows block past the end": lambda: rp.relayout_rows_cuda(src, src.clone(), [63], 2),
+        "unpack_rows start 64": lambda: rp.unpack_rows_cuda(src[:1], [64], 1, 64),
+    }
+    for why, call in bad.items():
+        try:
+            call()
+        except ValueError:
+            log("rows", f"refused {why}")
+        else:
+            raise AssertionError(f"row kernel accepted {why}")
+
+
+def elastic_session(cfg, prompts, trace):
+    ctrl = LiveServeController(cfg, ParallelConfig(dp=2, tp=2), ELASTIC["n_slots"], ELASTIC["prompt_len"],
+                               ELASTIC["max_seq"], cache_dtype=torch.bfloat16, device="cuda", sync_prepare=True)
+    sess = ServeSession(ctrl, step_time_s=1.0)
+    for p in prompts:
+        sess.submit(p, ELASTIC["gen"])
+    events = [ResizeEvent(time_s=t, target=ParallelConfig(dp=dp, tp=tp)) for t, (dp, tp) in trace]
+    results, metrics = sess.run(events)
+    records = list(ctrl.records)
+    ctrl.shutdown()
+    return results, metrics, records
+
+
+def phase_elastic() -> dict:
+    """qwen3-1.7b at full width serves 8 requests (512-token prompts, 32
+    greedy tokens) on dp2tp2 and resizes three times mid-generation; params
+    and the live KV cache move through the planner, the engine and the row
+    kernels. A wrapper around ``live_reshard_planned`` counts each commit's
+    launches, checks every migrated tensor against its source byte for byte
+    and the staging bound. Tokens must equal an uninterrupted run."""
+    cfg = get_config("qwen3-1.7b")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, ELASTIC["prompt_len"]) for _ in range(ELASTIC["n_slots"])]
+    commits: list[dict] = []
+    orig_reshard, orig_relayout = serve_controller.live_reshard_planned, ops.relayout_rows
+    relayout_ptrs: set[int] = set()
+
+    def relayout_recorded(dst, src, starts, block_rows):
+        relayout_ptrs.add(dst.data_ptr())
+        return orig_relayout(dst, src, starts, block_rows)
+
+    def checked(specs, plan, named, *args, **kwargs):
+        relayout_ptrs.clear()
+        before = dict(rp.launches)
+        torch.cuda.reset_peak_memory_stats()
+        dst, stats = orig_reshard(specs, plan, named, *args, **kwargs)
+        peak = torch.cuda.max_memory_allocated()
+        t0 = time.perf_counter()
+        assert set(dst) == set(named), "a tensor was not migrated"
+        unequal = [n for n in named if not torch.equal(dst[n], named[n])]
+        assert not unequal, f"migrated tensors differ from their sources: {unequal[:4]}"
+        stats.assert_bounded(kwargs["staging_bytes"])
+        commits.append({
+            "launched": {k: rp.launches[k] - before[k] for k in before},
+            "relayout": sorted(n for n, t in dst.items() if t.data_ptr() in relayout_ptrs),
+            "check_s": time.perf_counter() - t0, "stats": stats, "peak_gb": peak / 1e9,
+        })
+        return dst, stats
+
+    serve_controller.live_reshard_planned, ops.relayout_rows = checked, relayout_recorded
+    try:
+        fa.launches = 0  # the elastic path's counts start here ...
+        for k in rp.launches:
+            rp.launches[k] = 0
+        results, metrics, records = elastic_session(cfg, prompts, ELASTIC_TRACE)
+        launches = {"flash_attention": fa.launches, **rp.launches}  # ... and are read here
+    finally:
+        serve_controller.live_reshard_planned, ops.relayout_rows = orig_reshard, orig_relayout
+    plain, _, _ = elastic_session(cfg, prompts, [])
+    log("elastic", f"{cfg.name} full width, {ELASTIC['n_slots']} requests x prompt {ELASTIC['prompt_len']}, "
+                   f"{ELASTIC['gen']} greedy tokens, dp2tp2 -> " + " -> ".join(f"dp{d}tp{t}" for _, (d, t) in ELASTIC_TRACE)
+                   + f": {metrics.commits} commits, {metrics.tokens_emitted} tokens, dropped {metrics.dropped}, "
+                     f"wall {metrics.wall_s:.3f}s; main-path launches {launches}")
+    assert metrics.commits == 3 and len(records) == 3 == len(commits), (metrics.commits, len(records))
+    for i, (rec, c) in enumerate(zip(records, commits)):
+        pause_s = rec.pause_s - c["check_s"]  # the smoke's own equality check is not the system's pause
+        plane_s = pause_s - rec.plan_s
+        log("elastic", f"commit {i + 1} {rec.src} -> {rec.dst}: cut_step {rec.cut_step}, pause_s {pause_s:.4f}, "
+                       f"plan_s {rec.plan_s:.4f}, executed {rec.executed_bytes / 1e9:.4f} GB, data plane "
+                       f"{rec.executed_bytes / 1e9 / plane_s:.1f} GB/s over {plane_s:.4f}s, peak memory "
+                       f"{c['peak_gb']:.2f} GB, launches {c['launched']}, relayout on {c['relayout']}, "
+                       f"cache-resident layers {rec.cache_resident_layers}, resident tensors adopted "
+                       f"{rec.skipped_bytes / 1e9:.4f} GB")
+        assert rec.cut_step > 0, rec.cut_step
+    first, second, third = commits
+    assert not any(first["launched"].values()) and records[0].executed_bytes == 0, first["launched"]
+    assert second["launched"]["relayout_rows"] == 0 and not second["relayout"]
+    assert third["relayout"] == ["params/embed/tok", "params/final_norm/scale"], third["relayout"]
+    for c in (second, third):
+        assert c["launched"]["pack_rows"] == c["launched"]["scatter_rows"] > 0, c["launched"]
+        assert c["launched"]["unpack_rows"] == 0
+    assert launches["flash_attention"] == cfg.num_layers, launches  # one wave, one prefill
+    assert all(launches[k] == sum(c["launched"][k] for c in commits) for k in ROW_KERNELS)
+    assert results == plain, "the resized run's tokens differ from the uninterrupted run's"
+    assert all(0 <= t < cfg.vocab_size for toks in results.values() for t in toks)
+    assert all(len(toks) == ELASTIC["gen"] for toks in results.values()) and len(results) == ELASTIC["n_slots"]
+    log("elastic", "tokens equal the uninterrupted dp2tp2 run; every migrated tensor equals its source")
+    return launches
+
+
+def device_ms(fn, kernel: str, calls: int = 10) -> float:
+    """Median device time of ``kernel`` (a substring of its name) over
+    ``calls`` calls of ``fn``, from ``torch.profiler``: the kernel alone,
+    without the host work around its launch."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    times = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.name]
+    assert times, f"the profiler saw no {kernel}"
+    return statistics.median(times)
+
+
+def _device_class(name: str) -> str:
+    for kind in ROW_KERNELS:
+        if f"{kind}_kernel" in name:
+            return kind
+    if "Memcpy" in name:
+        return "memcpy"
+    if "fill" in name.lower() or "Memset" in name:
+        return "zero-fill"
+    return "other"
+
+
+def phase_commit_profile() -> None:
+    """Where a commit's data-plane time goes: the elastic path's two
+    byte-moving resizes (dp1tp2 -> dp1tp4, dp1tp4 -> dp2tp2) replayed on a
+    full-width serving state (random bytes) through ``live_reshard_planned``,
+    three timed runs each, then one under ``torch.profiler``: device time by
+    class against the wall time, and the host time per launch."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.reshard import live_reshard_planned
+    from repro_torch.serve.cache_view import serve_plan, serve_state_specs
+
+    cfg = get_config("qwen3-1.7b")
+    specs = serve_state_specs(cfg, ELASTIC["n_slots"], ELASTIC["max_seq"], torch.bfloat16)
+    state = {s.name: rand_rows(s.shape, getattr(torch, s.dtype), i) for i, s in enumerate(specs)}
+    dev = torch.device("cuda", torch.cuda.current_device())
+    for a, b in [((1, 2), (1, 4)), ((1, 4), (2, 2))]:
+        ca, cb = ParallelConfig(dp=a[0], tp=a[1]), ParallelConfig(dp=b[0], tp=b[1])
+        plan = serve_plan(cfg, specs, ca, cb)
+        worlds = ([dev] * ca.world_size, [dev] * cb.world_size)
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            dst, stats = live_reshard_planned(specs, plan, state, *worlds)
+            walls.append(time.perf_counter() - t0)
+            del dst
+        before = dict(rp.launches)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            dst, stats = live_reshard_planned(specs, plan, state, *worlds)
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        launched = sum(rp.launches[k] - before[k] for k in before)
+        assert all(torch.equal(dst[n], state[n]) for n in dst)
+        del dst
+        busy: dict[str, float] = {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                cls = _device_class(e.name)
+                busy[cls] = busy.get(cls, 0.0) + e.time_range.elapsed_us() / 1e3
+        total = sum(busy.values())
+        log("commit", f"{ca.describe()} -> {cb.describe()} data plane (no planner), "
+                      f"{stats.executed_bytes / 1e9:.4f} GB: wall {statistics.median(walls) * 1e3:.3f} ms "
+                      f"(median of 3; {', '.join(f'{w * 1e3:.3f}' for w in walls)}); under the profiler "
+                      f"{wall_ms:.3f} ms wall, device busy {total:.3f} ms ({100 * total / wall_ms:.1f}%): "
+                      + ", ".join(f"{k} {v:.3f} ms" for k, v in sorted(busy.items(), key=lambda kv: -kv[1]))
+                      + f"; {launched} row launches, host {(wall_ms - total) / max(launched, 1):.3f} ms per launch "
+                        "beyond the device time")
+    del state
+    torch.cuda.empty_cache()
+
+
+def _row_bytes_moved(kind, C, nb, block_rows, out_rows, itemsize) -> int:
+    """Bytes the copy must move: each input read once, each output written
+    once (the offset table included)."""
+    moved = nb * block_rows * C * itemsize
+    if kind == "unpack_rows":
+        return moved + out_rows * C * itemsize + nb * 8
+    return 2 * moved + nb * 8
+
+
+def phase_row_times(launches: dict) -> list[dict]:
+    """Each row kernel at the elastic path's per-layer move (one row of the
+    stacked cache leaf, bf16) and at 4096 scattered embedding rows: kernel,
+    plain version, one PyTorch call as a yardstick, and the HBM bound. The
+    source rows rotate between calls so that the inputs are not left in the
+    50 MB L2 cache."""
+    out = []
+    cases = {
+        "cache_row": (CACHE_ROW, [[i] for i in range(CACHE_ROW[0])]),
+        "embed_4096": (EMBED, [[int(x) for x in np.random.default_rng(s).permutation(EMBED[0])[:4096]]
+                               for s in range(8)]),
+    }
+    for kind in ROW_KERNELS:
+        rec = None
+        for case, (shape, start_sets) in cases.items():
+            rows, C = shape
+            src, dst = rand_rows(shape, torch.bfloat16, 21), rand_rows(shape, torch.bfloat16, 22)
+            nb = len(start_sets[0])
+            buf = rand_rows((nb, C), torch.bfloat16, 23)
+            idx = [torch.tensor(s, device="cuda") for s in start_sets]
+            turn = [0]
+
+            def nxt():
+                turn[0] += 1
+                return turn[0] % len(start_sets)
+
+            kernel = {
+                "pack_rows": lambda: rp.pack_rows_cuda(src, start_sets[nxt()], 1),
+                "scatter_rows": lambda: rp.scatter_rows_cuda(dst, buf, start_sets[nxt()], 1),
+                "relayout_rows": lambda: rp.relayout_rows_cuda(dst, src, start_sets[nxt()], 1),
+                "unpack_rows": lambda: rp.unpack_rows_cuda(buf, start_sets[nxt()], 1, rows),
+            }[kind]
+            plain = {
+                "pack_rows": lambda: R.pack_rows_ref(src, start_sets[nxt()], 1),
+                "scatter_rows": lambda: R.scatter_rows_ref(dst, buf, start_sets[nxt()], 1),
+                "relayout_rows": lambda: R.relayout_rows_ref(dst, src, start_sets[nxt()], 1),
+                "unpack_rows": lambda: R.unpack_rows_ref(buf, start_sets[nxt()], 1, rows),
+            }[kind]
+
+            def library():
+                i = idx[nxt()]
+                if kind == "pack_rows":
+                    return torch.index_select(src, 0, i)
+                if kind == "scatter_rows":
+                    return dst.index_copy_(0, i, buf)
+                if kind == "relayout_rows":
+                    dst[i] = src[i]
+                    return dst
+                return torch.zeros((rows, C), dtype=buf.dtype, device="cuda").index_copy_(0, i, buf)
+
+            a = {"pack_rows": lambda s: rp.pack_rows_cuda(src, s, 1),
+                 "scatter_rows": lambda s: rp.scatter_rows_cuda(dst.clone(), buf, s, 1),
+                 "relayout_rows": lambda s: rp.relayout_rows_cuda(dst.clone(), src, s, 1),
+                 "unpack_rows": lambda s: rp.unpack_rows_cuda(buf, s, 1, rows)}[kind](start_sets[0])
+            b = {"pack_rows": lambda s: R.pack_rows_ref(src, s, 1),
+                 "scatter_rows": lambda s: R.scatter_rows_ref(dst.clone(), buf, s, 1),
+                 "relayout_rows": lambda s: R.relayout_rows_ref(dst.clone(), src, s, 1),
+                 "unpack_rows": lambda s: R.unpack_rows_ref(buf, s, 1, rows)}[kind](start_sets[0])
+            err = (a.float() - b.float()).abs().max().item()
+            del a, b
+            kernel_ms = median_ms(kernel, reps=20)
+            plain_ms = median_ms(plain, reps=20)
+            library_ms = median_ms(library, reps=20)
+            on_device_ms = device_ms(kernel, f"{kind}_kernel")
+            nbytes = _row_bytes_moved(kind, C, nb, 1, rows, 2)
+            bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            log("times", f"{kind} {case} ({nb} of {rows} rows x {C} bf16): call {kernel_ms:.4f} ms (kernel "
+                         f"on the device {on_device_ms:.4f} ms, {nbytes / on_device_ms / 1e6:.0f} GB/s), plain "
+                         f"{plain_ms:.4f} ms, library {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+                         f"({nbytes / 1e6:.1f} MB), max_abs_err {err:g}")
+            assert err == 0.0, f"{kind} disagrees with its plain version at {case}"
+            if case == "cache_row":  # the elastic path's per-layer move goes in the record
+                rec = {
+                    "name": kind,
+                    "route": "cuda",
+                    "source": "src/repro_torch/kernels/csrc/reshard_pack.cu",
+                    "replaces": ROW_REPLACES[kind],
+                    "launches": launches[kind],
+                    "max_abs_err": err,
+                    "max_err": err,
+                    "ms": kernel_ms,
+                    "kernel_ms": kernel_ms,
+                    "device_ms": on_device_ms,
+                    "plain_ms": plain_ms,
+                    "bound_ms": bound_ms,
+                    "bound_by": "bytes",
+                    "library_ms": library_ms,
+                    "shape": f"{nb} of {rows} rows x {C} bf16",
+                }
+            del src, dst, buf, idx
+            torch.cuda.empty_cache()
+        out.append(rec)
+    return out
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -341,8 +745,12 @@ def main() -> int:
     phase_small_agreement()
     launches, serve_err = phase_serve()
     record = phase_times(launches, serve_err)
+    phase_row_cases()
+    elastic_launches = phase_elastic()
+    phase_commit_profile()
+    rows = phase_row_times(elastic_launches)
     log("done", f"{time.perf_counter() - t0:.1f}s")
-    print(json.dumps({"kernels": [record]}), flush=True)
+    print(json.dumps({"kernels": [record, *rows]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,0 +1,149 @@
+"""Shadow World construction (paper §4.4 'Parallel Worlds').
+
+While the Active World keeps working, a background thread (the Companion
+Manager's worker) builds the target world. A world of the port is a
+``ParallelConfig`` plus a rank -> device list, and the functions that run
+on it; what its build does ahead of the switch is the set-up the first
+step on the new world would otherwise pay (``serve/world.py``: kernel
+libraries, CUDA and cuBLAS on the world's device). This slice builds
+serving worlds; the training world's build comes with training.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from dataclasses import dataclass, field
+from typing import Callable, Optional
+
+import torch
+
+from repro_torch.configs.base import ParallelConfig
+
+
+def world_device(devices) -> torch.device:
+    """The one device a world's ranks map to. Its state is held as global
+    tensors there; placing ranks on several cards waits for the multi-card
+    slice."""
+    distinct = {torch.device(d) for d in devices}
+    if len(distinct) != 1:
+        raise ValueError(
+            f"a world's ranks must all map to one device, got {sorted(map(str, distinct))} "
+            "(placing ranks on several cards is not ported yet)"
+        )
+    return distinct.pop()
+
+
+@dataclass
+class WorldHandle:
+    """Everything the loop needs from a world: the rank -> device list (in
+    place of the JAX package's mesh) and the functions that run on it."""
+
+    parallel: ParallelConfig
+    devices: list  # rank -> torch.device
+    step_fn: Callable
+    gen_id: int = -1
+    timings: dict = field(default_factory=dict)
+    update_fn: Optional[Callable] = None
+    released: bool = False
+
+    @property
+    def device(self) -> torch.device:
+        return world_device(self.devices)
+
+    def release(self) -> None:
+        """Drop the world's functions. Idempotent; a released handle must
+        never run or be pooled again."""
+        self.step_fn = None
+        self.update_fn = None
+        self.released = True
+
+
+class ShadowBuilder:
+    """Builds a WorldHandle in a background thread; poll ``ready`` — the
+    Companion Manager thread of the paper's §4.5.1.
+
+    ``on_discard`` is invoked exactly once with the completed handle when
+    the builder was abandoned — from the worker thread if the abandon
+    preceded completion, from ``abandon()`` itself otherwise. The default
+    releases the world's device memory (an orphaned build used to pin its
+    mesh + executables until GC); the controller overrides it to deposit
+    the world into the warm :class:`~repro_torch.core.world_pool.WorldPool`.
+    """
+
+    def __init__(
+        self,
+        build_fn: Callable[[], WorldHandle],
+        gen_id: int,
+        on_discard: Optional[Callable[[WorldHandle], None]] = None,
+    ):
+        self._build_fn = build_fn
+        self.gen_id = gen_id
+        self._result: Optional[WorldHandle] = None
+        self._error: Optional[BaseException] = None
+        self._done = threading.Event()
+        # non-daemon: a daemon thread killed inside a CUDA call at
+        # interpreter exit can abort the process; Python joins
+        # non-daemon threads cleanly (exit waits out an in-flight build
+        # instead of crashing)
+        self._thread = threading.Thread(target=self._run, daemon=False)
+        # stamped when the worker thread starts, NOT at construction:
+        # callers (the warm pool above all) routinely construct builders
+        # well before starting them, and stamping in __init__ silently
+        # inflated prepare_total_s by the construction→start gap
+        self.started_at: Optional[float] = None
+        self.abandoned = False
+        self._on_discard = on_discard
+        self._discard_lock = threading.Lock()
+        self._discarded = False
+
+    def start(self) -> "ShadowBuilder":
+        self._thread.start()
+        return self
+
+    def _run(self) -> None:
+        self.started_at = time.perf_counter()
+        try:
+            handle = self._build_fn()
+            handle.gen_id = self.gen_id
+            handle.timings["prepare_total_s"] = time.perf_counter() - self.started_at
+            self._result = handle
+        except BaseException as e:  # surfaced on result()
+            self._error = e
+        finally:
+            self._done.set()
+        self._maybe_discard()
+
+    @property
+    def ready(self) -> bool:
+        return self._done.is_set()
+
+    def _maybe_discard(self) -> None:
+        with self._discard_lock:
+            if not self.abandoned or self._discarded or self._result is None:
+                return
+            self._discarded = True
+            handle = self._result
+        if self._on_discard is not None:
+            self._on_discard(handle)
+        else:
+            handle.release()
+
+    def abandon(self) -> None:
+        """Retarget/cancel semantics (paper §7 'Concurrent reconfiguration
+        events'): the worker thread cannot be killed mid-build, so
+        the builder is marked abandoned and its world discarded on
+        completion (``on_discard`` — release or pool deposit; it no longer
+        lingers until GC). The controller may start a fresh builder
+        immediately — the stale thread only ever writes into this object."""
+        self.abandoned = True
+        if self._done.is_set():
+            self._maybe_discard()
+
+    def result(self, timeout: Optional[float] = None) -> WorldHandle:
+        if not self._done.wait(timeout):
+            raise TimeoutError("shadow world not ready")
+        if self._error is not None:
+            raise self._error
+        assert self._result is not None
+        return self._result

@@ -2,12 +2,14 @@
 
 Each one is written out as its counterpart in ``repro/kernels/ref.py``:
 fp32 scores, a ``-1e30`` mask value, softmax, cast back to the input dtype.
-They are the CPU path of ``ops.py`` and what the CUDA kernels are held
-against on the card.
+The reshard row copies follow ``pack_rows_ref`` & co. there: a loop of
+slice copies in block order. They are the CPU path of ``ops.py`` and what
+the CUDA kernels are held against on the card.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 NEG_INF = -1e30
@@ -59,3 +61,70 @@ def decode_attention_ref(
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhst,bthd->bshd", probs, vf)
     return out.to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Reshard row copies (staging-buffer assembly)
+# ---------------------------------------------------------------------------
+
+
+def row_starts(starts, block_rows: int, rows: int, what: str) -> np.ndarray:
+    """``starts`` as a host int64 array, checked: every block of
+    ``block_rows`` rows from a start lies inside ``rows`` rows.
+
+    The JAX references clamp a start that runs past the end back into range
+    (``dynamic_slice``); no caller builds such a start, so the port refuses
+    it on every device instead of moving other rows than were named.
+    """
+    if isinstance(starts, torch.Tensor):
+        starts = starts.detach().cpu().numpy()
+    out = np.asarray(starts, dtype=np.int64).reshape(-1)
+    if block_rows < 1:
+        raise ValueError(f"{what}: block_rows {block_rows} < 1")
+    if out.size and (out.min() < 0 or out.max() + block_rows > rows):
+        bad = out[(out < 0) | (out + block_rows > rows)]
+        raise ValueError(
+            f"{what}: blocks of {block_rows} rows at starts {bad[:8].tolist()} "
+            f"leave the {rows} rows of the array"
+        )
+    return out
+
+
+def pack_rows_ref(src: torch.Tensor, starts, block_rows: int) -> torch.Tensor:
+    """Gather ``len(starts)`` blocks of ``block_rows`` rows of ``src`` (R, C)
+    into a fresh (nb*block_rows, C) buffer, block by block."""
+    st = row_starts(starts, block_rows, src.shape[0], "pack_rows")
+    out = src.new_empty((st.size * block_rows, src.shape[1]))
+    for i, s in enumerate(st.tolist()):
+        out[i * block_rows : (i + 1) * block_rows] = src[s : s + block_rows]
+    return out
+
+
+def unpack_rows_ref(buf: torch.Tensor, starts, block_rows: int, out_rows: int) -> torch.Tensor:
+    """Scatter buffer blocks into a zero (out_rows, C) array, in block
+    order (the last block wins where blocks overlap)."""
+    st = row_starts(starts, block_rows, out_rows, "unpack_rows")
+    out = buf.new_zeros((out_rows, buf.shape[1]))
+    for i, s in enumerate(st.tolist()):
+        out[s : s + block_rows] = buf[i * block_rows : (i + 1) * block_rows]
+    return out
+
+
+def scatter_rows_ref(dst: torch.Tensor, buf: torch.Tensor, starts, block_rows: int) -> torch.Tensor:
+    """Overwrite-scatter buffer blocks into ``dst`` in place and return it:
+    rows no block names keep their bytes, the last block wins where blocks
+    overlap, and applying it twice changes nothing."""
+    st = row_starts(starts, block_rows, dst.shape[0], "scatter_rows")
+    for i, s in enumerate(st.tolist()):
+        dst[s : s + block_rows] = buf[i * block_rows : (i + 1) * block_rows]
+    return dst
+
+
+def relayout_rows_ref(dst: torch.Tensor, src: torch.Tensor, starts, block_rows: int) -> torch.Tensor:
+    """Copy the named row blocks of ``src`` into ``dst`` at the same rows,
+    in place, and return ``dst`` (pack then scatter with one offset table,
+    without the staging buffer)."""
+    st = row_starts(starts, block_rows, dst.shape[0], "relayout_rows")
+    for s in st.tolist():
+        dst[s : s + block_rows] = src[s : s + block_rows]
+    return dst

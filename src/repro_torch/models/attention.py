@@ -41,6 +41,21 @@ def attn_init(gen, cfg: ModelConfig, dtype, device, lead=()) -> dict:
     return params
 
 
+def attn_axes(cfg: ModelConfig) -> dict:
+    """Logical axes of :func:`attn_init`'s params, as in the JAX package."""
+    axes = {
+        "wq": ("embed", "heads"),
+        "wk": ("embed", "kv_heads"),
+        "wv": ("embed", "kv_heads"),
+        "wo": ("heads", "embed"),
+    }
+    if cfg.qkv_bias:
+        axes.update(bq=("heads",), bk=("kv_heads",), bv=("kv_heads",))
+    if cfg.qk_norm:
+        axes.update(q_norm=("head_dim",), k_norm=("head_dim",))
+    return axes
+
+
 def _project_qkv(params, cfg: ModelConfig, x, positions, rope: bool = True):
     h, k, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     b, s, _ = x.shape

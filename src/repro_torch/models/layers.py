@@ -6,6 +6,10 @@ shapes. Every ``*_init`` takes a leading ``lead`` shape, so that
 ``torch.Generator`` on the device it allocates on. The port's draws have
 the same distributions as ``repro/models/layers.py`` but not its bits.
 
+Beside each ``*_init`` stands its logical-axes dict (``*_AXES``), the
+names ``repro/models/layers.py`` returns with its params; the reshard
+planner reads them (``core/resource_view.py``).
+
 Matrices are cast to the activation dtype at use (``.to(x.dtype)``, a no-op
 when the caller pre-cast them, see ``model.cast_params``); norm scales are
 always read in fp32, as in the JAX package.
@@ -45,6 +49,9 @@ def _embed_init(gen, shape, dtype, device, lead=()):
 
 def rmsnorm_init(d: int, dtype, device, lead=()) -> dict:
     return {"scale": torch.ones((*lead, d), dtype=dtype, device=device)}
+
+
+RMSNORM_AXES = {"scale": ("embed",)}
 
 
 def _rms(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
@@ -98,6 +105,13 @@ def mlp_init(gen, cfg: ModelConfig, dtype, device, lead=()) -> dict:
     }
 
 
+MLP_AXES = {
+    "wi_gate": ("embed", "ffn"),
+    "wi_up": ("embed", "ffn"),
+    "wo": ("ffn", "embed"),
+}
+
+
 def _act(name: str, x: torch.Tensor) -> torch.Tensor:
     if name == "gelu":
         return F.gelu(x, approximate="tanh")
@@ -119,6 +133,9 @@ def embed_init(gen, cfg: ModelConfig, dtype, device) -> dict:
     return {"tok": _embed_init(gen, (cfg.vocab_size, cfg.d_model), dtype, device)}
 
 
+EMBED_AXES = {"tok": ("vocab", "embed")}
+
+
 def embed_apply(params: dict, tokens: torch.Tensor, dtype) -> torch.Tensor:
     # gather first, then cast: the same values as casting the whole table
     return params["tok"][tokens].to(dtype)
@@ -126,6 +143,9 @@ def embed_apply(params: dict, tokens: torch.Tensor, dtype) -> torch.Tensor:
 
 def lm_head_init(gen, cfg: ModelConfig, dtype, device) -> dict:
     return {"w": _dense_init(gen, (cfg.d_model, cfg.vocab_size), dtype, device)}
+
+
+LM_HEAD_AXES = {"w": ("embed", "vocab")}
 
 
 def lm_head_apply(params: dict | None, embed_params: dict, x: torch.Tensor) -> torch.Tensor:

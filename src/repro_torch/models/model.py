@@ -64,9 +64,27 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None, devi
     return params
 
 
+def abstract_params(cfg: ModelConfig) -> dict:
+    """The param tree on the meta device: shapes and dtypes, no storage
+    (the counterpart of the JAX package's ``eval_shape`` tree)."""
+    return init_params(cfg, device="meta")
+
+
+def param_logical_axes(cfg: ModelConfig) -> dict:
+    """Logical-axis tuples mirroring the param tree (tuples are leaves)."""
+    axes = {
+        "embed": L.EMBED_AXES,
+        "blocks": T.stack_axes(cfg),
+        "final_norm": L.RMSNORM_AXES,
+    }
+    if not cfg.tie_embeddings:
+        axes["lm_head"] = L.LM_HEAD_AXES
+    return axes
+
+
 def param_shapes(cfg: ModelConfig) -> dict[str, tuple[int, ...]]:
     """``{a/b/c path: shape}`` of :func:`init_params`, without allocating."""
-    return {p: tuple(x.shape) for p, x in tree_paths(init_params(cfg, device="meta")).items()}
+    return {p: tuple(x.shape) for p, x in tree_paths(abstract_params(cfg)).items()}
 
 
 def analytic_param_count(cfg: ModelConfig, active_only: bool = False) -> int:

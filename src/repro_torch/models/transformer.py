@@ -16,7 +16,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
-from repro_torch.models.layers import mlp_apply, mlp_init, rmsnorm_apply, rmsnorm_init
+from repro_torch.models.layers import MLP_AXES, RMSNORM_AXES, mlp_apply, mlp_init, rmsnorm_apply, rmsnorm_init
 
 _NOT_PORTED = {
     "ssm": "the SSM mixer (ROADMAP queue 1 item 10, with the SSD kernel)",
@@ -96,6 +96,22 @@ def stack_init(gen, cfg: ModelConfig, dtype, device) -> dict:
         f"pos{j}": _block_init(gen, cfg, mixer, mlp, dtype, device, lead)
         for j, (mixer, mlp) in enumerate(block_program(cfg))
     }
+
+
+def stack_axes(cfg: ModelConfig) -> dict:
+    """Logical axes of :func:`stack_init`'s params: each block's axes with
+    the stacked ``"layers"`` axis in front."""
+    check_ported(cfg)
+    out = {}
+    for j, (_, mlp) in enumerate(block_program(cfg)):
+        block = {"ln1": RMSNORM_AXES, "mixer": attn.attn_axes(cfg)}
+        if mlp != "none":
+            block.update(ln2=RMSNORM_AXES, mlp=MLP_AXES)
+        out[f"pos{j}"] = {
+            part: {name: ("layers",) + ax for name, ax in axes.items()}
+            for part, axes in block.items()
+        }
+    return out
 
 
 # ---------------------------------------------------------------------------

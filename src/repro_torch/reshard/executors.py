@@ -1,0 +1,309 @@
+"""Execution backends for the ReshardEngine.
+
+SimExecutor — the byte-level oracle: simulated ranks own numpy shards
+(``RankStore``); every planned chunk is copied shard-to-shard exactly as a
+real send/recv would. This is the semantics reference the property tests
+exercise and the live path is validated against. (A copy of the JAX
+package's.)
+
+LiveExecutor — the live path over torch tensors.
+
+How a world maps onto the card. A world is a ``ParallelConfig`` plus a
+rank -> device list; with one card, every rank maps to that card. A world's
+state is held as **global** tensors (each the whole logical tensor) on the
+world's device, as the JAX executor works on global ``jax.Array``s whose
+mesh only decides placement. Plan cells are per (tensor, destination rank);
+on global tensors the same bytes exist once, so the executor deduplicates
+replica fan-out by (tensor, bounds) and every move writes the destination
+carry at the cell's global offsets. The cell kinds (resident / local /
+remote) are the planner's, and the executor routes each tensor's layer by
+them:
+
+  * every cell resident -> adopt: the destination *is* the source tensor,
+    no copy, 0 executed bytes (the JAX executor's aliasing ``device_put``);
+  * local (and resident) cells that tile full rows, when the two worlds'
+    rank -> device lists are equal (the JAX test that both meshes flatten
+    to one device assignment) -> ``relayout_rows``, in batches of the
+    staging budget;
+  * every other full-row batch -> ``pack_rows`` into a staging buffer, then
+    ``scatter_rows`` into the destination carry. One contiguous run is one
+    block (``starts=[lo]``, ``block_rows=hi-lo``), scattered rows are
+    blocks of one row. This is the one deliberate change from the JAX
+    routing, which moves a contiguous run by slice + ``device_put`` +
+    dynamic-update-slice and keeps pack/scatter for scattered rows: the
+    port sends both through the two kernels, the same bytes by one
+    mechanism, so the kernels run on every resize that moves state;
+  * partial-width cells -> a plain box copy, counted in ``generic_cells``
+    (the JAX package moves them outside any kernel too).
+
+Destination carries are zero tensors on the world's device, allocated at
+first touch. The row kernels write into them in place, on the current
+stream, and nothing here synchronises but :meth:`block_until_ready`. At
+most two staging buffers stay referenced; on one stream the caching
+allocator hands a dereferenced buffer's memory out again only to work
+queued after the scatter that reads it.
+
+Placing a world's ranks on several cards, with a transport between them,
+waits for the multi-card slice; so do the overlap round protocol and the
+compressed wire (a quantizing ``WirePolicy`` raises ``NotImplementedError``).
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+
+from repro_torch.core.intersection import TransferTask
+from repro_torch.core.resource_view import TensorSpec, dtype_name
+from repro_torch.core.shadow import world_device
+from repro_torch.kernels import ops
+from repro_torch.reshard.chunking import rows_per_budget
+from repro_torch.reshard.wire import wire_nbytes
+
+
+# ---------------------------------------------------------------------------
+# Sim backend
+# ---------------------------------------------------------------------------
+
+
+class SimExecutor:
+    """Copy planned chunks between per-rank numpy shard stores.
+
+    The sim always copies losslessly (it is the byte-level semantics
+    oracle), but it *prices* wire bytes under the given policy: its
+    ``wire_bytes`` counter reports what a compressed wire would have
+    carried for the same plan, so sim↔live accounting comparisons hold
+    with or without quantization.
+    """
+
+    def __init__(
+        self,
+        src_stores: dict[int, Any],
+        dst_stores: dict[int, Any],
+        wire_policy=None,
+    ):
+        self.src_stores = src_stores
+        self.dst_stores = dst_stores
+        self.wire_policy = wire_policy
+        self.executed_bytes = 0
+        self.wire_bytes = 0
+
+    def begin_layer(self, layer: int) -> None:
+        pass
+
+    def apply(self, task: TransferTask) -> None:
+        src = self.src_stores[task.src_rank]
+        dst = self.dst_stores[task.dst_rank]
+        shape = task.shape()
+        ssl = tuple(slice(o, o + s) for o, s in zip(task.src_offset, shape))
+        dsl = tuple(slice(o, o + s) for o, s in zip(task.dst_offset, shape))
+        dst.shards[task.tensor][dsl] = src.shards[task.tensor][ssl]
+        # resident cells are already in place on the real device — the sim
+        # still performs the copy (its per-rank stores are distinct buffers,
+        # and the oracle must produce complete destination shards) but the
+        # byte oracle counts them as zero moved bytes (DESIGN.md §13)
+        if not task.resident:
+            self.executed_bytes += task.nbytes
+            self.wire_bytes += wire_nbytes(self.wire_policy, task)
+
+    def end_layer(self, layer: int) -> None:
+        pass
+
+
+# ---------------------------------------------------------------------------
+# Live backend
+# ---------------------------------------------------------------------------
+
+
+class LiveExecutor:
+    """Execute plan regions on live torch tensors.
+
+    src: {tensor name: global tensor of the source world}
+    src_devices, dst_devices: the two worlds' rank -> device lists; the
+        destination world's ranks must all name one device.
+    """
+
+    def __init__(
+        self,
+        specs: dict[str, TensorSpec],
+        src: dict[str, torch.Tensor],
+        src_devices: list,
+        dst_devices: list,
+        staging_bytes: int,
+        wire_policy=None,
+    ):
+        if wire_policy is not None and (wire_policy.params, wire_policy.moments) != ("none", "none"):
+            raise NotImplementedError(
+                "the compressed wire (pack_quant_rows / dequant_scatter_rows) is not "
+                "ported yet (ROADMAP queue 1 item 8); pass wire_policy=None"
+            )
+        self.specs = specs
+        self.src = src
+        self.device = world_device(dst_devices)
+        # the fused relayout reads the source in place: legal only when the
+        # two worlds place their ranks on the same devices
+        self.relayout_ok = [torch.device(d) for d in src_devices] == [
+            torch.device(d) for d in dst_devices
+        ]
+        self.staging_bytes = staging_bytes
+        self.dst: dict[str, torch.Tensor] = {}
+        self.executed_bytes = 0
+        # bytes that crossed a staging buffer; relayouts and adoptions cross none
+        self.wire_bytes = 0
+        self.generic_cells = 0  # cells that fell off the full-row paths
+        self.resident_passthroughs = 0  # tensors adopted in place
+        # replica-dedupe: region key -> strongest kind seen ("resident" is
+        # upgraded in place if another dst rank genuinely needs the bytes)
+        self._seen: dict[tuple, str] = {}
+        self._cells: dict[str, dict[tuple, TransferTask]] = {}
+        self._resident_done: set[str] = set()
+        self._staged: list[torch.Tensor] = []
+
+    # -- engine protocol ------------------------------------------------
+    def begin_layer(self, layer: int) -> None:
+        self._cells = {}
+
+    def apply(self, chunk: TransferTask) -> None:
+        key = (chunk.tensor, chunk.bounds)
+        prev = self._seen.get(key)
+        if prev is not None:  # replica fan-out: same bytes, other dst rank
+            if prev == "resident" and chunk.kind != "resident":
+                # the region first showed up as resident, but this replica
+                # lands on a rank that does NOT already hold it: one move on
+                # the global tensor covers every destination rank
+                self._seen[key] = chunk.kind
+                self._cells[chunk.tensor][chunk.bounds] = chunk
+            return
+        self._seen[key] = chunk.kind
+        self._cells.setdefault(chunk.tensor, {})[chunk.bounds] = chunk
+
+    def end_layer(self, layer: int) -> None:
+        for name, regions in self._cells.items():
+            cells = list(regions.values())
+            if all(c.resident for c in cells):
+                self._adopt_resident(name)
+            else:
+                self._move_tensor(name, cells)
+        self._cells = {}
+
+    def _adopt_resident(self, name: str) -> None:
+        """Every byte of this tensor's layer is already in place: the
+        destination is the source tensor itself (global state, one
+        device), so nothing is copied. A tensor adopted here and moved in
+        another layer is written at its own coordinates with its own bytes."""
+        if name in self._resident_done:
+            return
+        self._resident_done.add(name)
+        self.dst[name] = self.src[name].to(self.device)
+        self.resident_passthroughs += 1
+
+    # -- movement -------------------------------------------------------
+    def _dst_carry(self, name: str) -> torch.Tensor:
+        if name not in self.dst:
+            spec = self.specs[name]
+            self.dst[name] = torch.zeros(spec.shape, dtype=getattr(torch, spec.dtype), device=self.device)
+        return self.dst[name]
+
+    def _move_tensor(self, name: str, cells: list[TransferTask]) -> None:
+        spec = self.specs[name]
+        if dtype_name(self.src[name].dtype) != spec.dtype or tuple(self.src[name].shape) != spec.shape:
+            raise ValueError(
+                f"{name}: source {tuple(self.src[name].shape)} {self.src[name].dtype} does not "
+                f"match its spec {spec.shape} {spec.dtype}"
+            )
+        here = [c for c in cells if c.kind in ("local", "resident")]
+        if here and self.relayout_ok:
+            rest = [c for c in cells if c.kind == "remote"]
+            rows_here = _full_rows(spec, here)
+            rows_rest = _full_rows(spec, rest) if rest else []
+            if rows_here is not None and rows_rest is not None:
+                self._relayout_rows(name, rows_here)
+                if not rest:
+                    return
+                cells = rest
+        rows = _full_rows(spec, cells)
+        if rows is not None:
+            self._move_rows(name, rows)
+        else:
+            # partial-width cells (no full-row union): per-cell box copies
+            self.generic_cells += len(cells)
+            for c in cells:
+                self._move_cell(name, c)
+
+    def _rows_2d(self, name: str) -> tuple[torch.Tensor, torch.Tensor, int]:
+        """(source, carry) as (rows, C) tensors, and the bytes of one row."""
+        spec = self.specs[name]
+        rows = spec.shape[0]
+        carry = self._dst_carry(name).view(rows, -1)
+        return self.src[name].reshape(rows, -1), carry, spec.nbytes // rows
+
+    def _relayout_rows(self, name: str, rows: list[int]) -> None:
+        leaf, carry, per_row = self._rows_2d(name)
+        max_rows = rows_per_budget(per_row, self.staging_bytes)
+        for i in range(0, len(rows), max_rows):
+            batch = rows[i : i + max_rows]
+            ops.relayout_rows(carry, leaf, batch, 1)
+            self.executed_bytes += per_row * len(batch)
+
+    def _move_rows(self, name: str, rows: list[int]) -> None:
+        leaf, carry, per_row = self._rows_2d(name)
+        max_rows = rows_per_budget(per_row, self.staging_bytes)
+        for i in range(0, len(rows), max_rows):
+            batch = rows[i : i + max_rows]
+            runs = _runs(batch)
+            if len(runs) == 1:  # one contiguous run: one block
+                starts, block_rows = [runs[0][0]], runs[0][1] - runs[0][0]
+            else:  # scattered rows: blocks of one row
+                starts, block_rows = batch, 1
+            buf = ops.pack_rows(leaf, starts, block_rows).to(self.device)
+            ops.scatter_rows(carry, buf, starts, block_rows)
+            self._stage(buf)
+            self.executed_bytes += per_row * len(batch)
+            self.wire_bytes += per_row * len(batch)
+
+    def _move_cell(self, name: str, cell: TransferTask) -> None:
+        sl = tuple(slice(lo, hi) for lo, hi in cell.bounds)
+        self._dst_carry(name)[sl].copy_(self.src[name][sl])
+        self.executed_bytes += cell.nbytes
+        self.wire_bytes += cell.nbytes
+
+    def _stage(self, buf: torch.Tensor) -> None:
+        """Keep at most two staging buffers referenced."""
+        self._staged.append(buf)
+        if len(self._staged) > 2:
+            self._staged.pop(0)
+
+    # -- results --------------------------------------------------------
+    def results(self) -> dict[str, torch.Tensor]:
+        """Destination tensors (tensors never planned keep no entry)."""
+        return self.dst
+
+    def block_until_ready(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self._staged = []
+
+
+def _full_rows(spec, cells: list[TransferTask]) -> list[int] | None:
+    """The sorted dim-0 rows these cells tile at full width, or None if the
+    union does not decompose into complete rows (the generic-cell case)."""
+    rows: set[int] = set()
+    for c in cells:
+        rows.update(range(c.bounds[0][0], c.bounds[0][1]))
+    per_row = spec.nbytes // spec.shape[0]
+    covered = sum(c.nbytes for c in cells)
+    if covered == per_row * len(rows):
+        return sorted(rows)
+    return None
+
+
+def _runs(sorted_rows: list[int]) -> list[tuple[int, int]]:
+    """Collapse a sorted unique row list into contiguous [lo, hi) runs."""
+    runs: list[tuple[int, int]] = []
+    for r in sorted_rows:
+        if runs and runs[-1][1] == r:
+            runs[-1] = (runs[-1][0], r + 1)
+        else:
+            runs.append((r, r + 1))
+    return runs

@@ -22,6 +22,13 @@ def tree_paths(tree: Any, prefix: str = "") -> dict[str, Any]:
     return out
 
 
+def axes_paths(axes_tree: Any) -> dict[str, tuple]:
+    """Flatten a logical-axes tree (tuple leaves) into ``{path: axes}``.
+    Tuples are leaves to :func:`tree_paths` already; the name is the JAX
+    package's, which the copied ``core/resource_view.py`` calls."""
+    return tree_paths(axes_tree)
+
+
 def tree_from_paths(paths: dict[str, Any]) -> dict:
     """Rebuild nested dicts from ``{"a/b/c": leaf}``."""
     root: dict = {}

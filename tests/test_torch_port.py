@@ -188,15 +188,26 @@ def test_cuda_requests_raise_without_a_card():
 
 _FORBIDDEN_IMPORT = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)(\.|\s|$)", re.M)
 
+# the reshard data plane and elastic serving (kept by name, so that a module
+# that went missing cannot leave the isolation checks unnoticed)
+RESHARD_AND_ELASTIC_SERVE = [
+    "core/errors", "core/events", "core/records", "core/resource_view", "core/intersection",
+    "core/reshard", "core/shadow", "core/world_pool", "reshard/wire", "reshard/chunking",
+    "reshard/engine", "reshard/executors", "kernels/reshard_pack", "serve/cache_view",
+    "serve/slots", "serve/world", "serve/controller", "serve/loop",
+]
+
 
 def test_port_sources_do_not_import_jax_or_repro():
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 20
+    assert {PORT / f"{m}.py" for m in RESHARD_AND_ELASTIC_SERVE} <= set(files)
     offenders = [f"{f}: {m.group(0).strip()}" for f in files for m in _FORBIDDEN_IMPORT.finditer(f.read_text())]
     assert offenders == []
 
 
 def test_importing_the_port_loads_no_jax():
+    wanted = [f"repro_torch.{m.replace('/', '.')}" for m in RESHARD_AND_ELASTIC_SERVE]
     code = f"""
 import importlib, pkgutil, sys
 sys.path.insert(0, {str(REPO)!r})
@@ -207,7 +218,9 @@ for name in names:
 import chip_smoke
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 assert not bad, bad
-assert len(names) >= 25, names
+missing = sorted(set({wanted!r}) - set(names))
+assert not missing, missing
+assert len(names) >= 51, names
 print("ok", len(names))
 """
     out = subprocess.run([sys.executable, "-c", code], env=ENV, capture_output=True, text=True, timeout=120)
