@@ -38,7 +38,28 @@ non-zero without one. Phases, each printing one line or more:
 10. the row kernels' times (median of 20 calls, CUDA events; and the kernel
    alone on the device, from the profiler) at the elastic path's per-layer
    move and at 4096 scattered embedding rows, beside their plain versions,
-   one PyTorch call each and the HBM bound.
+   one PyTorch call each and the HBM bound;
+11. the flash-attention backward kernel against autograd of the plain
+   version, over the forward's cases and the training shape, f32 and bf16;
+12. the compressed wire's kernels (pack_quant_rows, dequant_scatter_rows)
+   against their plain versions, byte for byte, int8 and fp8-e4m3, from
+   f32 and bf16: random tiles, the edge tiles (zero, denormal, 3.38e38),
+   repeated and overlapping starts, idempotence, and the training path's
+   shapes;
+13. live-resized training at full width: qwen3-1.7b (28 layers, d_model
+   2048, fp32 params, bf16 compute, AdamW, remat per layer), global batch 4
+   x 1024 tokens, on dp2tp2; a streamed resize to dp2tp4 with the Adam
+   moments on the int8 wire while training continues, then a lossless
+   stop-copy resize to dp1tp4. Counts every kernel launch of the run,
+   checks the losses, that each commit delivered the moments' plain round
+   trip (int8 commit) or the exact bytes (lossless commit), and holds the
+   params after the lossless commit against a control run that was never
+   resized (with the same int8 round trip applied to its moments at the
+   same step); prints each commit's pause, prepare and bytes, peak memory,
+   and the device's busy share over one step under ``torch.profiler``;
+14. the new kernels' times (CUDA events, median of 20): the backward beside
+   ``scaled_dot_product_attention``'s backward and the plain version's, the
+   two quant kernels beside their plain versions, each with its bound.
 The second-to-last line is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.
 
@@ -66,6 +87,7 @@ from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ref as R  # noqa: E402
 from repro_torch.kernels import reshard_pack as rp  # noqa: E402
+from repro_torch.kernels import reshard_quant as rq  # noqa: E402
 from repro_torch.kernels.ref import flash_attention_ref  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.serve import controller as serve_controller  # noqa: E402
@@ -548,10 +570,12 @@ def phase_elastic() -> dict:
     return launches
 
 
-def device_ms(fn, kernel: str, calls: int = 10) -> float:
+def device_ms(fn, kernel: str, calls: int = 10, per_call: bool = False) -> float:
     """Median device time of ``kernel`` (a substring of its name) over
     ``calls`` calls of ``fn``, from ``torch.profiler``: the kernel alone,
-    without the host work around its launch."""
+    without the host work around its launch. ``per_call``: the summed time
+    of every matching kernel over the number of calls (a call that
+    launches two kernels)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -563,7 +587,7 @@ def device_ms(fn, kernel: str, calls: int = 10) -> float:
     times = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
              if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.name]
     assert times, f"the profiler saw no {kernel}"
-    return statistics.median(times)
+    return sum(times) / calls if per_call else statistics.median(times)
 
 
 def _device_class(name: str) -> str:
@@ -732,6 +756,433 @@ def phase_row_times(launches: dict) -> list[dict]:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Slice 3: the backward kernel, the compressed wire, live-resized training
+# ---------------------------------------------------------------------------
+
+# the training path's attention: batch 4 x 1024 tokens, 16 q / 8 kv heads of 128
+TRAIN_SHAPE = (4, 1024, 1024, 16, 8, 128, True, 0)
+# relative to the largest plain-version gradient: f32 sums in another order
+# over up to 1024 rows; bf16 rounds the kernel's output and dq/dk/dv once
+BWD_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+TRAIN = dict(arch="qwen3-1.7b", batch=4, seq=1024, before=3, after=3, stream_k=8, device="cuda")
+QUANT_FORMATS = ("int8", "fp8_e4m3")
+STACKED_MOMENT = (28, 2048 * 6144)  # a stacked moment of qwen3-1.7b (mlp/wi_gate), one row a layer
+
+
+def bwd_vs_plain(case, dtype, seed) -> float:
+    """The backward kernel (through the autograd Function) against autograd
+    of the plain version on the same inputs and output gradient: the
+    largest |error| over dq, dk, dv, relative to the largest plain value."""
+    q, k, v = rand_qkv(case, dtype, seed)
+    g = torch.Generator(device="cuda").manual_seed(seed + 1000)
+    dout = torch.randn(q.shape, generator=g, device="cuda").to(dtype)
+    kw = dict(causal=case[6], window=case[7])
+    before = fa.bwd_launches
+    qk, kk, vk = (x.clone().requires_grad_(True) for x in (q, k, v))
+    got = torch.autograd.grad(fa.flash_attention(qk, kk, vk, **kw), (qk, kk, vk), dout)
+    qr, kr, vr = (x.clone().requires_grad_(True) for x in (q, k, v))
+    want = torch.autograd.grad(flash_attention_ref(qr, kr, vr, **kw), (qr, kr, vr), dout)
+    torch.cuda.synchronize()
+    assert fa.bwd_launches == before + 1, "the autograd Function did not launch the backward kernel"
+    worst, scale = 0.0, 0.0
+    for a, b in zip(got, want):
+        assert a.dtype == dtype and a.shape == b.shape and torch.isfinite(a.float()).all()
+        worst = max(worst, (a.float() - b.float()).abs().max().item())
+        scale = max(scale, b.float().abs().max().item())
+    return worst / scale
+
+
+def phase_bwd_cases() -> float:
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for i, case in enumerate(FLASH_CASES + [TRAIN_SHAPE]):
+            rel = bwd_vs_plain(case, dtype, seed=100 + i)
+            log("bwd", f"flash_attention backward {case} {str(dtype)[6:]}: max |error| / max |plain| "
+                       f"{rel:.3e} over dq, dk, dv (tol {BWD_TOL[dtype]:g})")
+            assert rel <= BWD_TOL[dtype], f"backward kernel disagrees with autograd of the plain version on {case}"
+            worst = max(worst, rel) if dtype == torch.bfloat16 else worst
+    return worst
+
+
+def _bytes(x: torch.Tensor) -> torch.Tensor:
+    return x.contiguous().view(torch.uint8)
+
+
+def quant_vs_plain(src, starts, block_rows, fmt, dst=None) -> None:
+    """Both quant kernels against their plain versions, byte for byte:
+    payload, scales, the dequantized scatter into ``dst`` (repeated starts
+    included) and its idempotence."""
+    q, s = rq.pack_quant_rows_cuda(src, starts, block_rows, fmt)
+    q_r, s_r = R.pack_quant_rows_ref(src, starts, block_rows, fmt)
+    torch.cuda.synchronize()
+    assert torch.equal(_bytes(q), _bytes(q_r)), f"pack_quant_rows payload differs ({fmt}, {src.dtype}, {tuple(src.shape)})"
+    assert torch.equal(_bytes(s), _bytes(s_r)), f"pack_quant_rows scales differ ({fmt}, {src.dtype})"
+    dst = torch.zeros_like(src) if dst is None else dst
+    once = rq.dequant_scatter_rows_cuda(dst.clone(), q, s, starts, block_rows)
+    want = R.dequant_scatter_rows_ref(dst.clone(), q_r, s_r, starts, block_rows)
+    twice = rq.dequant_scatter_rows_cuda(once.clone(), q, s, starts, block_rows)
+    torch.cuda.synchronize()
+    assert torch.equal(_bytes(once), _bytes(want)), f"dequant_scatter_rows differs ({fmt}, {src.dtype})"
+    assert torch.equal(_bytes(twice), _bytes(once)), "dequant_scatter_rows is not idempotent"
+
+
+def phase_quant_cases() -> None:
+    rng = np.random.default_rng(3)
+    for fmt in QUANT_FORMATS:
+        for dtype in (torch.float32, torch.bfloat16):
+            n = 0
+            for seed in range(6):
+                rows, C = int(rng.integers(8, 64)), int(rng.choice([1, 3, 128, 130, 4096]))
+                block = int(rng.choice([1, 2, 8])) if rows >= 16 else 1
+                nb = int(rng.integers(1, rows // block + 1))
+                starts = [int(x) for x in rng.integers(0, rows - block + 1, nb)]  # repeats, overlaps
+                src = rand_rows((rows, C), dtype, seed) * float(10.0 ** rng.integers(-30, 30))
+                quant_vs_plain(src, starts, block, fmt, rand_rows((rows, C), dtype, seed + 1))
+                n += 1
+            edge = torch.tensor([[0.0] * 128, [1e-40] * 128, [3.38e38] * 128], device="cuda").to(dtype)
+            quant_vs_plain(edge, [0, 1, 2], 1, fmt, torch.ones_like(edge))
+            quant_vs_plain(edge, [2, 0, 2, 1, 0], 1, fmt, torch.ones_like(edge))  # repeated: the last wins
+            log("quant", f"{fmt} from {str(dtype)[6:]}: {n} random cases (C 1..4096, blocks 1/2/8, repeated and "
+                         "overlapping starts) and the edge tiles (0, 1e-40, 3.38e38) equal byte for byte; "
+                         "dequant_scatter idempotent")
+        # the training path's shapes: a stacked moment, one tile a layer, and
+        # 4096 scattered embedding-moment rows (fp32 moments)
+        stacked = rand_rows(STACKED_MOMENT, torch.float32, 40) * 1e-3
+        quant_vs_plain(stacked, [3, 17, 27], 1, fmt)
+        del stacked
+        embed = rand_rows(EMBED, torch.float32, 41) * 1e-4
+        quant_vs_plain(embed, [int(x) for x in rng.permutation(EMBED[0])[:4096]], 1, fmt)
+        del embed
+        torch.cuda.empty_cache()
+        log("quant", f"{fmt}: equal on 3 rows of a stacked moment {STACKED_MOMENT} f32 and 4096 scattered "
+                     f"rows of the embedding moment {EMBED} f32")
+    src = rand_rows((16, 8), torch.float32, 0)
+    for why, call in {
+        "pack_quant_rows start 16": lambda: rq.pack_quant_rows_cuda(src, [16], 1, "int8"),
+        "pack_quant_rows int8 source": lambda: rq.pack_quant_rows_cuda(src.to(torch.int8), [0], 1, "int8"),
+        "dequant_scatter_rows start -1": lambda: rq.dequant_scatter_rows_cuda(
+            src, src[:1].to(torch.int8), torch.ones(1, 1, device="cuda"), [-1], 1),
+    }.items():
+        try:
+            call()
+        except ValueError:
+            log("quant", f"refused {why}")
+        else:
+            raise AssertionError(f"quant kernel accepted {why}")
+
+
+def _all_counts() -> dict:
+    return {"flash_attention": fa.launches, "flash_attention_bwd": fa.bwd_launches, **rp.launches, **rq.launches}
+
+
+def _zero_counts() -> None:
+    fa.launches = fa.bwd_launches = 0
+    for counts in (rp.launches, rq.launches):
+        for k in counts:
+            counts[k] = 0
+
+
+def _round_trip_rows(x: torch.Tensor, fmt: str) -> torch.Tensor:
+    """The plain round trip of every row of ``x`` (one tile a row), in
+    slices of rows so that the temporaries stay small."""
+    x2 = x.reshape(x.shape[0], -1)
+    out = torch.empty_like(x2)
+    per = max(1, (1 << 24) // x2.shape[1])
+    for lo in range(0, x2.shape[0], per):
+        out[lo : lo + per] = R.quant_round_trip_ref(x2[lo : lo + per], fmt)
+    return out.reshape(x.shape)
+
+
+def phase_train() -> dict:
+    """Live-resized training at full width (see the module docstring, 13)."""
+    from repro_torch.core import controller as C
+    from repro_torch.core.controller import LiveRController
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.reshard import WirePolicy
+    from repro_torch.utils.pytree import tree_paths
+
+    cfg = get_config(TRAIN["arch"])
+    opt = AdamWConfig(learning_rate=1e-4, warmup_steps=2, total_steps=1000)
+    kw = dict(seq_len=TRAIN["seq"], global_batch=TRAIN["batch"], device=TRAIN["device"], stream_k=TRAIN["stream_k"])
+    commits: list[dict] = []
+    orig_rebuild = C.rebuild_state
+
+    def checked_rebuild(named, params_like, opt_like, extras):
+        """At each commit, before any update: the delivered state against
+        the cut it was moved from."""
+        t0 = time.perf_counter()
+        policy = ctrl.wire_policy
+        old = {f"params/{p}": x for p, x in tree_paths(params_like).items()}
+        for coll in ("mu", "nu"):
+            old.update({f"{coll}/{p}": x for p, x in tree_paths(opt_like[coll]).items()})
+        adopted, quantized, nu_zeroed = [], [], [0, 0]
+        for name, new in named.items():
+            fmt = policy.format_for(name.split("/")[0]) if policy is not None else "none"
+            if new is old[name]:
+                adopted.append(name)
+                continue
+            want = old[name] if fmt == "none" else _round_trip_rows(old[name], fmt)
+            assert torch.equal(_bytes(new), _bytes(want)), f"{name}: the commit did not deliver {fmt} bytes of the cut"
+            if fmt != "none":
+                quantized.append(name)
+                if name.startswith("nu/"):
+                    nu_zeroed[0] += int(((new == 0) & (old[name] != 0)).sum())
+                    nu_zeroed[1] += int((old[name] != 0).sum())
+        torch.cuda.synchronize()
+        commits.append({"step": ctrl.step, "adopted": adopted, "quantized": quantized, "nu_zeroed": nu_zeroed,
+                        "check_s": time.perf_counter() - t0})
+        return orig_rebuild(named, params_like, opt_like, extras)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    C.rebuild_state = checked_rebuild
+    try:
+        ctrl = LiveRController(cfg, ParallelConfig(dp=2, tp=2), opt, overlap="stream", wire_policy=WirePolicy(), **kw)
+        _zero_counts()  # the training path's counts start here ...
+        t_run = time.perf_counter()
+        losses = ctrl.train_steps(TRAIN["before"])
+        ctrl.request_resize(ParallelConfig(dp=2, tp=4))
+        during = 0
+        while not ctrl.records:
+            losses += ctrl.train_steps(1)
+            during += 1
+            assert during < 200, "the streamed resize never committed"
+        ctrl.wire_policy = None  # the second resize is lossless
+        ctrl.request_resize(ParallelConfig(dp=1, tp=4), overlap="stop_copy")
+        while len(ctrl.records) < 2:
+            losses += ctrl.train_steps(1)
+            during += 1
+            assert during < 400, "the stop-copy resize never committed"
+        snapshot = {p: x.clone() for p, x in tree_paths(ctrl.params).items()}
+        at_commit = ctrl.step
+        losses += ctrl.train_steps(TRAIN["after"])
+        run_s = time.perf_counter() - t_run
+        launches = _all_counts()  # ... and are read here
+    finally:
+        C.rebuild_state = orig_rebuild
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log("train", f"{cfg.name} full width ({cfg.num_layers} layers, d_model {cfg.d_model}, fp32 params, "
+                 f"{cfg.dtype} compute), batch {TRAIN['batch']} x {TRAIN['seq']}, dp2tp2 -> dp2tp4 (stream, "
+                 f"int8 moments) -> dp1tp4 (stop-copy, lossless): {len(losses)} steps in {run_s:.1f}s, "
+                 f"losses {[round(x, 4) for x in losses]}, peak memory {peak_gb:.2f} GB, launches {launches}")
+    assert all(np.isfinite(losses)), "a loss is not finite"
+    assert [r.dst for r in ctrl.records] == ["dp2xpp1xtp4", "dp1xpp1xtp4"], [r.dst for r in ctrl.records]
+    for i, (rec, c) in enumerate(zip(ctrl.records, commits)):
+        # the smoke's own check is not the system's pause: it runs inside the
+        # update phase of a split-step commit, inside the transfer of a stop-copy
+        pause_s = rec.total_pause_s - c["check_s"]
+        transfer_s = rec.transfer_s - (c["check_s"] if rec.mode == "live" else 0.0)
+        update_s = rec.update_s - (c["check_s"] if rec.mode == "live_overlap" else 0.0)
+        log("train", f"commit {i + 1} {rec.mode} {rec.src} -> {rec.dst} at step {c['step']}: pause_s {pause_s:.4f}, "
+                     f"prepare_s {rec.prepare_s:.4f}, wire {rec.wire_bytes / 1e9:.4f} GB, logical "
+                     f"{rec.logical_bytes / 1e9:.4f} GB, executed {rec.executed_bytes / 1e9:.4f} GB, drain_s "
+                     f"{rec.drain_s:.4f}, transfer_s {transfer_s:.4f}, update_s {update_s:.4f}, "
+                     f"dirty layers {rec.dirty_layers}/{rec.layers_total}, {len(c['quantized'])} tensors "
+                     f"quantized, {len(c['adopted'])} adopted; nu entries the wire rounded to 0: "
+                     f"{c['nu_zeroed'][0]} of {c['nu_zeroed'][1]} nonzero")
+        assert rec.generic_cells == 0
+    first, second = commits
+    # the first commit changes tp: every moment crosses the int8 wire; the
+    # second keeps tp (dp2 -> dp1), so the planner finds every cell resident
+    # and the new world adopts the old one's tensors: no byte moves
+    assert ctrl.records[0].executed_bytes > 0 and ctrl.records[0].wire_bytes < ctrl.records[0].logical_bytes
+    assert first["quantized"] and all(n.split("/")[0] in ("mu", "nu") for n in first["quantized"])
+    assert not second["quantized"] and ctrl.records[1].wire_bytes == ctrl.records[1].logical_bytes
+    log("train", "every commit delivered the cut's bytes (params and the lossless commit's moments) or "
+                 f"the plain int8 round trip (the first commit's moments); steps during the resizes {during}")
+
+    # where a step's time goes: one more step on the final world, its two
+    # halves (gradients, update) apart, under the profiler
+    from torch.profiler import ProfilerActivity, profile
+
+    world = ctrl.world
+    batch = {"tokens": torch.from_numpy(ctrl.data.global_batch_at(ctrl.step)).to("cuda", torch.long)}
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        marks[0].record()
+        _, _, grads = world.grad_fn(ctrl.params, batch)
+        marks[1].record()
+        world.update_fn(grads, ctrl.opt_state, ctrl.params)
+        marks[2].record()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    del grads
+    busy: dict[str, float] = {}
+    by_name: dict[str, float] = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            name = e.name
+            if any(k in name for k in ("bwd_dkdv", "bwd_dq", "bwd_rowdot")):
+                cls = "flash backward"
+            elif "fa_fwd_kernel" in name:
+                cls = "flash forward"
+            else:
+                cls = _kernel_class(name)
+            ms = e.time_range.elapsed_us() / 1e3
+            busy[cls] = busy.get(cls, 0.0) + ms
+            by_name[name] = by_name.get(name, 0.0) + ms
+    total = sum(busy.values())
+    if total == 0:
+        log("train", "one step under the profiler: device time not measured (the profiler saw no kernels)")
+    else:
+        log("train", f"one step on dp1tp4 under the profiler: wall {wall_ms:.3f} ms (gradients "
+                     f"{marks[0].elapsed_time(marks[1]):.3f} ms, AdamW update {marks[1].elapsed_time(marks[2]):.3f} "
+                     f"ms on the card's clock), device busy {total:.3f} ms ({100 * total / wall_ms:.1f}%): "
+                     + ", ".join(f"{k} {v:.3f} ms" for k, v in sorted(busy.items(), key=lambda kv: -kv[1])))
+        for kname, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+            log("train", f"  step: {ms:8.3f} ms  {kname[:110]}")
+    # iteration i ran step i + 1; the split commit ran inside the step at
+    # its cut, the stop-copy commit at the boundary after the step before it
+    with_commit = {first["step"], second["step"] - 1}
+    plain_steps = [t for i, t in enumerate(ctrl.iteration_times) if i not in with_commit]
+    log("train", f"step time on the card (host clock, steps without a commit; pre-copy rounds included): "
+                 f"median {statistics.median(plain_steps):.4f} s over {len(plain_steps)} steps, "
+                 f"{TRAIN['batch'] * TRAIN['seq'] / statistics.median(plain_steps):.0f} tokens/s")
+    del ctrl
+    torch.cuda.empty_cache()
+
+    # the control: never resized, the same int8 round trip of its moments
+    # at the first commit's cut (what the wire delivered there)
+    control = LiveRController(cfg, ParallelConfig(dp=2, tp=2), opt, **kw)
+    c_losses = control.train_steps(first["step"])
+    with torch.no_grad():
+        for coll in ("mu", "nu"):
+            for p, x in tree_paths(control.opt_state[coll]).items():
+                if f"{coll}/{p}" in first["quantized"]:
+                    x.copy_(_round_trip_rows(x, "int8"))
+    c_losses += control.train_steps(at_commit - first["step"])
+    worst, equal = 0.0, True
+    for p, x in tree_paths(control.params).items():
+        worst = max(worst, (x - snapshot[p]).abs().max().item())
+        equal &= torch.equal(x, snapshot[p])
+    log("train", f"params after the lossless commit (step {at_commit}) against the control run never resized: "
+                 f"max |diff| {worst:.3e} (tol 1e-2, the JAX package's RESHAPE_PARITY_TOL), bitwise equal {equal}; "
+                 f"losses to there equal {c_losses == losses[:at_commit]}")
+    assert worst < 1e-2, f"resized params diverge from the control run: {worst}"
+    del control, snapshot
+    torch.cuda.empty_cache()
+    return launches, len(losses)
+
+
+def check_train_launches(launches: dict, steps: int) -> None:
+    """Every kernel of the training path ran on it: the forward twice a
+    layer a step (remat reruns it), the backward once, the quant kernels
+    in the streamed commit, the row kernels in it too."""
+    layers = get_config(TRAIN["arch"]).num_layers
+    for name in ("flash_attention", "flash_attention_bwd", "pack_rows", "scatter_rows",
+                 "pack_quant_rows", "dequant_scatter_rows"):
+        assert launches[name] > 0, f"{name} was not launched on the training path"
+    assert launches["flash_attention_bwd"] == layers * steps, launches
+    assert launches["flash_attention"] == 2 * layers * steps, launches
+    assert launches["pack_quant_rows"] == launches["dequant_scatter_rows"]
+    assert launches["pack_rows"] == launches["scatter_rows"]
+
+
+def _record(name, source, replaces, launches, err, ms, plain_ms, bound_ms, bound_by, library_ms, **extra) -> dict:
+    return {"name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches,
+            "max_abs_err": err, "max_err": err, "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms, **extra}
+
+
+def phase_bwd_times(launches: int, case_err: float) -> dict:
+    """The backward kernel at the training shape (bf16), beside the plain
+    version's backward and ``scaled_dot_product_attention``'s backward, each
+    timed alone on graphs kept for reuse."""
+    b, s, t, h, kh, d, causal, window = TRAIN_SHAPE
+    q, k, v = rand_qkv(TRAIN_SHAPE, torch.bfloat16, seed=7)
+    dout = torch.randn(q.shape, generator=torch.Generator(device="cuda").manual_seed(8), device="cuda").to(q.dtype)
+    kw = dict(causal=causal, window=window)
+    out, lse = fa.flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    kernel_ms = median_ms(lambda: fa.flash_attention_bwd_cuda(q, k, v, out, lse, dout, **kw), reps=20)
+    on_device_ms = device_ms(lambda: fa.flash_attention_bwd_cuda(q, k, v, out, lse, dout, **kw), "bwd_",
+                             per_call=True)
+    qr, kr, vr = (x.clone().requires_grad_(True) for x in (q, k, v))
+    plain_out = flash_attention_ref(qr, kr, vr, **kw)
+    plain_ms = median_ms(lambda: torch.autograd.grad(plain_out, (qr, kr, vr), dout, retain_graph=True), reps=20)
+    ql, kl, vl = (x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v))
+    lib_out = torch.nn.functional.scaled_dot_product_attention(ql, kl, vl, is_causal=causal, enable_gqa=True)
+    library_ms = median_ms(lambda: torch.autograd.grad(lib_out, (ql, kl, vl), dout.transpose(1, 2),
+                                                       retain_graph=True), reps=20)
+    # the least work: S again, dP, dV, dK, dQ (5 products of 2d FLOPs per
+    # attended pair); q, k, v, o, dout and lse read, dq, dk, dv written
+    flops = 10 * d * b * h * attended_pairs(s, t, causal, window)
+    nbytes = sum(x.numel() * x.element_size() for x in (q, k, v, out, dout, lse, q, k, v))
+    bytes_ms, flops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOP_PER_S * 1e3
+    bound_ms = max(bytes_ms, flops_ms)
+    log("times", f"flash_attention backward {TRAIN_SHAPE} bf16: kernel {kernel_ms:.4f} ms (its three kernels on "
+                 f"the device {on_device_ms:.4f} ms), plain backward "
+                 f"{plain_ms:.4f} ms, sdpa backward {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+                 f"({nbytes / 1e6:.1f} MB -> {bytes_ms:.4f} ms; {flops / 1e9:.2f} GFLOP -> {flops_ms:.4f} ms)")
+    return _record("flash_attention_bwd", "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+                   "src/repro/kernels/flash_attention.py:124 (backward; the TPU kernel has none)", launches,
+                   case_err, kernel_ms, plain_ms, bound_ms, "bytes" if bytes_ms >= flops_ms else "operations",
+                   library_ms, device_ms=on_device_ms, err_is="max |error| / max |plain gradient| over the cases, bf16")
+
+
+def phase_quant_times(launches: dict) -> list[dict]:
+    """The two quant kernels at the training path's per-layer move (one
+    layer row of a stacked moment, fp32 -> int8) and at 4096 scattered
+    embedding-moment rows, beside their plain versions and the HBM bound.
+    No single PyTorch call computes a per-row absmax-scaled quantization,
+    so there is no library time. Rows rotate between calls so that the
+    inputs are not left in the 50 MB L2 cache."""
+    out = []
+    cases = {
+        "stacked_row": (STACKED_MOMENT, [[i] for i in range(STACKED_MOMENT[0])]),
+        "embed_4096": (EMBED, [[int(x) for x in np.random.default_rng(s).permutation(EMBED[0])[:4096]]
+                               for s in range(8)]),
+    }
+    recs = {}
+    for case, (shape, start_sets) in cases.items():
+        rows, C = shape
+        src = rand_rows(shape, torch.float32, 31) * 1e-3
+        dst = torch.zeros(shape, dtype=torch.float32, device="cuda")
+        nb = len(start_sets[0])
+        turn = [0]
+
+        def nxt():
+            turn[0] += 1
+            return start_sets[turn[0] % len(start_sets)]
+
+        q, sc = rq.pack_quant_rows_cuda(src, start_sets[0], 1, "int8")
+        q_r, sc_r = R.pack_quant_rows_ref(src, start_sets[0], 1, "int8")
+        err_pack = float(not (torch.equal(_bytes(q), _bytes(q_r)) and torch.equal(sc, sc_r)))
+        a = rq.dequant_scatter_rows_cuda(dst.clone(), q, sc, start_sets[0], 1)
+        b = R.dequant_scatter_rows_ref(dst.clone(), q, sc, start_sets[0], 1)
+        err_deq = (a - b).abs().max().item()
+        del a, b, q_r, sc_r
+        timed = {
+            "pack_quant_rows": (lambda: rq.pack_quant_rows_cuda(src, nxt(), 1, "int8"),
+                                lambda: R.pack_quant_rows_ref(src, nxt(), 1, "int8"),
+                                nb * C * (4 + 1) + nb * 4 + nb * 8, err_pack),
+            "dequant_scatter_rows": (lambda: rq.dequant_scatter_rows_cuda(dst, q, sc, nxt(), 1),
+                                     lambda: R.dequant_scatter_rows_ref(dst, q, sc, nxt(), 1),
+                                     nb * C * (1 + 4) + nb * 4 + nb * 8, err_deq),
+        }
+        for kind, (kernel, plain, nbytes, err) in timed.items():
+            kernel_ms = median_ms(kernel, reps=20)
+            plain_ms = median_ms(plain, reps=20)
+            on_device_ms = device_ms(kernel, "tile_" if kind == "pack_quant_rows" else "dequant_scatter_kernel",
+                                     per_call=True)
+            bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            log("times", f"{kind} {case} ({nb} of {rows} rows x {C} f32 <-> int8): call {kernel_ms:.4f} ms "
+                         f"(kernels on the device {on_device_ms:.4f} ms), plain {plain_ms:.4f} ms, library none, "
+                         f"bound {bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB), max_abs_err {err:g}")
+            assert err == 0.0, f"{kind} disagrees with its plain version at {case}"
+            if case == "stacked_row":
+                recs[kind] = _record(kind, "src/repro_torch/kernels/csrc/reshard_quant.cu", {
+                    "pack_quant_rows": "src/repro/kernels/reshard_quant.py:137",
+                    "dequant_scatter_rows": "src/repro/kernels/reshard_quant.py:189"}[kind],
+                    launches[kind], err, kernel_ms, plain_ms, bound_ms, "bytes", None,
+                    device_ms=on_device_ms, shape=f"{nb} of {rows} rows x {C} f32 <-> int8")
+        del src, dst, q, sc
+        torch.cuda.empty_cache()
+    out = [recs["pack_quant_rows"], recs["dequant_scatter_rows"]]
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -749,8 +1200,22 @@ def main() -> int:
     elastic_launches = phase_elastic()
     phase_commit_profile()
     rows = phase_row_times(elastic_launches)
+    bwd_err = phase_bwd_cases()
+    phase_quant_cases()
+    train_launches, train_steps = phase_train()
+    check_train_launches(train_launches, train_steps)
+    bwd = phase_bwd_times(train_launches["flash_attention_bwd"], bwd_err)
+    quants = phase_quant_times(train_launches)
+    # each record's launches: its counts on the main paths, each counted
+    # from zero just before its run and read just after
+    paths = {"serve": {"flash_attention": launches}, "elastic": elastic_launches, "train": train_launches}
+    records = [record, *rows, bwd, *quants]
+    for rec in records:
+        rec["launches_by_path"] = {p: counts.get(rec["name"], 0) for p, counts in paths.items()}
+        rec["launches"] = sum(rec["launches_by_path"].values())
+        assert rec["launches"] > 0 or rec["name"] == "unpack_rows", rec
     log("done", f"{time.perf_counter() - t0:.1f}s")
-    print(json.dumps({"kernels": [record, *rows]}), flush=True)
+    print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

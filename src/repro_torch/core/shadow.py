@@ -4,9 +4,17 @@ While the Active World keeps working, a background thread (the Companion
 Manager's worker) builds the target world. A world of the port is a
 ``ParallelConfig`` plus a rank -> device list, and the functions that run
 on it; what its build does ahead of the switch is the set-up the first
-step on the new world would otherwise pay (``serve/world.py``: kernel
-libraries, CUDA and cuBLAS on the world's device). This slice builds
-serving worlds; the training world's build comes with training.
+step on the new world would otherwise pay: kernel libraries, CUDA and
+cuBLAS on the world's device (``serve/world.py`` for serving,
+:func:`build_train_world` here for training) and, for a training resize,
+the destination tensors the reshard writes into (:func:`state_buffers`,
+called by the controller's Prepare once the plan is known).
+
+The JAX package's Prepare lowers and compiles the world's step ahead of
+time against abstract inputs, with mock process groups standing in for the
+communicators (``core/mock_groups.py``). Eager PyTorch compiles nothing
+ahead and a one-card world has no communicators, so neither has a
+counterpart here.
 """
 
 from __future__ import annotations
@@ -18,7 +26,7 @@ from typing import Callable, Optional
 
 import torch
 
-from repro_torch.configs.base import ParallelConfig
+from repro_torch.configs.base import ModelConfig, ParallelConfig
 
 
 def world_device(devices) -> torch.device:
@@ -45,6 +53,12 @@ class WorldHandle:
     gen_id: int = -1
     timings: dict = field(default_factory=dict)
     update_fn: Optional[Callable] = None
+    # training worlds: the forward/backward half of the step (split-step
+    # commit), the (src parallel, specs, plan) planned during Prepare, and
+    # destination tensors allocated ahead, by tensor name
+    grad_fn: Optional[Callable] = None
+    plan_bundle: Optional[tuple] = None
+    buffers: dict = field(default_factory=dict)
     released: bool = False
 
     @property
@@ -52,10 +66,13 @@ class WorldHandle:
         return world_device(self.devices)
 
     def release(self) -> None:
-        """Drop the world's functions. Idempotent; a released handle must
-        never run or be pooled again."""
+        """Drop the world's functions and buffers. Idempotent; a released
+        handle must never run or be pooled again."""
         self.step_fn = None
         self.update_fn = None
+        self.grad_fn = None
+        self.plan_bundle = None
+        self.buffers = {}
         self.released = True
 
 
@@ -147,3 +164,93 @@ class ShadowBuilder:
             raise self._error
         assert self._result is not None
         return self._result
+
+
+# ---------------------------------------------------------------------------
+# Training worlds
+# ---------------------------------------------------------------------------
+
+_TRAIN_KERNELS = ("flash_attention", "flash_attention_bwd", "reshard_pack", "reshard_quant")
+
+
+def warm_device(device: torch.device, dtype: torch.dtype, kernels=_TRAIN_KERNELS) -> None:
+    """Load the kernel libraries (building them first if this process has
+    not) and initialise CUDA and cuBLAS on ``device`` in this thread."""
+    from repro_torch.kernels import build
+
+    for name in kernels:
+        build.load(name)
+    with torch.cuda.device(device):
+        a = torch.ones((64, 64), dtype=dtype, device=device)
+        (a @ a).sum()
+        torch.cuda.current_stream(device).synchronize()
+
+
+def abstract_batch(cfg: ModelConfig, global_batch: int, seq_len: int) -> dict:
+    """The batch a train step takes, on the meta device: shapes and dtypes
+    (the JAX package's ``ShapeDtypeStruct`` tree)."""
+    if cfg.family == "encdec":
+        raise NotImplementedError(
+            f"{cfg.name}: encoder-decoder models are not ported yet (ROADMAP queue 1 item 10)"
+        )
+    return {"tokens": torch.empty((global_batch, seq_len), dtype=torch.long, device="meta")}
+
+
+def build_update_world_fn(cfg: ModelConfig, parallel: ParallelConfig, opt_cfg, compression: str = "none"):
+    """The optimizer half of the step for the split-step commit (in place,
+    ``distribution/step.py::make_update_fn``)."""
+    from repro_torch.distribution.step import make_update_fn
+
+    return make_update_fn(opt_cfg, compression)
+
+
+def build_train_world(
+    cfg: ModelConfig,
+    parallel: ParallelConfig,
+    opt_cfg,
+    global_batch: int,
+    seq_len: int,
+    microbatches: int = 1,
+    devices=None,
+    compression: str = "none",
+    remat: str = "full",
+) -> WorldHandle:
+    """Synchronous training-world construction (the shadow thread's body):
+    the step, its grad and update halves, and on the card the kernel
+    libraries and cuBLAS warmed in this thread."""
+    from repro_torch.distribution.step import make_grad_fn, make_train_step
+
+    if parallel.pp != 1:
+        raise NotImplementedError(
+            f"{parallel.describe()}: pipeline stages are not ported yet (ROADMAP queue 1 item 5)"
+        )
+    devices = [torch.device(d) for d in devices]
+    if len(devices) != parallel.world_size:
+        raise ValueError(f"{len(devices)} devices for a world of {parallel.world_size} ranks")
+    device = world_device(devices)
+    abstract_batch(cfg, global_batch, seq_len)  # refuses what the step cannot take
+    timings: dict = {}
+    t0 = time.perf_counter()
+    if device.type == "cuda":
+        warm_device(device, getattr(torch, cfg.dtype))
+    timings["warm_s"] = time.perf_counter() - t0
+    return WorldHandle(
+        parallel=parallel,
+        devices=devices,
+        step_fn=make_train_step(cfg, opt_cfg, microbatches, remat, compression),
+        timings=timings,
+        update_fn=build_update_world_fn(cfg, parallel, opt_cfg, compression),
+        grad_fn=make_grad_fn(cfg, microbatches, remat),
+    )
+
+
+def state_buffers(specs, plan, device: torch.device) -> dict[str, torch.Tensor]:
+    """Zeroed destination tensors for every tensor the plan moves bytes
+    into. Tensors whose every cell is resident are adopted in place at the
+    commit (``reshard/executors.py``) and get none."""
+    moved = {t.tensor for t in plan.tasks if t.kind != "resident"}
+    return {
+        s.name: torch.zeros(s.shape, dtype=getattr(torch, s.dtype), device=device)
+        for s in specs
+        if s.name in moved
+    }

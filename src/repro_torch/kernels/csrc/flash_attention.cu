@@ -30,9 +30,14 @@
 // Speed work beyond this (wgmma on bf16 tiles, TMA loads, a K/V ring) is
 // left for later.
 //
+// For training it also writes each row's log-sum-exp of the scaled scores
+// (lse = m + log l, fp32, laid out (b, h, s)) when given a buffer for it:
+// the backward kernel (flash_attention_bwd.cu) rebuilds P = exp(S - lse)
+// from it instead of storing P.
+//
 // The wrapper (repro_torch/kernels/flash_attention.py) checks shapes, types,
 // alignment and devices, refuses causal t < s (rows that would see no key),
-// allocates the output and passes torch's current stream.
+// allocates the outputs and passes torch's current stream.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -108,8 +113,8 @@ constexpr size_t smem_bytes() {
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads, D <= 128 ? 2 : 1)
 fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-              T* __restrict__ o, int s, int t, int h, int kh, int causal, int window,
-              float scale) {
+              T* __restrict__ o, float* __restrict__ lse, int s, int t, int h, int kh,
+              int causal, int window, float scale) {
   constexpr int N = Vec<T>::N;                 // elements per 16-byte load
   constexpr int kChunks = D / N;               // 16-byte chunks per row
   constexpr int kCols = D / 16;                // output columns per thread
@@ -287,6 +292,9 @@ fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
     const float lt = half_warp_sum(l[i]);
     const float denom = lt == 0.f ? 1.f : lt;
     const int row = q0 + kRows * ty + i;
+    if (row < s && lse != nullptr && tx == 0) {
+      lse[((int64_t)bi * h + hi) * s + row] = m[i] + logf(lt);
+    }
     if (row < s) {
       T* orow = ob + row * q_row;
 #pragma unroll
@@ -299,8 +307,9 @@ fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
 }
 
 template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int b, int s, int t,
-                   int h, int kh, int causal, int window, float scale, cudaStream_t stream) {
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse, int b,
+                   int s, int t, int h, int kh, int causal, int window, float scale,
+                   cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(fa_fwd_kernel<T, D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -308,36 +317,39 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int b, 
   const dim3 grid((s + kBlockQ - 1) / kBlockQ, h, b);
   fa_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), s, t, h, kh, causal, window, scale);
+      static_cast<T*>(o), lse, s, t, h, kh, causal, window, scale);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* o, int b, int s, int t,
-                       int h, int kh, int d, int causal, int window, float scale,
+cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* o, float* lse, int b,
+                       int s, int t, int h, int kh, int d, int causal, int window, float scale,
                        cudaStream_t stream) {
   switch (d) {
-    case 16: return launch<T, 16>(q, k, v, o, b, s, t, h, kh, causal, window, scale, stream);
-    case 32: return launch<T, 32>(q, k, v, o, b, s, t, h, kh, causal, window, scale, stream);
-    case 64: return launch<T, 64>(q, k, v, o, b, s, t, h, kh, causal, window, scale, stream);
-    case 128: return launch<T, 128>(q, k, v, o, b, s, t, h, kh, causal, window, scale, stream);
-    case 256: return launch<T, 256>(q, k, v, o, b, s, t, h, kh, causal, window, scale, stream);
+    case 16: return launch<T, 16>(q, k, v, o, lse, b, s, t, h, kh, causal, window, scale, stream);
+    case 32: return launch<T, 32>(q, k, v, o, lse, b, s, t, h, kh, causal, window, scale, stream);
+    case 64: return launch<T, 64>(q, k, v, o, lse, b, s, t, h, kh, causal, window, scale, stream);
+    case 128: return launch<T, 128>(q, k, v, o, lse, b, s, t, h, kh, causal, window, scale, stream);
+    case 256: return launch<T, 256>(q, k, v, o, lse, b, s, t, h, kh, causal, window, scale, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Returns the cudaError_t of the launch.
+// dtype: 0 = float32, 1 = bfloat16; lse: (b, h, s) fp32 or null. Returns the
+// cudaError_t of the launch.
 extern "C" int repro_flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                                         int b, int s, int t, int h, int kh, int d, int dtype,
-                                         int causal, int window, float scale, void* stream) {
+                                         float* lse, int b, int s, int t, int h, int kh, int d,
+                                         int dtype, int causal, int window, float scale,
+                                         void* stream) {
   if (b <= 0 || s <= 0 || t <= 0 || kh <= 0 || h % kh != 0) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return dispatch_d<float>(q, k, v, o, b, s, t, h, kh, d, causal, window, scale, st);
+    case 0: return dispatch_d<float>(q, k, v, o, lse, b, s, t, h, kh, d, causal, window, scale, st);
     case 1:
-      return dispatch_d<__nv_bfloat16>(q, k, v, o, b, s, t, h, kh, d, causal, window, scale, st);
+      return dispatch_d<__nv_bfloat16>(q, k, v, o, lse, b, s, t, h, kh, d, causal, window, scale,
+                                       st);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -16,6 +16,7 @@ import torch
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import reshard_pack as _rp
+from repro_torch.kernels import reshard_quant as _rq
 
 
 def _device_of(*tensors: torch.Tensor) -> torch.device:
@@ -35,9 +36,12 @@ def _dispatch(name: str, cuda_fn, ref_fn, tensors, *args):
 
 
 def flash_attention(q, k, v, *, causal=True, window=0, scale=None):
+    """Differentiable attention: on the card the kernel's autograd Function
+    (forward kernel, backward kernel), on the CPU the plain version under
+    plain autograd."""
     device = _device_of(q, k, v)
     if device.type == "cuda":
-        return _fa.flash_attention_cuda(q, k, v, causal=causal, window=window, scale=scale)
+        return _fa.flash_attention(q, k, v, causal=causal, window=window, scale=scale)
     if device.type == "cpu":
         return _ref.flash_attention_ref(q, k, v, causal=causal, window=window, scale=scale)
     raise ValueError(f"flash_attention: no path for device {device}")
@@ -81,4 +85,27 @@ def relayout_rows(dst, src, starts, block_rows: int):
     in place, with no staging buffer; returns ``dst``."""
     return _dispatch(
         "relayout_rows", _rp.relayout_rows_cuda, _ref.relayout_rows_ref, (dst, src), starts, block_rows
+    )
+
+
+# ---------------------------------------------------------------------------
+# The compressed wire: quantizing pack, dequantizing scatter
+# ---------------------------------------------------------------------------
+
+
+def pack_quant_rows(src, starts, block_rows: int, fmt: str):
+    """Gather tiles of ``block_rows`` rows of ``src`` (R, C) and quantize
+    each (``fmt`` int8 or fp8_e4m3): ((nb*block_rows, C) payload, (nb, 1)
+    float32 scales)."""
+    return _dispatch(
+        "pack_quant_rows", _rq.pack_quant_rows_cuda, _ref.pack_quant_rows_ref, (src,), starts, block_rows, fmt
+    )
+
+
+def dequant_scatter_rows(dst, buf, scales, starts, block_rows: int):
+    """Dequantize tiles and overwrite-scatter them into ``dst`` in place;
+    returns ``dst``. Rows not named keep their bytes; the last tile wins."""
+    return _dispatch(
+        "dequant_scatter_rows", _rq.dequant_scatter_rows_cuda, _ref.dequant_scatter_rows_ref,
+        (dst, buf, scales), starts, block_rows,
     )

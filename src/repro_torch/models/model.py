@@ -1,8 +1,7 @@
-"""Public model API: init / prefill / decode.
+"""Public model API: init / forward / loss / prefill / decode.
 
-The counterpart of ``repro/models/model.py`` for decoder-only dense models.
-``forward`` and ``loss_fn`` come with training; other families raise
-``NotImplementedError`` naming their ROADMAP item.
+The counterpart of ``repro/models/model.py`` for decoder-only dense models;
+other families raise ``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -105,6 +104,45 @@ def cast_params(params: dict, dtype) -> dict:
         lambda path, x: x if path.rsplit("/", 1)[-1] in _FP32_LEAVES else x.to(dtype),
         params,
     )
+
+
+# ---------------------------------------------------------------------------
+# Forward / loss (training)
+# ---------------------------------------------------------------------------
+
+
+def forward(cfg: ModelConfig, params: dict, batch: dict, remat: str = "full"):
+    """Full-sequence forward. Returns (logits (b, s, V), moe aux loss).
+
+    ``batch = {"tokens": (b, s) integer tensor}``. Attention goes through
+    ``ops.flash_attention``: on the card the CUDA kernel and its backward
+    kernel, on the CPU the plain version under autograd."""
+    T.check_ported(cfg)
+    adt = _dtype(cfg.dtype)
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    positions = torch.arange(s, dtype=torch.int32, device=tokens.device).expand(b, s)
+    # the JAX package pins the embedding output's and the logits' sharding
+    # (shard_hints.constrain); one process has nothing to pin
+    x = L.embed_apply(params["embed"], tokens, adt)
+    x, aux = T.stack_forward(params["blocks"], cfg, x, positions, causal=True, remat=remat)
+    x = L.rmsnorm_apply(params["final_norm"], x)
+    logits = L.lm_head_apply(params.get("lm_head"), params["embed"], x)
+    return logits, aux
+
+
+def loss_fn(cfg: ModelConfig, params: dict, batch: dict, remat: str = "full", aux_weight: float = 0.01):
+    """Next-token cross-entropy in float32 over ``logits[:, :-1]``, plus
+    ``aux_weight`` times the MoE aux loss. Returns (loss, {"nll", "moe_aux"})."""
+    logits, aux = forward(cfg, params, batch, remat=remat)
+    tokens = batch["tokens"]
+    logits = logits[:, :-1].to(torch.float32)
+    targets = tokens[:, 1:].long()
+    logz = torch.logsumexp(logits, dim=-1)
+    tgt_logit = torch.take_along_dim(logits, targets[..., None], dim=-1)[..., 0]
+    nll = (logz - tgt_logit).mean()
+    loss = nll + aux_weight * aux
+    return loss, {"nll": nll, "moe_aux": aux}
 
 
 # ---------------------------------------------------------------------------

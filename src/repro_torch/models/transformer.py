@@ -1,5 +1,5 @@
-"""Transformer assembly: block program, stacked-period init, prefill and
-decode over the stack.
+"""Transformer assembly: block program, stacked-period init, and the
+forward, prefill and decode passes over the stack.
 
 As in the JAX package, layers are grouped into *periods* and each position
 of a period keeps its parameters stacked over ``n_periods`` on a leading
@@ -13,6 +13,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
@@ -115,8 +116,50 @@ def stack_axes(cfg: ModelConfig) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Prefill and decode over the stack
+# Forward (training), prefill and decode over the stack
 # ---------------------------------------------------------------------------
+
+
+def _period_forward(period: dict, cfg: ModelConfig, prog, x, positions, causal: bool):
+    for j, (_, mlp) in enumerate(prog):
+        bp = period[f"pos{j}"]
+        x = x + attn.attn_forward(bp["mixer"], cfg, rmsnorm_apply(bp["ln1"], x), positions, causal=causal)
+        x = _mlp(bp, cfg, mlp, x)
+        # the JAX package re-anchors the residual's sharding here
+        # (shard_hints.constrain); one process has nothing to anchor
+    return x
+
+
+def stack_forward(
+    params: dict,
+    cfg: ModelConfig,
+    x: torch.Tensor,
+    positions: torch.Tensor,
+    causal: bool = True,
+    remat: str = "full",
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence forward over the stack; returns (x, moe aux loss),
+    the aux loss a float32 zero (no MoE layer is ported).
+
+    ``remat="full"`` recomputes each period in the backward pass, as the
+    JAX package's ``jax.checkpoint`` over the scanned period body does:
+    ``torch.utils.checkpoint`` without reentrancy keeps only each period's
+    input. ``remat="none"`` keeps every activation; the JAX package's
+    ``"dots"`` policy has no counterpart here and raises."""
+    check_ported(cfg)
+    if remat not in ("full", "none"):
+        raise NotImplementedError(f"remat={remat!r}: only 'full' and 'none' are ported")
+    prog = block_program(cfg)
+    for i in range(n_periods(cfg)):
+        period = _period(params, i)
+        if remat == "full" and torch.is_grad_enabled():
+            x = torch.utils.checkpoint.checkpoint(
+                _period_forward, period, cfg, prog, x, positions, causal, use_reentrant=False
+            )
+        else:
+            x = _period_forward(period, cfg, prog, x, positions, causal)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
 
 
 def _mlp(bp: dict, cfg: ModelConfig, mlp: str, x: torch.Tensor) -> torch.Tensor:

@@ -36,21 +36,39 @@ them:
   * partial-width cells -> a plain box copy, counted in ``generic_cells``
     (the JAX package moves them outside any kernel too).
 
+The compressed wire. Under a ``WirePolicy`` that quantizes a tensor's
+collection (by default the Adam moments ``mu``/``nu`` to int8; params stay
+lossless), every full-row batch of that tensor that does not take the
+relayout goes ``pack_quant_rows`` -> staging -> ``dequant_scatter_rows``,
+one tile (and one float32 scale) per row of the tensor collapsed to 2-D,
+as the JAX executor does. The staging budget counts wire bytes (``row_elems
++ 4`` a row), and ``wire_bytes`` counts what was staged, as in the JAX
+executor.
+
 Destination carries are zero tensors on the world's device, allocated at
-first touch. The row kernels write into them in place, on the current
-stream, and nothing here synchronises but :meth:`block_until_ready`. At
-most two staging buffers stay referenced; on one stream the caching
-allocator hands a dereferenced buffer's memory out again only to work
-queued after the scatter that reads it.
+first touch, or taken from ``dst_buffers`` (zeroed tensors the shadow world
+allocated ahead, ``core/shadow.py``). The kernels write into them in place,
+on the current stream. At most two staging buffers stay referenced; on one
+stream the caching allocator hands a dereferenced buffer's memory out again
+only to work queued after the kernel that reads it.
+
+The round protocol (:meth:`begin_round`, :meth:`round_touched`,
+:meth:`sync_staging`, :meth:`reset_round`, :meth:`update_sources`) serves
+``reshard/overlap.py``, whose pre-copy rounds run on a side CUDA stream
+while training goes on. The trainer updates the source tensors in place,
+so :meth:`begin_round` makes the executor's stream wait for the trainer's
+stream, and :meth:`sync_staging` returns an event that the trainer's next
+in-place update waits on: the port's analogue of the JAX package's
+donation, which may not free a source before the round's reads retired.
 
 Placing a world's ranks on several cards, with a transport between them,
-waits for the multi-card slice; so do the overlap round protocol and the
-compressed wire (a quantizing ``WirePolicy`` raises ``NotImplementedError``).
+waits for the multi-card slice.
 """
 
 from __future__ import annotations
 
-from typing import Any
+import math
+from typing import Any, Optional
 
 import torch
 
@@ -132,12 +150,8 @@ class LiveExecutor:
         dst_devices: list,
         staging_bytes: int,
         wire_policy=None,
+        dst_buffers: Optional[dict[str, torch.Tensor]] = None,
     ):
-        if wire_policy is not None and (wire_policy.params, wire_policy.moments) != ("none", "none"):
-            raise NotImplementedError(
-                "the compressed wire (pack_quant_rows / dequant_scatter_rows) is not "
-                "ported yet (ROADMAP queue 1 item 8); pass wire_policy=None"
-            )
         self.specs = specs
         self.src = src
         self.device = world_device(dst_devices)
@@ -147,9 +161,13 @@ class LiveExecutor:
             torch.device(d) for d in dst_devices
         ]
         self.staging_bytes = staging_bytes
+        # None = fully lossless (the byte-oracle default)
+        self.wire_policy = wire_policy
+        self.dst_buffers = dict(dst_buffers or {})
         self.dst: dict[str, torch.Tensor] = {}
         self.executed_bytes = 0
-        # bytes that crossed a staging buffer; relayouts and adoptions cross none
+        # bytes that crossed a staging buffer (quantized payload + sidecar
+        # scales for compressed batches); relayouts and adoptions cross none
         self.wire_bytes = 0
         self.generic_cells = 0  # cells that fell off the full-row paths
         self.resident_passthroughs = 0  # tensors adopted in place
@@ -159,6 +177,54 @@ class LiveExecutor:
         self._cells: dict[str, dict[tuple, TransferTask]] = {}
         self._resident_done: set[str] = set()
         self._staged: list[torch.Tensor] = []
+        # the round protocol: destination tensors this round wrote into
+        self._round_touched: set[str] = set()
+        # the stream the trainer runs on (the executor may run on another)
+        self._home = torch.cuda.current_stream(self.device) if self.device.type == "cuda" else None
+
+    # -- round protocol (reshard/overlap.py) ------------------------------
+    def update_sources(self, src: dict[str, torch.Tensor]) -> None:
+        """Swap in this boundary's source tensors; resident destinations
+        re-adopt them."""
+        self.src = src
+        self._resident_done = set()
+
+    def reset_round(self) -> None:
+        """Layers streamed before may be streamed again (the dirty
+        re-sync): forget the replica-dedupe set and the adoptions."""
+        self._seen = {}
+        self._resident_done = set()
+
+    def begin_round(self, after: Optional[torch.cuda.Event] = None) -> None:
+        """Open a round: forget the previous round's touched set, and on the
+        card make the current (executor's) stream wait for the trainer's
+        work so far, or only up to ``after`` (an event the trainer recorded
+        after its last write of the sources): the round reads the sources
+        after the trainer's last in-place update."""
+        self._round_touched = set()
+        if self._home is not None:
+            stream = torch.cuda.current_stream(self.device)
+            if after is not None:
+                stream.wait_event(after)
+            elif stream != self._home:
+                stream.wait_stream(self._home)
+
+    def round_touched(self) -> set[str]:
+        """Destination tensors this round dispatched writes into."""
+        return set(self._round_touched)
+
+    def sync_staging(self) -> Optional[torch.cuda.Event]:
+        """An event on the executor's stream after every read this round
+        made of its sources (None on the CPU, where every copy has run).
+        The trainer's next in-place update waits on it
+        (``distribution/step.py::make_update_fn``), and the staged buffers
+        are let go: they are only read on this stream."""
+        self._staged = []
+        if self.device.type != "cuda":
+            return None
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(self.device))
+        return event
 
     # -- engine protocol ------------------------------------------------
     def begin_layer(self, layer: int) -> None:
@@ -192,6 +258,7 @@ class LiveExecutor:
         destination is the source tensor itself (global state, one
         device), so nothing is copied. A tensor adopted here and moved in
         another layer is written at its own coordinates with its own bytes."""
+        self._round_touched.add(name)
         if name in self._resident_done:
             return
         self._resident_done.add(name)
@@ -202,11 +269,23 @@ class LiveExecutor:
     def _dst_carry(self, name: str) -> torch.Tensor:
         if name not in self.dst:
             spec = self.specs[name]
-            self.dst[name] = torch.zeros(spec.shape, dtype=getattr(torch, spec.dtype), device=self.device)
+            dtype = getattr(torch, spec.dtype)
+            buf = self.dst_buffers.pop(name, None)
+            if buf is not None:
+                if tuple(buf.shape) != spec.shape or buf.dtype != dtype or buf.device != self.device:
+                    raise ValueError(f"{name}: buffer {tuple(buf.shape)} {buf.dtype} on {buf.device} does not match its spec")
+                self.dst[name] = buf
+            else:
+                carry = torch.zeros(spec.shape, dtype=dtype, device=self.device)
+                if self._home is not None and torch.cuda.current_stream(self.device) != self._home:
+                    # allocated on a side stream, used by the trainer's
+                    carry.record_stream(self._home)
+                self.dst[name] = carry
         return self.dst[name]
 
     def _move_tensor(self, name: str, cells: list[TransferTask]) -> None:
         spec = self.specs[name]
+        self._round_touched.add(name)
         if dtype_name(self.src[name].dtype) != spec.dtype or tuple(self.src[name].shape) != spec.shape:
             raise ValueError(
                 f"{name}: source {tuple(self.src[name].shape)} {self.src[name].dtype} does not "
@@ -246,21 +325,39 @@ class LiveExecutor:
             ops.relayout_rows(carry, leaf, batch, 1)
             self.executed_bytes += per_row * len(batch)
 
+    def _wire_format(self, name: str) -> str:
+        if self.wire_policy is None:
+            return "none"
+        return self.wire_policy.format_for(self.specs[name].collection)
+
     def _move_rows(self, name: str, rows: list[int]) -> None:
         leaf, carry, per_row = self._rows_2d(name)
-        max_rows = rows_per_budget(per_row, self.staging_bytes)
+        fmt = self._wire_format(name)
+        if fmt != "none":
+            # one float32 sidecar scale per row-tile rides with the payload
+            wire_per_row = math.prod(self.specs[name].shape[1:]) + 4
+        else:
+            wire_per_row = per_row
+        # the budget bounds what is staged: wire bytes
+        max_rows = rows_per_budget(wire_per_row, self.staging_bytes)
         for i in range(0, len(rows), max_rows):
             batch = rows[i : i + max_rows]
-            runs = _runs(batch)
-            if len(runs) == 1:  # one contiguous run: one block
-                starts, block_rows = [runs[0][0]], runs[0][1] - runs[0][0]
-            else:  # scattered rows: blocks of one row
-                starts, block_rows = batch, 1
-            buf = ops.pack_rows(leaf, starts, block_rows).to(self.device)
-            ops.scatter_rows(carry, buf, starts, block_rows)
-            self._stage(buf)
+            if fmt != "none":
+                # the compressed wire, contiguous runs too: one tile a row
+                qbuf, scales = ops.pack_quant_rows(leaf, batch, 1, fmt)
+                ops.dequant_scatter_rows(carry, qbuf, scales, batch, 1)
+                self._stage((qbuf, scales))
+            else:
+                runs = _runs(batch)
+                if len(runs) == 1:  # one contiguous run: one block
+                    starts, block_rows = [runs[0][0]], runs[0][1] - runs[0][0]
+                else:  # scattered rows: blocks of one row
+                    starts, block_rows = batch, 1
+                buf = ops.pack_rows(leaf, starts, block_rows).to(self.device)
+                ops.scatter_rows(carry, buf, starts, block_rows)
+                self._stage(buf)
             self.executed_bytes += per_row * len(batch)
-            self.wire_bytes += per_row * len(batch)
+            self.wire_bytes += wire_per_row * len(batch)
 
     def _move_cell(self, name: str, cell: TransferTask) -> None:
         sl = tuple(slice(lo, hi) for lo, hi in cell.bounds)
@@ -268,8 +365,8 @@ class LiveExecutor:
         self.executed_bytes += cell.nbytes
         self.wire_bytes += cell.nbytes
 
-    def _stage(self, buf: torch.Tensor) -> None:
-        """Keep at most two staging buffers referenced."""
+    def _stage(self, buf) -> None:
+        """Keep at most two staging batches referenced."""
         self._staged.append(buf)
         if len(self._staged) > 2:
             self._staged.pop(0)
@@ -280,6 +377,7 @@ class LiveExecutor:
         return self.dst
 
     def block_until_ready(self) -> None:
+        """Wait until every copy this executor dispatched has landed."""
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self._staged = []

@@ -23,20 +23,9 @@ import time
 import torch
 
 from repro_torch.configs.base import ModelConfig, ParallelConfig
-from repro_torch.core.shadow import WorldHandle, world_device
+from repro_torch.core.shadow import WorldHandle, warm_device, world_device
 
 __all__ = ["build_serve_world"]
-
-
-def _warm(device: torch.device, dtype: torch.dtype) -> None:
-    from repro_torch.kernels import build
-
-    build.load("flash_attention")
-    build.load("reshard_pack")
-    with torch.cuda.device(device):
-        a = torch.ones((64, 64), dtype=dtype, device=device)
-        (a @ a).sum()
-        torch.cuda.current_stream(device).synchronize()
 
 
 def build_serve_world(
@@ -64,7 +53,7 @@ def build_serve_world(
     timings: dict = {}
     t0 = time.perf_counter()
     if device.type == "cuda":
-        _warm(device, getattr(torch, cfg.dtype))
+        warm_device(device, getattr(torch, cfg.dtype), ("flash_attention", "reshard_pack"))
     timings["warm_s"] = time.perf_counter() - t0
 
     def step_fn(params, cache, tokens, pos):

@@ -196,18 +196,23 @@ RESHARD_AND_ELASTIC_SERVE = [
     "reshard/engine", "reshard/executors", "kernels/reshard_pack", "serve/cache_view",
     "serve/slots", "serve/world", "serve/controller", "serve/loop",
 ]
+# live-resized training and the compressed wire
+TRAINING = [
+    "optim/adamw", "data/pipeline", "distribution/step", "core/generations", "core/downtime",
+    "core/controller", "reshard/overlap", "kernels/reshard_quant", "launch/train",
+]
 
 
 def test_port_sources_do_not_import_jax_or_repro():
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 20
-    assert {PORT / f"{m}.py" for m in RESHARD_AND_ELASTIC_SERVE} <= set(files)
+    assert {PORT / f"{m}.py" for m in RESHARD_AND_ELASTIC_SERVE + TRAINING} <= set(files)
     offenders = [f"{f}: {m.group(0).strip()}" for f in files for m in _FORBIDDEN_IMPORT.finditer(f.read_text())]
     assert offenders == []
 
 
 def test_importing_the_port_loads_no_jax():
-    wanted = [f"repro_torch.{m.replace('/', '.')}" for m in RESHARD_AND_ELASTIC_SERVE]
+    wanted = [f"repro_torch.{m.replace('/', '.')}" for m in RESHARD_AND_ELASTIC_SERVE + TRAINING]
     code = f"""
 import importlib, pkgutil, sys
 sys.path.insert(0, {str(REPO)!r})
@@ -220,7 +225,7 @@ bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "rep
 assert not bad, bad
 missing = sorted(set({wanted!r}) - set(names))
 assert not missing, missing
-assert len(names) >= 51, names
+assert len(names) >= 63, names
 print("ok", len(names))
 """
     out = subprocess.run([sys.executable, "-c", code], env=ENV, capture_output=True, text=True, timeout=120)

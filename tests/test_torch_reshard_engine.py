@@ -21,7 +21,7 @@ from repro.serve import cache_view as JC
 from repro_torch import configs
 from repro_torch.core.intersection import plan_transfer
 from repro_torch.core.resource_view import TensorSpec
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 from repro_torch.reshard import LiveExecutor, ReshardEngine, SimExecutor, WirePolicy
 from repro_torch.serve import cache_view as C
 
@@ -246,10 +246,56 @@ def test_sim_executor_copy_matches_jax():
             np.testing.assert_array_equal(shard, want_dst[r].shards[name])
 
 
-def test_quantizing_wire_is_not_ported():
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        LiveExecutor({}, {}, [CPU], [CPU], BUDGET, wire_policy=WirePolicy())
-    LiveExecutor({}, {}, [CPU], [CPU], BUDGET, wire_policy=WirePolicy(moments="none"))
+def _wire_run(policy, row_calls):
+    specs = [TensorSpec(*s) for s in ENGINE_SPECS]
+    (ca, _), (cb, _) = _pc(2, 2), _pc(1, 4)
+    rng = np.random.default_rng(3)
+    g = {s.name: rng.normal(size=s.shape).astype(np.float32) for s in specs}
+    plan = plan_transfer(specs, ca, cb, num_positions=1)
+    src = {s.name: torch.from_numpy(g[s.name].copy()) for s in specs}
+    big = 1 << 30  # whole cells (the transposed tensor's are partial-width: box copies)
+    ex = LiveExecutor({s.name: s for s in specs}, src, [CPU] * ca.world_size, [CPU] * cb.world_size, big,
+                      wire_policy=policy)
+    stats = ReshardEngine(plan, ex, staging_bytes=big, wire_policy=policy).run()
+    return specs, g, ex, stats
+
+
+def test_quantizing_wire_moves_moments_quantized_and_params_lossless(row_calls, monkeypatch):
+    """``WirePolicy()``: rows of ``mu/*`` cross the wire through
+    pack_quant_rows -> dequant_scatter_rows and arrive as their int8 round
+    trip; ``params/*`` rows stay on pack_rows -> scatter_rows, byte for
+    byte."""
+    quant_calls = {"pack_quant_rows": [], "dequant_scatter_rows": []}
+    for name in quant_calls:
+        orig = getattr(ops, name)
+
+        def wrapped(*args, _name=name, _orig=orig):
+            quant_calls[_name].append(args[0])
+            return _orig(*args)
+
+        monkeypatch.setattr(ops, name, wrapped)
+    specs, g, ex, stats = _wire_run(WirePolicy(), row_calls)
+    assert stats.wire_bytes < stats.logical_bytes
+    mu = "mu/blocks/pos0/w"
+    assert _touched(quant_calls["dequant_scatter_rows"], ex.results()) == {mu}
+    assert len(quant_calls["pack_quant_rows"]) == len(quant_calls["dequant_scatter_rows"]) > 0
+    assert mu not in _touched(row_calls["scatter_rows"], ex.results())
+    want = ref.quant_round_trip_ref(torch.from_numpy(g[mu]), "int8")
+    assert torch.equal(ex.results()[mu], want) and not torch.equal(want, torch.from_numpy(g[mu]))
+    for s in specs:
+        if s.collection == "params":
+            np.testing.assert_array_equal(ex.results()[s.name].numpy(), g[s.name], err_msg=s.name)
+
+
+def test_lossless_policy_moves_every_row_byte_for_byte(row_calls):
+    """``WirePolicy(moments="none")`` is the lossless wire: every tensor,
+    moments too, arrives byte for byte through the row kernels, and the
+    wire carries the logical bytes."""
+    specs, g, ex, stats = _wire_run(WirePolicy(moments="none"), row_calls)
+    assert stats.wire_bytes == stats.logical_bytes
+    assert "mu/blocks/pos0/w" in _touched(row_calls["scatter_rows"], ex.results())
+    for s in specs:
+        np.testing.assert_array_equal(ex.results()[s.name].numpy(), g[s.name], err_msg=s.name)
 
 
 def test_a_world_on_two_devices_is_refused():
