@@ -59,7 +59,27 @@ non-zero without one. Phases, each printing one line or more:
    and the device's busy share over one step under ``torch.profiler``;
 14. the new kernels' times (CUDA events, median of 20): the backward beside
    ``scaled_dot_product_attention``'s backward and the plain version's, the
-   two quant kernels beside their plain versions, each with its bound.
+   two quant kernels beside their plain versions, each with its bound;
+15. the SSD intra-chunk kernel against its plain version (TF32 off): the
+   JAX kernel tests' shapes, reduced mamba2's chunk, a ragged sequence
+   through ``ops.ssd_scan``, the serving shape, x in f32 and bf16; and a
+   gradient through the card's scan raises;
+16. the RMSNorm kernel against its plain version: rows 1-300, d 128, 256,
+   2048 and 2560, f32 and bf16;
+17. small-input agreement: reduced mamba2 with ``d_ff = 0`` served on the
+   card (kernel) and on the CPU (plain path) from the same weights;
+18. full-width serve of mamba2-2.7b (64 SSD layers, d_model 2560, 80 heads
+   of 64, state 128): ``serve_once``, batch 8, prompt 512, 32 greedy
+   tokens; exactly 64 SSD launches per prefill, repeatable tokens, the
+   kernel against the plain version on the real inputs of the first and
+   last layer, and a ``torch.profiler`` window over one prefill and 4
+   decode steps;
+19. elastic serving of mamba2-2.7b at full width, as phase 8: params and
+   the live fp32 ssd/conv cache move at each of three resizes; launches,
+   migrated bytes, the staging bound and the tokens checked as there;
+20. the two kernels' times (CUDA events, median of 30): the SSD kernel at
+   the serving shape beside its plain version, RMSNorm at (4096, 2560) bf16
+   beside its plain version and ``F.rms_norm``, each with its bound.
 The second-to-last line is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.
 
@@ -68,6 +88,7 @@ Any failure raises; nothing is caught.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -88,6 +109,8 @@ from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ref as R  # noqa: E402
 from repro_torch.kernels import reshard_pack as rp  # noqa: E402
 from repro_torch.kernels import reshard_quant as rq  # noqa: E402
+from repro_torch.kernels import rmsnorm as rms_k  # noqa: E402
+from repro_torch.kernels import ssd_scan as ssd_k  # noqa: E402
 from repro_torch.kernels.ref import flash_attention_ref  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.serve import controller as serve_controller  # noqa: E402
@@ -95,9 +118,11 @@ from repro_torch.serve.controller import LiveServeController  # noqa: E402
 from repro_torch.serve.driver import demo_batch, serve_once  # noqa: E402
 from repro_torch.serve.loop import ServeSession  # noqa: E402
 
-# H100 SXM data sheet: HBM3 bandwidth and dense bf16 tensor-core peak
+# H100 SXM data sheet: HBM3 bandwidth, dense bf16 tensor-core peak, and
+# float32 outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
+F32_FLOP_PER_S = 67e12
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 # (b, s, t, h, kh, d, causal, window): the shapes of the JAX package's
@@ -206,24 +231,26 @@ def phase_kernel_cases() -> None:
             raise AssertionError(f"kernel accepted {why}")
 
 
-def phase_small_agreement() -> None:
-    """Reduced qwen3 in f32, the same weights on the card and on the CPU:
-    the card's path (kernel) against the CPU's (plain version)."""
-    cfg = get_config("qwen3-1.7b").reduced()
+def phase_small_agreement(cfg=None, prompt_len: int = 96) -> None:
+    """A reduced model in f32 (qwen3 unless ``cfg`` is given), the same
+    weights on the card and on the CPU: the card's path (kernels) against
+    the CPU's (plain versions)."""
+    cfg = cfg or get_config("qwen3-1.7b").reduced()
     params = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     gpu = _to(params, "cuda")
-    tokens = torch.randint(0, cfg.vocab_size, (2, 96), generator=torch.Generator().manual_seed(1))
+    tokens = torch.randint(0, cfg.vocab_size, (2, prompt_len), generator=torch.Generator().manual_seed(1))
     worst, same = 0.0, True
     with torch.inference_mode():
-        lc, cc, _ = M.prefill(cfg, params, {"tokens": tokens}, torch.float32, 100)
-        lg, cg, _ = M.prefill(cfg, gpu, {"tokens": tokens.cuda()}, torch.float32, 100)
+        lc, cc, _ = M.prefill(cfg, params, {"tokens": tokens}, torch.float32, prompt_len + 4)
+        lg, cg, _ = M.prefill(cfg, gpu, {"tokens": tokens.cuda()}, torch.float32, prompt_len + 4)
         for i in range(4):
             worst = max(worst, (lg.cpu() - lc).abs().max().item())
             tc, tg = lc[:, -1].argmax(-1, keepdim=True), lg[:, -1].argmax(-1, keepdim=True)
             same &= torch.equal(tc, tg.cpu())
-            lc, cc = M.decode_step(cfg, params, cc, tc, 96 + i)
-            lg, cg = M.decode_step(cfg, gpu, cg, tg, 96 + i)
-    log("agree", f"reduced qwen3 f32 card vs CPU: max logit diff {worst:.3e}, greedy tokens equal {same}")
+            lc, cc = M.decode_step(cfg, params, cc, tc, prompt_len + i)
+            lg, cg = M.decode_step(cfg, gpu, cg, tg, prompt_len + i)
+    log("agree", f"{cfg.name} (d_ff {cfg.d_ff}) f32, prompt {prompt_len}, card vs CPU: max logit diff "
+                 f"{worst:.3e}, greedy tokens equal {same}")
     assert worst <= 1e-3 and same, "card and CPU paths disagree"
 
 
@@ -293,6 +320,8 @@ def phase_serve() -> tuple[int, float]:
 def _kernel_class(name: str) -> str:
     if "fa_fwd_kernel" in name:
         return "flash"
+    if "ssd_intra_chunk_kernel" in name:
+        return "ssd"
     if any(tag in name.lower() for tag in ("gemm", "gemv", "xmma", "cutlass", "cublas", "nvjet")):
         return "matmul"
     return "other"
@@ -318,7 +347,7 @@ def phase_profile(cfg, params, logits, cache) -> None:
             fn()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-        busy = {"flash": 0.0, "matmul": 0.0, "other": 0.0}
+        busy = {"flash": 0.0, "ssd": 0.0, "matmul": 0.0, "other": 0.0}
         by_name: dict[str, float] = {}
         count = 0
         for e in prof.events():
@@ -333,7 +362,7 @@ def phase_profile(cfg, params, logits, cache) -> None:
         total = sum(busy.values())
         log("profile", f"{name}: wall {wall_ms:.3f} ms under the profiler, {count} kernels, device busy "
                        f"{total:.3f} ms ({100 * total / wall_ms:.1f}%): matmul {busy['matmul']:.3f} ms, "
-                       f"flash {busy['flash']:.3f} ms, other {busy['other']:.3f} ms")
+                       f"flash {busy['flash']:.3f} ms, ssd {busy['ssd']:.3f} ms, other {busy['other']:.3f} ms")
         for kname, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
             log("profile", f"  {name}: {ms:8.3f} ms  {kname[:110]}")
 
@@ -493,14 +522,16 @@ def elastic_session(cfg, prompts, trace):
     return results, metrics, records
 
 
-def phase_elastic() -> dict:
-    """qwen3-1.7b at full width serves 8 requests (512-token prompts, 32
-    greedy tokens) on dp2tp2 and resizes three times mid-generation; params
-    and the live KV cache move through the planner, the engine and the row
+def phase_elastic(arch: str = "qwen3-1.7b") -> dict:
+    """``arch`` (qwen3-1.7b, or mamba2-2.7b) at full width serves 8
+    requests (512-token prompts, 32 greedy tokens) on dp2tp2 and resizes
+    three times mid-generation; params and the live cache (KV, or the SSD
+    and conv states) move through the planner, the engine and the row
     kernels. A wrapper around ``live_reshard_planned`` counts each commit's
     launches, checks every migrated tensor against its source byte for byte
     and the staging bound. Tokens must equal an uninterrupted run."""
-    cfg = get_config("qwen3-1.7b")
+    cfg = get_config(arch)
+    mixer = "ssd_intra_chunk" if cfg.family == "ssm" else "flash_attention"
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size, ELASTIC["prompt_len"]) for _ in range(ELASTIC["n_slots"])]
     commits: list[dict] = []
@@ -531,15 +562,18 @@ def phase_elastic() -> dict:
 
     serve_controller.live_reshard_planned, ops.relayout_rows = checked, relayout_recorded
     try:
-        fa.launches = 0  # the elastic path's counts start here ...
+        fa.launches = ssd_k.launches = 0  # the elastic path's counts start here ...
         for k in rp.launches:
             rp.launches[k] = 0
         results, metrics, records = elastic_session(cfg, prompts, ELASTIC_TRACE)
-        launches = {"flash_attention": fa.launches, **rp.launches}  # ... and are read here
+        # ... and are read here
+        launches = {"flash_attention": fa.launches, "ssd_intra_chunk": ssd_k.launches, **rp.launches}
     finally:
         serve_controller.live_reshard_planned, ops.relayout_rows = orig_reshard, orig_relayout
     plain, _, _ = elastic_session(cfg, prompts, [])
-    log("elastic", f"{cfg.name} full width, {ELASTIC['n_slots']} requests x prompt {ELASTIC['prompt_len']}, "
+    state_gb = sum(s.nbytes for s in serve_controller.serve_state_specs(
+        cfg, ELASTIC["n_slots"], ELASTIC["max_seq"], torch.bfloat16)) / 1e9
+    log("elastic", f"{cfg.name} full width (serving state {state_gb:.4f} GB), {ELASTIC['n_slots']} requests x prompt {ELASTIC['prompt_len']}, "
                    f"{ELASTIC['gen']} greedy tokens, dp2tp2 -> " + " -> ".join(f"dp{d}tp{t}" for _, (d, t) in ELASTIC_TRACE)
                    + f": {metrics.commits} commits, {metrics.tokens_emitted} tokens, dropped {metrics.dropped}, "
                      f"wall {metrics.wall_s:.3f}s; main-path launches {launches}")
@@ -561,7 +595,8 @@ def phase_elastic() -> dict:
     for c in (second, third):
         assert c["launched"]["pack_rows"] == c["launched"]["scatter_rows"] > 0, c["launched"]
         assert c["launched"]["unpack_rows"] == 0
-    assert launches["flash_attention"] == cfg.num_layers, launches  # one wave, one prefill
+    assert launches[mixer] == cfg.num_layers, launches  # one wave, one prefill
+    assert launches["flash_attention"] + launches["ssd_intra_chunk"] == cfg.num_layers, launches
     assert all(launches[k] == sum(c["launched"][k] for c in commits) for k in ROW_KERNELS)
     assert results == plain, "the resized run's tokens differ from the uninterrupted run's"
     assert all(0 <= t < cfg.vocab_size for toks in results.values() for t in toks)
@@ -1183,6 +1218,263 @@ def phase_quant_times(launches: dict) -> list[dict]:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Slice 4: the SSD and RMSNorm kernels, serving mamba2-2.7b
+# ---------------------------------------------------------------------------
+
+# (b, s, h, p, n, chunk): the JAX package's test_ssd_intra_chunk_sweep,
+# reduced mamba2's chunk and state, and the serving shape (8 x 512 tokens,
+# 80 heads of 64, state 128, chunk 64)
+SSD_CASES = [
+    (1, 64, 2, 16, 32, 16),
+    (2, 128, 3, 32, 64, 32),
+    (1, 96, 4, 64, 128, 16),
+    (2, 40, 2, 64, 16, 8),
+]
+SSD_SERVE_SHAPE = (8, 512, 80, 64, 128, 64)
+# relative to the largest |y| and |S| of the plain version: f32 sums over a
+# chunk in another order
+SSD_TOL = 2e-5
+# RMSNorm: f32 within 1e-6 (relative above 1: a few f32 ulps of values up
+# to ~16, the mean taken in another order); bf16 within one bf16 step
+RMS_TOL = 1e-6
+RMS_TIME_SHAPE = (4096, 2560)
+
+
+def ssd_inputs(case, dtype, seed):
+    """x, dt (post-softplus range), A, B, C and the within-chunk cumsum of
+    dt*A, as ``ops.ssd_scan`` forms it, on the card."""
+    b, s, h, p, n, chunk = case
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(b, s, h, p, generator=g, device="cuda").to(dtype)
+    dt = torch.rand(b, s, h, generator=g, device="cuda") * 0.29 + 0.01
+    A = -(torch.rand(h, generator=g, device="cuda") * 1.5 + 0.5)
+    B = torch.randn(b, s, n, generator=g, device="cuda")
+    C = torch.randn(b, s, n, generator=g, device="cuda")
+    cum = torch.cumsum(dt.reshape(b, s // chunk, chunk, h) * A, dim=2).reshape(b, s, h)
+    return x, dt, A, B, C, cum
+
+
+def ssd_kernel_vs_plain(x, dt, cum, B, C, chunk) -> float:
+    """The kernel against the plain block on the same inputs: the larger of
+    max|dy| / max|y| and max|dS| / max|S|."""
+    y, S = ssd_k.ssd_intra_chunk_cuda(x, dt, cum, B, C, chunk)
+    wy, wS = R.ssd_intra_chunk_ref(x, dt, cum, B, C, chunk)
+    torch.cuda.synchronize()
+    assert y.shape == wy.shape and S.shape == wS.shape and y.dtype == S.dtype == torch.float32
+    assert torch.isfinite(y).all() and torch.isfinite(S).all(), "SSD kernel output not finite"
+    return max((y - wy).abs().max().item() / wy.abs().max().item(),
+               (S - wS).abs().max().item() / wS.abs().max().item())
+
+
+def phase_ssd_cases() -> float:
+    """The SSD kernel against its plain version, TF32 off for the plain
+    version's products; a ragged sequence through ``ops.ssd_scan`` (padded
+    with dt = 0) against the plain scan; a gradient through the card's scan
+    raises. Returns the worst error at the serving shape."""
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for i, case in enumerate(SSD_CASES + [SSD_SERVE_SHAPE]):
+            x, dt, A, B, C, cum = ssd_inputs(case, dtype, seed=200 + i)
+            err = ssd_kernel_vs_plain(x, dt, cum, B, C, case[-1])
+            log("ssd", f"ssd_intra_chunk {case} x {str(dtype)[6:]}: max |error| / max |plain| {err:.3e} over y "
+                       f"and S (tol {SSD_TOL:g})")
+            assert err <= SSD_TOL, f"SSD kernel disagrees with its plain version on {case}"
+            if case == SSD_SERVE_SHAPE:
+                worst = max(worst, err)
+    for case, s in [((2, 128, 3, 32, 64, 32), 100), ((1, 512, 80, 64, 128, 64), 300)]:
+        x, dt, A, B, C, _ = ssd_inputs(case, torch.bfloat16, seed=s)
+        x, dt, B, C = x[:, :s], dt[:, :s], B[:, :s], C[:, :s]
+        h0 = torch.randn(case[0], case[2], case[3], case[4], device="cuda")
+        before = ssd_k.launches
+        y, final = ops.ssd_scan(x, dt, A, B, C, case[-1], init_state=h0)
+        pad = (-s) % case[-1]
+        padded = [torch.nn.functional.pad(t, (0, 0) * (t.dim() - 2) + (0, pad)) for t in (x, dt, B, C)]
+        wy, wf = R.ssd_scan_ref(padded[0], padded[1], A, padded[2], padded[3], case[-1], h0)
+        torch.cuda.synchronize()
+        assert ssd_k.launches == before + 1 and y.shape == x.shape
+        err = max((y - wy[:, :s]).abs().max().item() / wy.abs().max().item(),
+                  (final - wf).abs().max().item() / wf.abs().max().item())
+        log("ssd", f"ops.ssd_scan, ragged s {s} of chunk {case[-1]}, x bf16, nonzero initial state: max |error| / "
+                   f"max |plain| {err:.3e} over y and the final state (tol {SSD_TOL:g})")
+        assert err <= SSD_TOL, f"ops.ssd_scan disagrees with the plain scan at s={s}"
+    x, dt, A, B, C, _ = ssd_inputs(SSD_CASES[0], torch.float32, seed=1)
+    xg = x.clone().requires_grad_(True)
+    try:
+        ops.ssd_scan(xg, dt, A, B, C, SSD_CASES[0][-1])[0].sum().backward()
+    except NotImplementedError as e:
+        assert "ROADMAP" in str(e)
+        log("ssd", f"a gradient through the card's scan raises: {e}")
+    else:
+        raise AssertionError("a gradient through the card's SSD scan did not raise")
+    for why, call in {
+        "a sequence not a multiple of the chunk": lambda: ssd_k.ssd_intra_chunk_cuda(
+            x[:, :60].contiguous(), dt[:, :60].contiguous(), dt[:, :60].contiguous(), B[:, :60].contiguous(),
+            C[:, :60].contiguous(), 16),
+        "chunk 128": lambda: ssd_k.ssd_intra_chunk_cuda(x, dt, dt, B, C, 128),
+    }.items():
+        try:
+            call()
+        except ValueError:
+            log("ssd", f"refused {why}")
+        else:
+            raise AssertionError(f"SSD kernel accepted {why}")
+    return worst
+
+
+def phase_rms_cases() -> float:
+    """The RMSNorm kernel against its plain version. Returns the worst
+    max |error| in f32."""
+    worst = 0.0
+    rng = np.random.default_rng(5)
+    rows_list = [1, 37, 300] + [int(r) for r in rng.integers(2, 300, 2)]
+    for dtype in (torch.float32, torch.bfloat16):
+        n, err_max, units = 0, 0.0, 0.0
+        for d in (128, 256, 2048, 2560):
+            for rows in rows_list:
+                g = torch.Generator(device="cuda").manual_seed(rows * d)
+                x = torch.randn(rows, d, generator=g, device="cuda").to(dtype)
+                sc = torch.randn(d, generator=g, device="cuda").to(dtype)
+                got, want = rms_k.rmsnorm_cuda(x, sc), R.rmsnorm_ref(x, sc)
+                torch.cuda.synchronize()
+                assert got.dtype == dtype and got.shape == x.shape
+                diff = (got.float() - want.float()).abs()
+                if dtype == torch.float32:
+                    allowed = RMS_TOL * want.abs().clamp_min(1.0)
+                else:  # one bf16 step at the value's magnitude
+                    allowed = torch.exp2(torch.floor(torch.log2(want.float().abs().clamp_min(2.0**-126))) - 7)
+                units = max(units, (diff / allowed).max().item())
+                err_max = max(err_max, diff.max().item())
+                n += 1
+        log("rms", f"rmsnorm {str(dtype)[6:]}: {n} cases (rows {rows_list}, d 128/256/2048/2560): max |error| "
+                   f"{err_max:.3e}, {units:.3f} of the tolerance "
+                   f"({'1e-6, relative above 1' if dtype == torch.float32 else 'one bf16 step'})")
+        assert units <= 1.0, f"RMSNorm kernel disagrees with its plain version in {dtype}"
+        if dtype == torch.bfloat16:
+            worst = max(worst, err_max)
+    try:
+        rms_k.rmsnorm_cuda(torch.zeros(4, 8, device="cuda"), torch.ones(16, device="cuda"))
+    except ValueError:
+        log("rms", "refused a scale of the wrong width")
+    else:
+        raise AssertionError("RMSNorm kernel accepted a scale of the wrong width")
+    return worst
+
+
+def phase_serve_ssm() -> tuple[int, float]:
+    """mamba2-2.7b at full width through ``serve_once``; see the module
+    docstring, 18."""
+    cfg = get_config("mamba2-2.7b")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fa.launches = ssd_k.launches = 0  # the main path's counts start here
+    out = serve_once(cfg, device="cuda", seed=0, **SERVE)
+    launches, flash = ssd_k.launches, fa.launches  # ... and are read here
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    toks = out["tokens"]
+    tok_s = SERVE["batch"] * SERVE["gen"] / out["decode_s"]
+    log("serve-ssm", f"{cfg.name} full width ({cfg.num_layers} SSD layers, d_model {cfg.d_model}, "
+                     f"{cfg.ssm_expand * cfg.d_model // 64} heads of 64, state {cfg.ssm_state}, chunk {cfg.ssm_chunk}, "
+                     f"{cfg.param_count()} params), batch {SERVE['batch']} x prompt {SERVE['prompt_len']}, "
+                     f"{SERVE['gen']} greedy tokens: prefill_s {out['prefill_s']:.4f}, decode_s {out['decode_s']:.4f} "
+                     f"({tok_s:.1f} tok/s), peak memory {peak_gb:.2f} GB, SSD launches {launches}")
+    assert launches == cfg.num_layers and flash == 0, f"{launches} SSD launches, want {cfg.num_layers}"
+    assert toks.shape == (SERVE["batch"], SERVE["gen"] + 1), toks.shape
+    assert toks.min() >= 0 and toks.max() < cfg.vocab_size
+
+    # second run: same tokens; capture the kernel's inputs in the first and
+    # last layer
+    captured, calls, orig = {}, [0], ssd_k.ssd_intra_chunk
+
+    def capture(x, dt, cum, B, C, chunk):
+        i = calls[0]
+        calls[0] += 1
+        if i in (0, cfg.num_layers - 1):
+            captured[i] = (x.clone(), dt.clone(), cum.clone(), B.clone(), C.clone(), chunk)
+        return orig(x, dt, cum, B, C, chunk)
+
+    ssd_k.ssd_intra_chunk = capture
+    try:
+        again = serve_once(cfg, device="cuda", seed=0, **SERVE)
+    finally:
+        ssd_k.ssd_intra_chunk = orig
+    assert (again["tokens"] == toks).all(), "a second run gave other tokens"
+    log("serve-ssm", f"second run: identical tokens; prefill_s {again['prefill_s']:.4f}, decode "
+                     f"{SERVE['batch'] * SERVE['gen'] / again['decode_s']:.1f} tok/s")
+    worst = 0.0
+    for i, args in sorted(captured.items()):
+        err = ssd_kernel_vs_plain(*args)
+        log("serve-ssm", f"layer {i} SSD block x {tuple(args[0].shape)} {str(args[0].dtype)[6:]}: kernel vs plain "
+                         f"max |error| / max |plain| {err:.3e} (tol {SSD_TOL:g})")
+        assert err <= SSD_TOL
+        worst = max(worst, err)
+    del captured
+
+    params = M.cast_params(
+        M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda"), cfg.dtype
+    )
+    with torch.inference_mode():
+        logits, cache, _ = M.prefill(cfg, params, demo_batch(cfg, SERVE["batch"], SERVE["prompt_len"]),
+                                     max_seq=SERVE["prompt_len"] + 4)
+    assert logits.shape == (SERVE["batch"], 1, cfg.vocab_size)
+    assert torch.isfinite(logits.float()).all(), "full-width logits not finite"
+    assert all(torch.isfinite(c).all() for c in cache["pos0"].values()), "the SSD cache is not finite"
+    assert (logits[:, -1].argmax(-1).cpu().numpy() == toks[:, 0]).all()
+    log("serve-ssm", f"full-width prefill logits {tuple(logits.shape)} finite, ssd/conv cache "
+                     f"{[tuple(c.shape) for c in cache['pos0'].values()]} finite; first tokens match")
+    phase_profile(cfg, params, logits, cache)
+    del params, logits, cache
+    torch.cuda.empty_cache()
+    return launches, worst
+
+
+def phase_ssd_times(launches: int, err: float) -> dict:
+    """The SSD kernel at the serving shape (x bf16) beside its plain
+    version, and the card's bound. No single PyTorch call computes it."""
+    b, s, h, p, n, chunk = SSD_SERVE_SHAPE
+    x, dt, A, B, C, cum = ssd_inputs(SSD_SERVE_SHAPE, torch.bfloat16, seed=99)
+    case_err = ssd_kernel_vs_plain(x, dt, cum, B, C, chunk)
+    kernel_ms = median_ms(lambda: ssd_k.ssd_intra_chunk_cuda(x, dt, cum, B, C, chunk))
+    plain_ms = median_ms(lambda: R.ssd_intra_chunk_ref(x, dt, cum, B, C, chunk))
+    nc = s // chunk
+    # each input read once, each output written once
+    nbytes = sum(t.numel() * t.element_size() for t in (x, dt, cum, B, C)) + 4 * (b * s * h * p + b * nc * h * p * n)
+    # the least f32 work: C.B^T and M.x over the causal half of each chunk
+    # (C.B^T once per batch row and chunk), and the chunk state over all of it
+    pairs = chunk * (chunk + 1) // 2
+    flops = b * nc * (2 * n * pairs + h * (2 * p * pairs + 2 * chunk * p * n))
+    bytes_ms, flops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOP_PER_S * 1e3
+    bound_ms = max(bytes_ms, flops_ms)
+    log("times", f"ssd_intra_chunk {SSD_SERVE_SHAPE} x bf16: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                 f"library none, bound {bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB -> {bytes_ms:.4f} ms; "
+                 f"{flops / 1e9:.2f} GFLOP f32 -> {flops_ms:.4f} ms), max |error| / max |plain| {case_err:.3e}")
+    assert case_err <= SSD_TOL
+    return _record("ssd_intra_chunk", "src/repro_torch/kernels/csrc/ssd_scan.cu", "src/repro/kernels/ssd_scan.py:86",
+                   launches, max(err, case_err), kernel_ms, plain_ms, bound_ms,
+                   "bytes" if bytes_ms >= flops_ms else "operations", None,
+                   err_is="max |error| / max |plain| over y and S, the serving shape and the serve phase's layers")
+
+
+def phase_rms_times(err: float) -> dict:
+    """RMSNorm at (4096, 2560) bf16 (8 x 512 tokens of mamba2's d_model)
+    beside its plain version, ``F.rms_norm`` and the HBM bound."""
+    rows, d = RMS_TIME_SHAPE
+    g = torch.Generator(device="cuda").manual_seed(17)
+    x = torch.randn(rows, d, generator=g, device="cuda").to(torch.bfloat16)
+    sc = torch.randn(d, generator=g, device="cuda").to(torch.bfloat16)
+    case_err = (rms_k.rmsnorm_cuda(x, sc).float() - R.rmsnorm_ref(x, sc).float()).abs().max().item()
+    kernel_ms = median_ms(lambda: rms_k.rmsnorm_cuda(x, sc))
+    plain_ms = median_ms(lambda: R.rmsnorm_ref(x, sc))
+    library_ms = median_ms(lambda: torch.nn.functional.rms_norm(x, (d,), sc, 1e-6))
+    nbytes = 2 * x.numel() * x.element_size() + sc.numel() * sc.element_size()
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    log("times", f"rmsnorm {RMS_TIME_SHAPE} bf16: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, F.rms_norm "
+                 f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB), max |error| {case_err:.3e}")
+    return _record("rmsnorm", "src/repro_torch/kernels/csrc/rmsnorm.cu", "src/repro/kernels/rmsnorm.py:50", 0,
+                   max(err, case_err), kernel_ms, plain_ms, bound_ms, "bytes", library_ms,
+                   err_is="max |error|, bf16 (within one bf16 step of the plain version)")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -1206,14 +1498,27 @@ def main() -> int:
     check_train_launches(train_launches, train_steps)
     bwd = phase_bwd_times(train_launches["flash_attention_bwd"], bwd_err)
     quants = phase_quant_times(train_launches)
+    ssd_err = phase_ssd_cases()
+    rms_err = phase_rms_cases()
+    phase_small_agreement(dataclasses.replace(get_config("mamba2-2.7b").reduced(), d_ff=0), prompt_len=100)
+    ssm_launches, ssm_err = phase_serve_ssm()
+    ssm_elastic_launches = phase_elastic("mamba2-2.7b")
+    ssd = phase_ssd_times(ssm_launches, max(ssd_err, ssm_err))
+    rms = phase_rms_times(rms_err)
     # each record's launches: its counts on the main paths, each counted
-    # from zero just before its run and read just after
-    paths = {"serve": {"flash_attention": launches}, "elastic": elastic_launches, "train": train_launches}
-    records = [record, *rows, bwd, *quants]
+    # from zero just before its run and read just after. No path runs
+    # rmsnorm: as in the JAX package, the model's norms are plain and only
+    # ops.rmsnorm reaches the kernel (phases 16 and 20)
+    paths = {"serve": {"flash_attention": launches}, "elastic": elastic_launches, "train": train_launches,
+             "serve_mamba2": {"ssd_intra_chunk": ssm_launches}, "elastic_mamba2": ssm_elastic_launches}
+    records = [record, *rows, bwd, *quants, ssd, rms]
     for rec in records:
         rec["launches_by_path"] = {p: counts.get(rec["name"], 0) for p, counts in paths.items()}
         rec["launches"] = sum(rec["launches_by_path"].values())
-        assert rec["launches"] > 0 or rec["name"] == "unpack_rows", rec
+        assert rec["launches"] > 0 or rec["name"] in ("unpack_rows", "rmsnorm"), rec
+    assert [r["name"] for r in records] == [
+        "flash_attention", "pack_rows", "scatter_rows", "relayout_rows", "unpack_rows", "flash_attention_bwd",
+        "pack_quant_rows", "dequant_scatter_rows", "ssd_intra_chunk", "rmsnorm"]
     log("done", f"{time.perf_counter() - t0:.1f}s")
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -219,6 +219,7 @@ def build_train_world(
     the step, its grad and update halves, and on the card the kernel
     libraries and cuBLAS warmed in this thread."""
     from repro_torch.distribution.step import make_grad_fn, make_train_step
+    from repro_torch.models.transformer import check_trainable
 
     if parallel.pp != 1:
         raise NotImplementedError(
@@ -228,6 +229,7 @@ def build_train_world(
     if len(devices) != parallel.world_size:
         raise ValueError(f"{len(devices)} devices for a world of {parallel.world_size} ranks")
     device = world_device(devices)
+    check_trainable(cfg, device)  # an SSM mixer has no backward kernel on the card
     abstract_batch(cfg, global_batch, seq_len)  # refuses what the step cannot take
     timings: dict = {}
     t0 = time.perf_counter()
@@ -240,7 +242,7 @@ def build_train_world(
         step_fn=make_train_step(cfg, opt_cfg, microbatches, remat, compression),
         timings=timings,
         update_fn=build_update_world_fn(cfg, parallel, opt_cfg, compression),
-        grad_fn=make_grad_fn(cfg, microbatches, remat),
+        grad_fn=make_grad_fn(cfg, microbatches, remat, device),
     )
 
 

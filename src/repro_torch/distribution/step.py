@@ -30,6 +30,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import model as M
+from repro_torch.models import transformer as T
 from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
 from repro_torch.utils.pytree import tree_from_paths, tree_paths
 
@@ -60,12 +61,19 @@ def _autograd_leaves(paths: dict) -> dict:
     return out
 
 
-def make_grad_fn(cfg: ModelConfig, microbatches: int = 1, remat: str = "full"):
+def make_grad_fn(cfg: ModelConfig, microbatches: int = 1, remat: str = "full", device=None):
     """Returns ``grad_step(params, batch) -> (loss, metrics, grads)``: the
     forward/backward half of the step. With ``microbatches > 1`` the batch
     is cut into equal slices along dim 0, the float32 gradients summed and
     divided by their number, and so is the loss (the JAX package's
-    "explicit" accumulation)."""
+    "explicit" accumulation).
+
+    Raises ``NotImplementedError`` for a model that cannot train on
+    ``device`` when one is given (an SSM mixer on the card,
+    ``transformer.check_trainable``); without it, a gradient through the
+    card's SSD kernel raises at the backward."""
+    if device is not None:
+        T.check_trainable(cfg, device)
 
     def grads_of(paths: dict, batch: dict):
         leaves = _autograd_leaves(paths)

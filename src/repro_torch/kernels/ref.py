@@ -4,8 +4,11 @@ Each one is written out as its counterpart in ``repro/kernels/ref.py``:
 fp32 scores, a ``-1e30`` mask value, softmax, cast back to the input dtype.
 The reshard row copies follow ``pack_rows_ref`` & co. there: a loop of
 slice copies in block order; the compressed wire's quantizers follow
-``pack_quant_rows_ref`` and ``dequant_scatter_rows_ref``. They are the CPU path of ``ops.py`` and what
-the CUDA kernels are held against on the card.
+``pack_quant_rows_ref`` and ``dequant_scatter_rows_ref``; the Mamba-2 SSD
+scan and RMSNorm follow ``ssd_scan_ref`` and ``rmsnorm_ref``, with
+:func:`ssd_intra_chunk_ref` the function of the TPU kernel
+``_ssd_chunk_kernel`` over its whole grid. They are the CPU path of
+``ops.py`` and what the CUDA kernels are held against on the card.
 """
 
 from __future__ import annotations
@@ -62,6 +65,98 @@ def decode_attention_ref(
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhst,bthd->bshd", probs, vf)
     return out.to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Mamba-2 SSD chunked scan
+# ---------------------------------------------------------------------------
+
+
+def ssd_intra_chunk_ref(
+    x: torch.Tensor,  # (b, s, h, p) float
+    dt: torch.Tensor,  # (b, s, h) float32, post-softplus
+    cum: torch.Tensor,  # (b, s, h) float32, within-chunk inclusive cumsum of dt*A
+    B: torch.Tensor,  # (b, s, n) float32
+    C: torch.Tensor,  # (b, s, n) float32
+    chunk: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """What ``repro/kernels/ssd_scan.py::_ssd_chunk_kernel`` computes over
+    its whole (batch, head, chunk) grid. Per chunk of ``q`` steps and head:
+    ``y = ((C·Bᵀ) ∘ L ∘ dtᵀ)·x`` with ``L[t, s] = exp(cum_t - cum_s)`` for
+    ``s <= t`` (else 0), and the chunk's state ``S = Σ_s exp(cum_last -
+    cum_s)·dt_s·x_s ⊗ B_s``. Returns (y_intra (b,s,h,p) f32, S (b,nc,h,p,n)
+    f32). ``s`` must be a multiple of ``chunk``."""
+    b, s, h, p = x.shape
+    n = B.shape[-1]
+    if s % chunk:
+        raise ValueError(f"sequence {s} is not a multiple of chunk {chunk}")
+    nc, q = s // chunk, chunk
+    xf = x.float().reshape(b, nc, q, h, p)
+    dtc = dt.reshape(b, nc, q, h)
+    cumc = cum.reshape(b, nc, q, h)
+    Bc = B.reshape(b, nc, q, n)
+    Cc = C.reshape(b, nc, q, n)
+    diff = cumc[:, :, :, None, :] - cumc[:, :, None, :, :]  # (b,nc,t,s,h)
+    tri = torch.tril(torch.ones((q, q), dtype=torch.bool, device=x.device))
+    L = torch.where(tri[None, None, :, :, None], torch.exp(diff), 0.0)
+    CB = torch.einsum("bcin,bcjn->bcij", Cc, Bc)  # (b,nc,t,s)
+    M = CB[..., None] * L * dtc[:, :, None, :, :]
+    y = torch.einsum("bctsh,bcshp->bcthp", M, xf).reshape(b, s, h, p)
+    decay_to_end = torch.exp(cumc[:, :, -1:, :] - cumc)  # (b,nc,q,h)
+    S = torch.einsum("bcqh,bcqn,bcqhp->bchpn", decay_to_end * dtc, Bc, xf)
+    return y, S
+
+
+def ssd_inter_ref(cum, Cc, S, chunk_decay, init_state):
+    """The inter-chunk recurrence (``repro/kernels/ops.py::_ssd_inter``), a
+    loop over chunks. cum (b,nc,q,h); Cc (b,nc,q,n); S (b,nc,h,p,n);
+    chunk_decay (b,nc,h); init_state (b,h,p,n). Returns (y_inter
+    (b,nc,q,h,p), final state (b,h,p,n))."""
+    carry, h_prevs = init_state, []
+    for c in range(S.shape[1]):
+        h_prevs.append(carry)  # the state entering chunk c
+        carry = chunk_decay[:, c, :, None, None] * carry + S[:, c]
+    h_prev = torch.stack(h_prevs, dim=1)  # (b,nc,h,p,n)
+    y_inter = torch.einsum("bcqn,bchpn->bcqhp", Cc, h_prev) * torch.exp(cum)[..., None]
+    return y_inter, carry
+
+
+def ssd_scan_ref(
+    x: torch.Tensor,  # (b, s, h, p) float
+    dt: torch.Tensor,  # (b, s, h) float32, post-softplus
+    A: torch.Tensor,  # (h,) float32, negative
+    B: torch.Tensor,  # (b, s, n) float32
+    C: torch.Tensor,  # (b, s, n) float32
+    chunk: int,
+    init_state: torch.Tensor | None = None,  # (b, h, p, n)
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The chunked SSD scan (``repro/kernels/ref.py::ssd_scan_ref``):
+    intra-chunk quadratic part, chunk states, inter-chunk recurrence.
+    Returns (y (b,s,h,p) float32, final state (b,h,p,n) float32)."""
+    b, s, h, p = x.shape
+    n = B.shape[-1]
+    if s % chunk:
+        raise ValueError(f"sequence {s} is not a multiple of chunk {chunk}")
+    nc, q = s // chunk, chunk
+    cum = torch.cumsum(dt.reshape(b, nc, q, h) * A[None, None, None, :], dim=2)  # inclusive
+    y_intra, S = ssd_intra_chunk_ref(x, dt, cum.reshape(b, s, h), B, C, chunk)
+    h0 = x.new_zeros((b, h, p, n), dtype=torch.float32) if init_state is None else init_state.float()
+    y_inter, final = ssd_inter_ref(cum, C.reshape(b, nc, q, n).float(), S, torch.exp(cum[:, :, -1, :]), h0)
+    y = y_intra.reshape(b, nc, q, h, p) + y_inter
+    return y.reshape(b, s, h, p), final
+
+
+# ---------------------------------------------------------------------------
+# RMSNorm
+# ---------------------------------------------------------------------------
+
+
+def rmsnorm_ref(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """Row RMSNorm over the last axis: float32 mean of squares,
+    ``rsqrt(var + eps)``, times the scale, cast back to ``x``'s dtype."""
+    xf = x.float()
+    var = xf.square().mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------

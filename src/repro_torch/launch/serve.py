@@ -2,6 +2,8 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \\
         --batch 8 --prompt-len 512 --gen 32
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b \\
+        --reduced --device cpu --batch 2 --prompt-len 32 --gen 4
 
 Runs on the GPU unless ``--device cpu`` is given; a CUDA request without a
 card exits with an error. Thin front-end over

@@ -14,7 +14,9 @@ launcher; the compressed wire is the controller's ``wire_policy``.
 
 Not ported, and refused with a message: pipeline stages (``--pp`` > 1), int8
 gradient compression (``--compression int8_ef``), checkpoints
-(``--ckpt-dir``) and fail-stop injection (``--failstop``).
+(``--ckpt-dir``) and fail-stop injection (``--failstop``). An SSM model
+(mamba2-2.7b) trains on the CPU only: on the card its SSD kernel has no
+backward yet, and the launcher raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -73,11 +75,13 @@ def main() -> None:
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ParallelConfig
     from repro_torch.core.controller import LiveRController
+    from repro_torch.models.transformer import check_trainable
     from repro_torch.optim import AdamWConfig
 
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    check_trainable(cfg, args.device)  # an SSM mixer on the card raises NotImplementedError
     parallel = ParallelConfig(dp=args.dp, pp=args.pp, tp=args.tp)
     opt = AdamWConfig(learning_rate=args.lr, warmup_steps=max(args.steps // 10, 1), total_steps=args.steps)
     print(f"[train] {cfg.name} {parallel.describe()} seq={args.seq} batch={args.batch} "

@@ -1,7 +1,8 @@
 """Public model API: init / forward / loss / prefill / decode.
 
-The counterpart of ``repro/models/model.py`` for decoder-only dense models;
-other families raise ``NotImplementedError`` naming their ROADMAP item.
+The counterpart of ``repro/models/model.py`` for decoder-only models with
+attention or SSM (Mamba-2) mixers and dense or no MLPs; the MoE and enc-dec
+families raise ``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -16,8 +17,9 @@ from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.utils.pytree import tree_map_with_path, tree_paths
 
-# leaves read in fp32 whatever the activation dtype (norm scales)
-_FP32_LEAVES = ("scale", "q_norm", "k_norm")
+# leaves read in fp32 whatever the activation dtype: norm scales, and the
+# SSM mixer's decay, bias, skip, conv and gated-norm parameters
+_FP32_LEAVES = ("scale", "q_norm", "k_norm", "A_log", "dt_bias", "D", "conv_w", "conv_b", "norm_scale")
 
 
 def _dtype(name: str) -> torch.dtype:
@@ -97,8 +99,10 @@ def cast_params(params: dict, dtype) -> dict:
     """A copy of ``params`` with every matrix and bias cast to ``dtype``
     once, for serving. The JAX model casts each fp32 parameter at every use;
     a cast is deterministic, so the pre-cast values are bit-identical to
-    those casts and the model computes the same thing. Norm scales stay
-    fp32, because the model reads them in fp32."""
+    those casts and the model computes the same thing. The leaves the model
+    reads in fp32 stay fp32 (:data:`_FP32_LEAVES`: norm scales and the SSM
+    mixer's ``A_log``, ``dt_bias``, ``D``, ``conv_w``, ``conv_b``,
+    ``norm_scale``)."""
     dtype = _dtype(dtype) if isinstance(dtype, str) else dtype
     return tree_map_with_path(
         lambda path, x: x if path.rsplit("/", 1)[-1] in _FP32_LEAVES else x.to(dtype),
@@ -116,7 +120,10 @@ def forward(cfg: ModelConfig, params: dict, batch: dict, remat: str = "full"):
 
     ``batch = {"tokens": (b, s) integer tensor}``. Attention goes through
     ``ops.flash_attention``: on the card the CUDA kernel and its backward
-    kernel, on the CPU the plain version under autograd."""
+    kernel, on the CPU the plain version under autograd. The SSM mixer's
+    scan goes through ``ops.ssd_scan``: on the CPU the plain version under
+    autograd; on the card its kernel runs forward only, and a gradient
+    through it raises (``transformer.check_trainable``)."""
     T.check_ported(cfg)
     adt = _dtype(cfg.dtype)
     tokens = batch["tokens"]

@@ -4,8 +4,11 @@ forward, prefill and decode passes over the stack.
 As in the JAX package, layers are grouped into *periods* and each position
 of a period keeps its parameters stacked over ``n_periods`` on a leading
 axis (``blocks/pos0/mixer/wq`` is ``(n_periods, d, h*hd)``). The JAX
-``lax.scan`` over periods becomes a loop over the stacked index. This slice
-runs ``("attn", "dense")`` blocks; other mixers and MLPs raise.
+``lax.scan`` over periods becomes a loop over the stacked index. The port
+runs attention and SSM (Mamba-2) mixers with a dense MLP or none
+(mamba2-2.7b at full width has ``d_ff = 0``); the MoE MLP and enc-dec
+models raise. An SSM mixer trains on the CPU only: on the card its SSD
+kernel has no backward yet (:func:`check_trainable`).
 """
 
 from __future__ import annotations
@@ -17,12 +20,16 @@ import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import MLP_AXES, RMSNORM_AXES, mlp_apply, mlp_init, rmsnorm_apply, rmsnorm_init
 
 _NOT_PORTED = {
-    "ssm": "the SSM mixer (ROADMAP queue 1 item 10, with the SSD kernel)",
     "moe": "the MoE MLP (ROADMAP queue 1 item 10)",
 }
+SSM_TRAINING_TODO = (
+    "training the SSM mixer on the card needs a backward of the SSD intra-chunk kernel, which is "
+    "not written yet (ROADMAP queue 1 item 14: SSM training); on the CPU the plain version trains"
+)
 
 
 # ---------------------------------------------------------------------------
@@ -71,6 +78,15 @@ def check_ported(cfg: ModelConfig) -> None:
                 raise NotImplementedError(f"{cfg.name}: {_NOT_PORTED[kind]} is not ported yet")
 
 
+def check_trainable(cfg: ModelConfig, device) -> None:
+    """Raise ``NotImplementedError`` for a model that cannot train on
+    ``device``: an SSM mixer on the card. Takes a device or its name and
+    builds no tensor."""
+    check_ported(cfg)
+    if torch.device(device).type == "cuda" and any(m == "ssm" for m, _ in block_program(cfg)):
+        raise NotImplementedError(f"{cfg.name}: {SSM_TRAINING_TODO}")
+
+
 def _period(tree: dict, i: int) -> dict:
     """The parameters (or cache) of period ``i``: views, no copies."""
     return {k: _period(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
@@ -83,7 +99,10 @@ def _period(tree: dict, i: int) -> dict:
 
 def _block_init(gen, cfg: ModelConfig, mixer: str, mlp: str, dtype, device, lead) -> dict:
     params = {"ln1": rmsnorm_init(cfg.d_model, dtype, device, lead)}
-    params["mixer"] = attn.attn_init(gen, cfg, dtype, device, lead)
+    if mixer == "attn":
+        params["mixer"] = attn.attn_init(gen, cfg, dtype, device, lead)
+    else:
+        params["mixer"] = ssm_mod.ssm_init(gen, cfg, dtype, device, lead)
     if mlp != "none":
         params["ln2"] = rmsnorm_init(cfg.d_model, dtype, device, lead)
         params["mlp"] = mlp_init(gen, cfg, dtype, device, lead)
@@ -104,8 +123,8 @@ def stack_axes(cfg: ModelConfig) -> dict:
     the stacked ``"layers"`` axis in front."""
     check_ported(cfg)
     out = {}
-    for j, (_, mlp) in enumerate(block_program(cfg)):
-        block = {"ln1": RMSNORM_AXES, "mixer": attn.attn_axes(cfg)}
+    for j, (mixer, mlp) in enumerate(block_program(cfg)):
+        block = {"ln1": RMSNORM_AXES, "mixer": attn.attn_axes(cfg) if mixer == "attn" else ssm_mod.SSM_AXES}
         if mlp != "none":
             block.update(ln2=RMSNORM_AXES, mlp=MLP_AXES)
         out[f"pos{j}"] = {
@@ -121,9 +140,13 @@ def stack_axes(cfg: ModelConfig) -> dict:
 
 
 def _period_forward(period: dict, cfg: ModelConfig, prog, x, positions, causal: bool):
-    for j, (_, mlp) in enumerate(prog):
+    for j, (mixer, mlp) in enumerate(prog):
         bp = period[f"pos{j}"]
-        x = x + attn.attn_forward(bp["mixer"], cfg, rmsnorm_apply(bp["ln1"], x), positions, causal=causal)
+        h = rmsnorm_apply(bp["ln1"], x)
+        if mixer == "attn":
+            x = x + attn.attn_forward(bp["mixer"], cfg, h, positions, causal=causal)
+        else:
+            x = x + ssm_mod.ssm_forward(bp["mixer"], cfg, h)
         x = _mlp(bp, cfg, mlp, x)
         # the JAX package re-anchors the residual's sharding here
         # (shard_hints.constrain); one process has nothing to anchor
@@ -172,44 +195,53 @@ def stack_prefill(params: dict, cfg: ModelConfig, x: torch.Tensor, positions: to
     """Forward pass that also materializes the decode cache.
 
     Returns (x, collected) where collected mirrors the per-position
-    structure of :func:`repro_torch.models.kvcache.init_cache`:
-    ``{"posj": {"k", "v"}}`` stacked over n_periods. For sliding-window
-    attention the caller crops it to the ring (kvcache.cache_from_prefill).
+    structure of :func:`repro_torch.models.kvcache.init_cache`, stacked
+    over n_periods: ``{"k", "v"}`` for an attention position, the SSD
+    state ``{"ssd", "conv"}`` for an SSM one. For sliding-window attention
+    the caller crops it to the ring (kvcache.cache_from_prefill).
     """
     check_ported(cfg)
     prog = block_program(cfg)
-    ks: dict[str, list] = {f"pos{j}": [] for j in range(len(prog))}
-    vs: dict[str, list] = {f"pos{j}": [] for j in range(len(prog))}
+    per_pos: dict[str, dict[str, list]] = {f"pos{j}": {} for j in range(len(prog))}
     for i in range(n_periods(cfg)):
         period = _period(params, i)
-        for j, (_, mlp) in enumerate(prog):
+        for j, (mixer, mlp) in enumerate(prog):
             bp = period[f"pos{j}"]
             h = rmsnorm_apply(bp["ln1"], x)
-            out, k, v = attn.attn_forward(bp["mixer"], cfg, h, positions, return_kv=True)
-            ks[f"pos{j}"].append(k)
-            vs[f"pos{j}"].append(v)
+            if mixer == "attn":
+                out, k, v = attn.attn_forward(bp["mixer"], cfg, h, positions, return_kv=True)
+                leaves = {"k": k, "v": v}
+            else:
+                out, leaves = ssm_mod.ssm_forward(bp["mixer"], cfg, h, return_state=True)
+            for name, leaf in leaves.items():
+                per_pos[f"pos{j}"].setdefault(name, []).append(leaf)
             x = _mlp(bp, cfg, mlp, x + out)
             # the JAX package re-anchors the residual's sharding here
             # (shard_hints.constrain); one process has nothing to anchor
     collected = {
-        name: {"k": torch.stack(ks[name]), "v": torch.stack(vs[name])} for name in ks
+        pos: {name: torch.stack(leaves) for name, leaves in by_leaf.items()} for pos, by_leaf in per_pos.items()
     }
     return x, collected
 
 
 def stack_decode(params: dict, cfg: ModelConfig, x: torch.Tensor, cache: dict, pos: int):
     """One token through the stack; ``cache`` is updated in place (see
-    ``attention.attn_decode``) and returned."""
+    ``attention.attn_decode``; an SSM position's new state is copied into
+    its cache leaves) and returned."""
     check_ported(cfg)
     prog = block_program(cfg)
     for i in range(n_periods(cfg)):
         period = _period(params, i)
         period_cache = _period(cache, i)
-        for j, (_, mlp) in enumerate(prog):
+        for j, (mixer, mlp) in enumerate(prog):
             bp = period[f"pos{j}"]
             c = period_cache[f"pos{j}"]
-            out, _, _ = attn.attn_decode(
-                bp["mixer"], cfg, rmsnorm_apply(bp["ln1"], x), c["k"], c["v"], pos
-            )
+            h = rmsnorm_apply(bp["ln1"], x)
+            if mixer == "attn":
+                out, _, _ = attn.attn_decode(bp["mixer"], cfg, h, c["k"], c["v"], pos)
+            else:
+                out, state = ssm_mod.ssm_decode(bp["mixer"], cfg, h, c)
+                c["ssd"].copy_(state["ssd"])
+                c["conv"].copy_(state["conv"])
             x = _mlp(bp, cfg, mlp, x + out)
     return x, cache

@@ -18,8 +18,9 @@ field for field; at full width (bfloat16) each matrix's bytes are half the
 JAX plan's.
 
 The JAX package's ``role_sharding`` has no counterpart: a world's state is
-global tensors on its one device (``reshard/executors.py``). SSM and
-encoder-decoder caches come with their model families.
+global tensors on its one device (``reshard/executors.py``). Attention KV
+and SSM (Mamba-2) state leaves are covered; the encoder-decoder
+cross-attention KV comes with its model family.
 """
 
 from __future__ import annotations
@@ -40,7 +41,6 @@ __all__ = [
     "serve_state_specs",
 ]
 
-_NOT_PORTED = "(ROADMAP queue 1 item 10)"
 
 
 def cache_tensor_specs(cfg: ModelConfig, batch: int, max_seq: int, cache_dtype="float32") -> list[TensorSpec]:
@@ -51,29 +51,54 @@ def cache_tensor_specs(cfg: ModelConfig, batch: int, max_seq: int, cache_dtype="
     from repro_torch.models.kvcache import cache_capacity
     from repro_torch.models.transformer import block_program, n_periods
 
+    from repro_torch.models import ssm as ssm_mod
+
     if cfg.family == "encdec":
-        raise NotImplementedError(f"{cfg.name}: the cross-attention KV of enc-dec models is not ported yet {_NOT_PORTED}")
+        raise NotImplementedError(
+            f"{cfg.name}: the cross-attention KV of enc-dec models is not ported yet (ROADMAP queue 1 item 10)"
+        )
     prog = block_program(cfg)
     np_ = n_periods(cfg)
     kh, hd = cfg.num_kv_heads, cfg.resolved_head_dim
     T = cache_capacity(cfg, max_seq)
     specs: list[TensorSpec] = []
     for j, (mixer, _) in enumerate(prog):
-        if mixer != "attn":
-            raise NotImplementedError(
-                f"{cfg.name}: the SSD cache leaves of SSM layers are not ported yet {_NOT_PORTED}"
-            )
-        for leaf in ("k", "v"):
-            specs.append(
-                TensorSpec(
-                    name=f"cache/pos{j}/{leaf}",
-                    shape=(np_, batch, T, kh, hd),
-                    dtype=dtype_name(cache_dtype),
-                    roles=("pp", "none", "none", "tp", "none"),
-                    stage_scope="stages",
-                    collection="cache",
+        if mixer == "attn":
+            for leaf in ("k", "v"):
+                specs.append(
+                    TensorSpec(
+                        name=f"cache/pos{j}/{leaf}",
+                        shape=(np_, batch, T, kh, hd),
+                        dtype=dtype_name(cache_dtype),
+                        roles=("pp", "none", "none", "tp", "none"),
+                        stage_scope="stages",
+                        collection="cache",
+                    )
                 )
+            continue
+        # the SSD state splits its heads over tp, the conv history its
+        # channels; both are float32 whatever the cache dtype
+        _, h, n, conv_ch = ssm_mod.ssm_dims(cfg)
+        specs.append(
+            TensorSpec(
+                name=f"cache/pos{j}/ssd",
+                shape=(np_, batch, h, ssm_mod.SSM_HEAD_DIM, n),
+                dtype="float32",
+                roles=("pp", "none", "tp", "none", "none"),
+                stage_scope="stages",
+                collection="cache",
             )
+        )
+        specs.append(
+            TensorSpec(
+                name=f"cache/pos{j}/conv",
+                shape=(np_, batch, ssm_mod.CONV_WIDTH - 1, conv_ch),
+                dtype="float32",
+                roles=("pp", "none", "none", "tp"),
+                stage_scope="stages",
+                collection="cache",
+            )
+        )
     return specs
 
 

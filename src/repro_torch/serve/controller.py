@@ -3,8 +3,9 @@
 The port of ``repro/serve/controller.py``: Prepare builds (or takes warm
 from the shared :class:`WorldPool`) a target serving world in the
 background while decode continues on the active world; the commit lands
-at a decode-step boundary mid-generation. Params AND the live KV cache
-stream through one intersection plan and one ReshardEngine pass, and the
+at a decode-step boundary mid-generation. Params AND the live cache (the
+attention KV, or an SSM layer's ssd and conv states) stream through one
+intersection plan and one ReshardEngine pass, and the
 session continues token-for-token on the new world. Retired actives and
 abandoned shadow builds are deposited back into the pool.
 

@@ -1,6 +1,7 @@
 """Prefill/decode serving driver: a prompt batch -> prefill -> greedy (or
 sampled) autoregressive decode, on one device. The counterpart of
-``repro/serve/driver.py``; the elastic serving path is not ported yet.
+``repro/serve/driver.py``. It serves the attention (qwen3) and SSM
+(mamba2) families; the elastic serving path is ``serve/loop.py``.
 """
 
 from __future__ import annotations

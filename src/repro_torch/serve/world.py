@@ -28,6 +28,11 @@ from repro_torch.core.shadow import WorldHandle, warm_device, world_device
 __all__ = ["build_serve_world"]
 
 
+# the kernel libraries a serving world runs: either mixer's and the
+# reshard data plane's
+_SERVE_KERNELS = ("flash_attention", "ssd_scan", "reshard_pack")
+
+
 def build_serve_world(
     cfg: ModelConfig,
     parallel: ParallelConfig,
@@ -53,7 +58,7 @@ def build_serve_world(
     timings: dict = {}
     t0 = time.perf_counter()
     if device.type == "cuda":
-        warm_device(device, getattr(torch, cfg.dtype), ("flash_attention", "reshard_pack"))
+        warm_device(device, getattr(torch, cfg.dtype), _SERVE_KERNELS)
     timings["warm_s"] = time.perf_counter() - t0
 
     def step_fn(params, cache, tokens, pos):

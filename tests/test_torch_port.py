@@ -30,7 +30,8 @@ torch.set_num_threads(2)
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "src" / "repro_torch"
 ENV = {**os.environ, "PYTHONPATH": str(REPO / "src")}
-DENSE = sorted(n for n, c in configs.REGISTRY.items() if c.family == "dense")
+# the families the port runs: dense decoders and mamba2 (ssm)
+PORTED = sorted(n for n, c in configs.REGISTRY.items() if c.family in ("dense", "ssm"))
 
 
 # ---------------------------------------------------------------------------
@@ -83,7 +84,7 @@ def test_param_count_and_paths_equal_jax(name):
     assert port.active_param_count() == ref.active_param_count()
 
 
-@pytest.mark.parametrize("name", DENSE)
+@pytest.mark.parametrize("name", PORTED)
 def test_reduced_init_layout_equals_jax(name):
     port, ref = configs.get_config(name).reduced(), jax_configs.get_config(name).reduced()
     want = {p: (tuple(x.shape), str(x.dtype)) for p, x in jax_tree_paths(JM.init_params(ref, jax.random.key(0))).items()}
@@ -91,7 +92,7 @@ def test_reduced_init_layout_equals_jax(name):
     assert {p: (tuple(x.shape), str(x.dtype).removeprefix("torch.")) for p, x in tree_paths(got).items()} == want
 
 
-@pytest.mark.parametrize("name", ["mixtral-8x7b", "mamba2-2.7b", "jamba-v0.1-52b", "seamless-m4t-large-v2"])
+@pytest.mark.parametrize("name", ["mixtral-8x7b", "jamba-v0.1-52b", "seamless-m4t-large-v2"])
 def test_unported_families_raise(name):
     cfg = configs.get_config(name).reduced()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -201,18 +202,20 @@ TRAINING = [
     "optim/adamw", "data/pipeline", "distribution/step", "core/generations", "core/downtime",
     "core/controller", "reshard/overlap", "kernels/reshard_quant", "launch/train",
 ]
+# serving mamba2: the SSM mixer and the last two kernels
+SSM = ["models/ssm", "kernels/ssd_scan", "kernels/rmsnorm"]
 
 
 def test_port_sources_do_not_import_jax_or_repro():
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 20
-    assert {PORT / f"{m}.py" for m in RESHARD_AND_ELASTIC_SERVE + TRAINING} <= set(files)
+    assert {PORT / f"{m}.py" for m in RESHARD_AND_ELASTIC_SERVE + TRAINING + SSM} <= set(files)
     offenders = [f"{f}: {m.group(0).strip()}" for f in files for m in _FORBIDDEN_IMPORT.finditer(f.read_text())]
     assert offenders == []
 
 
 def test_importing_the_port_loads_no_jax():
-    wanted = [f"repro_torch.{m.replace('/', '.')}" for m in RESHARD_AND_ELASTIC_SERVE + TRAINING]
+    wanted = [f"repro_torch.{m.replace('/', '.')}" for m in RESHARD_AND_ELASTIC_SERVE + TRAINING + SSM]
     code = f"""
 import importlib, pkgutil, sys
 sys.path.insert(0, {str(REPO)!r})
@@ -225,7 +228,7 @@ bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "rep
 assert not bad, bad
 missing = sorted(set({wanted!r}) - set(names))
 assert not missing, missing
-assert len(names) >= 63, names
+assert len(names) >= 66, names
 print("ok", len(names))
 """
     out = subprocess.run([sys.executable, "-c", code], env=ENV, capture_output=True, text=True, timeout=120)

@@ -1,7 +1,7 @@
 """The port's copies of the resource view and the intersection planner
 against the JAX package's: logical axes, tensor specs, cache specs and
 transfer plans, task by task (tensor, kind, ranks, bounds, offsets, bytes,
-layer), for every dense architecture the port supports."""
+layer), for every dense architecture the port supports and mamba2."""
 
 from __future__ import annotations
 
@@ -23,7 +23,7 @@ from repro_torch.models import model as M
 from repro_torch.serve import cache_view as C
 from repro_torch.utils.pytree import axes_paths
 
-DENSE = sorted(n for n, c in configs.REGISTRY.items() if c.family == "dense")
+PORTED = sorted(n for n, c in configs.REGISTRY.items() if c.family in ("dense", "ssm"))
 PC = configs.ParallelConfig
 
 
@@ -36,7 +36,7 @@ def _both(name, reduced=True):
     return (port.reduced(), ref.reduced()) if reduced else (port, ref)
 
 
-@pytest.mark.parametrize("name", DENSE)
+@pytest.mark.parametrize("name", PORTED)
 def test_axes_and_specs_equal_jax(name):
     """Full width: the same logical axes and the same training and serving
     param specs (roles, scopes, shapes, float32 dtypes)."""
@@ -46,7 +46,7 @@ def test_axes_and_specs_equal_jax(name):
         assert _tuples(R.build_tensor_specs(port, **kw)) == _tuples(JR.build_tensor_specs(ref, **kw))
 
 
-@pytest.mark.parametrize("name", DENSE)
+@pytest.mark.parametrize("name", PORTED)
 def test_reduced_serve_specs_equal_jax(name):
     """Reduced configs run in float32, so the serving specs (params in the
     dtype the port serves with, plus the cache) equal the JAX package's."""
@@ -76,8 +76,6 @@ def test_full_width_serve_specs_hold_the_served_dtypes():
 
 
 def test_unported_cache_families_raise():
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        C.cache_tensor_specs(configs.get_config("mamba2-2.7b").reduced(), 2, 16)
     with pytest.raises(NotImplementedError, match="queue 1 item 10"):
         C.cache_tensor_specs(configs.get_config("seamless-m4t-large-v2").reduced(), 2, 16)
 

@@ -152,7 +152,7 @@ def test_remat_recomputes_the_same_grads(reduced):
 
 
 def test_model_training_path_refuses_unported_families():
-    for name in ("mamba2-2.7b", "mixtral-8x7b"):
+    for name in ("jamba-v0.1-52b", "mixtral-8x7b"):
         cfg = get_config(name).reduced()
         with pytest.raises(NotImplementedError, match="not ported"):
             M.loss_fn(cfg, {}, {"tokens": torch.zeros(1, 4, dtype=torch.long)})
