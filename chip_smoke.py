@@ -8,20 +8,29 @@ non-zero without one. Phases, each printing one line or more:
 
 1. card: ``nvidia-smi`` name and power limit, torch and CUDA versions;
 2. build: every kernel of the port from ``src/repro_torch/kernels/csrc``;
+   each library's registers and spills (``-Xptxas -v``), and the count of
+   tensor-core instructions (HGMMA for wgmma, HMMA for mma.sync) in each
+   flash library's SASS (``cuobjdump -sass``), nonzero for the two
+   tensor-core libraries;
 3. kernel against its plain version on the card, over the JAX kernel
-   tests' shapes, a ragged windowed case and the serving shape;
+   tests' shapes, ragged and windowed cases, the serving and the training
+   shape, on each route that takes the case (bf16 at head dims 64, 128 and
+   256 on the tensor cores and on the CUDA cores; float32 and bf16 at 16
+   and 32 on the CUDA cores);
 4. small-input agreement: reduced qwen3-1.7b served on the card (kernel)
    and on the CPU (plain path) from the same weights;
 5. full-width serve: ``serve_once`` on qwen3-1.7b (28 layers, d_model
    2048), batch 8, prompt 512, 32 greedy tokens; checks that every prefill
-   attention went through the kernel (launch count), that the tokens are
+   attention went through the kernel on the tensor cores (launch counts,
+   in all and by route), that the tokens are
    valid and repeatable, and holds the kernel against the plain version on
    the real q/k/v of the first and last layer; then a ``torch.profiler``
    window over one prefill and 4 decode steps: device time by kernel class
    and the device's busy share;
-6. times at the serving shape (CUDA events, median of 30): kernel, plain
-   version, ``scaled_dot_product_attention`` as a yardstick, and the
-   card's bound;
+6. forward times at the serving and the training shape (CUDA events,
+   median of 30): the tensor-core kernel and its TFLOP/s, the CUDA-core
+   route, the plain version, ``scaled_dot_product_attention`` as a
+   yardstick, and the card's bound;
 7. the reshard row kernels (pack_rows, scatter_rows, relayout_rows,
    unpack_rows) against their plain versions, byte for byte, on the CPU
    tests' cases in f32/bf16/int8 and at the elastic path's shapes, and the
@@ -40,7 +49,8 @@ non-zero without one. Phases, each printing one line or more:
    move and at 4096 scattered embedding rows, beside their plain versions,
    one PyTorch call each and the HBM bound;
 11. the flash-attention backward kernel against autograd of the plain
-   version, over the forward's cases and the training shape, f32 and bf16;
+   version, over the forward's cases and the training shape, f32 and bf16
+   (and the serving shape in bf16), on each route that takes the case;
 12. the compressed wire's kernels (pack_quant_rows, dequant_scatter_rows)
    against their plain versions, byte for byte, int8 and fp8-e4m3, from
    f32 and bf16: random tiles, the edge tiles (zero, denormal, 3.38e38),
@@ -57,7 +67,10 @@ non-zero without one. Phases, each printing one line or more:
    resized (with the same int8 round trip applied to its moments at the
    same step); prints each commit's pause, prepare and bytes, peak memory,
    and the device's busy share over one step under ``torch.profiler``;
-14. the new kernels' times (CUDA events, median of 20): the backward beside
+   every flash launch of the run (forward and backward) on the tensor
+   cores;
+14. the new kernels' times (CUDA events, median of 20): the backward and
+   its TFLOP/s beside the CUDA-core route,
    ``scaled_dot_product_attention``'s backward and the plain version's, the
    two quant kernels beside their plain versions, each with its bound;
 15. the SSD intra-chunk kernel against its plain version (TF32 off): the
@@ -142,6 +155,11 @@ FLASH_CASES = [
 ]
 SERVE = dict(batch=8, prompt_len=512, gen=32)
 SLICE_SHAPE = (8, 512, 512, 16, 8, 128, True, 0)  # the serve phase's prefill attention
+# the training path's attention: batch 4 x 1024 tokens, 16 q / 8 kv heads of 128
+TRAIN_SHAPE = (4, 1024, 1024, 16, 8, 128, True, 0)
+# the flash libraries and the route each one serves
+FLASH_LIBS = {"flash_attention_tc": "tensor_cores", "flash_attention_bwd_tc": "tensor_cores",
+              "flash_attention": "cuda_cores", "flash_attention_bwd": "cuda_cores"}
 
 
 def log(phase: str, msg: str) -> None:
@@ -155,8 +173,14 @@ def rand_qkv(case, dtype, seed):
     return mk(b, s, h, d), mk(b, t, kh, d), mk(b, t, kh, d)
 
 
-def kernel_vs_plain(q, k, v, **kw) -> float:
-    out = fa.flash_attention_cuda(q, k, v, **kw)
+def routes(dtype, d) -> list[str]:
+    """Every route that takes (dtype, head dim): the CUDA cores take all,
+    the tensor cores bf16 at their head dims."""
+    return ["tensor_cores", "cuda_cores"] if fa.route(dtype, d) == "tensor_cores" else ["cuda_cores"]
+
+
+def kernel_vs_plain(q, k, v, route=None, **kw) -> float:
+    out = fa.flash_attention_cuda(q, k, v, route=route, **kw)
     want = flash_attention_ref(q, k, v, **kw)
     torch.cuda.synchronize()
     assert out.dtype == q.dtype and out.shape == q.shape
@@ -208,16 +232,30 @@ def phase_build() -> None:
         for line in build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 log("build", f"{name}: {line.strip()}")
+    # which instructions carry the flash products: wgmma is HGMMA in SASS,
+    # mma.sync HMMA; the CUDA-core route has neither
+    cuobjdump = Path(build.nvcc()).parent / "cuobjdump"
+    for name, route in FLASH_LIBS.items():
+        sass = subprocess.run([str(cuobjdump), "-sass", str(libs[name])], capture_output=True, text=True,
+                              check=True, timeout=120).stdout
+        hgmma, hmma = sass.count("HGMMA"), sass.count("HMMA")
+        log("build", f"{name} ({route}): SASS has {hgmma} HGMMA and {hmma} HMMA instructions")
+        if route == "tensor_cores":
+            assert hgmma + hmma > 0, f"{name}: no tensor-core instruction in its SASS"
 
 
 def phase_kernel_cases() -> None:
     for dtype in (torch.float32, torch.bfloat16):
-        for i, case in enumerate(FLASH_CASES + ([SLICE_SHAPE] if dtype == torch.bfloat16 else [])):
+        for i, case in enumerate(FLASH_CASES + ([SLICE_SHAPE, TRAIN_SHAPE] if dtype == torch.bfloat16 else [])):
             q, k, v = rand_qkv(case, dtype, seed=i)
-            err = kernel_vs_plain(q, k, v, causal=case[6], window=case[7])
-            log("kernel", f"flash_attention {case} {str(dtype)[6:]}: max_abs_err {err:.3e} "
-                          f"(tol {TOL[dtype]:g})")
-            assert err <= TOL[dtype], f"kernel disagrees with plain version on {case}: {err}"
+            for route in routes(dtype, case[5]):
+                before = (fa.tc_launches, fa.cc_launches)
+                err = kernel_vs_plain(q, k, v, route=route, causal=case[6], window=case[7])
+                assert (fa.tc_launches - before[0], fa.cc_launches - before[1]) == (
+                    (1, 0) if route == "tensor_cores" else (0, 1)), f"{route} was not the route launched"
+                log("kernel", f"flash_attention {case} {str(dtype)[6:]} {route}: max_abs_err {err:.3e} "
+                              f"(tol {TOL[dtype]:g})")
+                assert err <= TOL[dtype], f"kernel ({route}) disagrees with plain version on {case}: {err}"
     # what the kernel does not compute is refused, not run
     q, k, v = rand_qkv((1, 64, 64, 2, 2, 64, True, 0), torch.float32, seed=0)
     for bad, why in [((q.half(), k.half(), v.half()), "float16"),
@@ -225,6 +263,14 @@ def phase_kernel_cases() -> None:
                      ((q, k[:, :32].contiguous(), v[:, :32].contiguous()), "causal t < s")]:
         try:
             fa.flash_attention_cuda(*bad)
+        except ValueError:
+            log("kernel", f"refused {why}")
+        else:
+            raise AssertionError(f"kernel accepted {why}")
+    for x, why in [(q, "float32 on the tensor cores"),
+                   (q[..., :32].contiguous().bfloat16(), "head dim 32 on the tensor cores")]:
+        try:
+            fa.flash_attention_cuda(x, x, x, route="tensor_cores")
         except ValueError:
             log("kernel", f"refused {why}")
         else:
@@ -261,9 +307,9 @@ def _to(tree, device):
 def phase_serve() -> tuple[int, float]:
     cfg = get_config("qwen3-1.7b")
     torch.cuda.reset_peak_memory_stats()
-    fa.launches = 0  # the main path's count starts here
+    fa.launches = fa.tc_launches = fa.cc_launches = 0  # the main path's counts start here
     out = serve_once(cfg, device="cuda", seed=0, **SERVE)
-    launches = fa.launches  # ... and is read here
+    launches, tc_launches = fa.launches, fa.tc_launches  # ... and are read here
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     toks = out["tokens"]
     tok_s = SERVE["batch"] * SERVE["gen"] / out["decode_s"]
@@ -272,6 +318,10 @@ def phase_serve() -> tuple[int, float]:
                  f"prefill_s {out['prefill_s']:.4f}, decode_s {out['decode_s']:.4f} "
                  f"({tok_s:.1f} tok/s), peak memory {peak_gb:.2f} GB, flash launches {launches}")
     assert launches == cfg.num_layers, f"{launches} flash launches, want {cfg.num_layers}"
+    # qwen3's attention is bf16 at head dim 128: every launch on the tensor cores
+    assert fa.route(getattr(torch, cfg.dtype), cfg.resolved_head_dim) == "tensor_cores"
+    assert tc_launches == launches, f"{tc_launches} of {launches} flash launches on the tensor cores"
+    log("serve", f"flash launches by route: tensor_cores {tc_launches}, cuda_cores {launches - tc_launches}")
     assert toks.shape == (SERVE["batch"], SERVE["gen"] + 1), toks.shape
     assert toks.min() >= 0 and toks.max() < cfg.vocab_size
 
@@ -294,9 +344,11 @@ def phase_serve() -> tuple[int, float]:
     worst = 0.0
     for i, (q, k, v, kw) in sorted(captured.items()):
         err = kernel_vs_plain(q, k, v, **kw)
+        case = (*q.shape[:2], k.shape[1], q.shape[2], k.shape[2], q.shape[3], kw["causal"], kw["window"])
+        rel = bwd_vs_plain(case, q.dtype, seed=i, qkv=(q, k, v), scale=kw["scale"])
         log("serve", f"layer {i} prefill attention {tuple(q.shape)} {str(q.dtype)[6:]}: kernel vs "
-                     f"plain max_abs_err {err:.3e}")
-        assert err <= TOL[q.dtype]
+                     f"plain max_abs_err {err:.3e}; backward max |error| / max |plain| {rel:.3e}")
+        assert err <= TOL[q.dtype] and rel <= BWD_TOL[q.dtype]
         worst = max(worst, err)
 
     # the logits themselves: finite, of the expected shape
@@ -318,7 +370,7 @@ def phase_serve() -> tuple[int, float]:
 
 
 def _kernel_class(name: str) -> str:
-    if "fa_fwd_kernel" in name:
+    if "fa_fwd" in name:
         return "flash"
     if "ssd_intra_chunk_kernel" in name:
         return "ssd"
@@ -367,41 +419,69 @@ def phase_profile(cfg, params, logits, cache) -> None:
             log("profile", f"  {name}: {ms:8.3f} ms  {kname[:110]}")
 
 
-def phase_times(launches: int, serve_err: float) -> dict:
-    b, s, t, h, kh, d, causal, window = SLICE_SHAPE
-    q, k, v = rand_qkv(SLICE_SHAPE, torch.bfloat16, seed=99)
+def _fwd_times(shape) -> dict:
+    """The forward at ``shape`` (bf16): each route, the plain version and
+    ``scaled_dot_product_attention`` (CUDA events, median of 30), the
+    bound, and the tensor-core kernel's achieved rate."""
+    b, s, t, h, kh, d, causal, window = shape
+    q, k, v = rand_qkv(shape, torch.bfloat16, seed=99)
     kw = dict(causal=causal, window=window)
     err = kernel_vs_plain(q, k, v, **kw)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     kernel_ms = median_ms(lambda: fa.flash_attention_cuda(q, k, v, **kw))
+    cuda_cores_ms = median_ms(lambda: fa.flash_attention_cuda(q, k, v, route="cuda_cores", **kw))
     plain_ms = median_ms(lambda: flash_attention_ref(q, k, v, **kw))
-    library_ms = median_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=causal, enable_gqa=True))
+    library = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+        qt, kt, vt, is_causal=causal, enable_gqa=True)
+    library_ms = median_ms(library)
+    # the kernels alone on the device (torch.profiler), without the host
+    # work around each call: ours, and every kernel of the library call
+    on_device_ms = device_ms(lambda: fa.flash_attention_cuda(q, k, v, **kw), "fa_fwd_tc")
+    library_device_ms = device_ms(library, "", per_call=True)
     nbytes = sum(x.numel() * x.element_size() for x in (q, k, v, q))  # q, k, v in; o out
     flops = 4 * d * b * h * attended_pairs(s, t, causal, window)  # QK^T and PV
     bytes_ms, flops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOP_PER_S * 1e3
     bound_ms = max(bytes_ms, flops_ms)
-    log("times", f"flash_attention {SLICE_SHAPE} bf16: kernel {kernel_ms:.4f} ms, plain "
-                 f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
-                 f"({nbytes / 1e6:.1f} MB -> {bytes_ms:.4f} ms; {flops / 1e9:.2f} GFLOP -> "
+    tflops = flops / kernel_ms / 1e9
+    log("times", f"flash_attention {shape} bf16: kernel {kernel_ms:.4f} ms ({tflops:.1f} TFLOP/s; on the device "
+                 f"{on_device_ms:.4f} ms), the CUDA-core route {cuda_cores_ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
+                 f"{library_ms:.4f} ms (on the device {library_device_ms:.4f} ms), bound "
+                 f"{bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB -> {bytes_ms:.4f} ms; {flops / 1e9:.2f} GFLOP -> "
                  f"{flops_ms:.4f} ms)")
-    max_err = max(err, serve_err)  # this shape and the serve phase's real layers
+    return {"err": err, "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes" if bytes_ms >= flops_ms else "operations", "tflops": tflops,
+            "cuda_cores_ms": cuda_cores_ms, "device_ms": on_device_ms, "library_device_ms": library_device_ms}
+
+
+def phase_times(launches: int, serve_err: float) -> dict:
+    """The forward at the serving shape (the record's numbers) and at the
+    training shape (kept in the record beside them)."""
+    serve, train = _fwd_times(SLICE_SHAPE), _fwd_times(TRAIN_SHAPE)
+    max_err = max(serve["err"], train["err"], serve_err)  # these shapes and the serve phase's real layers
     # the record carries both the smoke contract's key names (ms,
     # max_abs_err) and the issue's (kernel_ms, max_err)
     return {
         "name": "flash_attention",
         "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_tc.cu",
+        "sources": {"tensor_cores": "src/repro_torch/kernels/csrc/flash_attention_tc.cu",
+                    "cuda_cores": "src/repro_torch/kernels/csrc/flash_attention.cu"},
         "replaces": "src/repro/kernels/flash_attention.py:124",
         "launches": launches,
         "max_abs_err": max_err,
         "max_err": max_err,
-        "ms": kernel_ms,
-        "kernel_ms": kernel_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
-        "library_ms": library_ms,
+        "ms": serve["ms"],
+        "kernel_ms": serve["ms"],
+        "plain_ms": serve["plain_ms"],
+        "bound_ms": serve["bound_ms"],
+        "bound_by": serve["bound_by"],
+        "library_ms": serve["library_ms"],
+        "tflops": serve["tflops"],
+        "cuda_cores_ms": serve["cuda_cores_ms"],
+        "device_ms": serve["device_ms"],
+        "library_device_ms": serve["library_device_ms"],
+        "shape": list(SLICE_SHAPE),
+        "train_shape": {k: v for k, v in train.items() if k != "err"} | {"shape": list(TRAIN_SHAPE)},
     }
 
 # ---------------------------------------------------------------------------
@@ -795,8 +875,6 @@ def phase_row_times(launches: dict) -> list[dict]:
 # Slice 3: the backward kernel, the compressed wire, live-resized training
 # ---------------------------------------------------------------------------
 
-# the training path's attention: batch 4 x 1024 tokens, 16 q / 8 kv heads of 128
-TRAIN_SHAPE = (4, 1024, 1024, 16, 8, 128, True, 0)
 # relative to the largest plain-version gradient: f32 sums in another order
 # over up to 1024 rows; bf16 rounds the kernel's output and dq/dk/dv once
 BWD_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
@@ -805,21 +883,24 @@ QUANT_FORMATS = ("int8", "fp8_e4m3")
 STACKED_MOMENT = (28, 2048 * 6144)  # a stacked moment of qwen3-1.7b (mlp/wi_gate), one row a layer
 
 
-def bwd_vs_plain(case, dtype, seed) -> float:
-    """The backward kernel (through the autograd Function) against autograd
-    of the plain version on the same inputs and output gradient: the
-    largest |error| over dq, dk, dv, relative to the largest plain value."""
-    q, k, v = rand_qkv(case, dtype, seed)
+def bwd_vs_plain(case, dtype, seed, route=None, qkv=None, scale=None) -> float:
+    """The backward kernel of ``route`` (through the autograd Function)
+    against autograd of the plain version on the same inputs (``qkv``, or
+    random ones of ``case``) and a random output gradient: the largest
+    |error| over dq, dk, dv, relative to the largest plain value."""
+    q, k, v = qkv if qkv is not None else rand_qkv(case, dtype, seed)
     g = torch.Generator(device="cuda").manual_seed(seed + 1000)
     dout = torch.randn(q.shape, generator=g, device="cuda").to(dtype)
-    kw = dict(causal=case[6], window=case[7])
-    before = fa.bwd_launches
+    kw = dict(causal=case[6], window=case[7], scale=scale)
+    before = (fa.bwd_launches, fa.tc_bwd_launches)
     qk, kk, vk = (x.clone().requires_grad_(True) for x in (q, k, v))
-    got = torch.autograd.grad(fa.flash_attention(qk, kk, vk, **kw), (qk, kk, vk), dout)
+    got = torch.autograd.grad(fa.flash_attention(qk, kk, vk, route=route, **kw), (qk, kk, vk), dout)
     qr, kr, vr = (x.clone().requires_grad_(True) for x in (q, k, v))
     want = torch.autograd.grad(flash_attention_ref(qr, kr, vr, **kw), (qr, kr, vr), dout)
     torch.cuda.synchronize()
-    assert fa.bwd_launches == before + 1, "the autograd Function did not launch the backward kernel"
+    assert fa.bwd_launches == before[0] + 1, "the autograd Function did not launch the backward kernel"
+    on_tc = (route or fa.route(dtype, case[5])) == "tensor_cores"
+    assert fa.tc_bwd_launches == before[1] + on_tc, "the backward ran on another route"
     worst, scale = 0.0, 0.0
     for a, b in zip(got, want):
         assert a.dtype == dtype and a.shape == b.shape and torch.isfinite(a.float()).all()
@@ -831,12 +912,14 @@ def bwd_vs_plain(case, dtype, seed) -> float:
 def phase_bwd_cases() -> float:
     worst = 0.0
     for dtype in (torch.float32, torch.bfloat16):
-        for i, case in enumerate(FLASH_CASES + [TRAIN_SHAPE]):
-            rel = bwd_vs_plain(case, dtype, seed=100 + i)
-            log("bwd", f"flash_attention backward {case} {str(dtype)[6:]}: max |error| / max |plain| "
-                       f"{rel:.3e} over dq, dk, dv (tol {BWD_TOL[dtype]:g})")
-            assert rel <= BWD_TOL[dtype], f"backward kernel disagrees with autograd of the plain version on {case}"
-            worst = max(worst, rel) if dtype == torch.bfloat16 else worst
+        for i, case in enumerate(FLASH_CASES + [TRAIN_SHAPE] + ([SLICE_SHAPE] if dtype == torch.bfloat16 else [])):
+            for route in routes(dtype, case[5]):
+                rel = bwd_vs_plain(case, dtype, seed=100 + i, route=route)
+                log("bwd", f"flash_attention backward {case} {str(dtype)[6:]} {route}: max |error| / max |plain| "
+                           f"{rel:.3e} over dq, dk, dv (tol {BWD_TOL[dtype]:g})")
+                assert rel <= BWD_TOL[dtype], \
+                    f"backward kernel ({route}) disagrees with autograd of the plain version on {case}"
+                worst = max(worst, rel) if dtype == torch.bfloat16 else worst
     return worst
 
 
@@ -908,11 +991,13 @@ def phase_quant_cases() -> None:
 
 
 def _all_counts() -> dict:
-    return {"flash_attention": fa.launches, "flash_attention_bwd": fa.bwd_launches, **rp.launches, **rq.launches}
+    return {"flash_attention": fa.launches, "flash_attention_bwd": fa.bwd_launches,
+            "flash_attention_tc": fa.tc_launches, "flash_attention_bwd_tc": fa.tc_bwd_launches,
+            **rp.launches, **rq.launches}
 
 
 def _zero_counts() -> None:
-    fa.launches = fa.bwd_launches = 0
+    fa.launches = fa.bwd_launches = fa.tc_launches = fa.cc_launches = fa.tc_bwd_launches = fa.cc_bwd_launches = 0
     for counts in (rp.launches, rq.launches):
         for k in counts:
             counts[k] = 0
@@ -1051,7 +1136,7 @@ def phase_train() -> dict:
             name = e.name
             if any(k in name for k in ("bwd_dkdv", "bwd_dq", "bwd_rowdot")):
                 cls = "flash backward"
-            elif "fa_fwd_kernel" in name:
+            elif "fa_fwd" in name:
                 cls = "flash forward"
             else:
                 cls = _kernel_class(name)
@@ -1104,13 +1189,22 @@ def phase_train() -> dict:
 def check_train_launches(launches: dict, steps: int) -> None:
     """Every kernel of the training path ran on it: the forward twice a
     layer a step (remat reruns it), the backward once, the quant kernels
-    in the streamed commit, the row kernels in it too."""
-    layers = get_config(TRAIN["arch"]).num_layers
+    in the streamed commit, the row kernels in it too. qwen3 computes in
+    bf16 at head dim 128, so every flash launch is on the tensor cores."""
+    cfg = get_config(TRAIN["arch"])
+    layers = cfg.num_layers
     for name in ("flash_attention", "flash_attention_bwd", "pack_rows", "scatter_rows",
                  "pack_quant_rows", "dequant_scatter_rows"):
         assert launches[name] > 0, f"{name} was not launched on the training path"
     assert launches["flash_attention_bwd"] == layers * steps, launches
     assert launches["flash_attention"] == 2 * layers * steps, launches
+    assert fa.route(getattr(torch, cfg.dtype), cfg.resolved_head_dim) == "tensor_cores"
+    assert launches["flash_attention_tc"] == launches["flash_attention"], launches
+    assert launches["flash_attention_bwd_tc"] == launches["flash_attention_bwd"], launches
+    log("train", f"flash launches by route: forward {launches['flash_attention_tc']} tensor_cores / "
+                 f"{launches['flash_attention'] - launches['flash_attention_tc']} cuda_cores, backward "
+                 f"{launches['flash_attention_bwd_tc']} / "
+                 f"{launches['flash_attention_bwd'] - launches['flash_attention_bwd_tc']}")
     assert launches["pack_quant_rows"] == launches["dequant_scatter_rows"]
     assert launches["pack_rows"] == launches["scatter_rows"]
 
@@ -1122,9 +1216,10 @@ def _record(name, source, replaces, launches, err, ms, plain_ms, bound_ms, bound
 
 
 def phase_bwd_times(launches: int, case_err: float) -> dict:
-    """The backward kernel at the training shape (bf16), beside the plain
-    version's backward and ``scaled_dot_product_attention``'s backward, each
-    timed alone on graphs kept for reuse."""
+    """The backward kernel at the training shape (bf16), beside the
+    CUDA-core route, the plain version's backward and
+    ``scaled_dot_product_attention``'s backward, each timed alone on graphs
+    kept for reuse."""
     b, s, t, h, kh, d, causal, window = TRAIN_SHAPE
     q, k, v = rand_qkv(TRAIN_SHAPE, torch.bfloat16, seed=7)
     dout = torch.randn(q.shape, generator=torch.Generator(device="cuda").manual_seed(8), device="cuda").to(q.dtype)
@@ -1133,27 +1228,37 @@ def phase_bwd_times(launches: int, case_err: float) -> dict:
     kernel_ms = median_ms(lambda: fa.flash_attention_bwd_cuda(q, k, v, out, lse, dout, **kw), reps=20)
     on_device_ms = device_ms(lambda: fa.flash_attention_bwd_cuda(q, k, v, out, lse, dout, **kw), "bwd_",
                              per_call=True)
+    cuda_cores_ms = median_ms(lambda: fa.flash_attention_bwd_cuda(q, k, v, out, lse, dout, route="cuda_cores", **kw),
+                              reps=5, warmup=1)
     qr, kr, vr = (x.clone().requires_grad_(True) for x in (q, k, v))
     plain_out = flash_attention_ref(qr, kr, vr, **kw)
     plain_ms = median_ms(lambda: torch.autograd.grad(plain_out, (qr, kr, vr), dout, retain_graph=True), reps=20)
     ql, kl, vl = (x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v))
     lib_out = torch.nn.functional.scaled_dot_product_attention(ql, kl, vl, is_causal=causal, enable_gqa=True)
-    library_ms = median_ms(lambda: torch.autograd.grad(lib_out, (ql, kl, vl), dout.transpose(1, 2),
-                                                       retain_graph=True), reps=20)
+    library = lambda: torch.autograd.grad(lib_out, (ql, kl, vl), dout.transpose(1, 2), retain_graph=True)  # noqa: E731
+    library_ms = median_ms(library, reps=20)
+    library_device_ms = device_ms(library, "", per_call=True)
     # the least work: S again, dP, dV, dK, dQ (5 products of 2d FLOPs per
     # attended pair); q, k, v, o, dout and lse read, dq, dk, dv written
     flops = 10 * d * b * h * attended_pairs(s, t, causal, window)
     nbytes = sum(x.numel() * x.element_size() for x in (q, k, v, out, dout, lse, q, k, v))
     bytes_ms, flops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOP_PER_S * 1e3
     bound_ms = max(bytes_ms, flops_ms)
-    log("times", f"flash_attention backward {TRAIN_SHAPE} bf16: kernel {kernel_ms:.4f} ms (its three kernels on "
-                 f"the device {on_device_ms:.4f} ms), plain backward "
-                 f"{plain_ms:.4f} ms, sdpa backward {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+    tflops = flops / kernel_ms / 1e9  # the 5 products' FLOPs: the kernel does 7
+    log("times", f"flash_attention backward {TRAIN_SHAPE} bf16: kernel {kernel_ms:.4f} ms ({tflops:.1f} TFLOP/s of "
+                 f"the 5 products; its three kernels on the device {on_device_ms:.4f} ms), the CUDA-core route "
+                 f"{cuda_cores_ms:.4f} ms, plain backward {plain_ms:.4f} ms, sdpa backward {library_ms:.4f} ms "
+                 f"(on the device {library_device_ms:.4f} ms), bound {bound_ms:.4f} ms "
                  f"({nbytes / 1e6:.1f} MB -> {bytes_ms:.4f} ms; {flops / 1e9:.2f} GFLOP -> {flops_ms:.4f} ms)")
-    return _record("flash_attention_bwd", "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+    return _record("flash_attention_bwd", "src/repro_torch/kernels/csrc/flash_attention_bwd_tc.cu",
                    "src/repro/kernels/flash_attention.py:124 (backward; the TPU kernel has none)", launches,
                    case_err, kernel_ms, plain_ms, bound_ms, "bytes" if bytes_ms >= flops_ms else "operations",
-                   library_ms, device_ms=on_device_ms, err_is="max |error| / max |plain gradient| over the cases, bf16")
+                   library_ms, device_ms=on_device_ms, library_device_ms=library_device_ms, tflops=tflops,
+                   cuda_cores_ms=cuda_cores_ms,
+                   sources={"tensor_cores": "src/repro_torch/kernels/csrc/flash_attention_bwd_tc.cu",
+                            "cuda_cores": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"},
+                   shape=list(TRAIN_SHAPE),
+                   err_is="max |error| / max |plain gradient| over the cases, bf16, both routes")
 
 
 def phase_quant_times(launches: dict) -> list[dict]:

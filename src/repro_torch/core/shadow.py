@@ -170,7 +170,8 @@ class ShadowBuilder:
 # Training worlds
 # ---------------------------------------------------------------------------
 
-_TRAIN_KERNELS = ("flash_attention", "flash_attention_bwd", "reshard_pack", "reshard_quant")
+_TRAIN_KERNELS = ("flash_attention", "flash_attention_tc", "flash_attention_bwd", "flash_attention_bwd_tc",
+                  "reshard_pack", "reshard_quant")
 
 
 def warm_device(device: torch.device, dtype: torch.dtype, kernels=_TRAIN_KERNELS) -> None:

@@ -51,10 +51,13 @@ def nvcc() -> str:
 
 
 def source_hash(name: str) -> str:
-    """Hash of ``csrc/<name>.cu`` and the flags: the key of the built
-    library. (The sources include no headers of their own.)"""
+    """Hash of ``csrc/<name>.cu``, the headers beside it (``csrc/*.cuh``)
+    and the flags: the key of the built library."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     h.update((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
     return h.hexdigest()[:16]
 
 

@@ -1,11 +1,26 @@
 """Flash attention on the GPU: the wrappers of the hand-written CUDA kernels
-in ``csrc/flash_attention.cu`` (forward) and ``csrc/flash_attention_bwd.cu``
-(backward), and the ``torch.autograd.Function`` that joins them.
+and the ``torch.autograd.Function`` that joins them.
+
+Two routes, chosen by :func:`route`, a pure function of (dtype, head dim)
+taken before the launch, a dispatch by shape and not a fallback:
+
+- ``"tensor_cores"``, bf16 at head dims 64, 128 and 256:
+  ``csrc/flash_attention_tc.cu`` (forward) and
+  ``csrc/flash_attention_bwd_tc.cu`` (backward), bf16 products on wgmma
+  with fp32 sums and softmax statistics;
+- ``"cuda_cores"``, float32 (TF32 would miss its tolerance) and bf16 at
+  head dims 16 and 32: ``csrc/flash_attention.cu`` and
+  ``csrc/flash_attention_bwd.cu``, fp32 FMAs throughout.
+
+A launch that fails raises; nothing retries on the other route. Passing
+``route=`` names a route explicitly (``chip_smoke.py`` runs both where both
+take the case); the tensor-core route refuses what it does not take.
 
 It replaces the TPU kernel ``repro/kernels/flash_attention.py``
 (``flash_attention_pallas``) and computes the same function: causal and
 sliding-window masks, GQA (q head ``hi`` reads kv head ``hi // (h/kh)``),
-queries right-aligned at ``t - s``, fp32 arithmetic, output in q's dtype.
+queries right-aligned at ``t - s``, fp32 softmax statistics, output in
+q's dtype.
 Its plain version is :func:`repro_torch.kernels.ref.flash_attention_ref`;
 ``ops.flash_attention`` picks between the two by the tensors' device, and
 on the card calls :func:`flash_attention`, the autograd Function: its
@@ -32,37 +47,64 @@ import torch
 from repro_torch.kernels import build
 
 HEAD_DIMS = (16, 32, 64, 128, 256)
+TC_HEAD_DIMS = (64, 128, 256)
+ROUTES = ("tensor_cores", "cuda_cores")
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_GRID_LIMIT = 65535  # grid.y = heads, grid.z = batch
+_GRID_LIMIT = 65535  # heads and batch are grid dimensions
 
 # Kernel launches in this process; each is bumped once per launch of its
-# kernel, nowhere else.
+# kernel, nowhere else. ``launches`` and ``bwd_launches`` count every
+# launch; the ``tc_`` and ``cc_`` counts split them by route.
 launches = 0
 bwd_launches = 0
+tc_launches = 0
+cc_launches = 0
+tc_bwd_launches = 0
+cc_bwd_launches = 0
 
 
-def _lib() -> ctypes.CDLL:
-    lib = build.load("flash_attention")
-    fn = lib.repro_flash_attention_fwd
+def route(dtype: torch.dtype, d: int) -> str:
+    """The route of a (dtype, head dim): the tensor cores for bf16 at
+    :data:`TC_HEAD_DIMS`, the CUDA cores for everything else."""
+    return "tensor_cores" if dtype == torch.bfloat16 and d in TC_HEAD_DIMS else "cuda_cores"
+
+
+def _pick_route(q: torch.Tensor, chosen: str | None) -> str:
+    if chosen is None:
+        return route(q.dtype, q.shape[-1])
+    if chosen not in ROUTES:
+        raise ValueError(f"route {chosen!r} not in {ROUTES}")
+    if chosen == "tensor_cores" and route(q.dtype, q.shape[-1]) != chosen:
+        raise ValueError(f"the tensor-core route takes bf16 at head dims {TC_HEAD_DIMS}, "
+                         f"not {q.dtype} at {q.shape[-1]}")
+    return chosen
+
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# library -> (its launch function, its error-string function, the launch's argument types)
+_ENTRY = {
+    "flash_attention": ("repro_flash_attention_fwd", "repro_cuda_error_string", [_P] * 5 + [_I] * 9 + [_F, _P]),
+    "flash_attention_tc": ("repro_flash_attention_fwd_tc", "repro_flash_tc_error_string",
+                           [_P] * 5 + [_I] * 8 + [_F, _P]),
+    "flash_attention_bwd": ("repro_flash_attention_bwd", "repro_flash_bwd_error_string",
+                            [_P] * 10 + [_I] * 9 + [_F, _P]),
+    "flash_attention_bwd_tc": ("repro_flash_attention_bwd_tc", "repro_flash_bwd_tc_error_string",
+                               [_P] * 10 + [_I] * 8 + [_F, _P]),
+}
+
+
+def _entry(name: str):
+    """(launch function, error-string function) of library ``name``, loaded
+    (built first if needed) and typed."""
+    lib = build.load(name)
+    fn_name, err_name, argtypes = _ENTRY[name]
+    fn, err_fn = getattr(lib, fn_name), getattr(lib, err_name)
     if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, i, ctypes.c_float, p]
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-        lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.repro_cuda_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-def _bwd_lib() -> ctypes.CDLL:
-    lib = build.load("flash_attention_bwd")
-    fn = lib.repro_flash_attention_bwd
-    if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 10 + [i] * 9 + [ctypes.c_float, p]
-        fn.restype = ctypes.c_int
-        lib.repro_flash_bwd_error_string.argtypes = [ctypes.c_int]
-        lib.repro_flash_bwd_error_string.restype = ctypes.c_char_p
-    return lib
+        err_fn.argtypes = [ctypes.c_int]
+        err_fn.restype = ctypes.c_char_p
+    return fn, err_fn
 
 
 def check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, window: int):
@@ -100,34 +142,39 @@ def flash_attention_cuda(
     window: int = 0,
     scale: float | None = None,
     return_lse: bool = False,
+    route: str | None = None,
 ):
-    """Launch the forward kernel on torch's current stream; no
-    synchronisation. Returns the output, or (output, lse) with
-    ``return_lse``: each row's log-sum-exp of the scaled scores, fp32,
-    ``(b, h, s)``."""
-    global launches
+    """Launch the forward kernel of ``route`` (default :func:`route` of the
+    inputs) on torch's current stream; no synchronisation. Returns the
+    output, or (output, lse) with ``return_lse``: each row's log-sum-exp of
+    the scaled scores, fp32, ``(b, h, s)``."""
+    global launches, tc_launches, cc_launches
     check_args(q, k, v, causal, window)
+    chosen = _pick_route(q, route)
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError(f"flash_attention_cuda needs CUDA tensors on one device, got {q.device}, {k.device}, {v.device}")
     b, s, h, d = q.shape
     t, kh = k.shape[1], k.shape[2]
     if scale is None:
         scale = d**-0.5
-    lib = _lib()
     out = torch.empty_like(q)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device) if return_lse else None
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr() if return_lse else None)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.repro_flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr() if return_lse else None,
-            b, s, t, h, kh, d, _DTYPE_CODES[q.dtype], int(causal), int(window),
-            float(scale), stream,
-        )
+        if chosen == "tensor_cores":
+            fn, msg = _entry("flash_attention_tc")
+            err = fn(*ptrs, b, s, t, h, kh, d, int(causal), int(window), float(scale), stream)
+        else:
+            fn, msg = _entry("flash_attention")
+            err = fn(*ptrs, b, s, t, h, kh, d, _DTYPE_CODES[q.dtype], int(causal), int(window), float(scale), stream)
     if err != 0:
-        msg = lib.repro_cuda_error_string(err).decode()
-        raise RuntimeError(f"flash attention launch failed: cudaError {err} ({msg})")
+        raise RuntimeError(f"flash attention launch failed ({chosen}): cudaError {err} ({msg(err).decode()})")
     launches += 1
+    if chosen == "tensor_cores":
+        tc_launches += 1
+    else:
+        cc_launches += 1
     return (out, lse) if return_lse else out
 
 
@@ -142,12 +189,15 @@ def flash_attention_bwd_cuda(
     causal: bool = True,
     window: int = 0,
     scale: float | None = None,
+    route: str | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Launch the backward kernel on torch's current stream: (dq, dk, dv)
-    of the forward that gave ``out`` and ``lse``, for the output gradient
-    ``dout``; no synchronisation."""
-    global bwd_launches
+    """Launch the backward kernels of ``route`` (default :func:`route` of
+    the inputs) on torch's current stream: (dq, dk, dv) of the forward that
+    gave ``out`` and ``lse``, for the output gradient ``dout``; no
+    synchronisation."""
+    global bwd_launches, tc_bwd_launches, cc_bwd_launches
     check_args(q, k, v, causal, window)
+    chosen = _pick_route(q, route)
     b, s, h, d = q.shape
     t, kh = k.shape[1], k.shape[2]
     for name, x, shape, dtype in (("out", out, q.shape, q.dtype), ("dout", dout, q.shape, q.dtype),
@@ -161,46 +211,53 @@ def flash_attention_bwd_cuda(
         raise ValueError("out and dout must start on a 16-byte boundary")
     if scale is None:
         scale = d**-0.5
-    lib = _bwd_lib()
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     dsum = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), dsum.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr())
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.repro_flash_attention_bwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
-            lse.data_ptr(), dsum.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            b, s, t, h, kh, d, _DTYPE_CODES[q.dtype], int(causal), int(window),
-            float(scale), stream,
-        )
+        if chosen == "tensor_cores":
+            fn, msg = _entry("flash_attention_bwd_tc")
+            err = fn(*ptrs, b, s, t, h, kh, d, int(causal), int(window), float(scale), stream)
+        else:
+            fn, msg = _entry("flash_attention_bwd")
+            err = fn(*ptrs, b, s, t, h, kh, d, _DTYPE_CODES[q.dtype], int(causal), int(window), float(scale), stream)
     if err != 0:
-        msg = lib.repro_flash_bwd_error_string(err).decode()
-        raise RuntimeError(f"flash attention backward launch failed: cudaError {err} ({msg})")
+        raise RuntimeError(f"flash attention backward launch failed ({chosen}): cudaError {err} ({msg(err).decode()})")
     bwd_launches += 1
+    if chosen == "tensor_cores":
+        tc_bwd_launches += 1
+    else:
+        cc_bwd_launches += 1
     return dq, dk, dv
 
 
 class FlashAttention(torch.autograd.Function):
-    """The forward kernel with the backward kernel as its gradient."""
+    """The forward kernel with the backward kernel as its gradient, both on
+    one route (``None``: :func:`route` of the inputs)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool, window: int, scale: float | None):
+    def forward(ctx, q, k, v, causal: bool, window: int, scale: float | None, route: str | None = None):
         need_grad = any(ctx.needs_input_grad[:3])
-        res = flash_attention_cuda(q, k, v, causal=causal, window=window, scale=scale, return_lse=need_grad)
+        res = flash_attention_cuda(q, k, v, causal=causal, window=window, scale=scale, return_lse=need_grad,
+                                   route=route)
         if not need_grad:
             return res
         out, lse = res
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.opts = dict(causal=causal, window=window, scale=scale)
+        ctx.opts = dict(causal=causal, window=window, scale=scale, route=route)
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd_cuda(q, k, v, out, lse, dout.contiguous(), **ctx.opts)
-        return dq, dk, dv, None, None, None
+        return dq, dk, dv, None, None, None, None
 
 
-def flash_attention(q, k, v, *, causal: bool = True, window: int = 0, scale: float | None = None):
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0, scale: float | None = None,
+                    route: str | None = None):
     """Attention on the card, differentiable: the forward kernel, and the
     backward kernel when autograd asks for a gradient."""
-    return FlashAttention.apply(q, k, v, causal, window, scale)
+    return FlashAttention.apply(q, k, v, causal, window, scale, route)

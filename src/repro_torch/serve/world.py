@@ -30,7 +30,7 @@ __all__ = ["build_serve_world"]
 
 # the kernel libraries a serving world runs: either mixer's and the
 # reshard data plane's
-_SERVE_KERNELS = ("flash_attention", "ssd_scan", "reshard_pack")
+_SERVE_KERNELS = ("flash_attention", "flash_attention_tc", "ssd_scan", "reshard_pack")
 
 
 def build_serve_world(
