@@ -34,7 +34,11 @@ non-zero without one. Phases, each printing one line or more:
 7. the reshard row kernels (pack_rows, scatter_rows, relayout_rows,
    unpack_rows) against their plain versions, byte for byte, on the CPU
    tests' cases in f32/bf16/int8 and at the elastic path's shapes, and the
-   refusal of starts that leave the array;
+   refusal of starts that leave the array; scatter_rows and relayout_rows
+   at one segment, at the by-value table's capacity and past it (the device
+   table, also on a side stream and in more calls than the pinned ring has
+   slots), and on overlapping starts, each checked for the table form it
+   took and for one launch;
 8. elastic serving at full width: qwen3-1.7b, 8 requests of 512-token
    prompts and 32 greedy tokens on dp2tp2, resized mid-generation to
    dp1tp2, dp1tp4 and dp2tp2; params and the live KV cache move through
@@ -43,11 +47,13 @@ non-zero without one. Phases, each printing one line or more:
    bound, and the tokens against an uninterrupted run; prints each
    commit's pause, plan time, bytes, data-plane rate and peak memory;
 9. the data plane of the two byte-moving resizes replayed alone: wall
-   time, and under ``torch.profiler`` the device time by kernel class;
+   time, the host time of each row wrapper per call, and under
+   ``torch.profiler`` the device time by kernel class;
 10. the row kernels' times (median of 20 calls, CUDA events; and the kernel
-   alone on the device, from the profiler) at the elastic path's per-layer
-   move and at 4096 scattered embedding rows, beside their plain versions,
-   one PyTorch call each and the HBM bound;
+   alone on the device, from the profiler; the call's host time is the
+   difference) at the elastic path's per-layer move and at 4096 scattered
+   embedding rows, beside their plain versions, one PyTorch call each and
+   the HBM bound, with the segment table's form;
 11. the flash-attention backward kernel against autograd of the plain
    version, over the forward's cases and the training shape, f32 and bf16
    (and the serving shape in bf16), on each route that takes the case;
@@ -573,6 +579,7 @@ def phase_row_cases() -> None:
         log("rows", f"{kind}: equal on a cache row {CACHE_ROW} bf16, 4096 scattered embedding rows "
                     f"{EMBED} bf16, 4160 starts with repeats, 576 overlapping blocks of 8, one run of "
                     f"{EMBED[0] // 2} rows")
+    phase_table_forms()
     src = rand_rows((64, 8), torch.float32, 0)
     bad = {
         "pack_rows start 64": lambda: rp.pack_rows_cuda(src, [64], 1),
@@ -587,6 +594,63 @@ def phase_row_cases() -> None:
             log("rows", f"refused {why}")
         else:
             raise AssertionError(f"row kernel accepted {why}")
+
+
+def _forms_since(before: dict) -> dict:
+    """The table forms of the scatter/relayout launches since ``before`` (a
+    copy of ``rp.table_launches``), with their counts."""
+    return {k: rp.table_launches[k] - before[k] for k in before if rp.table_launches[k] != before[k]}
+
+
+def phase_table_forms() -> None:
+    """scatter_rows and relayout_rows against their plain versions, byte
+    for byte, with the segment table at each form's edge: one segment,
+    exactly the by-value capacity, one past it (the device table), and the
+    overlapping starts. Each call must launch once, with the form its
+    segment count picks. Then tables past the capacity in more calls than
+    the pinned ring has slots, on the default and on a side stream, with no
+    synchronisation between them."""
+    cap = rp.PARAM_SEGS
+    rows, C = 2 * (cap + 1) + 1, 2048
+    rng = np.random.default_rng(5)
+    cases = {
+        "one segment": ([7], 1, "param"),
+        "by-value capacity": ([int(x) for x in rng.permutation(cap) * 2], 1, "param"),
+        "one past it": ([int(x) for x in rng.permutation(cap + 1) * 2], 1, "device"),
+        "overlapping starts": (OVERLAP_STARTS[0], 8, "param"),
+        "overlapping starts, reversed": (OVERLAP_STARTS[1], 8, "param"),
+    }
+    for kind in ("scatter_rows", "relayout_rows"):
+        for why, (starts, block, form) in cases.items():
+            before, forms_before = rp.launches[kind], dict(rp.table_launches)
+            row_kernel_vs_plain(kind, rows, C, torch.bfloat16, starts, block, 31)
+            forms = _forms_since(forms_before)
+            assert forms == {form: 1} and rp.launches[kind] == before + 1, (kind, why, forms)
+        log("rows", f"{kind}: equal at one segment, {cap} segments by value, {cap + 1} through the device "
+                    f"table and on overlapping starts, one launch each ({rows} x {C} bf16)")
+    # tables past the capacity, queued back to back: the ring's slots and
+    # the per-stream device tables are reused while earlier calls still run
+    side = torch.cuda.Stream()
+    calls = 3 * rp._RING_SLOTS
+    rows = 2 * (cap + calls) + 1
+    src, base = rand_rows((rows, C), torch.bfloat16, 32), rand_rows((rows, C), torch.bfloat16, 33)
+    jobs = []
+    for i in range(calls):
+        starts = [int(x) for x in np.random.default_rng(40 + i).permutation(cap + 1 + i) * 2]
+        buf = rand_rows((len(starts), C), torch.bfloat16, 50 + i)
+        stream = side if i % 3 == 2 else torch.cuda.current_stream()
+        if stream is side:
+            side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            got_s = rp.scatter_rows_cuda(base.clone(), buf, starts, 1)
+            got_r = rp.relayout_rows_cuda(base.clone(), src, starts, 1)
+        jobs.append((starts, buf, got_s, got_r))
+    torch.cuda.synchronize()
+    for starts, buf, got_s, got_r in jobs:
+        assert torch.equal(got_s, R.scatter_rows_ref(base.clone(), buf, starts, 1)), len(starts)
+        assert torch.equal(got_r, R.relayout_rows_ref(base.clone(), src, starts, 1)), len(starts)
+    log("rows", f"{len(jobs)} back-to-back calls of each past the capacity ({cap + 1}-{cap + len(jobs)} segments, "
+                f"{rp._RING_SLOTS} pinned slots, a third on a side stream): equal to the plain versions")
 
 
 def elastic_session(cfg, prompts, trace):
@@ -716,6 +780,31 @@ def _device_class(name: str) -> str:
     return "other"
 
 
+class _wrapper_clocks:
+    """Within the block, times every call of the row kernels' CUDA wrappers
+    on the host clock: ``host[kind] = [calls, seconds]`` accumulate."""
+
+    def __init__(self, host: dict):
+        self.host, self.saved = host, {}
+
+    def __enter__(self):
+        for kind in ROW_KERNELS:
+            fn = self.saved[kind] = getattr(rp, f"{kind}_cuda")
+
+            def timed(*args, _fn=fn, _kind=kind):
+                t0 = time.perf_counter()
+                out = _fn(*args)
+                self.host[_kind][1] += time.perf_counter() - t0
+                self.host[_kind][0] += 1
+                return out
+
+            setattr(rp, f"{kind}_cuda", timed)
+
+    def __exit__(self, *exc):
+        for kind, fn in self.saved.items():
+            setattr(rp, f"{kind}_cuda", fn)
+
+
 def phase_commit_profile() -> None:
     """Where a commit's data-plane time goes: the elastic path's two
     byte-moving resizes (dp1tp2 -> dp1tp4, dp1tp4 -> dp2tp2) replayed on a
@@ -736,11 +825,13 @@ def phase_commit_profile() -> None:
         plan = serve_plan(cfg, specs, ca, cb)
         worlds = ([dev] * ca.world_size, [dev] * cb.world_size)
         walls = []
+        host = {k: [0, 0.0] for k in ROW_KERNELS}  # calls, wrapper seconds, over the timed runs
         for _ in range(3):
             torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            dst, stats = live_reshard_planned(specs, plan, state, *worlds)
-            walls.append(time.perf_counter() - t0)
+            with _wrapper_clocks(host):
+                t0 = time.perf_counter()
+                dst, stats = live_reshard_planned(specs, plan, state, *worlds)
+                walls.append(time.perf_counter() - t0)
             del dst
         before = dict(rp.launches)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -763,6 +854,14 @@ def phase_commit_profile() -> None:
                       + ", ".join(f"{k} {v:.3f} ms" for k, v in sorted(busy.items(), key=lambda kv: -kv[1]))
                       + f"; {launched} row launches, host {(wall_ms - total) / max(launched, 1):.3f} ms per launch "
                         "beyond the device time")
+        wall_s = sum(walls)
+        wrapped_s = sum(sec for _, sec in host.values())
+        log("commit", f"{ca.describe()} -> {cb.describe()} host by kernel (the 3 timed runs, no profiler): "
+                      + ", ".join(f"{k} {calls // 3} calls, wrapper {1e3 * sec / calls:.4f} ms per call, device "
+                                  f"{busy.get(k, 0.0) / max(calls // 3, 1):.4f} ms per launch"
+                                  for k, (calls, sec) in host.items() if calls)
+                      + f"; outside the wrappers {1e3 * (wall_s - wrapped_s) / 3:.3f} ms per run of "
+                        f"{1e3 * wall_s / 3:.3f} ms")
     del state
     torch.cuda.empty_cache()
 
@@ -836,16 +935,22 @@ def phase_row_times(launches: dict) -> list[dict]:
                  "unpack_rows": lambda s: R.unpack_rows_ref(buf, s, 1, rows)}[kind](start_sets[0])
             err = (a.float() - b.float()).abs().max().item()
             del a, b
+            forms_before = dict(rp.table_launches)
             kernel_ms = median_ms(kernel, reps=20)
+            forms = _forms_since(forms_before)
+            form = "/".join(forms) if forms else "int64 table copied to the card per call"
             plain_ms = median_ms(plain, reps=20)
             library_ms = median_ms(library, reps=20)
             on_device_ms = device_ms(kernel, f"{kind}_kernel")
             nbytes = _row_bytes_moved(kind, C, nb, 1, rows, 2)
             bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
             log("times", f"{kind} {case} ({nb} of {rows} rows x {C} bf16): call {kernel_ms:.4f} ms (kernel "
-                         f"on the device {on_device_ms:.4f} ms, {nbytes / on_device_ms / 1e6:.0f} GB/s), plain "
-                         f"{plain_ms:.4f} ms, library {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
-                         f"({nbytes / 1e6:.1f} MB), max_abs_err {err:g}")
+                         f"on the device {on_device_ms:.4f} ms, {nbytes / on_device_ms / 1e6:.0f} GB/s; host "
+                         f"{kernel_ms - on_device_ms:.4f} ms, table {form}), plain {plain_ms:.4f} ms, library "
+                         f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB), "
+                         f"max_abs_err {err:g}")
+            if kind in ("scatter_rows", "relayout_rows"):
+                assert len(forms) == 1, forms
             assert err == 0.0, f"{kind} disagrees with its plain version at {case}"
             if case == "cache_row":  # the elastic path's per-layer move goes in the record
                 rec = {
@@ -859,6 +964,8 @@ def phase_row_times(launches: dict) -> list[dict]:
                     "ms": kernel_ms,
                     "kernel_ms": kernel_ms,
                     "device_ms": on_device_ms,
+                    "host_ms": kernel_ms - on_device_ms,
+                    "table": form,
                     "plain_ms": plain_ms,
                     "bound_ms": bound_ms,
                     "bound_by": "bytes",

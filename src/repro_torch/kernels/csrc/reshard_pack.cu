@@ -19,9 +19,10 @@
 // reading each moved byte once and writing it once (3.35 TB/s). The design:
 //   - a copy is a list of segments of whole rows, each contiguous in both
 //     arrays; blockIdx.y walks the segments and the x dimension of the grid
-//     strides over one segment's bytes, so one long run (a contiguous row
-//     range of hundreds of MB) and thousands of short ones (scattered
-//     single rows) both fill the card;
+//     strides over one segment's bytes. x is fitted to the longest segment
+//     and to the card (kFillBlocks over the y segments), so one long run (a
+//     contiguous row range of hundreds of MB) and thousands of short ones
+//     (scattered single rows) both fill the SMs;
 //   - every segment is copied in 16-byte units when both addresses and its
 //     length allow, else in the widest of 8/4/2/1 bytes that does, so the
 //     kernels take any dtype and any row pitch; offsets are 64-bit;
@@ -32,12 +33,25 @@
 //     segments that never write one row twice, so repeated and overlapping
 //     starts give the reference's sequential result and no two threads
 //     write one byte.
+//
+// What bounds a call, as opposed to the kernel: the host work around the
+// launch (a moved cache row takes ~5 us on the device). So scatter_rows and
+// relayout_rows take their segment table (int32 triples; the wrapper merges
+// runs, so a contiguous run is one segment) by value, in a
+// __grid_constant__ struct in the kernel's parameters (up to 32,764 bytes
+// from CUDA 12.1 on sm_70 and later): no allocation, no host-to-device copy,
+// no event. Three size classes (kParamClasses) keep a one-segment call's
+// parameters small. A table of more than kParamSegs segments is copied by
+// the entry, with one cudaMemcpyAsync on the call's stream, from a pinned
+// host buffer into a device table that the wrapper keeps per stream, and
+// read from there: still one launch. pack_rows and unpack_rows still take an
+// int64 table in device memory that the wrapper copies.
 // The wrapper checks shapes, types, devices and the range of every start,
-// allocates outputs and the segment table, and passes torch's current
-// stream. Speed work (TMA bulk copies, fewer launches per batch) is later.
+// allocates outputs and tables, and passes torch's current stream.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace {
 
@@ -87,23 +101,46 @@ __global__ void pack_rows_kernel(char* __restrict__ out, const char* __restrict_
   }
 }
 
-// The other three take segments (src_row, dst_row, rows) as int64 triples.
-__global__ void scatter_rows_kernel(char* __restrict__ dst, const char* __restrict__ buf,
-                                    const int64_t* __restrict__ segs, int64_t n, int64_t row_bytes) {
-  for (int64_t i = blockIdx.y; i < n; i += gridDim.y) {
-    const int64_t* g = segs + 3 * i;
-    copy_span(dst + g[1] * row_bytes, buf + g[0] * row_bytes, g[2] * row_bytes);
+// scatter and relayout take segments (src_row, dst_row, rows) as int32
+// triples in a RowTable: RowTable<CAP> holds up to CAP of them by value,
+// RowTable<0> points at a table in device memory.
+template <int CAP>
+struct RowTable {
+  int32_t n;
+  int32_t seg[3 * CAP];
+};
+
+template <>
+struct RowTable<0> {
+  int32_t n;
+  const int32_t* seg;
+};
+
+// The size classes of the by-value table; the last is the capacity. The
+// wrapper's PARAM_SEGS (repro_torch/kernels/reshard_pack.py) must equal it.
+constexpr int kParamClasses[] = {16, 256, 2720};
+constexpr int kParamSegs = kParamClasses[2];
+// The parameters: two pointers, row_bytes and the table.
+static_assert(3 * sizeof(int64_t) + sizeof(RowTable<kParamSegs>) <= 32764,
+              "the by-value table exceeds the 32,764 bytes of kernel parameters");
+
+template <int CAP>
+__global__ void scatter_rows_kernel(char* __restrict__ dst, const char* __restrict__ buf, int64_t row_bytes,
+                                    const __grid_constant__ RowTable<CAP> t) {
+  for (int64_t i = blockIdx.y; i < t.n; i += gridDim.y) {
+    const int64_t from = t.seg[3 * i], to = t.seg[3 * i + 1], rows = t.seg[3 * i + 2];
+    copy_span(dst + to * row_bytes, buf + from * row_bytes, rows * row_bytes);
   }
 }
 
 // relayout: the same rows of two arrays (src_row == dst_row in every segment).
 // Not __restrict__: a destination adopted from its source may be the source.
-__global__ void relayout_rows_kernel(char* dst, const char* src,
-                                     const int64_t* __restrict__ segs, int64_t n,
-                                     int64_t row_bytes) {
-  for (int64_t i = blockIdx.y; i < n; i += gridDim.y) {
-    const int64_t* g = segs + 3 * i;
-    copy_span(dst + g[1] * row_bytes, src + g[0] * row_bytes, g[2] * row_bytes);
+template <int CAP>
+__global__ void relayout_rows_kernel(char* dst, const char* src, int64_t row_bytes,
+                                     const __grid_constant__ RowTable<CAP> t) {
+  for (int64_t i = blockIdx.y; i < t.n; i += gridDim.y) {
+    const int64_t from = t.seg[3 * i], to = t.seg[3 * i + 1], rows = t.seg[3 * i + 2];
+    copy_span(dst + to * row_bytes, src + from * row_bytes, rows * row_bytes);
   }
 }
 
@@ -129,6 +166,64 @@ dim3 grid_for(int64_t n, int64_t max_seg_bytes) {
   return dim3(static_cast<unsigned>(x), static_cast<unsigned>(y), 1);
 }
 
+template <int CAP>
+void launch_table(bool relayout, dim3 grid, cudaStream_t stream, char* dst, const char* src,
+                  int64_t row_bytes, const RowTable<CAP>& t) {
+  if (relayout) {
+    relayout_rows_kernel<CAP><<<grid, kThreads, 0, stream>>>(dst, src, row_bytes, t);
+  } else {
+    scatter_rows_kernel<CAP><<<grid, kThreads, 0, stream>>>(dst, src, row_bytes, t);
+  }
+}
+
+// The by-value form: the table is copied into the parameters of the
+// smallest class that holds it; the launch copies the parameters, so segs
+// may go once this returns.
+template <int CAP>
+void launch_by_value(bool relayout, dim3 grid, cudaStream_t stream, char* dst, const char* src,
+                     int64_t row_bytes, const int32_t* segs, int64_t n) {
+  RowTable<CAP> t;
+  t.n = static_cast<int32_t>(n);
+  memcpy(t.seg, segs, sizeof(int32_t) * 3 * n);
+  launch_table<CAP>(relayout, grid, stream, dst, src, row_bytes, t);
+}
+
+// segs: n int32 triples in host memory. n <= kParamSegs: by value (dev_segs
+// unused). Larger: segs must be pinned; one cudaMemcpyAsync on `stream`
+// copies it into dev_segs (room for 3n int32), then the kernel reads it
+// there. The caller keeps segs until that copy has run and does not write
+// dev_segs before the kernel has read it (one device table per stream).
+int launch_rows(bool relayout, void* dst, const void* src, const int32_t* segs, int64_t n,
+                int64_t row_bytes, int32_t* dev_segs, void* stream) {
+  if (n < 0 || row_bytes <= 0 || (n > kParamSegs && dev_segs == nullptr)) return cudaErrorInvalidValue;
+  if (n == 0) return 0;
+  int64_t max_rows = 0;
+  for (int64_t i = 0; i < n; ++i) {
+    const int32_t from = segs[3 * i], to = segs[3 * i + 1], rows = segs[3 * i + 2];
+    if (from < 0 || to < 0 || rows <= 0) return cudaErrorInvalidValue;
+    if (rows > max_rows) max_rows = rows;
+  }
+  const dim3 grid = grid_for(n, max_rows * row_bytes);
+  const auto s = static_cast<cudaStream_t>(stream);
+  char* d = static_cast<char*>(dst);
+  const char* f = static_cast<const char*>(src);
+  if (n <= kParamClasses[0]) {
+    launch_by_value<kParamClasses[0]>(relayout, grid, s, d, f, row_bytes, segs, n);
+  } else if (n <= kParamClasses[1]) {
+    launch_by_value<kParamClasses[1]>(relayout, grid, s, d, f, row_bytes, segs, n);
+  } else if (n <= kParamSegs) {
+    launch_by_value<kParamSegs>(relayout, grid, s, d, f, row_bytes, segs, n);
+  } else {
+    const cudaError_t err = cudaMemcpyAsync(dev_segs, segs, sizeof(int32_t) * 3 * n, cudaMemcpyHostToDevice, s);
+    if (err != cudaSuccess) return err;
+    RowTable<0> t;
+    t.n = static_cast<int32_t>(n);
+    t.seg = dev_segs;
+    launch_table<0>(relayout, grid, s, d, f, row_bytes, t);
+  }
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Each entry launches one kernel on `stream` and returns cudaGetLastError()
@@ -144,25 +239,18 @@ extern "C" int repro_pack_rows(void* out, const void* src, const int64_t* starts
   return cudaGetLastError();
 }
 
-extern "C" int repro_scatter_rows(void* dst, const void* buf, const int64_t* segs, int64_t n,
-                                  int64_t max_seg_rows, int64_t row_bytes, void* stream) {
-  if (n < 0 || max_seg_rows <= 0 || row_bytes <= 0) return cudaErrorInvalidValue;
-  if (n == 0) return 0;
-  scatter_rows_kernel<<<grid_for(n, max_seg_rows * row_bytes), kThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<char*>(dst), static_cast<const char*>(buf), segs, n, row_bytes);
-  return cudaGetLastError();
+extern "C" int repro_scatter_rows(void* dst, const void* buf, const int32_t* segs, int64_t n,
+                                  int64_t row_bytes, int32_t* dev_segs, void* stream) {
+  return launch_rows(false, dst, buf, segs, n, row_bytes, dev_segs, stream);
 }
 
-extern "C" int repro_relayout_rows(void* dst, const void* src, const int64_t* segs, int64_t n,
-                                   int64_t max_seg_rows, int64_t row_bytes, void* stream) {
-  if (n < 0 || max_seg_rows <= 0 || row_bytes <= 0) return cudaErrorInvalidValue;
-  if (n == 0) return 0;
-  relayout_rows_kernel<<<grid_for(n, max_seg_rows * row_bytes), kThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<char*>(dst), static_cast<const char*>(src), segs, n, row_bytes);
-  return cudaGetLastError();
+extern "C" int repro_relayout_rows(void* dst, const void* src, const int32_t* segs, int64_t n,
+                                   int64_t row_bytes, int32_t* dev_segs, void* stream) {
+  return launch_rows(true, dst, src, segs, n, row_bytes, dev_segs, stream);
 }
+
+// The most segments a by-value table holds.
+extern "C" int repro_rows_param_segs() { return kParamSegs; }
 
 extern "C" int repro_unpack_rows(void* out, const void* buf, const int64_t* segs, int64_t n,
                                  int64_t max_seg_rows, int64_t row_bytes, void* stream) {
