@@ -582,75 +582,119 @@ def phase_row_cases() -> None:
     phase_table_forms()
     src = rand_rows((64, 8), torch.float32, 0)
     bad = {
-        "pack_rows start 64": lambda: rp.pack_rows_cuda(src, [64], 1),
-        "scatter_rows start -1": lambda: rp.scatter_rows_cuda(src, src[:1], [-1], 1),
-        "relayout_rows block past the end": lambda: rp.relayout_rows_cuda(src, src.clone(), [63], 2),
-        "unpack_rows start 64": lambda: rp.unpack_rows_cuda(src[:1], [64], 1, 64),
+        "pack_rows start 64": (lambda: rp.pack_rows_cuda(src, [64], 1), ValueError),
+        "pack_rows start -1 among 3": (lambda: rp.pack_rows_cuda(src, [0, 5, -1], 1), ValueError),
+        "pack_rows start 1.5": (lambda: rp.pack_rows_cuda(src, [0, 1.5], 1), TypeError),
+        "pack_rows start 2**70": (lambda: rp.pack_rows_cuda(src, [2**70], 1), OverflowError),
+        "scatter_rows start -1": (lambda: rp.scatter_rows_cuda(src, src[:1], [-1], 1), ValueError),
+        "relayout_rows block past the end": (lambda: rp.relayout_rows_cuda(src, src.clone(), [63], 2), ValueError),
+        "unpack_rows start 64": (lambda: rp.unpack_rows_cuda(src[:1], [64], 1, 64), ValueError),
     }
-    for why, call in bad.items():
+    before = dict(rp.launches)
+    for why, (call, error) in bad.items():
         try:
             call()
-        except ValueError:
-            log("rows", f"refused {why}")
+        except error:
+            log("rows", f"refused {why} ({error.__name__})")
         else:
             raise AssertionError(f"row kernel accepted {why}")
+    assert rp.launches == before, "a refused call launched"
 
 
 def _forms_since(before: dict) -> dict:
-    """The table forms of the scatter/relayout launches since ``before`` (a
+    """The table forms of the row kernels' launches since ``before`` (a
     copy of ``rp.table_launches``), with their counts."""
     return {k: rp.table_launches[k] - before[k] for k in before if rp.table_launches[k] != before[k]}
 
 
 def phase_table_forms() -> None:
-    """scatter_rows and relayout_rows against their plain versions, byte
-    for byte, with the segment table at each form's edge: one segment,
-    exactly the by-value capacity, one past it (the device table), and the
-    overlapping starts. Each call must launch once, with the form its
-    segment count picks. Then tables past the capacity in more calls than
-    the pinned ring has slots, on the default and on a side stream, with no
-    synchronisation between them."""
-    cap = rp.PARAM_SEGS
-    rows, C = 2 * (cap + 1) + 1, 2048
+    """The row kernels against their plain versions, byte for byte, with
+    their table at each form's edge: scatter_rows and relayout_rows at one
+    segment, exactly the by-value capacity of segments, one past it (the
+    device table), and on overlapping starts; pack_rows and unpack_rows at
+    one block, exactly the by-value capacity of starts, one past it, and
+    unpack_rows on overlapping starts (segments, by value and past the
+    capacity). Each call must launch once, with the form its size picks.
+    Then tables past the capacities in more calls than the pinned ring has
+    slots, on the default and on a side stream, with no synchronisation
+    between them. Last, what a pack_rows call costs at each size class."""
+    cap, scap = rp.PARAM_SEGS, rp.PARAM_STARTS
+    C = 2048
     rng = np.random.default_rng(5)
+    spaced = lambda n: [int(x) for x in rng.permutation(n) * 2]  # noqa: E731  n disjoint, unsorted blocks
     cases = {
-        "one segment": ([7], 1, "param"),
-        "by-value capacity": ([int(x) for x in rng.permutation(cap) * 2], 1, "param"),
-        "one past it": ([int(x) for x in rng.permutation(cap + 1) * 2], 1, "device"),
+        "scatter_rows": {
+            "one segment": ([7], 1, "param"),
+            "by-value capacity": (spaced(cap), 1, "param"),
+            "one past it": (spaced(cap + 1), 1, "device"),
+            "overlapping starts": (OVERLAP_STARTS[0], 8, "param"),
+            "overlapping starts, reversed": (OVERLAP_STARTS[1], 8, "param"),
+        },
+        "pack_rows": {
+            "one block": ([7], 1, "starts"),
+            "by-value capacity": (spaced(scap), 1, "starts"),
+            "one past it": (spaced(scap + 1), 1, "starts_device"),
+            "overlapping starts": (OVERLAP_STARTS[0], 8, "starts"),
+            "by-value capacity, as an array": (np.array(spaced(scap)), 1, "starts"),
+        },
+    }
+    cases["relayout_rows"] = cases["scatter_rows"]
+    cases["unpack_rows"] = {
+        **{k: v for k, v in cases["pack_rows"].items() if "overlapping" not in k},
         "overlapping starts": (OVERLAP_STARTS[0], 8, "param"),
         "overlapping starts, reversed": (OVERLAP_STARTS[1], 8, "param"),
+        "overlapping starts past the segment capacity": (spaced(cap + 1) + [0], 1, "device"),
     }
-    for kind in ("scatter_rows", "relayout_rows"):
-        for why, (starts, block, form) in cases.items():
+    for kind in ("scatter_rows", "relayout_rows", "pack_rows", "unpack_rows"):
+        rows = 2 * ((cap if kind in ("scatter_rows", "relayout_rows") else scap) + 1) + 1
+        for why, (starts, block, form) in cases[kind].items():
             before, forms_before = rp.launches[kind], dict(rp.table_launches)
             row_kernel_vs_plain(kind, rows, C, torch.bfloat16, starts, block, 31)
             forms = _forms_since(forms_before)
             assert forms == {form: 1} and rp.launches[kind] == before + 1, (kind, why, forms)
-        log("rows", f"{kind}: equal at one segment, {cap} segments by value, {cap + 1} through the device "
-                    f"table and on overlapping starts, one launch each ({rows} x {C} bf16)")
-    # tables past the capacity, queued back to back: the ring's slots and
+        log("rows", f"{kind}: equal, one launch each, form as its size picks: "
+                    + ", ".join(f"{why} ({len(st)} starts, {form})" for why, (st, _, form) in cases[kind].items())
+                    + f" ({rows} x {C} bf16)")
+    # tables past the capacities, queued back to back: the ring's slots and
     # the per-stream device tables are reused while earlier calls still run
     side = torch.cuda.Stream()
     calls = 3 * rp._RING_SLOTS
-    rows = 2 * (cap + calls) + 1
+    rows = 2 * (scap + calls) + 1
     src, base = rand_rows((rows, C), torch.bfloat16, 32), rand_rows((rows, C), torch.bfloat16, 33)
     jobs = []
     for i in range(calls):
-        starts = [int(x) for x in np.random.default_rng(40 + i).permutation(cap + 1 + i) * 2]
-        buf = rand_rows((len(starts), C), torch.bfloat16, 50 + i)
+        segs = [int(x) for x in np.random.default_rng(40 + i).permutation(cap + 1 + i) * 2]
+        starts = [int(x) for x in np.random.default_rng(60 + i).permutation(scap + 1 + i) * 2]
+        buf = rand_rows((len(segs), C), torch.bfloat16, 50 + i)
         stream = side if i % 3 == 2 else torch.cuda.current_stream()
         if stream is side:
             side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(stream):
-            got_s = rp.scatter_rows_cuda(base.clone(), buf, starts, 1)
-            got_r = rp.relayout_rows_cuda(base.clone(), src, starts, 1)
-        jobs.append((starts, buf, got_s, got_r))
+            got = (rp.scatter_rows_cuda(base.clone(), buf, segs, 1), rp.relayout_rows_cuda(base.clone(), src, segs, 1),
+                   rp.pack_rows_cuda(src, starts, 1))
+            got += (rp.unpack_rows_cuda(got[2], starts, 1, rows),)
+        jobs.append((segs, starts, buf, got))
     torch.cuda.synchronize()
-    for starts, buf, got_s, got_r in jobs:
-        assert torch.equal(got_s, R.scatter_rows_ref(base.clone(), buf, starts, 1)), len(starts)
-        assert torch.equal(got_r, R.relayout_rows_ref(base.clone(), src, starts, 1)), len(starts)
-    log("rows", f"{len(jobs)} back-to-back calls of each past the capacity ({cap + 1}-{cap + len(jobs)} segments, "
-                f"{rp._RING_SLOTS} pinned slots, a third on a side stream): equal to the plain versions")
+    for segs, starts, buf, (got_s, got_r, got_p, got_u) in jobs:
+        assert torch.equal(got_s, R.scatter_rows_ref(base.clone(), buf, segs, 1)), len(segs)
+        assert torch.equal(got_r, R.relayout_rows_ref(base.clone(), src, segs, 1)), len(segs)
+        want_p = R.pack_rows_ref(src, starts, 1)
+        assert torch.equal(got_p, want_p), len(starts)
+        assert torch.equal(got_u, R.unpack_rows_ref(want_p, starts, 1, rows)), len(starts)
+    log("rows", f"{len(jobs)} back-to-back calls of each kernel past its capacity ({cap + 1}-{cap + len(jobs)} "
+                f"segments, {scap + 1}-{scap + len(jobs)} starts, {rp._RING_SLOTS} pinned slots, a third on a "
+                "side stream): equal to the plain versions")
+    del src, base, jobs
+    # a pack_rows call at each size class of its starts, on narrow rows so
+    # that the call is mostly the host's work and the launch
+    src = rand_rows((2 * scap + 2, 64), torch.bfloat16, 34)
+    costs = []
+    for n in (1, 16, 17, 256, 257, 4096, scap, scap + 1):
+        starts = [int(x) for x in np.random.default_rng(n).permutation(n) * 2]
+        forms_before = dict(rp.table_launches)
+        ms = median_ms(lambda: rp.pack_rows_cuda(src, starts, 1), reps=50)
+        costs.append(f"{n} starts {ms:.4f} ms ({'/'.join(_forms_since(forms_before))})")
+    log("rows", "pack_rows call by size class of its starts (rows of 64 bf16, median of 50): " + ", ".join(costs))
 
 
 def elastic_session(cfg, prompts, trace):
@@ -749,23 +793,30 @@ def phase_elastic(arch: str = "qwen3-1.7b") -> dict:
     return launches
 
 
-def device_ms(fn, kernel: str, calls: int = 10, per_call: bool = False) -> float:
-    """Median device time of ``kernel`` (a substring of its name) over
-    ``calls`` calls of ``fn``, from ``torch.profiler``: the kernel alone,
-    without the host work around its launch. ``per_call``: the summed time
-    of every matching kernel over the number of calls (a call that
-    launches two kernels)."""
+def device_ms(fn, kernel, calls: int = 10, per_call: bool = False) -> float:
+    """Median device time of ``kernel`` (a substring of its name, or a
+    tuple of them) over ``calls`` calls of ``fn``, from ``torch.profiler``:
+    the kernel alone, without the host work around its launch.
+    ``per_call``: the summed time of every match over the number of calls
+    (a call that launches two kernels, or a memset and a kernel)."""
     from torch.profiler import ProfilerActivity, profile
 
+    names = (kernel,) if isinstance(kernel, str) else kernel
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    times = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.name]
-    assert times, f"the profiler saw no {kernel}"
+    # a second trace where the first missed a name: a trace of ten
+    # pack_rows launches once held none of them
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        missed = [name for name in names if not any(name in e.name for e in events)]
+        if not missed:
+            break
+    assert not missed, f"the profiler saw no {missed}"
+    times = [e.time_range.elapsed_us() / 1e3 for e in events if any(name in e.name for name in names)]
     return sum(times) / calls if per_call else statistics.median(times)
 
 
@@ -938,10 +989,13 @@ def phase_row_times(launches: dict) -> list[dict]:
             forms_before = dict(rp.table_launches)
             kernel_ms = median_ms(kernel, reps=20)
             forms = _forms_since(forms_before)
-            form = "/".join(forms) if forms else "int64 table copied to the card per call"
+            form = "/".join(forms)
             plain_ms = median_ms(plain, reps=20)
             library_ms = median_ms(library, reps=20)
-            on_device_ms = device_ms(kernel, f"{kind}_kernel")
+            if kind == "unpack_rows":  # the entry's zero-fill of the output, then the kernel
+                on_device_ms = device_ms(kernel, ("Memset", f"{kind}_kernel"), per_call=True)
+            else:
+                on_device_ms = device_ms(kernel, f"{kind}_kernel")
             nbytes = _row_bytes_moved(kind, C, nb, 1, rows, 2)
             bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
             log("times", f"{kind} {case} ({nb} of {rows} rows x {C} bf16): call {kernel_ms:.4f} ms (kernel "
@@ -949,8 +1003,7 @@ def phase_row_times(launches: dict) -> list[dict]:
                          f"{kernel_ms - on_device_ms:.4f} ms, table {form}), plain {plain_ms:.4f} ms, library "
                          f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB), "
                          f"max_abs_err {err:g}")
-            if kind in ("scatter_rows", "relayout_rows"):
-                assert len(forms) == 1, forms
+            assert len(forms) == 1, forms
             assert err == 0.0, f"{kind} disagrees with its plain version at {case}"
             if case == "cache_row":  # the elastic path's per-layer move goes in the record
                 rec = {

@@ -9,49 +9,71 @@
 // (rows, C) array, for any start, not only the block-aligned starts the
 // Pallas index maps take:
 //   - pack_rows_kernel     out[i*br + j]         = src[starts[i] + j]
+//   - unpack_rows_kernel   out[starts[i] + j]    = buf[i*br + j], into a fresh
+//                          output that the entry zero-fills first, so rows no
+//                          block covers are zero (as the reference)
 //   - scatter_rows_kernel  dst[starts[i] + j]    = buf[i*br + j], in place,
 //                          the last block wins where blocks overlap
 //   - relayout_rows_kernel dst[starts[i] + j]    = src[starts[i] + j], in place
-//   - unpack_rows_kernel   as scatter, into a fresh output whose rows no
-//                          block covers are zero-filled (as the reference)
 //
 // What bounds them on the H100: they are byte copies, so HBM bandwidth,
 // reading each moved byte once and writing it once (3.35 TB/s). The design:
-//   - a copy is a list of segments of whole rows, each contiguous in both
-//     arrays; blockIdx.y walks the segments and the x dimension of the grid
-//     strides over one segment's bytes. x is fitted to the longest segment
-//     and to the card (kFillBlocks over the y segments), so one long run (a
-//     contiguous row range of hundreds of MB) and thousands of short ones
-//     (scattered single rows) both fill the SMs;
-//   - every segment is copied in 16-byte units when both addresses and its
+//   - blockIdx.y walks a list of spans of whole rows, each contiguous in
+//     both arrays (a block of block_rows rows, or a segment), and the x
+//     dimension of the grid strides over one span's bytes. x is fitted to
+//     the longest span and to the card (kFillBlocks over the y spans), so
+//     one long run (a contiguous row range of hundreds of MB) and thousands
+//     of short ones (scattered single rows) both fill the SMs;
+//   - every span is copied in 16-byte units when both addresses and its
 //     length allow, else in the widest of 8/4/2/1 bytes that does, so the
 //     kernels take any dtype and any row pitch; offsets are 64-bit;
 //   - the TPU grid runs in order, so a repeated start resolves to the last
-//     block there; a CUDA grid does not. The wrapper
+//     block there; a CUDA grid does not. A pack writes every output row
+//     once whatever its starts. For the others the wrapper
 //     (repro_torch/kernels/reshard_pack.py) resolves the last writer of
 //     every destination row on the host before the launch and passes
 //     segments that never write one row twice, so repeated and overlapping
 //     starts give the reference's sequential result and no two threads
-//     write one byte.
+//     write one byte. unpack_rows on disjoint blocks needs no segments; on
+//     overlapping ones its entry launches scatter_rows_kernel on the
+//     segments into the zeroed output.
 //
 // What bounds a call, as opposed to the kernel: the host work around the
-// launch (a moved cache row takes ~5 us on the device). So scatter_rows and
-// relayout_rows take their segment table (int32 triples; the wrapper merges
-// runs, so a contiguous run is one segment) by value, in a
-// __grid_constant__ struct in the kernel's parameters (up to 32,764 bytes
-// from CUDA 12.1 on sm_70 and later): no allocation, no host-to-device copy,
-// no event. Three size classes (kParamClasses) keep a one-segment call's
-// parameters small. A table of more than kParamSegs segments is copied by
-// the entry, with one cudaMemcpyAsync on the call's stream, from a pinned
-// host buffer into a device table that the wrapper keeps per stream, and
-// read from there: still one launch. pack_rows and unpack_rows still take an
-// int64 table in device memory that the wrapper copies.
+// launch (a moved cache row takes ~5 us on the device). So every table goes
+// by value, in a __grid_constant__ struct in the kernel's parameters (up to
+// 32,764 bytes from CUDA 12.1 on sm_70 and later): no allocation, no
+// host-to-device copy, no event. pack_rows and unpack_rows take their block
+// starts (int32, RowStarts, the counterpart of the Pallas kernels'
+// scalar-prefetch starts); scatter_rows and relayout_rows take segments
+// (int32 triples, RowTable; the wrapper merges runs, so a contiguous run is
+// one segment). repro_pack_rows_list reads a Python list of starts straight
+// into the parameters, so the host reads the list once. Three size classes
+// of each (kParamClasses, kStartClasses) keep a one-block call's parameters
+// small. A larger table is copied by the entry, with one cudaMemcpyAsync on
+// the call's stream, from a pinned host buffer into a device table that the
+// wrapper keeps per stream, and read from there: still one launch.
 // The wrapper checks shapes, types, devices and the range of every start,
-// allocates outputs and tables, and passes torch's current stream.
+// allocates outputs and tables, and passes torch's current stream; the
+// entries check every table entry again before anything is enqueued.
 
 #include <cuda_runtime.h>
+#include <stddef.h>
 #include <stdint.h>
 #include <string.h>
+
+// The CPython functions that repro_pack_rows_list calls (stable ABI),
+// declared here rather than through Python.h so that the build needs no
+// Python headers. The wrapper loads this library into the interpreter with
+// ctypes.PyDLL: a call holds the GIL, ctypes raises any Python error the
+// call leaves set, and these symbols resolve against the running
+// interpreter, as an extension module's do.
+extern "C" {
+typedef struct _object PyObject;
+ptrdiff_t PyList_Size(PyObject* list);
+PyObject* PyList_GetItem(PyObject* list, ptrdiff_t index);
+long long PyLong_AsLongLong(PyObject* obj);
+PyObject* PyErr_Occurred(void);
+}
 
 namespace {
 
@@ -64,17 +86,11 @@ __device__ __forceinline__ void copy_units(char* dst, const char* src, int64_t n
   T* d = reinterpret_cast<T*>(dst);
   const T* s = reinterpret_cast<const T*>(src);
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (s != nullptr) {
-    for (; i < n; i += stride) d[i] = s[i];
-  } else {
-    const T zero{};
-    for (; i < n; i += stride) d[i] = zero;
-  }
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < n; i += stride) d[i] = s[i];
 }
 
-// This block's share of copying nbytes from src to dst (src == nullptr:
-// write zeros), in the widest unit that divides both addresses and nbytes.
+// This block's share of copying nbytes from src to dst, in the widest unit
+// that divides both addresses and nbytes.
 __device__ __forceinline__ void copy_span(char* dst, const char* src, int64_t nbytes) {
   const uintptr_t bits = reinterpret_cast<uintptr_t>(dst) | reinterpret_cast<uintptr_t>(src) |
                          static_cast<uintptr_t>(nbytes);
@@ -91,19 +107,69 @@ __device__ __forceinline__ void copy_span(char* dst, const char* src, int64_t nb
   }
 }
 
-// pack: segment i is block i of the output, read from row starts[i] of src.
-__global__ void pack_rows_kernel(char* __restrict__ out, const char* __restrict__ src,
-                                 const int64_t* __restrict__ starts, int64_t nb, int64_t block_rows,
-                                 int64_t row_bytes) {
+// ---------------------------------------------------------------------------
+// pack_rows and unpack_rows: block starts
+// ---------------------------------------------------------------------------
+
+// RowStarts<CAP> holds up to CAP int32 block starts by value, RowStarts<0>
+// points at them in device memory.
+template <int CAP>
+struct RowStarts {
+  int32_t n;
+  int32_t start[CAP];
+};
+
+template <>
+struct RowStarts<0> {
+  int32_t n;
+  const int32_t* start;
+};
+
+// The size classes of the by-value starts; the last is the capacity. The
+// wrapper's PARAM_STARTS (repro_torch/kernels/reshard_pack.py) must equal it.
+constexpr int kStartClasses[] = {16, 256, 8160};
+constexpr int kParamStarts = kStartClasses[2];
+// The parameters: two pointers, row_bytes, block_rows and the starts.
+static_assert(2 * sizeof(void*) + 2 * sizeof(int64_t) + sizeof(RowStarts<kParamStarts>) <= 32764,
+              "the by-value starts exceed the 32,764 bytes of kernel parameters");
+
+// The one body of both directions: block i is block_rows rows at row
+// start[i] of the array and at row i*block_rows of the buffer. kGather
+// (pack) copies it from the array `in` into the buffer `out`, else (unpack)
+// from the buffer `in` into the array `out`.
+template <bool kGather, typename Starts>
+__device__ __forceinline__ void copy_blocks(char* out, const char* in, int64_t row_bytes, int64_t block_rows,
+                                            const Starts& t) {
   const int64_t block_bytes = block_rows * row_bytes;
-  for (int64_t i = blockIdx.y; i < nb; i += gridDim.y) {
-    copy_span(out + i * block_bytes, src + starts[i] * row_bytes, block_bytes);
+  for (int64_t i = blockIdx.y; i < t.n; i += gridDim.y) {
+    const int64_t at = static_cast<int64_t>(t.start[i]) * row_bytes;
+    if (kGather) {
+      copy_span(out + i * block_bytes, in + at, block_bytes);
+    } else {
+      copy_span(out + at, in + i * block_bytes, block_bytes);
+    }
   }
 }
 
-// scatter and relayout take segments (src_row, dst_row, rows) as int32
-// triples in a RowTable: RowTable<CAP> holds up to CAP of them by value,
-// RowTable<0> points at a table in device memory.
+template <int CAP>
+__global__ void pack_rows_kernel(char* __restrict__ out, const char* __restrict__ src, int64_t row_bytes,
+                                 int64_t block_rows, const __grid_constant__ RowStarts<CAP> t) {
+  copy_blocks<true>(out, src, row_bytes, block_rows, t);
+}
+
+template <int CAP>
+__global__ void unpack_rows_kernel(char* __restrict__ out, const char* __restrict__ buf, int64_t row_bytes,
+                                   int64_t block_rows, const __grid_constant__ RowStarts<CAP> t) {
+  copy_blocks<false>(out, buf, row_bytes, block_rows, t);
+}
+
+// ---------------------------------------------------------------------------
+// scatter_rows and relayout_rows (and unpack_rows on overlapping blocks):
+// segments (src_row, dst_row, rows)
+// ---------------------------------------------------------------------------
+
+// RowTable<CAP> holds up to CAP int32 triples by value, RowTable<0> points
+// at a table in device memory.
 template <int CAP>
 struct RowTable {
   int32_t n;
@@ -144,21 +210,15 @@ __global__ void relayout_rows_kernel(char* dst, const char* src, int64_t row_byt
   }
 }
 
-// unpack: the segments cover every output row once; src_row < 0 zero-fills.
-__global__ void unpack_rows_kernel(char* __restrict__ out, const char* __restrict__ buf,
-                                   const int64_t* __restrict__ segs, int64_t n, int64_t row_bytes) {
-  for (int64_t i = blockIdx.y; i < n; i += gridDim.y) {
-    const int64_t* g = segs + 3 * i;
-    const char* from = g[0] < 0 ? nullptr : buf + g[0] * row_bytes;
-    copy_span(out + g[1] * row_bytes, from, g[2] * row_bytes);
-  }
-}
+// ---------------------------------------------------------------------------
+// Launches
+// ---------------------------------------------------------------------------
 
-// Grid for n segments of at most max_seg_bytes: y over segments, x enough
-// blocks to fill the card, but none that would find no 16-byte unit to copy.
-dim3 grid_for(int64_t n, int64_t max_seg_bytes) {
+// Grid for n spans of at most max_span_bytes: y over spans, x enough blocks
+// to fill the card, but none that would find no 16-byte unit to copy.
+dim3 grid_for(int64_t n, int64_t max_span_bytes) {
   const int64_t y = n < kMaxGridY ? n : kMaxGridY;
-  const int64_t units = (max_seg_bytes + 15) / 16;
+  const int64_t units = (max_span_bytes + 15) / 16;
   int64_t x = (units + kThreads - 1) / kThreads;
   const int64_t fill = (kFillBlocks + y - 1) / y;
   if (x > fill) x = fill;
@@ -166,9 +226,71 @@ dim3 grid_for(int64_t n, int64_t max_seg_bytes) {
   return dim3(static_cast<unsigned>(x), static_cast<unsigned>(y), 1);
 }
 
+// Both kinds of table (starts, segs) hold n entries in host memory. Up to
+// the last size class they are copied into the parameters of the smallest
+// class that holds them (the launch copies the parameters, so the host table
+// may go once the entry returns). Past it the host table must be pinned;
+// one cudaMemcpyAsync on the stream copies it into the device table
+// (dev_starts, dev_segs: room for n entries), then the kernel reads it
+// there. The caller keeps the host table until that copy has run and does
+// not write the device table before the kernel has read it (one device
+// table per stream).
+
 template <int CAP>
-void launch_table(bool relayout, dim3 grid, cudaStream_t stream, char* dst, const char* src,
-                  int64_t row_bytes, const RowTable<CAP>& t) {
+void launch_starts(bool gather, dim3 grid, cudaStream_t s, char* out, const char* in, int64_t row_bytes,
+                   int64_t block_rows, const RowStarts<CAP>& t) {
+  if (gather) {
+    pack_rows_kernel<CAP><<<grid, kThreads, 0, s>>>(out, in, row_bytes, block_rows, t);
+  } else {
+    unpack_rows_kernel<CAP><<<grid, kThreads, 0, s>>>(out, in, row_bytes, block_rows, t);
+  }
+}
+
+template <int CAP>
+void starts_by_value(bool gather, dim3 grid, cudaStream_t s, char* out, const char* in, int64_t row_bytes,
+                     int64_t block_rows, const int32_t* starts, int64_t n) {
+  RowStarts<CAP> t;
+  t.n = static_cast<int32_t>(n);
+  memcpy(t.start, starts, sizeof(int32_t) * n);
+  launch_starts<CAP>(gather, grid, s, out, in, row_bytes, block_rows, t);
+}
+
+// Whether n block starts in host memory are a table the kernels take: every
+// block of block_rows rows from a start lies inside the array's rows rows.
+bool starts_valid(const int32_t* starts, int64_t n, int64_t block_rows, int64_t row_bytes, int64_t rows,
+                  const int32_t* dev_starts) {
+  if (n < 0 || block_rows <= 0 || row_bytes <= 0 || (n > kParamStarts && dev_starts == nullptr)) return false;
+  for (int64_t i = 0; i < n; ++i) {
+    if (starts[i] < 0 || starts[i] + block_rows > rows) return false;
+  }
+  return true;
+}
+
+int launch_blocks(bool gather, void* out, const void* in, const int32_t* starts, int64_t n, int64_t block_rows,
+                  int64_t row_bytes, int32_t* dev_starts, cudaStream_t s) {
+  const dim3 grid = grid_for(n, block_rows * row_bytes);
+  char* o = static_cast<char*>(out);
+  const char* f = static_cast<const char*>(in);
+  if (n <= kStartClasses[0]) {
+    starts_by_value<kStartClasses[0]>(gather, grid, s, o, f, row_bytes, block_rows, starts, n);
+  } else if (n <= kStartClasses[1]) {
+    starts_by_value<kStartClasses[1]>(gather, grid, s, o, f, row_bytes, block_rows, starts, n);
+  } else if (n <= kParamStarts) {
+    starts_by_value<kParamStarts>(gather, grid, s, o, f, row_bytes, block_rows, starts, n);
+  } else {
+    const cudaError_t err = cudaMemcpyAsync(dev_starts, starts, sizeof(int32_t) * n, cudaMemcpyHostToDevice, s);
+    if (err != cudaSuccess) return err;
+    RowStarts<0> t;
+    t.n = static_cast<int32_t>(n);
+    t.start = dev_starts;
+    launch_starts<0>(gather, grid, s, o, f, row_bytes, block_rows, t);
+  }
+  return cudaGetLastError();
+}
+
+template <int CAP>
+void launch_segments(bool relayout, dim3 grid, cudaStream_t stream, char* dst, const char* src,
+                     int64_t row_bytes, const RowTable<CAP>& t) {
   if (relayout) {
     relayout_rows_kernel<CAP><<<grid, kThreads, 0, stream>>>(dst, src, row_bytes, t);
   } else {
@@ -176,91 +298,137 @@ void launch_table(bool relayout, dim3 grid, cudaStream_t stream, char* dst, cons
   }
 }
 
-// The by-value form: the table is copied into the parameters of the
-// smallest class that holds it; the launch copies the parameters, so segs
-// may go once this returns.
 template <int CAP>
-void launch_by_value(bool relayout, dim3 grid, cudaStream_t stream, char* dst, const char* src,
-                     int64_t row_bytes, const int32_t* segs, int64_t n) {
+void segments_by_value(bool relayout, dim3 grid, cudaStream_t stream, char* dst, const char* src,
+                       int64_t row_bytes, const int32_t* segs, int64_t n) {
   RowTable<CAP> t;
   t.n = static_cast<int32_t>(n);
   memcpy(t.seg, segs, sizeof(int32_t) * 3 * n);
-  launch_table<CAP>(relayout, grid, stream, dst, src, row_bytes, t);
+  launch_segments<CAP>(relayout, grid, stream, dst, src, row_bytes, t);
 }
 
-// segs: n int32 triples in host memory. n <= kParamSegs: by value (dev_segs
-// unused). Larger: segs must be pinned; one cudaMemcpyAsync on `stream`
-// copies it into dev_segs (room for 3n int32), then the kernel reads it
-// there. The caller keeps segs until that copy has run and does not write
-// dev_segs before the kernel has read it (one device table per stream).
-int launch_rows(bool relayout, void* dst, const void* src, const int32_t* segs, int64_t n,
-                int64_t row_bytes, int32_t* dev_segs, void* stream) {
-  if (n < 0 || row_bytes <= 0 || (n > kParamSegs && dev_segs == nullptr)) return cudaErrorInvalidValue;
-  if (n == 0) return 0;
+// The most rows of n segments (int32 triples in host memory), or -1 if
+// they are not a table the kernels take: no negative row, no empty segment,
+// and, where dst_rows >= 0, every destination row below dst_rows.
+int64_t segments_max_rows(const int32_t* segs, int64_t n, int64_t row_bytes, int64_t dst_rows,
+                          const int32_t* dev_segs) {
+  if (n < 0 || row_bytes <= 0 || (n > kParamSegs && dev_segs == nullptr)) return -1;
   int64_t max_rows = 0;
   for (int64_t i = 0; i < n; ++i) {
-    const int32_t from = segs[3 * i], to = segs[3 * i + 1], rows = segs[3 * i + 2];
-    if (from < 0 || to < 0 || rows <= 0) return cudaErrorInvalidValue;
+    const int64_t from = segs[3 * i], to = segs[3 * i + 1], rows = segs[3 * i + 2];
+    if (from < 0 || to < 0 || rows <= 0 || (dst_rows >= 0 && to + rows > dst_rows)) return -1;
     if (rows > max_rows) max_rows = rows;
   }
+  return max_rows;
+}
+
+int launch_rows(bool relayout, void* dst, const void* src, const int32_t* segs, int64_t n, int64_t max_rows,
+                int64_t row_bytes, int32_t* dev_segs, cudaStream_t s) {
   const dim3 grid = grid_for(n, max_rows * row_bytes);
-  const auto s = static_cast<cudaStream_t>(stream);
   char* d = static_cast<char*>(dst);
   const char* f = static_cast<const char*>(src);
   if (n <= kParamClasses[0]) {
-    launch_by_value<kParamClasses[0]>(relayout, grid, s, d, f, row_bytes, segs, n);
+    segments_by_value<kParamClasses[0]>(relayout, grid, s, d, f, row_bytes, segs, n);
   } else if (n <= kParamClasses[1]) {
-    launch_by_value<kParamClasses[1]>(relayout, grid, s, d, f, row_bytes, segs, n);
+    segments_by_value<kParamClasses[1]>(relayout, grid, s, d, f, row_bytes, segs, n);
   } else if (n <= kParamSegs) {
-    launch_by_value<kParamSegs>(relayout, grid, s, d, f, row_bytes, segs, n);
+    segments_by_value<kParamSegs>(relayout, grid, s, d, f, row_bytes, segs, n);
   } else {
     const cudaError_t err = cudaMemcpyAsync(dev_segs, segs, sizeof(int32_t) * 3 * n, cudaMemcpyHostToDevice, s);
     if (err != cudaSuccess) return err;
     RowTable<0> t;
     t.n = static_cast<int32_t>(n);
     t.seg = dev_segs;
-    launch_table<0>(relayout, grid, s, d, f, row_bytes, t);
+    launch_segments<0>(relayout, grid, s, d, f, row_bytes, t);
   }
   return cudaGetLastError();
 }
 
+int segment_entry(bool relayout, void* dst, const void* src, const int32_t* segs, int64_t n, int64_t row_bytes,
+                  int32_t* dev_segs, void* stream) {
+  const int64_t max_rows = segments_max_rows(segs, n, row_bytes, -1, dev_segs);
+  if (max_rows < 0) return cudaErrorInvalidValue;
+  if (n == 0) return 0;
+  return launch_rows(relayout, dst, src, segs, n, max_rows, row_bytes, dev_segs, static_cast<cudaStream_t>(stream));
+}
+
 }  // namespace
 
-// Each entry launches one kernel on `stream` and returns cudaGetLastError()
-// (0 on success); n == 0 launches nothing.
+// Each entry checks its table, then enqueues its work on `stream` (one
+// kernel launch; unpack_rows a memset of the output before it) and returns
+// cudaGetLastError() (0 on success); a table it refuses enqueues nothing and
+// gives cudaErrorInvalidValue. n == 0 launches nothing. Past the by-value
+// capacity (repro_rows_param_starts, repro_rows_param_segs) a table needs
+// dev_starts / dev_segs, as above.
 
-extern "C" int repro_pack_rows(void* out, const void* src, const int64_t* starts, int64_t nb,
-                               int64_t block_rows, int64_t row_bytes, void* stream) {
-  if (nb < 0 || block_rows <= 0 || row_bytes <= 0) return cudaErrorInvalidValue;
-  if (nb == 0) return 0;
-  pack_rows_kernel<<<grid_for(nb, block_rows * row_bytes), kThreads, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<char*>(out), static_cast<const char*>(src), starts, nb, block_rows, row_bytes);
-  return cudaGetLastError();
-}
-
-extern "C" int repro_scatter_rows(void* dst, const void* buf, const int32_t* segs, int64_t n,
-                                  int64_t row_bytes, int32_t* dev_segs, void* stream) {
-  return launch_rows(false, dst, buf, segs, n, row_bytes, dev_segs, stream);
-}
-
-extern "C" int repro_relayout_rows(void* dst, const void* src, const int32_t* segs, int64_t n,
-                                   int64_t row_bytes, int32_t* dev_segs, void* stream) {
-  return launch_rows(true, dst, src, segs, n, row_bytes, dev_segs, stream);
-}
-
-// The most segments a by-value table holds.
-extern "C" int repro_rows_param_segs() { return kParamSegs; }
-
-extern "C" int repro_unpack_rows(void* out, const void* buf, const int64_t* segs, int64_t n,
-                                 int64_t max_seg_rows, int64_t row_bytes, void* stream) {
-  if (n < 0 || max_seg_rows <= 0 || row_bytes <= 0) return cudaErrorInvalidValue;
+// starts: n int32 block starts into src's rows rows.
+extern "C" int repro_pack_rows(void* out, const void* src, const int32_t* starts, int64_t n, int64_t block_rows,
+                               int64_t row_bytes, int64_t rows, int32_t* dev_starts, void* stream) {
+  if (!starts_valid(starts, n, block_rows, row_bytes, rows, dev_starts)) return cudaErrorInvalidValue;
   if (n == 0) return 0;
-  unpack_rows_kernel<<<grid_for(n, max_seg_rows * row_bytes), kThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<char*>(out), static_cast<const char*>(buf), segs, n, row_bytes);
-  return cudaGetLastError();
+  return launch_blocks(true, out, src, starts, n, block_rows, row_bytes, dev_starts,
+                       static_cast<cudaStream_t>(stream));
 }
+
+// pack_rows on the starts in a Python list of at most kParamStarts ints
+// (the caller's n is not used: the length is read here, under the GIL),
+// read straight into the by-value starts and checked on the way, so that
+// the host reads the list once. A block that leaves src's rows rows gives
+// -1; an item that is not an integer (or past int64) gives -2 with the
+// Python error set, which ctypes raises.
+extern "C" int repro_pack_rows_list(void* out, const void* src, PyObject* list, int64_t n, int64_t block_rows,
+                                    int64_t row_bytes, int64_t rows, int32_t* dev_starts, void* stream) {
+  n = PyList_Size(list);
+  if (n < 0 || n > kParamStarts || block_rows <= 0 || row_bytes <= 0) return cudaErrorInvalidValue;
+  int32_t starts[kParamStarts];
+  for (int64_t i = 0; i < n; ++i) {
+    const long long s = PyLong_AsLongLong(PyList_GetItem(list, i));
+    if (s == -1 && PyErr_Occurred() != nullptr) return -2;
+    if (s < 0 || s > rows - block_rows) return -1;
+    starts[i] = static_cast<int32_t>(s);
+  }
+  if (n == 0) return 0;
+  return launch_blocks(true, out, src, starts, n, block_rows, row_bytes, dev_starts,
+                       static_cast<cudaStream_t>(stream));
+}
+
+// starts: n int32 block starts, disjoint blocks, into out's rows rows; out
+// is zeroed first.
+extern "C" int repro_unpack_rows(void* out, const void* buf, const int32_t* starts, int64_t n, int64_t block_rows,
+                                 int64_t row_bytes, int64_t rows, int32_t* dev_starts, void* stream) {
+  if (!starts_valid(starts, n, block_rows, row_bytes, rows, dev_starts)) return cudaErrorInvalidValue;
+  const auto s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err = cudaMemsetAsync(out, 0, rows * row_bytes, s);
+  if (err != cudaSuccess || n == 0) return err;
+  return launch_blocks(false, out, buf, starts, n, block_rows, row_bytes, dev_starts, s);
+}
+
+// unpack_rows on overlapping blocks: segments (buf_row, out_row, rows) that
+// write every covered row of out's rows rows once, by its last writer; out
+// is zeroed first.
+extern "C" int repro_unpack_segments(void* out, const void* buf, const int32_t* segs, int64_t n, int64_t row_bytes,
+                                     int64_t rows, int32_t* dev_segs, void* stream) {
+  const int64_t max_rows = segments_max_rows(segs, n, row_bytes, rows, dev_segs);
+  if (max_rows < 0) return cudaErrorInvalidValue;
+  const auto s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err = cudaMemsetAsync(out, 0, rows * row_bytes, s);
+  if (err != cudaSuccess || n == 0) return err;
+  return launch_rows(false, out, buf, segs, n, max_rows, row_bytes, dev_segs, s);
+}
+
+extern "C" int repro_scatter_rows(void* dst, const void* buf, const int32_t* segs, int64_t n, int64_t row_bytes,
+                                  int32_t* dev_segs, void* stream) {
+  return segment_entry(false, dst, buf, segs, n, row_bytes, dev_segs, stream);
+}
+
+extern "C" int repro_relayout_rows(void* dst, const void* src, const int32_t* segs, int64_t n, int64_t row_bytes,
+                                   int32_t* dev_segs, void* stream) {
+  return segment_entry(true, dst, src, segs, n, row_bytes, dev_segs, stream);
+}
+
+// The most block starts and segments a by-value table holds.
+extern "C" int repro_rows_param_starts() { return kParamStarts; }
+extern "C" int repro_rows_param_segs() { return kParamSegs; }
 
 extern "C" const char* repro_rows_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

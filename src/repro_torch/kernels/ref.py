@@ -193,6 +193,13 @@ def row_starts(starts, block_rows: int, rows: int, what: str) -> np.ndarray:
     return out
 
 
+def disjoint_blocks(st: np.ndarray, block_rows: int) -> bool:
+    """Whether no row lies in two of the blocks of ``block_rows`` rows at
+    the starts ``st`` (one sort)."""
+    s = np.sort(st)
+    return bool(np.all(np.diff(s) >= block_rows))
+
+
 def pack_rows_ref(src: torch.Tensor, starts, block_rows: int) -> torch.Tensor:
     """Gather ``len(starts)`` blocks of ``block_rows`` rows of ``src`` (R, C)
     into a fresh (nb*block_rows, C) buffer, block by block."""
@@ -243,11 +250,6 @@ WIRE_QMAX = {"int8": 127.0, "fp8_e4m3": 448.0}
 WIRE_QDTYPE = {"int8": torch.int8, "fp8_e4m3": torch.float8_e4m3fn}
 
 
-def _disjoint(st: np.ndarray, block_rows: int) -> bool:
-    s = np.sort(st)
-    return bool(np.all(np.diff(s) >= block_rows))
-
-
 def _block_rows_index(st: np.ndarray, block_rows: int, device) -> torch.Tensor:
     return torch.as_tensor((st[:, None] + np.arange(block_rows)).reshape(-1), device=device)
 
@@ -293,7 +295,7 @@ def dequant_scatter_rows_ref(dst: torch.Tensor, buf: torch.Tensor, scales: torch
         return dst
     blocks = buf.reshape(nb, block_rows, C).to(torch.float32)
     deq = (blocks * scales.reshape(nb)[:, None, None]).to(dst.dtype)
-    if _disjoint(st, block_rows):  # no row named twice: one indexed write
+    if disjoint_blocks(st, block_rows):  # no row named twice: one indexed write
         dst[_block_rows_index(st, block_rows, dst.device)] = deq.reshape(nb * block_rows, C)
         return dst
     for i, s in enumerate(st.tolist()):

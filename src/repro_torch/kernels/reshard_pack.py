@@ -18,8 +18,9 @@ row-major ``(rows, C)`` array of any dtype, for any start:
   leaves them undefined).
 
 A TPU grid runs in order, so a repeated start resolves to the last block; a
-CUDA grid does not. The wrappers resolve the last writer of every
-destination row on the host (:func:`last_writer_segments`) and launch
+CUDA grid does not. A pack writes each output row once whatever its starts.
+The other wrappers resolve the last writer of every destination row on the
+host (:func:`last_writer_segments`) wherever blocks may overlap, and launch
 segments that write each row once, so repeated and overlapping starts give
 the reference's sequential result. Starts that would leave the array raise
 ``ValueError`` (``ref.row_starts``), where the JAX reference clamps them.
@@ -31,15 +32,20 @@ where it launches; ``nb == 0`` launches nothing. The plain versions are
 tensors' device.
 
 A moved row takes microseconds on the device, so the host work around a
-launch decides what a call costs. :func:`scatter_rows_cuda` and
-:func:`relayout_rows_cuda` therefore merge their segments into one per
-contiguous run (:func:`coalesced_segments`) and hand the kernel the table
-by value, as int32 triples in its parameters: no allocation, no copy to the
-card, no event (:func:`table_form` "param"). A table of more than
-:data:`PARAM_SEGS` segments goes through a pinned host ring into a device
-table kept per stream ("device"), still in one launch. :data:`table_launches`
-counts the launches of the two kernels by form. pack_rows and unpack_rows
-copy an int64 table to the card per call (:func:`_table`).
+launch decides what a call costs, and every table reaches its kernel by
+value, in the kernel's parameters: no allocation, no copy to the card, no
+event. :func:`pack_rows_cuda`, and :func:`unpack_rows_cuda` on disjoint
+blocks, hand over their block starts as int32 (:func:`start_table`; form
+"starts"), as the Pallas kernels take theirs as scalar prefetch; a list of
+starts, the executor's form, :func:`pack_rows_cuda` hands to the library,
+which reads it straight into the kernel's parameters.
+:func:`scatter_rows_cuda` and :func:`relayout_rows_cuda` merge their
+segments into one per contiguous run (:func:`coalesced_segments`) and hand
+over int32 triples (:func:`row_table`; form "param"), as does
+:func:`unpack_rows_cuda` on overlapping blocks. Past :data:`PARAM_STARTS`
+starts or :data:`PARAM_SEGS` segments a table goes through a pinned host
+ring into a device table kept per stream ("starts_device", "device"), still
+in one launch. :data:`table_launches` counts the launches by form.
 """
 
 from __future__ import annotations
@@ -51,21 +57,25 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.ref import row_starts
+from repro_torch.kernels.ref import disjoint_blocks, row_starts
 
 # Kernel launches in this process, by kernel; each is bumped once per
 # launch, nowhere else.
 launches = {"pack_rows": 0, "unpack_rows": 0, "scatter_rows": 0, "relayout_rows": 0}
-# scatter_rows and relayout_rows launches by the form of their segment table
-table_launches = {"param": 0, "device": 0}
+# The same launches by the form of their table: int32 block starts by value
+# ("starts") or through the device table ("starts_device") for pack_rows
+# and unpack_rows on disjoint blocks; int32 segment triples by value
+# ("param") or through the device table ("device") for scatter_rows,
+# relayout_rows and unpack_rows on overlapping blocks.
+table_launches = {"starts": 0, "starts_device": 0, "param": 0, "device": 0}
 
-# The most segments a by-value table holds: kParamSegs in csrc/reshard_pack.cu.
+# The most block starts and segments a by-value table holds: kParamStarts
+# and kParamSegs in csrc/reshard_pack.cu.
+PARAM_STARTS = 8160
 PARAM_SEGS = 2720
 INT32_MAX = 2**31 - 1
-# Pinned host slots that stage tables past PARAM_SEGS for their copy.
+# Pinned host slots that stage tables past the capacity for their copy.
 _RING_SLOTS = 4
-
-_ENTRY = {name: f"repro_{name}" for name in launches}
 
 
 _LIB: ctypes.CDLL | None = None
@@ -73,7 +83,7 @@ _LIB: ctypes.CDLL | None = None
 
 def _lib() -> ctypes.CDLL:
     """The kernels' library, built and loaded at first use, its entries'
-    argument types set once."""
+    argument types set once and its capacities checked."""
     global _LIB
     if _LIB is not None:
         return _LIB
@@ -82,28 +92,33 @@ def _lib() -> ctypes.CDLL:
     # wait a switch interval while another thread runs.
     lib = ctypes.PyDLL(str(build.build_all(["reshard_pack"])["reshard_pack"]))
     p, i64 = ctypes.c_void_p, ctypes.c_int64
-    for name in ("pack_rows", "unpack_rows"):
-        fn = getattr(lib, _ENTRY[name])
-        fn.argtypes = [p, p, p, i64, i64, i64, p]
-        fn.restype = ctypes.c_int
-    for name in ("scatter_rows", "relayout_rows"):
-        fn = getattr(lib, _ENTRY[name])
-        fn.argtypes = [p, p, p, i64, i64, p, p]
+    argtypes = {
+        "pack_rows": [p, p, p, i64, i64, i64, i64, p, p],
+        "pack_rows_list": [p, p, ctypes.py_object, i64, i64, i64, i64, p, p],
+        "unpack_rows": [p, p, p, i64, i64, i64, i64, p, p],
+        "unpack_segments": [p, p, p, i64, i64, i64, p, p],
+        "scatter_rows": [p, p, p, i64, i64, p, p],
+        "relayout_rows": [p, p, p, i64, i64, p, p],
+    }
+    for name, types in argtypes.items():
+        fn = getattr(lib, f"repro_{name}")
+        fn.argtypes = types
         fn.restype = ctypes.c_int
     lib.repro_rows_error_string.argtypes = [ctypes.c_int]
     lib.repro_rows_error_string.restype = ctypes.c_char_p
-    lib.repro_rows_param_segs.restype = ctypes.c_int
-    if lib.repro_rows_param_segs() != PARAM_SEGS:
-        raise RuntimeError(
-            f"reshard_pack: the library holds {lib.repro_rows_param_segs()} segments by value, "
-            f"the wrapper expects PARAM_SEGS = {PARAM_SEGS}"
-        )
+    for what, want in (("starts", PARAM_STARTS), ("segs", PARAM_SEGS)):
+        fn = getattr(lib, f"repro_rows_param_{what}")
+        fn.restype = ctypes.c_int
+        if fn() != want:
+            raise RuntimeError(
+                f"reshard_pack: the library holds {fn()} {what} by value, the wrapper expects {want}"
+            )
     _LIB = lib
     return lib
 
 
 # ---------------------------------------------------------------------------
-# Host-side segment tables: (src_row, dst_row, rows) int64 triples
+# Host-side tables: int32 block starts; (src_row, dst_row, rows) triples
 # ---------------------------------------------------------------------------
 
 
@@ -122,8 +137,7 @@ def last_writer_segments(starts: np.ndarray, block_rows: int) -> np.ndarray:
     nb = starts.size
     if nb == 0:
         return np.zeros((0, 3), np.int64)
-    s = np.sort(starts)
-    if np.all(np.diff(s) >= block_rows):  # disjoint blocks: one segment each
+    if disjoint_blocks(starts, block_rows):  # one segment each
         return np.stack(
             [np.arange(nb) * block_rows, starts, np.full(nb, block_rows)], axis=1
         ).astype(np.int64)
@@ -146,20 +160,6 @@ def covered_segments(starts: np.ndarray, block_rows: int) -> np.ndarray:
     lo = s[new]
     hi = ends[np.concatenate([np.flatnonzero(new)[1:] - 1, [s.size - 1]])]
     return np.stack([lo, lo, hi - lo], axis=1).astype(np.int64)
-
-
-def unpack_segments(starts: np.ndarray, block_rows: int, out_rows: int) -> np.ndarray:
-    """:func:`last_writer_segments` plus zero segments ``(-1, row, rows)``
-    for the rows of ``out_rows`` that no block covers."""
-    segs = last_writer_segments(starts, block_rows)
-    cov = covered_segments(starts, block_rows)
-    gap_lo = np.concatenate([[0], cov[:, 1] + cov[:, 2]])
-    gap_hi = np.concatenate([cov[:, 1], [out_rows]])
-    keep = gap_hi > gap_lo
-    zeros = np.stack(
-        [np.full(int(keep.sum()), -1), gap_lo[keep], (gap_hi - gap_lo)[keep]], axis=1
-    ).astype(np.int64)
-    return np.concatenate([segs, zeros])
 
 
 def coalesced_segments(starts: np.ndarray, block_rows: int, relayout: bool = False) -> np.ndarray:
@@ -196,18 +196,35 @@ def coalesced_segments(starts: np.ndarray, block_rows: int, relayout: bool = Fal
     return out
 
 
+def _int32_rows(rows: int) -> None:
+    if rows > INT32_MAX:
+        raise ValueError(f"row tables hold int32 rows: an array of {rows} rows has more than {INT32_MAX}")
+
+
+def start_table(starts, block_rows: int, rows: int, what: str) -> np.ndarray:
+    """``starts`` as the kernels' int32 block starts into an array of
+    ``rows`` rows, range-checked by ``ref.row_starts``. Arrays of more rows
+    than int32 holds are refused."""
+    _int32_rows(rows)
+    return row_starts(starts, block_rows, rows, what).astype(np.int32)
+
+
 def row_table(segs: np.ndarray, rows: int) -> np.ndarray:
     """``segs`` as the kernels' int32 triples, for arrays of at most ``rows``
     rows (every row index and count in ``segs`` lies below it). Arrays of
     more rows than int32 holds are refused."""
-    if rows > INT32_MAX:
-        raise ValueError(f"row tables hold int32 rows: an array of {rows} rows has more than {INT32_MAX}")
+    _int32_rows(rows)
     return np.ascontiguousarray(segs, dtype=np.int32)
 
 
-def table_form(n: int) -> str:
-    """How a table of ``n`` segments reaches the kernel: "param" (by value,
-    in its parameters) up to :data:`PARAM_SEGS`, "device" past it."""
+def table_form(n: int, starts: bool = False) -> str:
+    """How a table of ``n`` segments, or with ``starts`` of ``n`` block
+    starts, reaches the kernel: by value, in its parameters, up to
+    :data:`PARAM_SEGS` segments ("param") or :data:`PARAM_STARTS` starts
+    ("starts"); through the stream's device table past it ("device",
+    "starts_device")."""
+    if starts:
+        return "starts" if n <= PARAM_STARTS else "starts_device"
     return "param" if n <= PARAM_SEGS else "device"
 
 
@@ -228,32 +245,10 @@ def _check_2d(what: str, *tensors: torch.Tensor) -> torch.device:
     return device
 
 
-def _table(a: np.ndarray, device: torch.device) -> torch.Tensor:
-    """An int64 host table on the card, copied on the current stream (the
-    pinned host buffer stays reserved until that copy has run)."""
-    host = torch.from_numpy(np.ascontiguousarray(a, dtype=np.int64)).pin_memory()
-    return host.to(device, non_blocking=True)
-
-
-def _launch(name: str, a: torch.Tensor, b: torch.Tensor, table: np.ndarray, n: int, rows: int, row_bytes: int) -> None:
-    lib = _lib()
-    device = a.device
-    with torch.cuda.device(device):
-        dev_table = _table(table, device)
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = getattr(lib, _ENTRY[name])(
-            a.data_ptr(), b.data_ptr(), dev_table.data_ptr(), int(n), int(rows), int(row_bytes), stream
-        )
-    if err != 0:
-        msg = lib.repro_rows_error_string(err).decode()
-        raise RuntimeError(f"{name} launch failed: cudaError {err} ({msg})")
-    launches[name] += 1
-
-
 class _DeviceTables:
-    """Where tables past :data:`PARAM_SEGS` go: a ring of pinned host slots,
-    each reused only after the event of its last copy has completed, and
-    one int32 table on the card per stream, grown on demand. The entry
+    """Where tables past the by-value capacity go: a ring of pinned host
+    slots, each reused only after the event of its last copy has completed,
+    and one int32 table on the card per stream, grown on demand. The entry
     copies a slot into the stream's table and launches on that stream, so
     the next copy into the table waits for the kernel that reads it; the
     lock keeps two threads from sharing a slot or interleaving their copy
@@ -266,8 +261,9 @@ class _DeviceTables:
         self._next = 0
         self._device: dict[tuple[int, int], torch.Tensor] = {}
 
-    def launch(self, entry, a: torch.Tensor, b: torch.Tensor, table: np.ndarray, row_bytes: int, stream: int) -> int:
-        """Stage ``table`` and call ``entry`` on it; its error code."""
+    def launch(self, call, table: np.ndarray, device: torch.device, stream: int) -> int:
+        """Stage ``table`` and return ``call(host_ptr, device_ptr)``, the
+        entry's error code."""
         with self._lock:
             slot, self._next = self._next, (self._next + 1) % _RING_SLOTS
             if self._copied[slot] is None:
@@ -277,48 +273,70 @@ class _DeviceTables:
             if host is None or host.numel() < table.size:
                 host = self._host[slot] = torch.empty(2 * table.size, dtype=torch.int32, pin_memory=True)
             host.numpy()[: table.size] = table.reshape(-1)
-            key = (a.get_device(), stream)
+            key = (device.index, stream)
             dev = self._device.get(key)
             if dev is None or dev.numel() < table.size:
-                dev = self._device[key] = torch.empty(2 * table.size, dtype=torch.int32, device=a.device)
-            err = entry(a.data_ptr(), b.data_ptr(), host.data_ptr(), len(table), row_bytes, dev.data_ptr(), stream)
-            self._copied[slot].record(torch.cuda.current_stream(a.device))
+                dev = self._device[key] = torch.empty(2 * table.size, dtype=torch.int32, device=device)
+            err = call(host.data_ptr(), dev.data_ptr())
+            self._copied[slot].record(torch.cuda.current_stream(device))
         return err
 
 
 _DEVICE_TABLES = _DeviceTables()
 
 
-def _launch_segments(name: str, a: torch.Tensor, b: torch.Tensor, segs: np.ndarray, rows: int) -> None:
-    """One launch of scatter_rows or relayout_rows on the segments ``segs``
-    over arrays of ``rows`` rows: by value up to :data:`PARAM_SEGS`
-    segments, else through the stream's device table."""
+# repro_pack_rows_list's code for a block that leaves the array
+_START_OUTSIDE = -1
+
+
+def _launch_table(name: str, entry: str, a: torch.Tensor, b: torch.Tensor, table, form: str, *args) -> bool:
+    """One call of the library's ``repro_<entry>(a, b, table, len(table),
+    *args, device_table, stream)`` for the kernel ``name``, on the current
+    stream of ``a``'s device: the int32 array ``table`` (or, for
+    ``pack_rows_list``, a list) by value, or through the stream's device
+    table for the forms past the capacity. False where the entry found a
+    start outside the array, and launched nothing."""
     index = a.get_device()
     if index != torch.cuda.current_device():
         with torch.cuda.device(index):
-            return _launch_segments(name, a, b, segs, rows)
-    table = row_table(segs, rows)
-    entry = getattr(_lib(), _ENTRY[name])
+            return _launch_table(name, entry, a, b, table, form, *args)
+    fn = getattr(_lib(), f"repro_{entry}")
     stream = torch._C._cuda_getCurrentRawStream(index)
-    row_bytes = a.shape[1] * a.element_size()
-    form = table_form(len(table))
-    if form == "param":
-        err = entry(a.data_ptr(), b.data_ptr(), table.ctypes.data, len(table), row_bytes, None, stream)
+    n = len(table)
+    if form in ("starts", "param"):
+        err = fn(a.data_ptr(), b.data_ptr(), table if type(table) is list else table.ctypes.data, n, *args, None,
+                 stream)
     else:
-        err = _DEVICE_TABLES.launch(entry, a, b, table, row_bytes, stream)
+        err = _DEVICE_TABLES.launch(
+            lambda host, dev: fn(a.data_ptr(), b.data_ptr(), host, n, *args, dev, stream), table, a.device, stream
+        )
+    if err == _START_OUTSIDE:
+        return False
     if err != 0:
         msg = _lib().repro_rows_error_string(err).decode()
         raise RuntimeError(f"{name} launch failed: cudaError {err} ({msg})")
     launches[name] += 1
     table_launches[form] += 1
+    return True
 
 
 def pack_rows_cuda(src: torch.Tensor, starts, block_rows: int) -> torch.Tensor:
     device = _check_2d("pack_rows", src)
-    st = row_starts(starts, block_rows, src.shape[0], "pack_rows")
-    out = torch.empty((st.size * block_rows, src.shape[1]), dtype=src.dtype, device=device)
+    rows, row_bytes = src.shape[0], src.shape[1] * src.element_size()
+    if type(starts) is list and 0 < len(starts) <= PARAM_STARTS and row_bytes and block_rows >= 1:
+        # the executor's form: the library reads the list into the by-value
+        # starts and checks each, so the host reads it once
+        _int32_rows(rows)
+        out = torch.empty((len(starts) * block_rows, src.shape[1]), dtype=src.dtype, device=device)
+        if _launch_table("pack_rows", "pack_rows_list", out, src, starts, "starts", block_rows, row_bytes, rows):
+            return out
+        start_table(starts, block_rows, rows, "pack_rows")  # raises the refusal, naming the starts
+        raise RuntimeError("pack_rows: the library refused starts that the wrapper accepts")
+    table = start_table(starts, block_rows, rows, "pack_rows")
+    out = torch.empty((table.size * block_rows, src.shape[1]), dtype=src.dtype, device=device)
     if out.numel():
-        _launch("pack_rows", out, src, st, st.size, block_rows, src.shape[1] * src.element_size())
+        _launch_table("pack_rows", "pack_rows", out, src, table, table_form(table.size, starts=True),
+                      block_rows, row_bytes, rows)
     return out
 
 
@@ -330,7 +348,9 @@ def scatter_rows_cuda(dst: torch.Tensor, buf: torch.Tensor, starts, block_rows: 
             f"scatter_rows: buffer {tuple(buf.shape)} is not {st.size} blocks of {block_rows} rows of {dst.shape[1]}"
         )
     if buf.numel():
-        _launch_segments("scatter_rows", dst, buf, coalesced_segments(st, block_rows), max(dst.shape[0], buf.shape[0]))
+        table = row_table(coalesced_segments(st, block_rows), max(dst.shape[0], buf.shape[0]))
+        _launch_table("scatter_rows", "scatter_rows", dst, buf, table, table_form(len(table)),
+                      dst.shape[1] * dst.element_size())
     return dst
 
 
@@ -340,19 +360,36 @@ def relayout_rows_cuda(dst: torch.Tensor, src: torch.Tensor, starts, block_rows:
         raise ValueError(f"relayout_rows: src {tuple(src.shape)} and dst {tuple(dst.shape)} differ")
     st = row_starts(starts, block_rows, dst.shape[0], "relayout_rows")
     if st.size and dst.shape[1]:
-        _launch_segments("relayout_rows", dst, src, coalesced_segments(st, block_rows, relayout=True), dst.shape[0])
+        table = row_table(coalesced_segments(st, block_rows, relayout=True), dst.shape[0])
+        _launch_table("relayout_rows", "relayout_rows", dst, src, table, table_form(len(table)),
+                      dst.shape[1] * dst.element_size())
     return dst
+
+
+def unpack_tables(table: np.ndarray, block_rows: int, out_rows: int) -> tuple[str, np.ndarray]:
+    """What :func:`unpack_rows_cuda` launches for the int32 block starts
+    ``table``: ``("unpack_rows", table)`` where the blocks are disjoint (one
+    sort tells), else ``("unpack_segments", int32 last-writer triples)``."""
+    if disjoint_blocks(table, block_rows):
+        return "unpack_rows", table
+    segs = last_writer_segments(table.astype(np.int64), block_rows)
+    return "unpack_segments", row_table(segs, max(out_rows, table.size * block_rows))
 
 
 def unpack_rows_cuda(buf: torch.Tensor, starts, block_rows: int, out_rows: int) -> torch.Tensor:
     device = _check_2d("unpack_rows", buf)
-    st = row_starts(starts, block_rows, out_rows, "unpack_rows")
-    if buf.shape[0] != st.size * block_rows:
-        raise ValueError(f"unpack_rows: buffer {tuple(buf.shape)} is not {st.size} blocks of {block_rows} rows")
-    if st.size == 0:  # nothing to scatter: the zero output, no launch
+    table = start_table(starts, block_rows, out_rows, "unpack_rows")
+    if buf.shape[0] != table.size * block_rows:
+        raise ValueError(f"unpack_rows: buffer {tuple(buf.shape)} is not {table.size} blocks of {block_rows} rows")
+    if table.size == 0:  # nothing to scatter: the zero output, no launch
         return torch.zeros((out_rows, buf.shape[1]), dtype=buf.dtype, device=device)
     out = torch.empty((out_rows, buf.shape[1]), dtype=buf.dtype, device=device)
     if out.numel():
-        segs = unpack_segments(st, block_rows, out_rows)
-        _launch("unpack_rows", out, buf, segs, len(segs), int(segs[:, 2].max()), buf.shape[1] * buf.element_size())
+        row_bytes = buf.shape[1] * buf.element_size()
+        entry, launched = unpack_tables(table, block_rows, out_rows)
+        if entry == "unpack_rows":
+            _launch_table("unpack_rows", entry, out, buf, launched, table_form(launched.size, starts=True),
+                          block_rows, row_bytes, out_rows)
+        else:
+            _launch_table("unpack_rows", entry, out, buf, launched, table_form(len(launched)), row_bytes, out_rows)
     return out

@@ -31,11 +31,12 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import WIRE_QDTYPE, row_starts
-from repro_torch.kernels.reshard_pack import _table, last_writer_segments
+from repro_torch.kernels.reshard_pack import last_writer_segments
 
 # Kernel launches in this process, by kernel; each is bumped once per
 # launch, nowhere else.
@@ -59,6 +60,13 @@ def _lib() -> ctypes.CDLL:
         lib.repro_quant_error_string.argtypes = [ctypes.c_int]
         lib.repro_quant_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _table(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """An int64 host table on the card, copied on the current stream (the
+    pinned host buffer stays reserved until that copy has run)."""
+    host = torch.from_numpy(np.ascontiguousarray(a, dtype=np.int64)).pin_memory()
+    return host.to(device, non_blocking=True)
 
 
 def _check(what: str, x: torch.Tensor, dtypes) -> None:

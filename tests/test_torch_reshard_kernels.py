@@ -238,7 +238,7 @@ def test_port_refuses_starts_that_leave_the_array(fn, starts):
 # ---------------------------------------------------------------------------
 
 
-def _replay(segs, dst, src, zero_ok=False):
+def _replay(segs, dst, src):
     """Apply segments (src_row, dst_row, rows) as the kernels do; check that
     no destination row is written twice."""
     out = dst.copy()
@@ -246,7 +246,7 @@ def _replay(segs, dst, src, zero_ok=False):
     for s, d, n in segs.tolist():
         assert n > 0 and not written[d : d + n].any()
         written[d : d + n] = True
-        out[d : d + n] = 0 if (zero_ok and s < 0) else src[s : s + n]
+        out[d : d + n] = src[s : s + n]
     return out, written
 
 
@@ -271,9 +271,14 @@ def test_segment_tables_give_the_sequential_result(seed):
         assert (segs[:, 0] == segs[:, 1]).all()
         got, _ = _replay(segs, dst, src)
         np.testing.assert_array_equal(got, want)
+        # unpack: the zero-filled output, then the starts of disjoint blocks
+        # (as segments of one block each) or the last writers' segments
         want = ref.unpack_rows_ref(torch.from_numpy(buf), starts, block, R).numpy()
-        got, written = _replay(rp.unpack_segments(starts, block, R), np.full((R, 2), np.nan), buf, zero_ok=True)
-        assert written.all()
+        entry, table = rp.unpack_tables(rp.start_table(starts, block, R, "unpack_rows"), block, R)
+        if entry == "unpack_rows":
+            table = np.stack([np.arange(nb) * block, table, np.full(nb, block)], axis=1)
+        got, written = _replay(table, np.zeros((R, 2)), buf)
+        assert not got[~written].any()
         np.testing.assert_array_equal(got, want)
 
 
