@@ -61,7 +61,11 @@ non-zero without one. Phases, each printing one line or more:
    against their plain versions, byte for byte, int8 and fp8-e4m3, from
    f32 and bf16: random tiles, the edge tiles (zero, denormal, 3.38e38),
    repeated and overlapping starts, idempotence, and the training path's
-   shapes;
+   shapes; each route of the scatter's table (a list read by the library,
+   sorted or not, an array, blocks it leaves to the wrapper, repeated rows)
+   on rows the 16-byte body takes and rows it does not, and the table at
+   each form's edge (8160 / 8161 starts, 2720 / 2721 segments), each call
+   one launch of the form its table picks;
 13. live-resized training at full width: qwen3-1.7b (28 layers, d_model
    2048, fp32 params, bf16 compute, AdamW, remat per layer), global batch 4
    x 1024 tokens, on dp2tp2; a streamed resize to dp2tp4 with the Adam
@@ -74,7 +78,8 @@ non-zero without one. Phases, each printing one line or more:
    same step); prints each commit's pause, prepare and bytes, peak memory,
    and the device's busy share over one step under ``torch.profiler``;
    every flash launch of the run (forward and backward) on the tensor
-   cores;
+   cores; the host time per call of the two quant wrappers over the
+   streamed resize;
 14. the new kernels' times (CUDA events, median of 20): the backward and
    its TFLOP/s beside the CUDA-core route,
    ``scaled_dot_product_attention``'s backward and the plain version's, the
@@ -84,7 +89,11 @@ non-zero without one. Phases, each printing one line or more:
    through ``ops.ssd_scan``, the serving shape, x in f32 and bf16; and a
    gradient through the card's scan raises;
 16. the RMSNorm kernel against its plain version: rows 1-300, d 128, 256,
-   2048 and 2560, f32 and bf16;
+   2048, 2560, 2561 and 6400 and a misaligned row, f32 and bf16, both
+   bodies (the row in registers, and the two-read body for a d above the
+   register cap, an odd d and the misaligned row), each case checked for
+   the body it took; on aligned rows the register body's bits against the
+   two-read body's;
 17. small-input agreement: reduced mamba2 with ``d_ff = 0`` served on the
    card (kernel) and on the CPU (plain path) from the same weights;
 18. full-width serve of mamba2-2.7b (64 SSD layers, d_model 2560, 80 heads
@@ -98,7 +107,9 @@ non-zero without one. Phases, each printing one line or more:
    migrated bytes, the staging bound and the tokens checked as there;
 20. the two kernels' times (CUDA events, median of 30): the SSD kernel at
    the serving shape beside its plain version, RMSNorm at (4096, 2560) bf16
-   beside its plain version and ``F.rms_norm``, each with its bound.
+   and f32 beside its plain version and ``F.rms_norm`` (the calls in turns,
+   the median of 5 medians, and each kernel alone on the device, the
+   two-read body's too), each with its bound.
 The second-to-last line is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.
 
@@ -832,15 +843,16 @@ def _device_class(name: str) -> str:
 
 
 class _wrapper_clocks:
-    """Within the block, times every call of the row kernels' CUDA wrappers
-    on the host clock: ``host[kind] = [calls, seconds]`` accumulate."""
+    """Within the block, times every call of the CUDA wrappers of ``kinds``
+    in ``module`` (the row kernels' by default) on the host clock:
+    ``host[kind] = [calls, seconds]`` accumulate."""
 
-    def __init__(self, host: dict):
-        self.host, self.saved = host, {}
+    def __init__(self, host: dict, module=rp, kinds=ROW_KERNELS):
+        self.host, self.module, self.kinds, self.saved = host, module, kinds, {}
 
     def __enter__(self):
-        for kind in ROW_KERNELS:
-            fn = self.saved[kind] = getattr(rp, f"{kind}_cuda")
+        for kind in self.kinds:
+            fn = self.saved[kind] = getattr(self.module, f"{kind}_cuda")
 
             def timed(*args, _fn=fn, _kind=kind):
                 t0 = time.perf_counter()
@@ -849,11 +861,11 @@ class _wrapper_clocks:
                 self.host[_kind][0] += 1
                 return out
 
-            setattr(rp, f"{kind}_cuda", timed)
+            setattr(self.module, f"{kind}_cuda", timed)
 
     def __exit__(self, *exc):
         for kind, fn in self.saved.items():
-            setattr(rp, f"{kind}_cuda", fn)
+            setattr(self.module, f"{kind}_cuda", fn)
 
 
 def phase_commit_profile() -> None:
@@ -1040,6 +1052,7 @@ def phase_row_times(launches: dict) -> list[dict]:
 BWD_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 TRAIN = dict(arch="qwen3-1.7b", batch=4, seq=1024, before=3, after=3, stream_k=8, device="cuda")
 QUANT_FORMATS = ("int8", "fp8_e4m3")
+QUANT_KERNELS = ("pack_quant_rows", "dequant_scatter_rows")
 STACKED_MOMENT = (28, 2048 * 6144)  # a stacked moment of qwen3-1.7b (mlp/wi_gate), one row a layer
 
 
@@ -1087,43 +1100,74 @@ def _bytes(x: torch.Tensor) -> torch.Tensor:
     return x.contiguous().view(torch.uint8)
 
 
-def quant_vs_plain(src, starts, block_rows, fmt, dst=None) -> None:
+def _quant_forms_since(before: dict) -> dict:
+    """The table forms of dequant_scatter_rows' launches since ``before`` (a
+    copy of ``rq.table_launches``), with their counts."""
+    return {k: rq.table_launches[k] - before[k] for k in before if rq.table_launches[k] != before[k]}
+
+
+def quant_vs_plain(src, starts, block_rows, fmt, dst=None) -> str:
     """Both quant kernels against their plain versions, byte for byte:
     payload, scales, the dequantized scatter into ``dst`` (repeated starts
-    included) and its idempotence."""
+    included) and its idempotence. Returns the form of the scatter's table,
+    after checking that each scatter launched once."""
     q, s = rq.pack_quant_rows_cuda(src, starts, block_rows, fmt)
     q_r, s_r = R.pack_quant_rows_ref(src, starts, block_rows, fmt)
     torch.cuda.synchronize()
     assert torch.equal(_bytes(q), _bytes(q_r)), f"pack_quant_rows payload differs ({fmt}, {src.dtype}, {tuple(src.shape)})"
     assert torch.equal(_bytes(s), _bytes(s_r)), f"pack_quant_rows scales differ ({fmt}, {src.dtype})"
     dst = torch.zeros_like(src) if dst is None else dst
+    before = dict(rq.table_launches)
     once = rq.dequant_scatter_rows_cuda(dst.clone(), q, s, starts, block_rows)
+    forms = _quant_forms_since(before)
     want = R.dequant_scatter_rows_ref(dst.clone(), q_r, s_r, starts, block_rows)
     twice = rq.dequant_scatter_rows_cuda(once.clone(), q, s, starts, block_rows)
     torch.cuda.synchronize()
     assert torch.equal(_bytes(once), _bytes(want)), f"dequant_scatter_rows differs ({fmt}, {src.dtype})"
     assert torch.equal(_bytes(twice), _bytes(once)), "dequant_scatter_rows is not idempotent"
+    assert len(forms) == 1 and sum(forms.values()) == 1, forms
+    return next(iter(forms))
 
 
 def phase_quant_cases() -> None:
     rng = np.random.default_rng(3)
     for fmt in QUANT_FORMATS:
         for dtype in (torch.float32, torch.bfloat16):
-            n = 0
+            n, forms = 0, {}
             for seed in range(6):
                 rows, C = int(rng.integers(8, 64)), int(rng.choice([1, 3, 128, 130, 4096]))
                 block = int(rng.choice([1, 2, 8])) if rows >= 16 else 1
                 nb = int(rng.integers(1, rows // block + 1))
                 starts = [int(x) for x in rng.integers(0, rows - block + 1, nb)]  # repeats, overlaps
                 src = rand_rows((rows, C), dtype, seed) * float(10.0 ** rng.integers(-30, 30))
-                quant_vs_plain(src, starts, block, fmt, rand_rows((rows, C), dtype, seed + 1))
+                form = quant_vs_plain(src, starts, block, fmt, rand_rows((rows, C), dtype, seed + 1))
+                forms[form] = forms.get(form, 0) + 1
                 n += 1
             edge = torch.tensor([[0.0] * 128, [1e-40] * 128, [3.38e38] * 128], device="cuda").to(dtype)
-            quant_vs_plain(edge, [0, 1, 2], 1, fmt, torch.ones_like(edge))
-            quant_vs_plain(edge, [2, 0, 2, 1, 0], 1, fmt, torch.ones_like(edge))  # repeated: the last wins
+            assert quant_vs_plain(edge, [0, 1, 2], 1, fmt, torch.ones_like(edge)) == "starts"
+            # repeated: the last wins
+            assert quant_vs_plain(edge, [2, 0, 2, 1, 0], 1, fmt, torch.ones_like(edge)) == "param"
             log("quant", f"{fmt} from {str(dtype)[6:]}: {n} random cases (C 1..4096, blocks 1/2/8, repeated and "
-                         "overlapping starts) and the edge tiles (0, 1e-40, 3.38e38) equal byte for byte; "
-                         "dequant_scatter idempotent")
+                         f"overlapping starts; scatter tables {forms}) and the edge tiles (0, 1e-40, 3.38e38) "
+                         "equal byte for byte; dequant_scatter idempotent")
+            # each route of the scatter's table, on rows the 16-byte body
+            # takes (C 2048) and rows it does not (C 130)
+            for C in (2048, 130):
+                src = rand_rows((64, C), dtype, 7) * 1e-2
+                spread = [int(x) for x in rng.permutation(32) * 2]  # distinct, unsorted
+                routes = {
+                    "sorted distinct rows, a list": (sorted(spread), 1, "starts"),
+                    "unsorted distinct rows, a list (the bitmap)": (spread, 1, "starts"),
+                    "unsorted distinct rows, an array": (np.array(spread), 1, "starts"),
+                    "unsorted disjoint blocks of 2, a list (the numpy route)": (spread[:16], 2, "starts"),
+                    "repeated rows, a list": (spread + spread[:5], 1, "param"),
+                    "overlapping blocks of 8": (OVERLAP_STARTS[0], 8, "param"),
+                }
+                for why, (starts, block, want) in routes.items():
+                    form = quant_vs_plain(src, starts, block, fmt, rand_rows((64, C), dtype, 8))
+                    assert form == want, (why, C, form, want)
+            log("quant", f"{fmt} from {str(dtype)[6:]}: equal on every route of the scatter's table, C 2048 and "
+                         f"130: " + ", ".join(f"{why} ({want})" for why, (_, _, want) in routes.items()))
         # the training path's shapes: a stacked moment, one tile a layer, and
         # 4096 scattered embedding-moment rows (fp32 moments)
         stacked = rand_rows(STACKED_MOMENT, torch.float32, 40) * 1e-3
@@ -1135,19 +1179,42 @@ def phase_quant_cases() -> None:
         torch.cuda.empty_cache()
         log("quant", f"{fmt}: equal on 3 rows of a stacked moment {STACKED_MOMENT} f32 and 4096 scattered "
                      f"rows of the embedding moment {EMBED} f32")
+    # the scatter's table at each form's edge: the by-value capacity of
+    # starts and one past it (the device table), and of last-writer segments
+    # (each row named twice, rows apart, is one segment of its second tile)
+    scap, cap = rp.PARAM_STARTS, rp.PARAM_SEGS
+    edges = {
+        "by-value capacity of starts": ([int(x) for x in rng.permutation(scap)], "starts"),
+        "one past it": ([int(x) for x in rng.permutation(scap + 1)], "starts_device"),
+        "by-value capacity of segments": ([2 * i for i in range(cap) for _ in (0, 1)], "param"),
+        "one past it, segments": ([2 * i for i in range(cap + 1) for _ in (0, 1)], "device"),
+    }
+    for why, (starts, want) in edges.items():
+        src = rand_rows((2 * cap + 2 if want in ("param", "device") else scap + 1, 128), torch.float32, 9)
+        before = rq.launches["dequant_scatter_rows"]
+        form = quant_vs_plain(src, starts, 1, "int8", rand_rows(tuple(src.shape), torch.float32, 10))
+        assert form == want and rq.launches["dequant_scatter_rows"] == before + 2, (why, form)
+    log("quant", "dequant_scatter_rows at its table's edges, one launch each: "
+                 + ", ".join(f"{why} ({len(st)} starts, {want})" for why, (st, want) in edges.items()))
     src = rand_rows((16, 8), torch.float32, 0)
     for why, call in {
         "pack_quant_rows start 16": lambda: rq.pack_quant_rows_cuda(src, [16], 1, "int8"),
         "pack_quant_rows int8 source": lambda: rq.pack_quant_rows_cuda(src.to(torch.int8), [0], 1, "int8"),
         "dequant_scatter_rows start -1": lambda: rq.dequant_scatter_rows_cuda(
             src, src[:1].to(torch.int8), torch.ones(1, 1, device="cuda"), [-1], 1),
+        "dequant_scatter_rows start 16 as an array": lambda: rq.dequant_scatter_rows_cuda(
+            src, src[:1].to(torch.int8), torch.ones(1, 1, device="cuda"), np.array([16]), 1),
+        "dequant_scatter_rows a buffer of other tiles": lambda: rq.dequant_scatter_rows_cuda(
+            src, src[:2].to(torch.int8), torch.ones(1, 1, device="cuda"), [0], 1),
     }.items():
+        before = dict(rq.launches)
         try:
             call()
         except ValueError:
             log("quant", f"refused {why}")
         else:
             raise AssertionError(f"quant kernel accepted {why}")
+        assert rq.launches == before, f"a refused call launched: {why}"
 
 
 def _all_counts() -> dict:
@@ -1224,10 +1291,12 @@ def phase_train() -> dict:
         losses = ctrl.train_steps(TRAIN["before"])
         ctrl.request_resize(ParallelConfig(dp=2, tp=4))
         during = 0
-        while not ctrl.records:
-            losses += ctrl.train_steps(1)
-            during += 1
-            assert during < 200, "the streamed resize never committed"
+        quant_host = {k: [0, 0.0] for k in QUANT_KERNELS}  # calls, wrapper seconds, over the streamed resize
+        with _wrapper_clocks(quant_host, rq, QUANT_KERNELS):
+            while not ctrl.records:
+                losses += ctrl.train_steps(1)
+                during += 1
+                assert during < 200, "the streamed resize never committed"
         ctrl.wire_policy = None  # the second resize is lossless
         ctrl.request_resize(ParallelConfig(dp=1, tp=4), overlap="stop_copy")
         while len(ctrl.records) < 2:
@@ -1271,6 +1340,9 @@ def phase_train() -> dict:
     assert not second["quantized"] and ctrl.records[1].wire_bytes == ctrl.records[1].logical_bytes
     log("train", "every commit delivered the cut's bytes (params and the lossless commit's moments) or "
                  f"the plain int8 round trip (the first commit's moments); steps during the resizes {during}")
+    log("train", "the streamed resize's quant wrappers on the host clock: "
+                 + ", ".join(f"{k} {calls} calls, {1e3 * sec / max(calls, 1):.4f} ms per call, {sec:.4f} s in all"
+                             for k, (calls, sec) in quant_host.items()))
 
     # where a step's time goes: one more step on the final world, its two
     # halves (gradients, update) apart, under the profiler
@@ -1462,13 +1534,16 @@ def phase_quant_times(launches: dict) -> list[dict]:
                                      nb * C * (1 + 4) + nb * 4 + nb * 8, err_deq),
         }
         for kind, (kernel, plain, nbytes, err) in timed.items():
+            before = dict(rq.table_launches)
             kernel_ms = median_ms(kernel, reps=20)
+            form = "/".join(_quant_forms_since(before)) or "int64 table"
             plain_ms = median_ms(plain, reps=20)
             on_device_ms = device_ms(kernel, "tile_" if kind == "pack_quant_rows" else "dequant_scatter_kernel",
                                      per_call=True)
             bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
             log("times", f"{kind} {case} ({nb} of {rows} rows x {C} f32 <-> int8): call {kernel_ms:.4f} ms "
-                         f"(kernels on the device {on_device_ms:.4f} ms), plain {plain_ms:.4f} ms, library none, "
+                         f"(kernels on the device {on_device_ms:.4f} ms, host {kernel_ms - on_device_ms:.4f} ms, "
+                         f"table {form}), plain {plain_ms:.4f} ms, library none, "
                          f"bound {bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB), max_abs_err {err:g}")
             assert err == 0.0, f"{kind} disagrees with its plain version at {case}"
             if case == "stacked_row":
@@ -1476,7 +1551,8 @@ def phase_quant_times(launches: dict) -> list[dict]:
                     "pack_quant_rows": "src/repro/kernels/reshard_quant.py:137",
                     "dequant_scatter_rows": "src/repro/kernels/reshard_quant.py:189"}[kind],
                     launches[kind], err, kernel_ms, plain_ms, bound_ms, "bytes", None,
-                    device_ms=on_device_ms, shape=f"{nb} of {rows} rows x {C} f32 <-> int8")
+                    device_ms=on_device_ms, host_ms=kernel_ms - on_device_ms, table=form,
+                    shape=f"{nb} of {rows} rows x {C} f32 <-> int8")
         del src, dst, q, sc
         torch.cuda.empty_cache()
     out = [recs["pack_quant_rows"], recs["dequant_scatter_rows"]]
@@ -1587,22 +1663,51 @@ def phase_ssd_cases() -> float:
     return worst
 
 
+def _rms_two_reads(x: torch.Tensor, sc: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """The kernel's two-read body on any row, through the library's entry
+    (nv = 0), as the wrapper launches it for rows the register body does not
+    take; not counted."""
+    out = torch.empty_like(x)
+    d = x.shape[-1]
+    codes = rms_k._DTYPE_CODES
+    err = rms_k._lib().repro_rmsnorm(x.data_ptr(), sc.data_ptr(), out.data_ptr(), x.numel() // d, d,
+                                     codes[x.dtype], codes[sc.dtype], eps, 0,
+                                     torch.cuda.current_stream().cuda_stream)
+    assert err == 0, err
+    return out
+
+
 def phase_rms_cases() -> float:
-    """The RMSNorm kernel against its plain version. Returns the worst
-    max |error| in f32."""
+    """The RMSNorm kernel against its plain version, both bodies: the
+    register body (aligned rows up to its cap) and the two-read body (a d
+    above the cap, an odd d, a misaligned row); on aligned rows the register
+    body's bits against the two-read body's. Returns the worst max |error|
+    in bf16."""
     worst = 0.0
     rng = np.random.default_rng(5)
     rows_list = [1, 37, 300] + [int(r) for r in rng.integers(2, 300, 2)]
+    dims = (128, 256, 2048, 2560, 2561, 6400)
     for dtype in (torch.float32, torch.bfloat16):
-        n, err_max, units = 0, 0.0, 0.0
-        for d in (128, 256, 2048, 2560):
+        n, err_max, units, bodies, same = 0, 0.0, 0.0, {}, 0
+        for d in dims:
             for rows in rows_list:
                 g = torch.Generator(device="cuda").manual_seed(rows * d)
                 x = torch.randn(rows, d, generator=g, device="cuda").to(dtype)
                 sc = torch.randn(d, generator=g, device="cuda").to(dtype)
+                if d == 2048 and rows == 37:  # a misaligned row: x one element past 16 bytes
+                    x = torch.cat([x.new_zeros(1), x.reshape(-1)])[1:].view(rows, d)
+                before = dict(rms_k.body_launches)
                 got, want = rms_k.rmsnorm_cuda(x, sc), R.rmsnorm_ref(x, sc)
                 torch.cuda.synchronize()
+                (which,) = [k for k in before if rms_k.body_launches[k] != before[k]]
+                nv = rms_k.body(d, x.element_size(), x.data_ptr() % 16 == 0 and got.data_ptr() % 16 == 0)
+                assert which == ("registers" if nv else "two_reads") and sum(rms_k.body_launches.values()) == sum(
+                    before.values()) + 1, (d, rows, which)
+                bodies.setdefault(which, set()).add(d)
                 assert got.dtype == dtype and got.shape == x.shape
+                if which == "registers":  # the same bits as the two-read body
+                    assert torch.equal(_bytes(got), _bytes(_rms_two_reads(x, sc))), (d, rows, dtype)
+                    same += 1
                 diff = (got.float() - want.float()).abs()
                 if dtype == torch.float32:
                     allowed = RMS_TOL * want.abs().clamp_min(1.0)
@@ -1611,10 +1716,13 @@ def phase_rms_cases() -> float:
                 units = max(units, (diff / allowed).max().item())
                 err_max = max(err_max, diff.max().item())
                 n += 1
-        log("rms", f"rmsnorm {str(dtype)[6:]}: {n} cases (rows {rows_list}, d 128/256/2048/2560): max |error| "
-                   f"{err_max:.3e}, {units:.3f} of the tolerance "
-                   f"({'1e-6, relative above 1' if dtype == torch.float32 else 'one bf16 step'})")
+        log("rms", f"rmsnorm {str(dtype)[6:]}: {n} cases (rows {rows_list}, d {'/'.join(map(str, dims))}; "
+                   f"bodies by d {({k: sorted(v) for k, v in bodies.items()})}): max |error| {err_max:.3e}, "
+                   f"{units:.3f} of the tolerance "
+                   f"({'1e-6, relative above 1' if dtype == torch.float32 else 'one bf16 step'}); the register "
+                   f"body equal bit for bit to the two-read body in {same} cases")
         assert units <= 1.0, f"RMSNorm kernel disagrees with its plain version in {dtype}"
+        assert set(bodies) == {"registers", "two_reads"}, bodies
         if dtype == torch.bfloat16:
             worst = max(worst, err_max)
     try:
@@ -1720,23 +1828,51 @@ def phase_ssd_times(launches: int, err: float) -> dict:
                    err_is="max |error| / max |plain| over y and S, the serving shape and the serve phase's layers")
 
 
-def phase_rms_times(err: float) -> dict:
-    """RMSNorm at (4096, 2560) bf16 (8 x 512 tokens of mamba2's d_model)
-    beside its plain version, ``F.rms_norm`` and the HBM bound."""
+def phase_rms_times(err: float, rounds: int = 5) -> dict:
+    """RMSNorm at (4096, 2560) (8 x 512 tokens of mamba2's d_model), bf16
+    and f32: the call (CUDA events, the median of ``rounds`` medians of 30,
+    taken in turns with ``F.rms_norm``'s) and the kernel alone on the device
+    (the profiler), beside its plain version, ``F.rms_norm`` (call and
+    device) and the HBM bound. bf16 goes in the record."""
     rows, d = RMS_TIME_SHAPE
-    g = torch.Generator(device="cuda").manual_seed(17)
-    x = torch.randn(rows, d, generator=g, device="cuda").to(torch.bfloat16)
-    sc = torch.randn(d, generator=g, device="cuda").to(torch.bfloat16)
-    case_err = (rms_k.rmsnorm_cuda(x, sc).float() - R.rmsnorm_ref(x, sc).float()).abs().max().item()
-    kernel_ms = median_ms(lambda: rms_k.rmsnorm_cuda(x, sc))
-    plain_ms = median_ms(lambda: R.rmsnorm_ref(x, sc))
-    library_ms = median_ms(lambda: torch.nn.functional.rms_norm(x, (d,), sc, 1e-6))
-    nbytes = 2 * x.numel() * x.element_size() + sc.numel() * sc.element_size()
-    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    log("times", f"rmsnorm {RMS_TIME_SHAPE} bf16: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, F.rms_norm "
-                 f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB), max |error| {case_err:.3e}")
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        g = torch.Generator(device="cuda").manual_seed(17)
+        x = torch.randn(rows, d, generator=g, device="cuda").to(dtype)
+        sc = torch.randn(d, generator=g, device="cuda").to(dtype)
+        case_err = (rms_k.rmsnorm_cuda(x, sc).float() - R.rmsnorm_ref(x, sc).float()).abs().max().item()
+        kernel = lambda: rms_k.rmsnorm_cuda(x, sc)  # noqa: E731
+        library = lambda: torch.nn.functional.rms_norm(x, (d,), sc, 1e-6)  # noqa: E731
+        calls = {"kernel": [], "library": []}
+        for _ in range(rounds):
+            calls["kernel"].append(median_ms(kernel))
+            calls["library"].append(median_ms(library))
+        kernel_ms, library_ms = (statistics.median(calls[k]) for k in ("kernel", "library"))
+        plain_ms = median_ms(lambda: R.rmsnorm_ref(x, sc))
+        on_device_ms = device_ms(kernel, "rmsnorm", per_call=True)
+        two_reads_ms = device_ms(lambda: _rms_two_reads(x, sc), "rmsnorm", per_call=True)
+        library_device_ms = device_ms(library, "", per_call=True)
+        nbytes = 2 * x.numel() * x.element_size() + sc.numel() * sc.element_size()
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        name = str(dtype)[6:]
+        body = "registers" if rms_k.body(d, x.element_size(), True) else "two_reads"
+        log("times", f"rmsnorm {RMS_TIME_SHAPE} {name} ({body} body): call {kernel_ms:.4f} ms (median of {rounds} medians: "
+                     f"{', '.join(f'{t:.4f}' for t in calls['kernel'])}; kernel on the device {on_device_ms:.4f} ms, "
+                     f"{nbytes / on_device_ms / 1e6:.0f} GB/s; the two-read body {two_reads_ms:.4f} ms), "
+                     f"F.rms_norm call {library_ms:.4f} ms "
+                     f"({', '.join(f'{t:.4f}' for t in calls['library'])}; on the device {library_device_ms:.4f} ms), "
+                     f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB), "
+                     f"max |error| {case_err:.3e}")
+        out[name] = dict(err=case_err, ms=kernel_ms, calls_ms=calls["kernel"], device_ms=on_device_ms,
+                         body=body, two_reads_device_ms=two_reads_ms,
+                         plain_ms=plain_ms, library_ms=library_ms, library_calls_ms=calls["library"],
+                         library_device_ms=library_device_ms, bound_ms=bound_ms)
+        del x, sc
+    bf16 = out["bfloat16"]
     return _record("rmsnorm", "src/repro_torch/kernels/csrc/rmsnorm.cu", "src/repro/kernels/rmsnorm.py:50", 0,
-                   max(err, case_err), kernel_ms, plain_ms, bound_ms, "bytes", library_ms,
+                   max(err, bf16["err"]), bf16["ms"], bf16["plain_ms"], bf16["bound_ms"], "bytes",
+                   bf16["library_ms"], device_ms=bf16["device_ms"], library_device_ms=bf16["library_device_ms"],
+                   float32=out["float32"],
                    err_is="max |error|, bf16 (within one bf16 step of the plain version)")
 
 

@@ -40,40 +40,21 @@
 //
 // What bounds a call, as opposed to the kernel: the host work around the
 // launch (a moved cache row takes ~5 us on the device). So every table goes
-// by value, in a __grid_constant__ struct in the kernel's parameters (up to
-// 32,764 bytes from CUDA 12.1 on sm_70 and later): no allocation, no
-// host-to-device copy, no event. pack_rows and unpack_rows take their block
-// starts (int32, RowStarts, the counterpart of the Pallas kernels'
-// scalar-prefetch starts); scatter_rows and relayout_rows take segments
-// (int32 triples, RowTable; the wrapper merges runs, so a contiguous run is
-// one segment). repro_pack_rows_list reads a Python list of starts straight
-// into the parameters, so the host reads the list once. Three size classes
-// of each (kParamClasses, kStartClasses) keep a one-block call's parameters
-// small. A larger table is copied by the entry, with one cudaMemcpyAsync on
-// the call's stream, from a pinned host buffer into a device table that the
-// wrapper keeps per stream, and read from there: still one launch.
+// by value in the kernel's parameters (row_tables.cuh): pack_rows and
+// unpack_rows take their block starts (RowStarts); scatter_rows and
+// relayout_rows take segments (RowTable; the wrapper merges runs, so a
+// contiguous run is one segment). repro_pack_rows_list reads a Python list
+// of starts straight into the parameters, so the host reads the list once.
 // The wrapper checks shapes, types, devices and the range of every start,
 // allocates outputs and tables, and passes torch's current stream; the
 // entries check every table entry again before anything is enqueued.
 
 #include <cuda_runtime.h>
-#include <stddef.h>
 #include <stdint.h>
-#include <string.h>
 
-// The CPython functions that repro_pack_rows_list calls (stable ABI),
-// declared here rather than through Python.h so that the build needs no
-// Python headers. The wrapper loads this library into the interpreter with
-// ctypes.PyDLL: a call holds the GIL, ctypes raises any Python error the
-// call leaves set, and these symbols resolve against the running
-// interpreter, as an extension module's do.
-extern "C" {
-typedef struct _object PyObject;
-ptrdiff_t PyList_Size(PyObject* list);
-PyObject* PyList_GetItem(PyObject* list, ptrdiff_t index);
-long long PyLong_AsLongLong(PyObject* obj);
-PyObject* PyErr_Occurred(void);
-}
+#include <type_traits>
+
+#include "row_tables.cuh"
 
 namespace {
 
@@ -111,26 +92,8 @@ __device__ __forceinline__ void copy_span(char* dst, const char* src, int64_t nb
 // pack_rows and unpack_rows: block starts
 // ---------------------------------------------------------------------------
 
-// RowStarts<CAP> holds up to CAP int32 block starts by value, RowStarts<0>
-// points at them in device memory.
-template <int CAP>
-struct RowStarts {
-  int32_t n;
-  int32_t start[CAP];
-};
-
-template <>
-struct RowStarts<0> {
-  int32_t n;
-  const int32_t* start;
-};
-
-// The size classes of the by-value starts; the last is the capacity. The
-// wrapper's PARAM_STARTS (repro_torch/kernels/reshard_pack.py) must equal it.
-constexpr int kStartClasses[] = {16, 256, 8160};
-constexpr int kParamStarts = kStartClasses[2];
 // The parameters: two pointers, row_bytes, block_rows and the starts.
-static_assert(2 * sizeof(void*) + 2 * sizeof(int64_t) + sizeof(RowStarts<kParamStarts>) <= 32764,
+static_assert(2 * sizeof(void*) + 2 * sizeof(int64_t) + sizeof(RowStarts<kParamStarts>) <= kParamBytes,
               "the by-value starts exceed the 32,764 bytes of kernel parameters");
 
 // The one body of both directions: block i is block_rows rows at row
@@ -151,15 +114,15 @@ __device__ __forceinline__ void copy_blocks(char* out, const char* in, int64_t r
   }
 }
 
-template <int CAP>
+template <typename Starts>
 __global__ void pack_rows_kernel(char* __restrict__ out, const char* __restrict__ src, int64_t row_bytes,
-                                 int64_t block_rows, const __grid_constant__ RowStarts<CAP> t) {
+                                 int64_t block_rows, const __grid_constant__ Starts t) {
   copy_blocks<true>(out, src, row_bytes, block_rows, t);
 }
 
-template <int CAP>
+template <typename Starts>
 __global__ void unpack_rows_kernel(char* __restrict__ out, const char* __restrict__ buf, int64_t row_bytes,
-                                   int64_t block_rows, const __grid_constant__ RowStarts<CAP> t) {
+                                   int64_t block_rows, const __grid_constant__ Starts t) {
   copy_blocks<false>(out, buf, row_bytes, block_rows, t);
 }
 
@@ -168,31 +131,13 @@ __global__ void unpack_rows_kernel(char* __restrict__ out, const char* __restric
 // segments (src_row, dst_row, rows)
 // ---------------------------------------------------------------------------
 
-// RowTable<CAP> holds up to CAP int32 triples by value, RowTable<0> points
-// at a table in device memory.
-template <int CAP>
-struct RowTable {
-  int32_t n;
-  int32_t seg[3 * CAP];
-};
-
-template <>
-struct RowTable<0> {
-  int32_t n;
-  const int32_t* seg;
-};
-
-// The size classes of the by-value table; the last is the capacity. The
-// wrapper's PARAM_SEGS (repro_torch/kernels/reshard_pack.py) must equal it.
-constexpr int kParamClasses[] = {16, 256, 2720};
-constexpr int kParamSegs = kParamClasses[2];
 // The parameters: two pointers, row_bytes and the table.
-static_assert(3 * sizeof(int64_t) + sizeof(RowTable<kParamSegs>) <= 32764,
+static_assert(3 * sizeof(int64_t) + sizeof(RowTable<kParamSegs>) <= kParamBytes,
               "the by-value table exceeds the 32,764 bytes of kernel parameters");
 
-template <int CAP>
+template <typename Table>
 __global__ void scatter_rows_kernel(char* __restrict__ dst, const char* __restrict__ buf, int64_t row_bytes,
-                                    const __grid_constant__ RowTable<CAP> t) {
+                                    const __grid_constant__ Table t) {
   for (int64_t i = blockIdx.y; i < t.n; i += gridDim.y) {
     const int64_t from = t.seg[3 * i], to = t.seg[3 * i + 1], rows = t.seg[3 * i + 2];
     copy_span(dst + to * row_bytes, buf + from * row_bytes, rows * row_bytes);
@@ -201,9 +146,9 @@ __global__ void scatter_rows_kernel(char* __restrict__ dst, const char* __restri
 
 // relayout: the same rows of two arrays (src_row == dst_row in every segment).
 // Not __restrict__: a destination adopted from its source may be the source.
-template <int CAP>
+template <typename Table>
 __global__ void relayout_rows_kernel(char* dst, const char* src, int64_t row_bytes,
-                                     const __grid_constant__ RowTable<CAP> t) {
+                                     const __grid_constant__ Table t) {
   for (int64_t i = blockIdx.y; i < t.n; i += gridDim.y) {
     const int64_t from = t.seg[3 * i], to = t.seg[3 * i + 1], rows = t.seg[3 * i + 2];
     copy_span(dst + to * row_bytes, src + from * row_bytes, rows * row_bytes);
@@ -226,100 +171,23 @@ dim3 grid_for(int64_t n, int64_t max_span_bytes) {
   return dim3(static_cast<unsigned>(x), static_cast<unsigned>(y), 1);
 }
 
-// Both kinds of table (starts, segs) hold n entries in host memory. Up to
-// the last size class they are copied into the parameters of the smallest
-// class that holds them (the launch copies the parameters, so the host table
-// may go once the entry returns). Past it the host table must be pinned;
-// one cudaMemcpyAsync on the stream copies it into the device table
-// (dev_starts, dev_segs: room for n entries), then the kernel reads it
-// there. The caller keeps the host table until that copy has run and does
-// not write the device table before the kernel has read it (one device
-// table per stream).
-
-template <int CAP>
-void launch_starts(bool gather, dim3 grid, cudaStream_t s, char* out, const char* in, int64_t row_bytes,
-                   int64_t block_rows, const RowStarts<CAP>& t) {
-  if (gather) {
-    pack_rows_kernel<CAP><<<grid, kThreads, 0, s>>>(out, in, row_bytes, block_rows, t);
-  } else {
-    unpack_rows_kernel<CAP><<<grid, kThreads, 0, s>>>(out, in, row_bytes, block_rows, t);
-  }
-}
-
-template <int CAP>
-void starts_by_value(bool gather, dim3 grid, cudaStream_t s, char* out, const char* in, int64_t row_bytes,
-                     int64_t block_rows, const int32_t* starts, int64_t n) {
-  RowStarts<CAP> t;
-  t.n = static_cast<int32_t>(n);
-  memcpy(t.start, starts, sizeof(int32_t) * n);
-  launch_starts<CAP>(gather, grid, s, out, in, row_bytes, block_rows, t);
-}
-
-// Whether n block starts in host memory are a table the kernels take: every
-// block of block_rows rows from a start lies inside the array's rows rows.
-bool starts_valid(const int32_t* starts, int64_t n, int64_t block_rows, int64_t row_bytes, int64_t rows,
-                  const int32_t* dev_starts) {
-  if (n < 0 || block_rows <= 0 || row_bytes <= 0 || (n > kParamStarts && dev_starts == nullptr)) return false;
-  for (int64_t i = 0; i < n; ++i) {
-    if (starts[i] < 0 || starts[i] + block_rows > rows) return false;
-  }
-  return true;
-}
+// Each launch takes its table in host memory through with_starts or
+// with_segments (row_tables.cuh): by value up to the capacity, through the
+// device table past it.
 
 int launch_blocks(bool gather, void* out, const void* in, const int32_t* starts, int64_t n, int64_t block_rows,
                   int64_t row_bytes, int32_t* dev_starts, cudaStream_t s) {
   const dim3 grid = grid_for(n, block_rows * row_bytes);
   char* o = static_cast<char*>(out);
   const char* f = static_cast<const char*>(in);
-  if (n <= kStartClasses[0]) {
-    starts_by_value<kStartClasses[0]>(gather, grid, s, o, f, row_bytes, block_rows, starts, n);
-  } else if (n <= kStartClasses[1]) {
-    starts_by_value<kStartClasses[1]>(gather, grid, s, o, f, row_bytes, block_rows, starts, n);
-  } else if (n <= kParamStarts) {
-    starts_by_value<kParamStarts>(gather, grid, s, o, f, row_bytes, block_rows, starts, n);
-  } else {
-    const cudaError_t err = cudaMemcpyAsync(dev_starts, starts, sizeof(int32_t) * n, cudaMemcpyHostToDevice, s);
-    if (err != cudaSuccess) return err;
-    RowStarts<0> t;
-    t.n = static_cast<int32_t>(n);
-    t.start = dev_starts;
-    launch_starts<0>(gather, grid, s, o, f, row_bytes, block_rows, t);
-  }
-  return cudaGetLastError();
-}
-
-template <int CAP>
-void launch_segments(bool relayout, dim3 grid, cudaStream_t stream, char* dst, const char* src,
-                     int64_t row_bytes, const RowTable<CAP>& t) {
-  if (relayout) {
-    relayout_rows_kernel<CAP><<<grid, kThreads, 0, stream>>>(dst, src, row_bytes, t);
-  } else {
-    scatter_rows_kernel<CAP><<<grid, kThreads, 0, stream>>>(dst, src, row_bytes, t);
-  }
-}
-
-template <int CAP>
-void segments_by_value(bool relayout, dim3 grid, cudaStream_t stream, char* dst, const char* src,
-                       int64_t row_bytes, const int32_t* segs, int64_t n) {
-  RowTable<CAP> t;
-  t.n = static_cast<int32_t>(n);
-  memcpy(t.seg, segs, sizeof(int32_t) * 3 * n);
-  launch_segments<CAP>(relayout, grid, stream, dst, src, row_bytes, t);
-}
-
-// The most rows of n segments (int32 triples in host memory), or -1 if
-// they are not a table the kernels take: no negative row, no empty segment,
-// and, where dst_rows >= 0, every destination row below dst_rows.
-int64_t segments_max_rows(const int32_t* segs, int64_t n, int64_t row_bytes, int64_t dst_rows,
-                          const int32_t* dev_segs) {
-  if (n < 0 || row_bytes <= 0 || (n > kParamSegs && dev_segs == nullptr)) return -1;
-  int64_t max_rows = 0;
-  for (int64_t i = 0; i < n; ++i) {
-    const int64_t from = segs[3 * i], to = segs[3 * i + 1], rows = segs[3 * i + 2];
-    if (from < 0 || to < 0 || rows <= 0 || (dst_rows >= 0 && to + rows > dst_rows)) return -1;
-    if (rows > max_rows) max_rows = rows;
-  }
-  return max_rows;
+  return with_starts(starts, n, dev_starts, s, [&](const auto& t) {
+    using Starts = std::decay_t<decltype(t)>;
+    if (gather) {
+      pack_rows_kernel<Starts><<<grid, kThreads, 0, s>>>(o, f, row_bytes, block_rows, t);
+    } else {
+      unpack_rows_kernel<Starts><<<grid, kThreads, 0, s>>>(o, f, row_bytes, block_rows, t);
+    }
+  });
 }
 
 int launch_rows(bool relayout, void* dst, const void* src, const int32_t* segs, int64_t n, int64_t max_rows,
@@ -327,26 +195,19 @@ int launch_rows(bool relayout, void* dst, const void* src, const int32_t* segs, 
   const dim3 grid = grid_for(n, max_rows * row_bytes);
   char* d = static_cast<char*>(dst);
   const char* f = static_cast<const char*>(src);
-  if (n <= kParamClasses[0]) {
-    segments_by_value<kParamClasses[0]>(relayout, grid, s, d, f, row_bytes, segs, n);
-  } else if (n <= kParamClasses[1]) {
-    segments_by_value<kParamClasses[1]>(relayout, grid, s, d, f, row_bytes, segs, n);
-  } else if (n <= kParamSegs) {
-    segments_by_value<kParamSegs>(relayout, grid, s, d, f, row_bytes, segs, n);
-  } else {
-    const cudaError_t err = cudaMemcpyAsync(dev_segs, segs, sizeof(int32_t) * 3 * n, cudaMemcpyHostToDevice, s);
-    if (err != cudaSuccess) return err;
-    RowTable<0> t;
-    t.n = static_cast<int32_t>(n);
-    t.seg = dev_segs;
-    launch_segments<0>(relayout, grid, s, d, f, row_bytes, t);
-  }
-  return cudaGetLastError();
+  return with_segments(segs, n, dev_segs, s, [&](const auto& t) {
+    using Table = std::decay_t<decltype(t)>;
+    if (relayout) {
+      relayout_rows_kernel<Table><<<grid, kThreads, 0, s>>>(d, f, row_bytes, t);
+    } else {
+      scatter_rows_kernel<Table><<<grid, kThreads, 0, s>>>(d, f, row_bytes, t);
+    }
+  });
 }
 
 int segment_entry(bool relayout, void* dst, const void* src, const int32_t* segs, int64_t n, int64_t row_bytes,
                   int32_t* dev_segs, void* stream) {
-  const int64_t max_rows = segments_max_rows(segs, n, row_bytes, -1, dev_segs);
+  const int64_t max_rows = row_bytes > 0 ? segments_max_rows(segs, n, -1, -1, dev_segs) : -1;
   if (max_rows < 0) return cudaErrorInvalidValue;
   if (n == 0) return 0;
   return launch_rows(relayout, dst, src, segs, n, max_rows, row_bytes, dev_segs, static_cast<cudaStream_t>(stream));
@@ -364,7 +225,7 @@ int segment_entry(bool relayout, void* dst, const void* src, const int32_t* segs
 // starts: n int32 block starts into src's rows rows.
 extern "C" int repro_pack_rows(void* out, const void* src, const int32_t* starts, int64_t n, int64_t block_rows,
                                int64_t row_bytes, int64_t rows, int32_t* dev_starts, void* stream) {
-  if (!starts_valid(starts, n, block_rows, row_bytes, rows, dev_starts)) return cudaErrorInvalidValue;
+  if (row_bytes <= 0 || !starts_valid(starts, n, block_rows, rows, dev_starts)) return cudaErrorInvalidValue;
   if (n == 0) return 0;
   return launch_blocks(true, out, src, starts, n, block_rows, row_bytes, dev_starts,
                        static_cast<cudaStream_t>(stream));
@@ -381,13 +242,8 @@ extern "C" int repro_pack_rows_list(void* out, const void* src, PyObject* list, 
   n = PyList_Size(list);
   if (n < 0 || n > kParamStarts || block_rows <= 0 || row_bytes <= 0) return cudaErrorInvalidValue;
   int32_t starts[kParamStarts];
-  for (int64_t i = 0; i < n; ++i) {
-    const long long s = PyLong_AsLongLong(PyList_GetItem(list, i));
-    if (s == -1 && PyErr_Occurred() != nullptr) return -2;
-    if (s < 0 || s > rows - block_rows) return -1;
-    starts[i] = static_cast<int32_t>(s);
-  }
-  if (n == 0) return 0;
+  const int err = read_start_list(list, n, block_rows, rows, starts);
+  if (err != 0 || n == 0) return err;
   return launch_blocks(true, out, src, starts, n, block_rows, row_bytes, dev_starts,
                        static_cast<cudaStream_t>(stream));
 }
@@ -396,7 +252,7 @@ extern "C" int repro_pack_rows_list(void* out, const void* src, PyObject* list, 
 // is zeroed first.
 extern "C" int repro_unpack_rows(void* out, const void* buf, const int32_t* starts, int64_t n, int64_t block_rows,
                                  int64_t row_bytes, int64_t rows, int32_t* dev_starts, void* stream) {
-  if (!starts_valid(starts, n, block_rows, row_bytes, rows, dev_starts)) return cudaErrorInvalidValue;
+  if (row_bytes <= 0 || !starts_valid(starts, n, block_rows, rows, dev_starts)) return cudaErrorInvalidValue;
   const auto s = static_cast<cudaStream_t>(stream);
   const cudaError_t err = cudaMemsetAsync(out, 0, rows * row_bytes, s);
   if (err != cudaSuccess || n == 0) return err;
@@ -408,7 +264,7 @@ extern "C" int repro_unpack_rows(void* out, const void* buf, const int32_t* star
 // is zeroed first.
 extern "C" int repro_unpack_segments(void* out, const void* buf, const int32_t* segs, int64_t n, int64_t row_bytes,
                                      int64_t rows, int32_t* dev_segs, void* stream) {
-  const int64_t max_rows = segments_max_rows(segs, n, row_bytes, rows, dev_segs);
+  const int64_t max_rows = row_bytes > 0 ? segments_max_rows(segs, n, -1, rows, dev_segs) : -1;
   if (max_rows < 0) return cudaErrorInvalidValue;
   const auto s = static_cast<cudaStream_t>(stream);
   const cudaError_t err = cudaMemsetAsync(out, 0, rows * row_bytes, s);

@@ -70,7 +70,7 @@ launches = {"pack_rows": 0, "unpack_rows": 0, "scatter_rows": 0, "relayout_rows"
 table_launches = {"starts": 0, "starts_device": 0, "param": 0, "device": 0}
 
 # The most block starts and segments a by-value table holds: kParamStarts
-# and kParamSegs in csrc/reshard_pack.cu.
+# and kParamSegs in csrc/row_tables.cuh.
 PARAM_STARTS = 8160
 PARAM_SEGS = 2720
 INT32_MAX = 2**31 - 1
@@ -289,27 +289,31 @@ _DEVICE_TABLES = _DeviceTables()
 _START_OUTSIDE = -1
 
 
-def _launch_table(name: str, entry: str, a: torch.Tensor, b: torch.Tensor, table, form: str, *args) -> bool:
-    """One call of the library's ``repro_<entry>(a, b, table, len(table),
-    *args, device_table, stream)`` for the kernel ``name``, on the current
-    stream of ``a``'s device: the int32 array ``table`` (or, for
-    ``pack_rows_list``, a list) by value, or through the stream's device
-    table for the forms past the capacity. False where the entry found a
-    start outside the array, and launched nothing."""
-    index = a.get_device()
+def launch_entry(fn, tensors: tuple, table, form: str, *args) -> int:
+    """One call of a library entry ``fn(*pointers, table, len(table), *args,
+    device_table, stream)``, the pointers those of ``tensors``, on the
+    current stream of the first tensor's device: the int32 array ``table``
+    (or, for an entry that reads a list, a list) by value, or through the
+    stream's device table for the forms past the capacity. Returns the
+    entry's code."""
+    index = tensors[0].get_device()
     if index != torch.cuda.current_device():
         with torch.cuda.device(index):
-            return _launch_table(name, entry, a, b, table, form, *args)
-    fn = getattr(_lib(), f"repro_{entry}")
+            return launch_entry(fn, tensors, table, form, *args)
     stream = torch._C._cuda_getCurrentRawStream(index)
+    ptrs = [t.data_ptr() for t in tensors]
     n = len(table)
     if form in ("starts", "param"):
-        err = fn(a.data_ptr(), b.data_ptr(), table if type(table) is list else table.ctypes.data, n, *args, None,
-                 stream)
-    else:
-        err = _DEVICE_TABLES.launch(
-            lambda host, dev: fn(a.data_ptr(), b.data_ptr(), host, n, *args, dev, stream), table, a.device, stream
-        )
+        return fn(*ptrs, table if type(table) is list else table.ctypes.data, n, *args, None, stream)
+    return _DEVICE_TABLES.launch(lambda host, dev: fn(*ptrs, host, n, *args, dev, stream), table,
+                                 tensors[0].device, stream)
+
+
+def _launch_table(name: str, entry: str, a: torch.Tensor, b: torch.Tensor, table, form: str, *args) -> bool:
+    """:func:`launch_entry` of ``repro_<entry>`` on ``(a, b)`` for the kernel
+    ``name``, counted. False where the entry found a start outside the
+    array, and launched nothing."""
+    err = launch_entry(getattr(_lib(), f"repro_{entry}"), (a, b), table, form, *args)
     if err == _START_OUTSIDE:
         return False
     if err != 0:

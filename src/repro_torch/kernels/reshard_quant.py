@@ -14,17 +14,26 @@ float32 or bfloat16 array, for any start:
   place** (the torch counterpart of the JAX package's donation); rows no
   tile names keep their bytes.
 
-As for ``scatter_rows``, the dequantizing scatter resolves the last writer
-of every destination row on the host (``reshard_pack.last_writer_segments``)
-so that repeated and overlapping starts give the reference's sequential
-result. Starts that would leave the array raise ``ValueError``.
-
-Each wrapper launches on torch's current stream, does not synchronise,
-raises if the launch fails, and adds one to its entry of :data:`launches`
-where it launches; ``nb == 0`` launches nothing. The plain versions are
+Starts that would leave the array raise ``ValueError``. Each wrapper
+launches on torch's current stream, does not synchronise, raises if the
+launch fails, and adds one to its entry of :data:`launches` where it
+launches; ``nb == 0`` launches nothing. The plain versions are
 ``repro_torch.kernels.ref.pack_quant_rows_ref`` and
 ``dequant_scatter_rows_ref``; ``ops`` picks between the two by the tensors'
 device.
+
+:func:`dequant_scatter_rows_cuda` costs about one launch on the host, with
+its table by value in the kernel's parameters (``csrc/row_tables.cuh``, as
+the row kernels of ``reshard_pack``): disjoint tiles take their int32
+starts (form "starts"; a list of starts, the executor's form, the library
+reads and checks itself, and decides without a sort whether the tiles are
+disjoint); repeated or overlapping tiles take the last writer of every
+destination row (``reshard_pack.last_writer_segments``, form "param"), so
+that they give the reference's sequential result. Past
+``reshard_pack.PARAM_STARTS`` starts or ``PARAM_SEGS`` segments a table goes
+through ``reshard_pack``'s pinned ring into the stream's device table
+("starts_device", "device"), still in one launch. :data:`table_launches`
+counts its launches by form.
 """
 
 from __future__ import annotations
@@ -35,12 +44,19 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.ref import WIRE_QDTYPE, row_starts
-from repro_torch.kernels.reshard_pack import last_writer_segments
+from repro_torch.kernels.ref import WIRE_QDTYPE, disjoint_blocks, row_starts
+from repro_torch.kernels.reshard_pack import (
+    INT32_MAX, PARAM_SEGS, PARAM_STARTS, last_writer_segments, launch_entry, row_table, start_table, table_form,
+)
 
 # Kernel launches in this process, by kernel; each is bumped once per
 # launch, nowhere else.
 launches = {"pack_quant_rows": 0, "dequant_scatter_rows": 0}
+# dequant_scatter_rows' launches by the form of its table: int32 tile
+# starts by value ("starts") or through the device table ("starts_device");
+# int32 last-writer segments by value ("param") or through the device table
+# ("device").
+table_launches = {"starts": 0, "starts_device": 0, "param": 0, "device": 0}
 
 _VALUE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _FORMAT_CODES = {"int8": 0, "fp8_e4m3": 1}
@@ -49,16 +65,44 @@ _FORMAT_OF = {WIRE_QDTYPE[f]: f for f in _FORMAT_CODES}
 _SHARE = 4096
 
 
+# What repro_dequant_scatter_rows_list returns for a tile that leaves the
+# array, and for tiles it did not find disjoint (it then launched nothing).
+_START_OUTSIDE = -1
+_NOT_DISJOINT = -3
+
+_LIB: ctypes.CDLL | None = None
+
+
 def _lib() -> ctypes.CDLL:
-    lib = build.load("reshard_quant")
-    if lib.repro_pack_quant_rows.argtypes is None:
-        p, i64, i = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-        lib.repro_pack_quant_rows.argtypes = [p, p, p, p, p, i64, i64, i64, i, i, i, p]
-        lib.repro_pack_quant_rows.restype = ctypes.c_int
-        lib.repro_dequant_scatter_rows.argtypes = [p, p, p, p, i64, i64, i64, i64, i, i, p]
-        lib.repro_dequant_scatter_rows.restype = ctypes.c_int
-        lib.repro_quant_error_string.argtypes = [ctypes.c_int]
-        lib.repro_quant_error_string.restype = ctypes.c_char_p
+    """The kernels' library, built and loaded at first use, its entries'
+    argument types set once and its capacities checked."""
+    global _LIB
+    if _LIB is not None:
+        return _LIB
+    # PyDLL: a call keeps the GIL (the list entry reads a Python list), and
+    # an entry returns in microseconds.
+    lib = ctypes.PyDLL(str(build.build_all(["reshard_quant"])["reshard_quant"]))
+    p, i64, i = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    argtypes = {
+        "pack_quant_rows": [p, p, p, p, p, i64, i64, i64, i, i, i, p],
+        "dequant_scatter_rows": [p, p, p, p, i64, i64, i64, i64, i, i, p, p],
+        "dequant_scatter_rows_list": [p, p, p, ctypes.py_object, i64, i64, i64, i64, i, i, p, p],
+        "dequant_scatter_segments": [p, p, p, p, i64, i64, i64, i64, i64, i, i, p, p],
+    }
+    for name, types in argtypes.items():
+        fn = getattr(lib, f"repro_{name}")
+        fn.argtypes = types
+        fn.restype = ctypes.c_int
+    lib.repro_quant_error_string.argtypes = [ctypes.c_int]
+    lib.repro_quant_error_string.restype = ctypes.c_char_p
+    for what, want in (("starts", PARAM_STARTS), ("segs", PARAM_SEGS)):
+        fn = getattr(lib, f"repro_quant_param_{what}")
+        fn.restype = ctypes.c_int
+        if fn() != want:
+            raise RuntimeError(
+                f"reshard_quant: the library holds {fn()} {what} by value, the wrapper expects {want}"
+            )
+    _LIB = lib
     return lib
 
 
@@ -109,32 +153,69 @@ def pack_quant_rows_cuda(src: torch.Tensor, starts, block_rows: int, fmt: str):
     return q, scales
 
 
+def dequant_tables(table: np.ndarray, block_rows: int, rows: int) -> tuple[str, np.ndarray]:
+    """What :func:`dequant_scatter_rows_cuda` launches, off the list route,
+    for the int32 tile starts ``table`` into an array of ``rows`` rows:
+    ``("dequant_scatter_rows", table)`` where the tiles are disjoint (one
+    sort tells), else ``("dequant_scatter_segments", int32 last-writer
+    triples)``."""
+    if disjoint_blocks(table, block_rows):
+        return "dequant_scatter_rows", table
+    segs = last_writer_segments(table.astype(np.int64), block_rows)
+    return "dequant_scatter_segments", row_table(segs, max(rows, table.size * block_rows))
+
+
+def _launch_dequant(entry: str, dst, buf, scales, table, form: str, *args) -> int:
+    """``reshard_pack.launch_entry`` of ``repro_<entry>`` on ``(dst, buf,
+    scales)``, counted. Returns 0, or the list entry's :data:`_START_OUTSIDE`
+    or :data:`_NOT_DISJOINT` (nothing launched)."""
+    lib = _LIB or _lib()
+    err = launch_entry(getattr(lib, f"repro_{entry}"), (dst, buf, scales), table, form, *args)
+    if err in (_START_OUTSIDE, _NOT_DISJOINT):
+        return err
+    _raise_if(lib, err, "dequant_scatter_rows")
+    launches["dequant_scatter_rows"] += 1
+    table_launches[form] += 1
+    return 0
+
+
 def dequant_scatter_rows_cuda(dst: torch.Tensor, buf: torch.Tensor, scales: torch.Tensor, starts, block_rows: int):
     _check("dequant_scatter_rows", dst, _VALUE_CODES)
     _check("dequant_scatter_rows", buf, _FORMAT_OF)
-    st = row_starts(starts, block_rows, dst.shape[0], "dequant_scatter_rows")
-    nb, C = st.size, dst.shape[1]
+    if not (scales.is_contiguous() and scales.dtype == torch.float32):
+        raise ValueError("dequant_scatter_rows: scales must be contiguous float32")
+    if not (buf.get_device() == dst.get_device() == scales.get_device()):
+        raise ValueError(f"dequant_scatter_rows: tensors on {dst.device}, {buf.device}, {scales.device}")
+    rows, C = dst.shape
+    codes = (_VALUE_CODES[dst.dtype], _FORMAT_CODES[_FORMAT_OF[buf.dtype]])
+    if type(starts) is list and 0 < len(starts) <= PARAM_STARTS and block_rows >= 1 and rows <= INT32_MAX:
+        # the executor's form: the library reads the list into the by-value
+        # starts, checks each and tells whether the tiles are disjoint
+        _check_tiles(buf, scales, len(starts), block_rows, C)
+        err = _launch_dequant("dequant_scatter_rows_list", dst, buf, scales, starts, "starts", block_rows, C, rows,
+                              *codes)
+        if err == 0:
+            return dst
+        if err == _START_OUTSIDE:
+            row_starts(starts, block_rows, rows, "dequant_scatter_rows")  # raises the refusal, naming the starts
+            raise RuntimeError("dequant_scatter_rows: the library refused starts that the wrapper accepts")
+    table = start_table(starts, block_rows, rows, "dequant_scatter_rows")
+    nb = table.size
+    _check_tiles(buf, scales, nb, block_rows, C)
+    if nb == 0:
+        return dst
+    entry, launched = dequant_tables(table, block_rows, rows)
+    if entry == "dequant_scatter_rows":
+        _launch_dequant(entry, dst, buf, scales, launched, table_form(nb, starts=True), block_rows, C, rows, *codes)
+    else:
+        _launch_dequant(entry, dst, buf, scales, launched, table_form(len(launched)), block_rows, C, rows,
+                        nb * block_rows, *codes)
+    return dst
+
+
+def _check_tiles(buf: torch.Tensor, scales: torch.Tensor, nb: int, block_rows: int, C: int) -> None:
     if tuple(buf.shape) != (nb * block_rows, C) or tuple(scales.shape) != (nb, 1):
         raise ValueError(
             f"dequant_scatter_rows: buffer {tuple(buf.shape)} / scales {tuple(scales.shape)} are not "
             f"{nb} tiles of {block_rows} rows of {C}"
         )
-    if not (scales.is_contiguous() and scales.dtype == torch.float32):
-        raise ValueError("dequant_scatter_rows: scales must be contiguous float32")
-    if not (buf.device == dst.device == scales.device):
-        raise ValueError(f"dequant_scatter_rows: tensors on {dst.device}, {buf.device}, {scales.device}")
-    if nb == 0:
-        return dst
-    segs = last_writer_segments(st, block_rows)
-    lib = _lib()
-    with torch.cuda.device(dst.device):
-        table = _table(segs, dst.device)
-        stream = torch.cuda.current_stream(dst.device).cuda_stream
-        err = lib.repro_dequant_scatter_rows(
-            dst.data_ptr(), buf.data_ptr(), scales.data_ptr(), table.data_ptr(), len(segs),
-            int(segs[:, 2].max()), block_rows, C, _VALUE_CODES[dst.dtype],
-            _FORMAT_CODES[_FORMAT_OF[buf.dtype]], stream,
-        )
-    _raise_if(lib, err, "dequant_scatter_rows")
-    launches["dequant_scatter_rows"] += 1
-    return dst

@@ -12,9 +12,18 @@ no model code calls it: the model's norms stay plain
 (``models/layers.py``). The TPU kernel has no backward, and this wrapper is
 not differentiable either.
 
+The kernel has two bodies (``csrc/rmsnorm.cu``): a row held in registers,
+read from device memory once, for aligned rows of at most
+:data:`REG_VECS` 16-byte vectors a lane (d up to 6144 in bf16, 3072 in
+f32), and a body that reads the row twice for the rest; :func:`body` picks
+one, and :data:`body_launches` counts the launches of each. Both give the
+same bits on an aligned row.
+
 The wrapper refuses ``x`` other than float32/bfloat16, a scale other than
 float32/bfloat16 or not of shape ``(d,)``, and non-contiguous or non-CUDA
-tensors.
+tensors. A call costs about one launch on the host: the library is loaded
+once with its argument types set, the stream is read raw, and the device
+context is entered only where ``x`` is not on the current device.
 """
 
 from __future__ import annotations
@@ -27,20 +36,49 @@ from repro_torch.kernels import build
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
+# The most 16-byte vectors of a row a lane of the register body holds:
+# kMaxVecs in csrc/rmsnorm.cu.
+REG_VECS = 24
+
 # Kernel launches in this process; bumped once per launch, nowhere else.
 launches = 0
+# The same launches by body: "registers" (the row read once) and
+# "two_reads".
+body_launches = {"registers": 0, "two_reads": 0}
+
+_LIB: ctypes.CDLL | None = None
 
 
 def _lib() -> ctypes.CDLL:
-    lib = build.load("rmsnorm")
-    fn = lib.repro_rmsnorm
-    if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, ctypes.c_int64, i, i, i, ctypes.c_float, p]
-        fn.restype = ctypes.c_int
-        lib.repro_rmsnorm_error_string.argtypes = [ctypes.c_int]
-        lib.repro_rmsnorm_error_string.restype = ctypes.c_char_p
+    """The kernel's library, built and loaded at first use, its argument
+    types set once and its register cap checked."""
+    global _LIB
+    if _LIB is not None:
+        return _LIB
+    # PyDLL: a call keeps the GIL; the entry returns in microseconds, less
+    # than releasing and taking back the GIL costs.
+    lib = ctypes.PyDLL(str(build.build_all(["rmsnorm"])["rmsnorm"]))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.repro_rmsnorm.argtypes = [p, p, p, ctypes.c_int64, i, i, i, ctypes.c_float, i, p]
+    lib.repro_rmsnorm.restype = ctypes.c_int
+    lib.repro_rmsnorm_error_string.argtypes = [ctypes.c_int]
+    lib.repro_rmsnorm_error_string.restype = ctypes.c_char_p
+    lib.repro_rmsnorm_max_vecs.restype = ctypes.c_int
+    if lib.repro_rmsnorm_max_vecs() != REG_VECS:
+        raise RuntimeError(f"rmsnorm: the library holds {lib.repro_rmsnorm_max_vecs()} vectors a lane, "
+                           f"the wrapper expects {REG_VECS}")
+    _LIB = lib
     return lib
+
+
+def body(d: int, itemsize: int, aligned: bool) -> int:
+    """The body a row of ``d`` elements of ``itemsize`` bytes takes: the
+    register body's 16-byte vectors a lane (the fewest that hold the row),
+    where the row and every pointer are 16-byte aligned (``aligned``) and
+    that is at most :data:`REG_VECS`; else 0, the two-read body."""
+    vec = 16 // itemsize
+    nv = -(-d // (32 * vec))
+    return nv if aligned and d % vec == 0 and nv <= REG_VECS else 0
 
 
 def check_args(x: torch.Tensor, scale: torch.Tensor) -> None:
@@ -61,20 +99,27 @@ def rmsnorm_cuda(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> tor
     """Launch the kernel on torch's current stream; no synchronisation.
     An empty ``x`` launches nothing."""
     global launches
-    check_args(x, scale)
+    d = x.shape[-1] if x.dim() else 0
+    index = x.get_device()  # -1 on the CPU
+    x_code, s_code = _DTYPE_CODES.get(x.dtype), _DTYPE_CODES.get(scale.dtype)
+    # the refusals of check_args, in cheap tests first
+    if not (d and index >= 0 and scale.get_device() == index and x_code is not None and s_code is not None
+            and scale.shape == (d,) and x.is_contiguous() and scale.is_contiguous()):
+        check_args(x, scale)
+    if index != torch._C._cuda_getDevice():
+        with torch.cuda.device(index):
+            return rmsnorm_cuda(x, scale, eps)
     out = torch.empty_like(x)
-    rows = x.numel() // x.shape[-1]
+    rows = x.numel() // d
     if rows == 0:
         return out
-    lib = _lib()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.repro_rmsnorm(
-            x.data_ptr(), scale.data_ptr(), out.data_ptr(), rows, x.shape[-1],
-            _DTYPE_CODES[x.dtype], _DTYPE_CODES[scale.dtype], float(eps), stream,
-        )
+    lib = _LIB or _lib()
+    xp, sp, yp = x.data_ptr(), scale.data_ptr(), out.data_ptr()
+    nv = body(d, x.element_size(), (xp | sp | yp) & 15 == 0)
+    err = lib.repro_rmsnorm(xp, sp, yp, rows, d, x_code, s_code, eps, nv, torch._C._cuda_getCurrentRawStream(index))
     if err != 0:
         msg = lib.repro_rmsnorm_error_string(err).decode()
         raise RuntimeError(f"rmsnorm launch failed: cudaError {err} ({msg})")
     launches += 1
+    body_launches["registers" if nv else "two_reads"] += 1
     return out

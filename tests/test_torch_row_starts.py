@@ -25,7 +25,7 @@ from repro.kernels.reshard_pack import pack_rows_pallas, unpack_rows_pallas
 from repro_torch.kernels import ref
 from repro_torch.kernels import reshard_pack as rp
 
-CU = Path(rp.__file__).resolve().parent / "csrc" / "reshard_pack.cu"
+CU = Path(rp.__file__).resolve().parent / "csrc" / "row_tables.cuh"
 CAP = rp.PARAM_STARTS
 KINDS = ["repeated", "overlapping", "unsorted_disjoint", "sorted_disjoint"]
 

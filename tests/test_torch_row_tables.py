@@ -23,7 +23,7 @@ from repro_torch.kernels import ref
 from repro_torch.kernels import reshard_pack as rp
 from repro_torch.reshard.executors import _runs
 
-CU = Path(rp.__file__).resolve().parent / "csrc" / "reshard_pack.cu"
+CU = Path(rp.__file__).resolve().parent / "csrc" / "row_tables.cuh"
 CAP = rp.PARAM_SEGS
 
 

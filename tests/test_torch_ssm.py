@@ -13,6 +13,7 @@ checks, which run before any launch. Inputs come from numpy seeds."""
 from __future__ import annotations
 
 import dataclasses
+import re
 
 import jax
 import jax.numpy as jnp
@@ -217,12 +218,13 @@ def _bf16_ulp(v: np.ndarray) -> np.ndarray:
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("d", [128, 256, 2560])
+@pytest.mark.parametrize("d", [128, 256, 2560, 2561, 6400])
 @pytest.mark.parametrize("rows", [1, 37, 300])
 def test_rmsnorm_ref_equals_pallas_interpret(rows, d, dtype):
     """``test_rmsnorm_property``'s shapes (rows 1-300, d 128/256) and
-    mamba2's d_model: f32 within 1e-6 (relative above 1), bf16 within one
-    bf16 step (both round
+    mamba2's d_model, which the kernel's register body takes, and an odd d
+    and one above the register cap, which its two-read body takes: f32
+    within 1e-6 (relative above 1), bf16 within one bf16 step (both round
     the same f32 value, which may lie on either side of a rounding
     boundary)."""
     rng = np.random.default_rng(rows * d)
@@ -246,6 +248,23 @@ def test_rmsnorm_ref_equals_jax_ref_on_leading_axes():
     sc = np.random.default_rng(3).normal(size=(96,)).astype(np.float32)
     want = np.asarray(jax_ref.rmsnorm_ref(jnp.asarray(x), jnp.asarray(sc), 1e-5))
     np.testing.assert_allclose(ref.rmsnorm_ref(*_t(x, sc), 1e-5).numpy(), want, atol=RMS_TOL, rtol=RMS_TOL)
+
+
+def test_rmsnorm_register_cap_matches_the_cuda_source():
+    """The register body's cap is named once in the CUDA source and once in
+    the wrapper, which checks the library's at load; the body the wrapper
+    picks: the fewest 16-byte vectors a lane that hold an aligned row, up to
+    the cap, else the two-read body (0)."""
+    text = (build.CSRC / "rmsnorm.cu").read_text()
+    cap = re.search(r"constexpr int kMaxVecs = (\d+);", text)
+    assert cap and int(cap.group(1)) == rms_k.REG_VECS
+    assert "repro_rmsnorm_max_vecs() { return kMaxVecs; }" in text
+    assert rms_k.body(2560, 2, True) == 10 and rms_k.body(2560, 4, True) == 20
+    assert rms_k.body(32 * 8 * rms_k.REG_VECS, 2, True) == rms_k.REG_VECS
+    assert rms_k.body(32 * 8 * rms_k.REG_VECS + 8, 2, True) == 0  # above the cap
+    assert rms_k.body(32 * 4 * rms_k.REG_VECS + 4, 4, True) == 0
+    assert rms_k.body(2561, 2, True) == 0 and rms_k.body(2560, 2, False) == 0  # odd d, misaligned
+    assert rms_k.body(8, 2, True) == 1
 
 
 def test_rmsnorm_wrapper_refuses_what_the_kernel_does_not_compute():
