@@ -65,7 +65,13 @@ non-zero without one. Phases, each printing one line or more:
    sorted or not, an array, blocks it leaves to the wrapper, repeated rows)
    on rows the 16-byte body takes and rows it does not, and the table at
    each form's edge (8160 / 8161 starts, 2720 / 2721 segments), each call
-   one launch of the form its table picks;
+   one launch of the form its table picks; pack_quant_rows on the route
+   each tile's size picks (warp, block, grid) at both sides of each
+   boundary, and with the edge tiles, repeats, overlaps, quotients at
+   half-integers and a NaN tile zero-padded to widths that reach every
+   route, each call one launch of the route its size picks; then a float start, in every form, refused with ValueError by
+   every row and quant wrapper (the list entries read the list in the
+   library), and integer forms and the empty list taken;
 13. live-resized training at full width: qwen3-1.7b (28 layers, d_model
    2048, fp32 params, bf16 compute, AdamW, remat per layer), global batch 4
    x 1024 tokens, on dp2tp2; a streamed resize to dp2tp4 with the Adam
@@ -79,11 +85,14 @@ non-zero without one. Phases, each printing one line or more:
    and the device's busy share over one step under ``torch.profiler``;
    every flash launch of the run (forward and backward) on the tensor
    cores; the host time per call of the two quant wrappers over the
-   streamed resize;
+   streamed resize, and pack_quant_rows' launches by route;
 14. the new kernels' times (CUDA events, median of 20): the backward and
    its TFLOP/s beside the CUDA-core route,
    ``scaled_dot_product_attention``'s backward and the plain version's, the
-   two quant kernels beside their plain versions, each with its bound;
+   two quant kernels beside their plain versions, each with its bound
+   (pack_quant_rows on each route: a stacked-moment row on the grid route,
+   4096 embedding rows on the warp route, 128 tiles of 24 rows on the
+   block route);
 15. the SSD intra-chunk kernel against its plain version (TF32 off): the
    JAX kernel tests' shapes, reduced mamba2's chunk, a ragged sequence
    through ``ops.ssd_scan``, the serving shape, x in f32 and bf16; and a
@@ -106,7 +115,9 @@ non-zero without one. Phases, each printing one line or more:
    the live fp32 ssd/conv cache move at each of three resizes; launches,
    migrated bytes, the staging bound and the tokens checked as there;
 20. the two kernels' times (CUDA events, median of 30): the SSD kernel at
-   the serving shape beside its plain version, RMSNorm at (4096, 2560) bf16
+   the serving shape (the call, and the kernel alone on the device) beside
+   its plain version and three bounds (the bytes, the TF32 tensor-core
+   products it issues, the f32 products on the CUDA cores), RMSNorm at (4096, 2560) bf16
    and f32 beside its plain version and ``F.rms_norm`` (the calls in turns,
    the median of 5 medians, and each kernel alone on the device, the
    two-read body's too), each with its bound.
@@ -120,6 +131,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -148,11 +160,12 @@ from repro_torch.serve.controller import LiveServeController  # noqa: E402
 from repro_torch.serve.driver import demo_batch, serve_once  # noqa: E402
 from repro_torch.serve.loop import ServeSession  # noqa: E402
 
-# H100 SXM data sheet: HBM3 bandwidth, dense bf16 tensor-core peak, and
-# float32 outside the tensor cores
+# H100 SXM data sheet: HBM3 bandwidth, dense bf16 tensor-core peak,
+# float32 outside the tensor cores, and dense TF32 on the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
 F32_FLOP_PER_S = 67e12
+TF32_FLOP_PER_S = 495e12
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 # (b, s, t, h, kh, d, causal, window): the shapes of the JAX package's
@@ -396,6 +409,37 @@ def _kernel_class(name: str) -> str:
     return "other"
 
 
+# Two faults of the profiler on the H100 machines, seen in chip_smoke.py's
+# own traces. It loses some device records of a trace: the first launch's
+# after the serving phases (nine of ten pack_rows kernels, the first one
+# missing, in every trace), and one or two of ten in the later phases, so a
+# trace opens with a spin kernel that no measurement reads, and device_ms
+# takes the first of TRACE_TRIES traces that holds every event it expects,
+# else the fullest. And it keeps a device event only where the event falls
+# inside the trace's window on the host clock, from which the card's clock
+# drifts (a kernel can show before its own launch), so a trace waits
+# TRACE_PAD_S on the host before its first call and after its last. TRACES
+# counts the traces taken, those that were not whole, and the measurements
+# that had to use such a trace.
+TRACE_PAD_S = 0.1
+TRACE_TRIES = 3
+TRACES = {"taken": 0, "not whole": 0, "used not whole": 0}
+SPIN_KERNEL = "spin_kernel"  # torch.cuda._sleep's
+
+
+def open_trace() -> None:
+    """The start of every trace: the wait, then the spin kernel, finished."""
+    time.sleep(TRACE_PAD_S)
+    torch.cuda._sleep(100)
+    torch.cuda.synchronize()
+
+
+def device_events(prof) -> list:
+    """The device events of a trace but its opening spin kernel's."""
+    return [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA and SPIN_KERNEL not in e.name]
+
+
 def phase_profile(cfg, params, logits, cache) -> None:
     """Where the serve path's time goes: ``torch.profiler`` over one
     full-width prefill and 4 decode steps, device time by kernel class
@@ -412,19 +456,20 @@ def phase_profile(cfg, params, logits, cache) -> None:
     }
     for name, fn in runs.items():
         with torch.inference_mode(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            open_trace()
             t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
+            time.sleep(TRACE_PAD_S)
         busy = {"flash": 0.0, "ssd": 0.0, "matmul": 0.0, "other": 0.0}
         by_name: dict[str, float] = {}
         count = 0
-        for e in prof.events():
-            if e.device_type == torch.autograd.DeviceType.CUDA:
-                ms = e.time_range.elapsed_us() / 1e3
-                busy[_kernel_class(e.name)] += ms
-                by_name[e.name] = by_name.get(e.name, 0.0) + ms
-                count += 1
+        for e in device_events(prof):
+            ms = e.time_range.elapsed_us() / 1e3
+            busy[_kernel_class(e.name)] += ms
+            by_name[e.name] = by_name.get(e.name, 0.0) + ms
+            count += 1
         if count == 0:
             log("profile", f"{name}: device time not measured (the profiler saw no kernels)")
             continue
@@ -595,8 +640,8 @@ def phase_row_cases() -> None:
     bad = {
         "pack_rows start 64": (lambda: rp.pack_rows_cuda(src, [64], 1), ValueError),
         "pack_rows start -1 among 3": (lambda: rp.pack_rows_cuda(src, [0, 5, -1], 1), ValueError),
-        "pack_rows start 1.5": (lambda: rp.pack_rows_cuda(src, [0, 1.5], 1), TypeError),
-        "pack_rows start 2**70": (lambda: rp.pack_rows_cuda(src, [2**70], 1), OverflowError),
+        "pack_rows start 1.5": (lambda: rp.pack_rows_cuda(src, [0, 1.5], 1), ValueError),
+        "pack_rows start 2**70": (lambda: rp.pack_rows_cuda(src, [2**70], 1), ValueError),
         "scatter_rows start -1": (lambda: rp.scatter_rows_cuda(src, src[:1], [-1], 1), ValueError),
         "relayout_rows block past the end": (lambda: rp.relayout_rows_cuda(src, src.clone(), [63], 2), ValueError),
         "unpack_rows start 64": (lambda: rp.unpack_rows_cuda(src[:1], [64], 1, 64), ValueError),
@@ -804,31 +849,73 @@ def phase_elastic(arch: str = "qwen3-1.7b") -> dict:
     return launches
 
 
-def device_ms(fn, kernel, calls: int = 10, per_call: bool = False) -> float:
+def device_ms(fn, kernel, calls: int = 10, per_call=False) -> float:
     """Median device time of ``kernel`` (a substring of its name, or a
     tuple of them) over ``calls`` calls of ``fn``, from ``torch.profiler``:
     the kernel alone, without the host work around its launch.
-    ``per_call``: the summed time of every match over the number of calls
-    (a call that launches two kernels, or a memset and a kernel)."""
+    ``per_call``: the device time of a call that launches several kernels
+    (or a memset and a kernel): each matching kernel's mean time, times its
+    launches a call, summed. The launches a call are the wrapper's, where
+    ``per_call`` is a function that reads its launch count (each matching
+    kernel runs once a counted launch), else each kernel's events over the
+    calls, rounded up (a call's kernels are the same in every call). On a
+    whole trace this is every matching event's time over the calls, and it
+    does not fall where a trace loses a few events. A trace is whole when
+    every name matched, with at least one matching event a call (a counted
+    launch, where the count is read), and a kernel on the device for every
+    launch the host made in it; the first whole trace of TRACE_TRIES is
+    used, else the one with the most matching events."""
     from torch.profiler import ProfilerActivity, profile
 
     names = (kernel,) if isinstance(kernel, str) else kernel
     fn()
     torch.cuda.synchronize()
-    # a second trace where the first missed a name: a trace of ten
-    # pack_rows launches once held none of them
-    for _ in range(2):
+    best = None
+    for _ in range(TRACE_TRIES):
+        counted = per_call() if callable(per_call) else 0
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            open_trace()
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-        events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-        missed = [name for name in names if not any(name in e.name for e in events)]
-        if not missed:
+            time.sleep(TRACE_PAD_S)
+        expected = calls
+        if callable(per_call):
+            counted = (per_call() - counted) / calls
+            assert counted > 0, "the wrapper counted no launch"
+            expected = round(counted * calls)
+        by_kernel: dict[str, list[float]] = {}
+        events = device_events(prof)
+        kernels = sum(not e.name.startswith(("Memset", "Memcpy")) for e in events)
+        # the host's launches but the spin kernel's
+        host_launches = sum(e.device_type != torch.autograd.DeviceType.CUDA
+                            and ("LaunchKernel" in e.name or "LaunchCooperativeKernel" in e.name)
+                            for e in prof.events()) - 1
+        for e in events:
+            if any(name in e.name for name in names):
+                by_kernel.setdefault(e.name, []).append(e.time_range.elapsed_us() / 1e3)
+        n_events = sum(len(ts) for ts in by_kernel.values())
+        TRACES["taken"] += 1
+        if best is None or n_events > best[0]:
+            best = (n_events, by_kernel, counted)
+        if (all(any(name in k for k in by_kernel) for name in names) and n_events >= expected
+                and kernels >= host_launches):
             break
+        TRACES["not whole"] += 1
+        log("profile", f"a trace of {names} held {n_events} of {expected} events, {kernels} kernels of "
+                       f"{host_launches} launches")
+    else:
+        TRACES["used not whole"] += 1
+        log("profile", f"no whole trace of {names} in {TRACE_TRIES}: the one of {best[0]} events is used")
+    n_events, by_kernel, counted = best
+    missed = [name for name in names if not any(name in k for k in by_kernel)]
     assert not missed, f"the profiler saw no {missed}"
-    times = [e.time_range.elapsed_us() / 1e3 for e in events if any(name in e.name for name in names)]
-    return sum(times) / calls if per_call else statistics.median(times)
+    times = [t for ts in by_kernel.values() for t in ts]
+    if not per_call:
+        return statistics.median(times)
+    if not callable(per_call):
+        return sum(statistics.fmean(ts) * math.ceil(len(ts) / calls) for ts in by_kernel.values())
+    return counted * sum(statistics.fmean(ts) for ts in by_kernel.values())
 
 
 def _device_class(name: str) -> str:
@@ -898,17 +985,19 @@ def phase_commit_profile() -> None:
             del dst
         before = dict(rp.launches)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            open_trace()
             t0 = time.perf_counter()
             dst, stats = live_reshard_planned(specs, plan, state, *worlds)
             wall_ms = (time.perf_counter() - t0) * 1e3
+            torch.cuda.synchronize()
+            time.sleep(TRACE_PAD_S)
         launched = sum(rp.launches[k] - before[k] for k in before)
         assert all(torch.equal(dst[n], state[n]) for n in dst)
         del dst
         busy: dict[str, float] = {}
-        for e in prof.events():
-            if e.device_type == torch.autograd.DeviceType.CUDA:
-                cls = _device_class(e.name)
-                busy[cls] = busy.get(cls, 0.0) + e.time_range.elapsed_us() / 1e3
+        for e in device_events(prof):
+            cls = _device_class(e.name)
+            busy[cls] = busy.get(cls, 0.0) + e.time_range.elapsed_us() / 1e3
         total = sum(busy.values())
         log("commit", f"{ca.describe()} -> {cb.describe()} data plane (no planner), "
                       f"{stats.executed_bytes / 1e9:.4f} GB: wall {statistics.median(walls) * 1e3:.3f} ms "
@@ -1005,7 +1094,8 @@ def phase_row_times(launches: dict) -> list[dict]:
             plain_ms = median_ms(plain, reps=20)
             library_ms = median_ms(library, reps=20)
             if kind == "unpack_rows":  # the entry's zero-fill of the output, then the kernel
-                on_device_ms = device_ms(kernel, ("Memset", f"{kind}_kernel"), per_call=True)
+                on_device_ms = device_ms(kernel, ("Memset", f"{kind}_kernel"),
+                                         per_call=lambda: rp.launches["unpack_rows"])
             else:
                 on_device_ms = device_ms(kernel, f"{kind}_kernel")
             nbytes = _row_bytes_moved(kind, C, nb, 1, rows, 2)
@@ -1106,16 +1196,30 @@ def _quant_forms_since(before: dict) -> dict:
     return {k: rq.table_launches[k] - before[k] for k in before if rq.table_launches[k] != before[k]}
 
 
-def quant_vs_plain(src, starts, block_rows, fmt, dst=None) -> str:
-    """Both quant kernels against their plain versions, byte for byte:
-    payload, scales, the dequantized scatter into ``dst`` (repeated starts
-    included) and its idempotence. Returns the form of the scatter's table,
-    after checking that each scatter launched once."""
+def pack_vs_plain(src, starts, block_rows, fmt):
+    """pack_quant_rows against its plain version, byte for byte (payload
+    and scales). Returns (payload, scales, plain payload, plain scales, the
+    route), after checking that the call was one launch of the route that
+    :func:`rq.route` picks for its tiles."""
+    before = dict(rq.route_launches)
     q, s = rq.pack_quant_rows_cuda(src, starts, block_rows, fmt)
     q_r, s_r = R.pack_quant_rows_ref(src, starts, block_rows, fmt)
     torch.cuda.synchronize()
-    assert torch.equal(_bytes(q), _bytes(q_r)), f"pack_quant_rows payload differs ({fmt}, {src.dtype}, {tuple(src.shape)})"
-    assert torch.equal(_bytes(s), _bytes(s_r)), f"pack_quant_rows scales differ ({fmt}, {src.dtype})"
+    took = [k for k in before if rq.route_launches[k] != before[k]]
+    assert len(took) == 1 and rq.route_launches[took[0]] == before[took[0]] + 1, took
+    assert took[0] == rq.route(block_rows * src.shape[1], src.element_size()), took
+    what = f"({fmt}, {src.dtype}, {tuple(src.shape)}, {block_rows}-row tiles, route {took[0]})"
+    assert torch.equal(_bytes(q), _bytes(q_r)), f"pack_quant_rows payload differs {what}"
+    assert torch.equal(_bytes(s), _bytes(s_r)), f"pack_quant_rows scales differ {what}"
+    return q, s, q_r, s_r, took[0]
+
+
+def quant_vs_plain(src, starts, block_rows, fmt, dst=None) -> str:
+    """Both quant kernels against their plain versions, byte for byte:
+    payload and scales (:func:`pack_vs_plain`), the dequantized scatter into
+    ``dst`` (repeated starts included) and its idempotence. Returns the form
+    of the scatter's table, after checking that each scatter launched once."""
+    q, s, q_r, s_r, _ = pack_vs_plain(src, starts, block_rows, fmt)
     dst = torch.zeros_like(src) if dst is None else dst
     before = dict(rq.table_launches)
     once = rq.dequant_scatter_rows_cuda(dst.clone(), q, s, starts, block_rows)
@@ -1217,15 +1321,130 @@ def phase_quant_cases() -> None:
         assert rq.launches == before, f"a refused call launched: {why}"
 
 
+QUANT_ROUTES = ("warp", "block", "grid")
+
+
+def _zero_padded(x: torch.Tensor, C: int) -> torch.Tensor:
+    """``x``'s rows padded with zeros on the right to ``C`` columns."""
+    return torch.nn.functional.pad(x, (0, C - x.shape[1])).contiguous()
+
+
+def phase_quant_routes() -> None:
+    """pack_quant_rows on each route, byte for byte against its plain
+    version, int8 and fp8-e4m3 from f32 and bf16, each call one launch of
+    the route :func:`rq.route` picks: tiles on both sides of each boundary
+    (one row of C elements, C a multiple of 8 for the 16-byte bodies and
+    one past it for the element bodies), with repeated and overlapping
+    starts; and the edge tiles (0, 1e-40, 3.38e38), quotients at and next to
+    half-integers and a NaN, each row padded with zeros (which leave its
+    absmax as it is) to widths that send it to each route, with repeats and
+    overlaps; a NaN tile's scale is NaN on every route."""
+    for fmt in QUANT_FORMATS:
+        for dtype in (torch.float32, torch.bfloat16):
+            it = torch.finfo(dtype).bits // 8
+            w, b = rq.WARP_BYTES // it, rq.BLOCK_BYTES // it
+            seen: dict[str, int] = {}
+            for C in (w - 8, w, w + 8, w + 1, b, b + 8, b + 1, b // 8):
+                src = rand_rows((10, C), dtype, C) * 1e-3
+                for starts, block in (([4, 0, 4, 2, 7], 1), ([0, 1, 3, 6], 2), ([1, 0], 8)):
+                    took = pack_vs_plain(src, starts, block, fmt)[-1]
+                    seen[took] = seen.get(took, 0) + 1
+            assert set(seen) == set(QUANT_ROUTES), seen
+            edge = torch.tensor([[0.0] * 130, [1e-40] * 130, [3.38e38] * 130], device="cuda").to(dtype)
+            # x / scale at and next to half-integers and to +-qmax +- 0.5
+            qmax = R.WIRE_QMAX[fmt]
+            ramp = (torch.arange(-127, 129, dtype=torch.float32, device="cuda") + 0.5) * (qmax / 127.0)
+            ramp[-2:] = 0.0
+            halves = torch.stack([ramp, ramp * (1 + 2**-20), ramp.nextafter(torch.zeros_like(ramp))])
+            halves[:, 0] = qmax  # the tile's absmax: scale ~ 1 for int8
+            halves = halves.to(dtype)
+            nan = rand_rows((2, 136), dtype, 3)
+            nan[1, 77] = float("nan")
+            # one row's widths on each route: a multiple of 8 (the 16-byte
+            # body) and not (the element body)
+            widths = {"warp": (128, 130), "block": (w + 8, w + 1), "grid": (b + 8, b + 1)}
+            for name, (vec_c, elem_c) in widths.items():
+                for C in (vec_c, elem_c):
+                    tile = _zero_padded(edge, C)
+                    for starts, block in (([0, 1, 2], 1), ([2, 0, 2, 1, 0], 1), ([0, 1, 1], 2)):  # repeats, overlaps
+                        took = pack_vs_plain(tile, starts, block, fmt)[-1]
+                        assert block > 1 or took == name, (name, C, took)
+                assert pack_vs_plain(_zero_padded(halves, max(vec_c, 256)), [0, 1, 2], 1, fmt)[-1] == name
+                before = rq.route_launches[name]
+                q, sc = rq.pack_quant_rows_cuda(_zero_padded(nan, max(elem_c, 136)), [0, 1], 1, fmt)
+                torch.cuda.synchronize()
+                assert rq.route_launches[name] == before + 1, name
+                assert not sc[0].isnan().any() and sc[1].isnan().all(), (name, sc)
+            log("quant", f"pack_quant_rows {fmt} from {str(dtype)[6:]}: equal on the route each tile's size picks "
+                         f"({seen} calls, C {w} / {b} elements at the boundaries, 16-byte and element bodies, "
+                         f"repeated and overlapping starts), and with the edge tiles, repeats, overlaps and "
+                         f"quotients at half-integers zero-padded to widths {widths} (one row on each route); a "
+                         "NaN tile's scale is NaN on every route")
+    # the grid route on many tiles of a stacked moment (each block's share
+    # staged, held and streamed)
+    stacked = rand_rows(STACKED_MOMENT, torch.float32, 42) * 1e-3
+    for starts in ([27, 3, 17, 3], list(range(28))):
+        pack_vs_plain(stacked, starts, 1, "int8")
+    del stacked
+    torch.cuda.empty_cache()
+    log("quant", f"pack_quant_rows equal on the grid route at 4 rows (one repeated) and all 28 rows of "
+                 f"{STACKED_MOMENT} f32")
+
+
+def phase_start_types() -> None:
+    """Every row and quant wrapper refuses a float start with the port's
+    ValueError, naming it, whatever the form of the starts (the list
+    entries read a list in the library), and launches nothing; integer forms
+    and the empty list pass."""
+    src = rand_rows((16, 8), torch.float32, 0)
+    forms = {"a list of one": [1.5], "a list of many": [0, 1.5, 2], "a tuple": (0, 1.5),
+             "a float numpy array": np.array([0.0, 1.5]), "a float tensor": torch.tensor([0.0, 1.5])}
+
+    def calls(starts):
+        nb = len(starts)
+        q8 = torch.zeros((nb, 8), dtype=torch.int8, device="cuda")
+        ones = torch.ones((nb, 1), device="cuda")
+        return {
+            "pack_rows": lambda: rp.pack_rows_cuda(src, starts, 1),
+            "unpack_rows": lambda: rp.unpack_rows_cuda(src[:nb], starts, 1, 16),
+            "scatter_rows": lambda: rp.scatter_rows_cuda(src.clone(), src[:nb], starts, 1),
+            "relayout_rows": lambda: rp.relayout_rows_cuda(src.clone(), src, starts, 1),
+            "pack_quant_rows": lambda: rq.pack_quant_rows_cuda(src, starts, 1, "int8"),
+            "dequant_scatter_rows": lambda: rq.dequant_scatter_rows_cuda(src.clone(), q8, ones, starts, 1),
+        }
+
+    before = (dict(rp.launches), dict(rq.launches))
+    for why, starts in forms.items():
+        for name, call in calls(starts).items():
+            try:
+                call()
+            except ValueError as e:
+                assert "1.5" in str(e), (name, why, e)
+            else:
+                raise AssertionError(f"{name} accepted a float start in {why}")
+    torch.cuda.synchronize()
+    assert (rp.launches, rq.launches) == before, "a refused call launched"
+    log("starts", f"a float start refused with ValueError naming it, no launch, by {sorted(calls([0]))}, in "
+                  f"{', '.join(forms)}")
+    for starts in ([], [3], [5, 2], (5, 2), np.array([5, 2]), torch.tensor([5, 2]), [np.int64(5), 2]):
+        q, sc = rq.pack_quant_rows_cuda(src, starts, 1, "int8")
+        q_r, sc_r = R.pack_quant_rows_ref(src, starts, 1, "int8")
+        out = rp.pack_rows_cuda(src, starts, 1)
+        torch.cuda.synchronize()
+        assert torch.equal(q, q_r) and torch.equal(sc, sc_r) and torch.equal(out, R.pack_rows_ref(src, starts, 1))
+    log("starts", "integer starts (a list, a tuple, an int64 array and tensor, numpy ints in a list) and the empty "
+                  "list pass through pack_rows and pack_quant_rows, equal to the plain versions")
+
+
 def _all_counts() -> dict:
     return {"flash_attention": fa.launches, "flash_attention_bwd": fa.bwd_launches,
             "flash_attention_tc": fa.tc_launches, "flash_attention_bwd_tc": fa.tc_bwd_launches,
-            **rp.launches, **rq.launches}
+            **rp.launches, **rq.launches, **{f"pack_quant_rows_{k}": v for k, v in rq.route_launches.items()}}
 
 
 def _zero_counts() -> None:
     fa.launches = fa.bwd_launches = fa.tc_launches = fa.cc_launches = fa.tc_bwd_launches = fa.cc_bwd_launches = 0
-    for counts in (rp.launches, rq.launches):
+    for counts in (rp.launches, rq.launches, rq.route_launches):
         for k in counts:
             counts[k] = 0
 
@@ -1292,11 +1511,29 @@ def phase_train() -> dict:
         ctrl.request_resize(ParallelConfig(dp=2, tp=4))
         during = 0
         quant_host = {k: [0, 0.0] for k in QUANT_KERNELS}  # calls, wrapper seconds, over the streamed resize
-        with _wrapper_clocks(quant_host, rq, QUANT_KERNELS):
-            while not ctrl.records:
-                losses += ctrl.train_steps(1)
-                during += 1
-                assert during < 200, "the streamed resize never committed"
+        pack_routes = {k: [0, 0.0, 0] for k in rq.route_launches}  # the same for pack by route, and its starts
+        pack_cuda = rq.pack_quant_rows_cuda
+
+        def pack_by_route(src, starts, *args):
+            before = dict(rq.route_launches)
+            t0 = time.perf_counter()
+            out = pack_cuda(src, starts, *args)
+            seconds = time.perf_counter() - t0
+            took = next(k for k in before if rq.route_launches[k] != before[k])
+            pack_routes[took][0] += 1
+            pack_routes[took][1] += seconds
+            pack_routes[took][2] += len(starts)
+            return out
+
+        rq.pack_quant_rows_cuda = pack_by_route
+        try:
+            with _wrapper_clocks(quant_host, rq, QUANT_KERNELS):
+                while not ctrl.records:
+                    losses += ctrl.train_steps(1)
+                    during += 1
+                    assert during < 200, "the streamed resize never committed"
+        finally:
+            rq.pack_quant_rows_cuda = pack_cuda
         ctrl.wire_policy = None  # the second resize is lossless
         ctrl.request_resize(ParallelConfig(dp=1, tp=4), overlap="stop_copy")
         while len(ctrl.records) < 2:
@@ -1342,7 +1579,11 @@ def phase_train() -> dict:
                  f"the plain int8 round trip (the first commit's moments); steps during the resizes {during}")
     log("train", "the streamed resize's quant wrappers on the host clock: "
                  + ", ".join(f"{k} {calls} calls, {1e3 * sec / max(calls, 1):.4f} ms per call, {sec:.4f} s in all"
-                             for k, (calls, sec) in quant_host.items()))
+                             for k, (calls, sec) in quant_host.items())
+                 + "; pack_quant_rows by route: "
+                 + ", ".join(f"{k} {calls} calls of {starts / max(calls, 1):.0f} starts, "
+                             f"{1e3 * sec / max(calls, 1):.4f} ms per call"
+                             for k, (calls, sec, starts) in pack_routes.items()))
 
     # where a step's time goes: one more step on the final world, its two
     # halves (gradients, update) apart, under the profiler
@@ -1352,6 +1593,7 @@ def phase_train() -> dict:
     batch = {"tokens": torch.from_numpy(ctrl.data.global_batch_at(ctrl.step)).to("cuda", torch.long)}
     marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        open_trace()
         t0 = time.perf_counter()
         marks[0].record()
         _, _, grads = world.grad_fn(ctrl.params, batch)
@@ -1360,21 +1602,21 @@ def phase_train() -> dict:
         marks[2].record()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+        time.sleep(TRACE_PAD_S)
     del grads
     busy: dict[str, float] = {}
     by_name: dict[str, float] = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            name = e.name
-            if any(k in name for k in ("bwd_dkdv", "bwd_dq", "bwd_rowdot")):
-                cls = "flash backward"
-            elif "fa_fwd" in name:
-                cls = "flash forward"
-            else:
-                cls = _kernel_class(name)
-            ms = e.time_range.elapsed_us() / 1e3
-            busy[cls] = busy.get(cls, 0.0) + ms
-            by_name[name] = by_name.get(name, 0.0) + ms
+    for e in device_events(prof):
+        name = e.name
+        if any(k in name for k in ("bwd_dkdv", "bwd_dq", "bwd_rowdot")):
+            cls = "flash backward"
+        elif "fa_fwd" in name:
+            cls = "flash forward"
+        else:
+            cls = _kernel_class(name)
+        ms = e.time_range.elapsed_us() / 1e3
+        busy[cls] = busy.get(cls, 0.0) + ms
+        by_name[name] = by_name.get(name, 0.0) + ms
     total = sum(busy.values())
     if total == 0:
         log("train", "one step under the profiler: device time not measured (the profiler saw no kernels)")
@@ -1438,6 +1680,10 @@ def check_train_launches(launches: dict, steps: int) -> None:
                  f"{launches['flash_attention_bwd_tc']} / "
                  f"{launches['flash_attention_bwd'] - launches['flash_attention_bwd_tc']}")
     assert launches["pack_quant_rows"] == launches["dequant_scatter_rows"]
+    # the embedding's and norms' moment rows are small tiles, the stacked
+    # layers' rows large ones
+    assert launches["pack_quant_rows_warp"] > 0 and launches["pack_quant_rows_grid"] > 0, launches
+    assert sum(launches[f"pack_quant_rows_{k}"] for k in rq.route_launches) == launches["pack_quant_rows"]
     assert launches["pack_rows"] == launches["scatter_rows"]
 
 
@@ -1459,7 +1705,7 @@ def phase_bwd_times(launches: int, case_err: float) -> dict:
     out, lse = fa.flash_attention_cuda(q, k, v, return_lse=True, **kw)
     kernel_ms = median_ms(lambda: fa.flash_attention_bwd_cuda(q, k, v, out, lse, dout, **kw), reps=20)
     on_device_ms = device_ms(lambda: fa.flash_attention_bwd_cuda(q, k, v, out, lse, dout, **kw), "bwd_",
-                             per_call=True)
+                             per_call=lambda: fa.bwd_launches)
     cuda_cores_ms = median_ms(lambda: fa.flash_attention_bwd_cuda(q, k, v, out, lse, dout, route="cuda_cores", **kw),
                               reps=5, warmup=1)
     qr, kr, vr = (x.clone().requires_grad_(True) for x in (q, k, v))
@@ -1494,20 +1740,26 @@ def phase_bwd_times(launches: int, case_err: float) -> dict:
 
 
 def phase_quant_times(launches: dict) -> list[dict]:
-    """The two quant kernels at the training path's per-layer move (one
-    layer row of a stacked moment, fp32 -> int8) and at 4096 scattered
-    embedding-moment rows, beside their plain versions and the HBM bound.
-    No single PyTorch call computes a per-row absmax-scaled quantization,
-    so there is no library time. Rows rotate between calls so that the
-    inputs are not left in the 50 MB L2 cache."""
-    out = []
+    """The two quant kernels (fp32 <-> int8) at the training path's
+    per-layer move (one layer row of a stacked moment: pack_quant_rows'
+    grid route) and at 4096 scattered
+    embedding-moment rows (the warp route), and pack_quant_rows at 128 tiles
+    of 24 embedding rows (192 KB each: the block route, a synthetic case, as
+    no path sends tiles of that size): the call (CUDA
+    events, median of 20) and the kernels alone on the device (the
+    profiler), beside the plain versions and the HBM bound. No single
+    PyTorch call computes a per-tile absmax-scaled quantization, so there
+    is no library time. Starts rotate between calls so that the inputs are
+    not left in the 50 MB L2 cache."""
+    rng = np.random.default_rng(11)
     cases = {
-        "stacked_row": (STACKED_MOMENT, [[i] for i in range(STACKED_MOMENT[0])]),
-        "embed_4096": (EMBED, [[int(x) for x in np.random.default_rng(s).permutation(EMBED[0])[:4096]]
-                               for s in range(8)]),
+        "stacked_row": (STACKED_MOMENT, 1, [[i] for i in range(STACKED_MOMENT[0])]),
+        "embed_4096": (EMBED, 1, [[int(x) for x in np.random.default_rng(s).permutation(EMBED[0])[:4096]]
+                                  for s in range(8)]),
+        "block_tiles": (EMBED, 24, [[24 * int(x) for x in rng.permutation(EMBED[0] // 24)[:128]] for _ in range(8)]),
     }
-    recs = {}
-    for case, (shape, start_sets) in cases.items():
+    recs, by_route = {}, {}
+    for case, (shape, block, start_sets) in cases.items():
         rows, C = shape
         src = rand_rows(shape, torch.float32, 31) * 1e-3
         dst = torch.zeros(shape, dtype=torch.float32, device="cuda")
@@ -1518,45 +1770,55 @@ def phase_quant_times(launches: dict) -> list[dict]:
             turn[0] += 1
             return start_sets[turn[0] % len(start_sets)]
 
-        q, sc = rq.pack_quant_rows_cuda(src, start_sets[0], 1, "int8")
-        q_r, sc_r = R.pack_quant_rows_ref(src, start_sets[0], 1, "int8")
-        err_pack = float(not (torch.equal(_bytes(q), _bytes(q_r)) and torch.equal(sc, sc_r)))
-        a = rq.dequant_scatter_rows_cuda(dst.clone(), q, sc, start_sets[0], 1)
-        b = R.dequant_scatter_rows_ref(dst.clone(), q, sc, start_sets[0], 1)
+        natural = rq.route(block * C, 4)
+        q, sc, q_r, sc_r, _ = pack_vs_plain(src, start_sets[0], block, "int8")
+        a = rq.dequant_scatter_rows_cuda(dst.clone(), q, sc, start_sets[0], block)
+        b = R.dequant_scatter_rows_ref(dst.clone(), q, sc, start_sets[0], block)
         err_deq = (a - b).abs().max().item()
         del a, b, q_r, sc_r
-        timed = {
-            "pack_quant_rows": (lambda: rq.pack_quant_rows_cuda(src, nxt(), 1, "int8"),
-                                lambda: R.pack_quant_rows_ref(src, nxt(), 1, "int8"),
-                                nb * C * (4 + 1) + nb * 4 + nb * 8, err_pack),
-            "dequant_scatter_rows": (lambda: rq.dequant_scatter_rows_cuda(dst, q, sc, nxt(), 1),
-                                     lambda: R.dequant_scatter_rows_ref(dst, q, sc, nxt(), 1),
-                                     nb * C * (1 + 4) + nb * 4 + nb * 8, err_deq),
-        }
-        for kind, (kernel, plain, nbytes, err) in timed.items():
+        shape_is = f"{nb} tiles of {block} x {C} f32 of {rows} rows <-> int8"
+        pack_bytes = nb * block * C * (4 + 1) + nb * 4 + nb * 8
+        timed = {("pack_quant_rows", natural): (
+            lambda: rq.pack_quant_rows_cuda(src, nxt(), block, "int8"),
+            lambda: R.pack_quant_rows_ref(src, nxt(), block, "int8"), pack_bytes, "pack_quant_")}
+        if case != "block_tiles":
+            timed[("dequant_scatter_rows", None)] = (
+                lambda: rq.dequant_scatter_rows_cuda(dst, q, sc, nxt(), block),
+                lambda: R.dequant_scatter_rows_ref(dst, q, sc, nxt(), block), pack_bytes, "dequant_scatter_kernel")
+        for (kind, name), (kernel, plain, nbytes, kname) in timed.items():
             before = dict(rq.table_launches)
             kernel_ms = median_ms(kernel, reps=20)
-            form = "/".join(_quant_forms_since(before)) or "int64 table"
+            form = "/".join(_quant_forms_since(before)) or rp.table_form(nb, starts=True)
             plain_ms = median_ms(plain, reps=20)
-            on_device_ms = device_ms(kernel, "tile_" if kind == "pack_quant_rows" else "dequant_scatter_kernel",
-                                     per_call=True)
+            on_device_ms = device_ms(kernel, kname, per_call=lambda: rq.launches[kind])
             bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-            log("times", f"{kind} {case} ({nb} of {rows} rows x {C} f32 <-> int8): call {kernel_ms:.4f} ms "
-                         f"(kernels on the device {on_device_ms:.4f} ms, host {kernel_ms - on_device_ms:.4f} ms, "
-                         f"table {form}), plain {plain_ms:.4f} ms, library none, "
+            err = err_deq if kind == "dequant_scatter_rows" else 0.0  # pack_vs_plain asserted equal bytes
+            log("times", f"{kind} {case}{'' if name is None else f' route {name}'} ({shape_is}): call "
+                         f"{kernel_ms:.4f} ms (kernels on the device {on_device_ms:.4f} ms, host "
+                         f"{kernel_ms - on_device_ms:.4f} ms, table {form}), plain {plain_ms:.4f} ms, library none, "
                          f"bound {bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB), max_abs_err {err:g}")
             assert err == 0.0, f"{kind} disagrees with its plain version at {case}"
+            if kind == "pack_quant_rows":
+                by_route[name] = dict(
+                    case=case, ms=kernel_ms, device_ms=on_device_ms, host_ms=kernel_ms - on_device_ms,
+                    plain_ms=plain_ms, bound_ms=bound_ms, shape=shape_is)
             if case == "stacked_row":
                 recs[kind] = _record(kind, "src/repro_torch/kernels/csrc/reshard_quant.cu", {
                     "pack_quant_rows": "src/repro/kernels/reshard_quant.py:137",
                     "dequant_scatter_rows": "src/repro/kernels/reshard_quant.py:189"}[kind],
                     launches[kind], err, kernel_ms, plain_ms, bound_ms, "bytes", None,
-                    device_ms=on_device_ms, host_ms=kernel_ms - on_device_ms, table=form,
-                    shape=f"{nb} of {rows} rows x {C} f32 <-> int8")
+                    device_ms=on_device_ms, host_ms=kernel_ms - on_device_ms, table=form, shape=shape_is)
+        if case == "stacked_row":
+            # the rate at which a reduction reads a 50 MB row here: what the
+            # grid route's read before its barrier can reach
+            read_ms = device_ms(lambda: src[nxt()[0]].amax(), "", per_call=True)
+            recs["pack_quant_rows"]["read_yardstick_ms"] = read_ms
+            log("times", f"torch.amax of one stacked row on the device (a read of {C * 4 / 1e6:.1f} MB): "
+                         f"{read_ms:.4f} ms, {C * 4 / read_ms / 1e9:.2f} TB/s")
         del src, dst, q, sc
         torch.cuda.empty_cache()
-    out = [recs["pack_quant_rows"], recs["dequant_scatter_rows"]]
-    return out
+    recs["pack_quant_rows"]["routes"] = by_route
+    return [recs["pack_quant_rows"], recs["dequant_scatter_rows"]]
 
 
 # ---------------------------------------------------------------------------
@@ -1801,13 +2063,32 @@ def phase_serve_ssm() -> tuple[int, float]:
     return launches, worst
 
 
+def ssd_tensor_core_flops(case, x_dtype) -> int:
+    """The TF32 tensor-core FLOPs the SSD kernel issues (mma.sync m16n8k8, 2048
+    FLOPs each): C.B^T once a block in 3 products (4 x 8 tiles, 16 k-steps);
+    a head's y = M.x over the k-steps at or below the diagonal (20 of the 32
+    k-step rows of its 4 m-tiles, 8 n-tiles) and S = x^T.(w o B) (4 x 16
+    tiles, 8 k-steps), each in 3 products, or 2 for a bf16 x (exact in TF32).
+    A block takes a group of heads, as many groups as one wave of two blocks
+    an SM holds (csrc/ssd_scan.cu)."""
+    b, s, h, p, n, chunk = case
+    bcs = b * (s // chunk)
+    groups = min(h, max(1, 2 * torch.cuda.get_device_properties(0).multi_processor_count // bcs))
+    groups = -(-h // -(-h // groups))
+    per_head = (20 * 8 + 4 * 16 * 8) * (2 if x_dtype == torch.bfloat16 else 3)
+    return 2048 * (bcs * groups * 4 * 8 * 16 * 3 + bcs * h * per_head)
+
+
 def phase_ssd_times(launches: int, err: float) -> dict:
     """The SSD kernel at the serving shape (x bf16) beside its plain
-    version, and the card's bound. No single PyTorch call computes it."""
+    version, and the card's bounds: the bytes, the f32 products on the CUDA
+    cores, and the tensor-core products the kernel issues. No single PyTorch
+    call computes it."""
     b, s, h, p, n, chunk = SSD_SERVE_SHAPE
     x, dt, A, B, C, cum = ssd_inputs(SSD_SERVE_SHAPE, torch.bfloat16, seed=99)
     case_err = ssd_kernel_vs_plain(x, dt, cum, B, C, chunk)
     kernel_ms = median_ms(lambda: ssd_k.ssd_intra_chunk_cuda(x, dt, cum, B, C, chunk))
+    on_device_ms = device_ms(lambda: ssd_k.ssd_intra_chunk_cuda(x, dt, cum, B, C, chunk), "ssd_intra_chunk")
     plain_ms = median_ms(lambda: R.ssd_intra_chunk_ref(x, dt, cum, B, C, chunk))
     nc = s // chunk
     # each input read once, each output written once
@@ -1816,15 +2097,24 @@ def phase_ssd_times(launches: int, err: float) -> dict:
     # (C.B^T once per batch row and chunk), and the chunk state over all of it
     pairs = chunk * (chunk + 1) // 2
     flops = b * nc * (2 * n * pairs + h * (2 * p * pairs + 2 * chunk * p * n))
+    tc_flops = ssd_tensor_core_flops(SSD_SERVE_SHAPE, x.dtype)
     bytes_ms, flops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOP_PER_S * 1e3
-    bound_ms = max(bytes_ms, flops_ms)
-    log("times", f"ssd_intra_chunk {SSD_SERVE_SHAPE} x bf16: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                 f"library none, bound {bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB -> {bytes_ms:.4f} ms; "
-                 f"{flops / 1e9:.2f} GFLOP f32 -> {flops_ms:.4f} ms), max |error| / max |plain| {case_err:.3e}")
+    tc_ms = tc_flops / TF32_FLOP_PER_S * 1e3
+    # the products run on the tensor cores: the least time is the larger of
+    # the bytes and the tensor-core products; the CUDA cores' f32 bound is
+    # reported beside it
+    bound_ms = max(bytes_ms, tc_ms)
+    log("times", f"ssd_intra_chunk {SSD_SERVE_SHAPE} x bf16: kernel {kernel_ms:.4f} ms (on the device "
+                 f"{on_device_ms:.4f} ms), plain {plain_ms:.4f} ms, library none, bound {bound_ms:.4f} ms "
+                 f"({nbytes / 1e6:.1f} MB -> {bytes_ms:.4f} ms; the tensor-core products it issues "
+                 f"{tc_flops / 1e9:.2f} GFLOP TF32 -> {tc_ms:.4f} ms; the f32 products "
+                 f"{flops / 1e9:.2f} GFLOP on the CUDA cores -> {flops_ms:.4f} ms), "
+                 f"max |error| / max |plain| {case_err:.3e}")
     assert case_err <= SSD_TOL
     return _record("ssd_intra_chunk", "src/repro_torch/kernels/csrc/ssd_scan.cu", "src/repro/kernels/ssd_scan.py:86",
                    launches, max(err, case_err), kernel_ms, plain_ms, bound_ms,
-                   "bytes" if bytes_ms >= flops_ms else "operations", None,
+                   "bytes" if bytes_ms >= tc_ms else "operations", None, device_ms=on_device_ms,
+                   bytes_bound_ms=bytes_ms, tensor_core_bound_ms=tc_ms, f32_cuda_core_bound_ms=flops_ms,
                    err_is="max |error| / max |plain| over y and S, the serving shape and the serve phase's layers")
 
 
@@ -1849,7 +2139,7 @@ def phase_rms_times(err: float, rounds: int = 5) -> dict:
             calls["library"].append(median_ms(library))
         kernel_ms, library_ms = (statistics.median(calls[k]) for k in ("kernel", "library"))
         plain_ms = median_ms(lambda: R.rmsnorm_ref(x, sc))
-        on_device_ms = device_ms(kernel, "rmsnorm", per_call=True)
+        on_device_ms = device_ms(kernel, "rmsnorm", per_call=lambda: rms_k.launches)
         two_reads_ms = device_ms(lambda: _rms_two_reads(x, sc), "rmsnorm", per_call=True)
         library_device_ms = device_ms(library, "", per_call=True)
         nbytes = 2 * x.numel() * x.element_size() + sc.numel() * sc.element_size()
@@ -1895,6 +2185,8 @@ def main() -> int:
     rows = phase_row_times(elastic_launches)
     bwd_err = phase_bwd_cases()
     phase_quant_cases()
+    phase_quant_routes()
+    phase_start_types()
     train_launches, train_steps = phase_train()
     check_train_launches(train_launches, train_steps)
     bwd = phase_bwd_times(train_launches["flash_attention_bwd"], bwd_err)
@@ -1920,6 +2212,8 @@ def main() -> int:
     assert [r["name"] for r in records] == [
         "flash_attention", "pack_rows", "scatter_rows", "relayout_rows", "unpack_rows", "flash_attention_bwd",
         "pack_quant_rows", "dequant_scatter_rows", "ssd_intra_chunk", "rmsnorm"]
+    log("profile", f"device times from {TRACES['taken']} traces, of which {TRACES['not whole']} were not "
+                   f"whole; {TRACES['used not whole']} measurements used a trace that was not")
     log("done", f"{time.perf_counter() - t0:.1f}s")
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -32,26 +32,53 @@
 // sort, whether the tiles are disjoint.
 //
 // What bounds them on the H100: HBM bandwidth. pack reads each source byte
-// twice (once for the tile's absmax, once to quantize) and writes one byte
-// per element; dequant_scatter reads one byte per element and writes the
-// destination. pack: the absmax pass is split over many blocks per tile
-// (each block reduces 4096 elements into a partial maximum), and the
-// quantize pass re-reduces the tile's few partials in every block, so a
-// stacked-layer row of 4M elements and thousands of 2048-element embedding
-// rows both fill the card; no atomics, so the result is deterministic.
-// Its loads are one element per thread; vector loads and a single pass
-// that keeps a tile in shared memory are left for later. dequant_scatter:
-// blockIdx.y walks the tiles (or segments) and the x blocks share each
-// one's span; a thread's step is one 16-byte store (4 f32 or 8 bf16 values)
-// and the 4 or 8 payload bytes behind it, so that both a warp's loads and
-// its stores are contiguous, with kUnroll steps' loads in flight, where C
-// is a multiple of the step and both arrays are 16-byte aligned, else one
-// element a step; no division per element; x is fitted to the longest span,
-// so one 12.58 M-element tile and 4096 tiles of 2048 both fill the SMs.
+// once where the tile fits on chip and writes one byte per element;
+// dequant_scatter reads one byte per element and writes the destination.
+//
+// pack_quant_rows: the scale needs the whole tile's absmax before any byte is
+// written, so a tile is held on chip between the two, by one of three routes
+// that the tile's size picks (the wrapper's pure function route(), whose
+// limits kWarpBytes and kBlockBytes are exported for it to check):
+//   - warp (a tile of at most kWarpBytes, 8 KB: the embedding moments' 2048
+//     fp32 rows): one warp a tile, held in registers, 256 bytes a lane in
+//     16-byte steps (4 f32 or 8 bf16 values, a lane's steps 512 bytes
+//     apart); the absmax by shuffles; each lane writes a step's 4 or 8
+//     payload bytes as one store, so a warp's loads and stores are
+//     contiguous;
+//   - block (at most kBlockBytes, 192 KB): one block of 512 threads a tile,
+//     staged in dynamic shared memory by 16-byte cp.async, reduced, then
+//     quantized from shared memory;
+//   - grid (a larger tile: a stacked moment's 12.58 M fp32 row is 50.3 MB):
+//     one cooperative launch of one block an SM. Each block keeps as much
+//     of its share of the tile as fits on chip (192 KB in shared memory,
+//     128 KB in registers) and streams the rest; the blocks meet at a
+//     grid-wide barrier once every share's absmax is in, and the quantize
+//     pass reads again only what was streamed, last-read first, from L2.
+//     A two-kernel design (an absmax pass over the grid, then a quantize
+//     pass walking the tile in reverse for L2 hits) was slower at that row
+//     on an NVIDIA H100, alone and in the streamed resize, where training
+//     runs beside it (PERF.md). No atomics: deterministic.
+// Where rounding to int8 allows, the division is replaced by a product with
+// the tile's reciprocal (quantize_x: the same bits, by construction).
+// Each route takes its tiles' int32 starts by value in the kernel's
+// parameters (RowStarts, row_tables.cuh), and past kParamStarts through the
+// stream's device table, in one entry; repro_pack_quant_rows_list reads the
+// executor's Python list straight into them. Where C is not a multiple of 8
+// (or an array is not 16-byte aligned) every route reads and writes one
+// element at a time, and the warp route reads its tile twice (from L1).
+//
+// dequant_scatter: blockIdx.y walks the tiles (or segments) and the x blocks
+// share each one's span; a thread's step is one 16-byte store (4 f32 or 8
+// bf16 values) and the 4 or 8 payload bytes behind it, so that both a warp's
+// loads and its stores are contiguous, with kUnroll steps' loads in flight,
+// where C is a multiple of the step and both arrays are 16-byte aligned, else
+// one element a step; no division per element; x is fitted to the longest
+// span, so one 12.58 M-element tile and 4096 tiles of 2048 both fill the SMs.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_fp8.h>
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -65,6 +92,16 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int64_t kMaxGridY = 65535;
+// pack_quant_rows' routes: the largest tile (bytes) a warp holds in
+// registers (256 bytes a lane) and a block in dynamic shared memory; the
+// threads of a block-route block; the threads of the grid route's one block
+// an SM, and the bytes of its share a thread holds in registers (8 16-byte
+// steps)
+constexpr int kWarpBytes = 8192;
+constexpr int kBlockBytes = 192 * 1024;
+constexpr int kBlockThreads = 512;
+constexpr int kGridThreads = 1024;
+constexpr int kHeldBytes = 128;
 // the most blocks of a dequant_scatter grid: 64 of 256 threads per SM, so a
 // thread of a long span makes a few steps
 constexpr int64_t kMaxBlocks = 132 * 64;
@@ -103,6 +140,7 @@ __device__ __forceinline__ float nan_max(float a, float b) {
   return fmaxf(a, b);
 }
 
+template <int THREADS>
 __device__ __forceinline__ float block_max(float x, float* red) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) x = nan_max(x, __shfl_xor_sync(0xffffffffu, x, off));
@@ -110,7 +148,7 @@ __device__ __forceinline__ float block_max(float x, float* red) {
   __syncthreads();  // red may still be read by a previous call
   if (lane == 0) red[warp] = x;
   __syncthreads();
-  x = lane < kThreads / 32 ? red[lane] : 0.f;
+  x = lane < THREADS / 32 ? red[lane] : 0.f;
   if (warp == 0) {
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) x = nan_max(x, __shfl_xor_sync(0xffffffffu, x, off));
@@ -118,31 +156,6 @@ __device__ __forceinline__ float block_max(float x, float* red) {
   }
   __syncthreads();
   return red[0];
-}
-
-// block x's share [lo, hi) of a tile of n elements cut into `chunks` parts
-__device__ __forceinline__ void chunk_range(int64_t n, int chunks, int64_t* lo, int64_t* hi) {
-  const int64_t per = (n + chunks - 1) / chunks;
-  const int64_t start = static_cast<int64_t>(blockIdx.x) * per;
-  *lo = start < n ? start : n;
-  *hi = *lo + per < n ? *lo + per : n;
-}
-
-// pass 1: partial[i * chunks + x] = max |src| over block x's share of tile i
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-tile_absmax_kernel(const T* __restrict__ src, const int64_t* __restrict__ starts, int64_t nb,
-                   int64_t tile_elems, int64_t C, int chunks, float* __restrict__ partial) {
-  __shared__ float red[kThreads / 32];
-  for (int64_t i = blockIdx.y; i < nb; i += gridDim.y) {
-    const T* tile = src + starts[i] * C;
-    int64_t lo, hi;
-    chunk_range(tile_elems, chunks, &lo, &hi);
-    float m = 0.f;
-    for (int64_t e = lo + threadIdx.x; e < hi; e += kThreads) m = nan_max(m, fabsf(to_float(tile[e])));
-    m = block_max(m, red);
-    if (threadIdx.x == 0) partial[i * chunks + blockIdx.x] = m;
-  }
 }
 
 // a payload byte: int8 rounds half to even and clips; fp8-e4m3 converts
@@ -156,26 +169,282 @@ __device__ __forceinline__ uint8_t quantize(float y, float qmax) {
   }
 }
 
-// pass 2: the tile's scale from its partials, then q = x / scale
+// x / scale quantized as quantize<FMT>(__fdiv_rn(x, scale)) gives it, with
+// the tile's rcp = __frcp_rn(scale): for int8, y = x * rcp lies within
+// 1.6e-5 of x / scale and RN(x / scale) within 7.6e-6 (|x / scale| <= 127:
+// each is one rounding of 2^-24 relative from it), so rint(y) is the
+// reference's integer unless y lies within 4e-5 of a half-integer; only
+// there, and where y is NaN (a NaN or infinite scale), is the division made.
+// fp8 rounds at other points than half-integers: it always divides.
+template <int FMT>
+__device__ __forceinline__ uint8_t quantize_x(float x, float scale, float rcp, float qmax) {
+  if constexpr (FMT == kInt8) {
+    const float y = __fmul_rn(x, rcp);
+    const float k = rintf(y);
+    if (fabsf(y - k) < 0.49996f) return static_cast<uint8_t>(static_cast<int8_t>(fminf(fmaxf(k, -qmax), qmax)));
+  }
+  return quantize<FMT>(__fdiv_rn(x, scale), qmax);
+}
+
+// A step of pack_quant_rows' 16-byte bodies: one 16-byte load of source (4
+// float or 8 bfloat16 values), so that a warp's load covers 512 contiguous
+// bytes, quantized into one store of 4 or 8 payload bytes (Out).
+template <typename T>
+struct PackStep;
+template <>
+struct PackStep<float> {
+  static constexpr int kN = 4;
+  using Out = uint32_t;
+  float4 v;
+};
+template <>
+struct PackStep<__nv_bfloat16> {
+  static constexpr int kN = 8;
+  using Out = uint2;
+  uint4 v;
+};
+
+template <typename T>
+__device__ __forceinline__ PackStep<T> load_step(const T* tile, int64_t u) {
+  return reinterpret_cast<const PackStep<T>*>(tile)[u];
+}
+
+__device__ __forceinline__ void step_values(const PackStep<float>& s, float v[4]) {
+  v[0] = s.v.x, v[1] = s.v.y, v[2] = s.v.z, v[3] = s.v.w;
+}
+// a bfloat16 is the upper half of its float
+__device__ __forceinline__ void step_values(const PackStep<__nv_bfloat16>& s, float v[8]) {
+  const uint32_t w[4] = {s.v.x, s.v.y, s.v.z, s.v.w};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    v[2 * k] = __uint_as_float(w[k] << 16);
+    v[2 * k + 1] = __uint_as_float(w[k] & 0xffff0000u);
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ float step_absmax(const PackStep<T>& s, float m) {
+  float v[PackStep<T>::kN];
+  step_values(s, v);
+#pragma unroll
+  for (int k = 0; k < PackStep<T>::kN; ++k) m = nan_max(m, fabsf(v[k]));
+  return m;
+}
+
+__device__ __forceinline__ uint32_t pack_out(const uint32_t (&w)[1]) { return w[0]; }
+__device__ __forceinline__ uint2 pack_out(const uint32_t (&w)[2]) { return make_uint2(w[0], w[1]); }
+
 template <typename T, int FMT>
+__device__ __forceinline__ typename PackStep<T>::Out quant_step(const PackStep<T>& s, float scale, float rcp,
+                                                                float qmax) {
+  constexpr int kN = PackStep<T>::kN;
+  float v[kN];
+  step_values(s, v);
+  uint32_t w[kN / 4] = {};
+#pragma unroll
+  for (int k = 0; k < kN; ++k) w[k >> 2] |= uint32_t{quantize_x<FMT>(v[k], scale, rcp, qmax)} << (8 * (k & 3));
+  return pack_out(w);
+}
+
+// step u of a tile's payload
+template <typename T>
+__device__ __forceinline__ typename PackStep<T>::Out& out_step(uint8_t* qt, int64_t u) {
+  return reinterpret_cast<typename PackStep<T>::Out*>(qt)[u];
+}
+
+template <typename T>
+__device__ __forceinline__ const T* tile_at(const T* src, int64_t start, int64_t C) {
+  return src + start * C;
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const uint32_t to = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(to), "l"(gmem) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Route warp: warp w of the grid quantizes tiles w, w + warps, ... Where VEC,
+// a lane holds steps lane, lane + 32, ... of its tile in registers (kWarpBytes
+// / 32 bytes a lane), so that the tile is read once; else one element at a
+// time, the tile read twice (the second time from L1).
+template <typename T, int FMT, bool VEC, typename Table>
 __global__ void __launch_bounds__(kThreads)
-tile_quant_kernel(const T* __restrict__ src, const int64_t* __restrict__ starts, int64_t nb,
-                  int64_t tile_elems, int64_t C, int chunks, const float* __restrict__ partial,
-                  float inv_qmax, float qmax, uint8_t* __restrict__ out, float* __restrict__ scales) {
-  __shared__ float red[kThreads / 32];
-  for (int64_t i = blockIdx.y; i < nb; i += gridDim.y) {
-    float m = 0.f;
-    for (int c = threadIdx.x; c < chunks; c += kThreads) m = nan_max(m, partial[i * chunks + c]);
-    const float absmax = block_max(m, red);
-    const float scale = nan_max(absmax, 1e-12f) * inv_qmax;
-    if (blockIdx.x == 0 && threadIdx.x == 0) scales[i] = scale;
-    const T* tile = src + starts[i] * C;
+pack_quant_warp_kernel(const T* __restrict__ src, uint8_t* __restrict__ out, float* __restrict__ scales,
+                       int64_t tile_elems, int64_t C, float inv_qmax, float qmax, const __grid_constant__ Table t) {
+  constexpr int kWarps = kThreads / 32;
+  constexpr int kSteps = kWarpBytes / 32 / 16;
+  const int lane = threadIdx.x % 32;
+  const int64_t warps = static_cast<int64_t>(gridDim.x) * kWarps;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * kWarps + threadIdx.x / 32; i < t.n; i += warps) {
+    const T* tile = tile_at(src, t.start[i], C);
     uint8_t* qt = out + i * tile_elems;
-    int64_t lo, hi;
-    chunk_range(tile_elems, chunks, &lo, &hi);
-    for (int64_t e = lo + threadIdx.x; e < hi; e += kThreads) {
-      qt[e] = quantize<FMT>(__fdiv_rn(to_float(tile[e]), scale), qmax);
+    float m = 0.f;
+    if constexpr (VEC) {
+      const int64_t steps = tile_elems / PackStep<T>::kN;
+      PackStep<T> r[kSteps];
+#pragma unroll
+      for (int k = 0; k < kSteps; ++k) {
+        if (lane + 32 * k < steps) r[k] = load_step(tile, lane + 32 * k);
+      }
+#pragma unroll
+      for (int k = 0; k < kSteps; ++k) {
+        if (lane + 32 * k < steps) m = step_absmax(r[k], m);
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) m = nan_max(m, __shfl_xor_sync(0xffffffffu, m, off));
+      const float scale = nan_max(m, 1e-12f) * inv_qmax, rcp = __frcp_rn(scale);
+      if (lane == 0) scales[i] = scale;
+#pragma unroll
+      for (int k = 0; k < kSteps; ++k) {
+        if (lane + 32 * k < steps) out_step<T>(qt, lane + 32 * k) = quant_step<T, FMT>(r[k], scale, rcp, qmax);
+      }
+    } else {
+      for (int64_t e = lane; e < tile_elems; e += 32) m = nan_max(m, fabsf(to_float(tile[e])));
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) m = nan_max(m, __shfl_xor_sync(0xffffffffu, m, off));
+      const float scale = nan_max(m, 1e-12f) * inv_qmax, rcp = __frcp_rn(scale);
+      if (lane == 0) scales[i] = scale;
+      for (int64_t e = lane; e < tile_elems; e += 32) qt[e] = quantize_x<FMT>(to_float(tile[e]), scale, rcp, qmax);
     }
+  }
+}
+
+// Route block: block b quantizes tiles b, b + gridDim.x, ..., each staged
+// whole in dynamic shared memory (16-byte cp.async where VEC), then reduced,
+// then quantized from there.
+template <typename T, int FMT, bool VEC, typename Table>
+__global__ void __launch_bounds__(kBlockThreads)
+pack_quant_block_kernel(const T* __restrict__ src, uint8_t* __restrict__ out, float* __restrict__ scales,
+                        int64_t tile_elems, int64_t C, float inv_qmax, float qmax, const __grid_constant__ Table t) {
+  extern __shared__ __align__(16) unsigned char stage[];
+  __shared__ float red[kBlockThreads / 32];
+  for (int64_t i = blockIdx.x; i < t.n; i += gridDim.x) {
+    const T* tile = tile_at(src, t.start[i], C);
+    uint8_t* qt = out + i * tile_elems;
+    float m = 0.f;
+    if constexpr (VEC) {
+      const int64_t chunks = tile_elems * static_cast<int64_t>(sizeof(T)) / 16;
+      for (int64_t c = threadIdx.x; c < chunks; c += kBlockThreads) {
+        cp_async16(stage + 16 * c, reinterpret_cast<const char*>(tile) + 16 * c);
+      }
+      cp_async_wait_all();
+      __syncthreads();
+      for (int64_t u = threadIdx.x; u < tile_elems / PackStep<T>::kN; u += kBlockThreads) {
+        m = step_absmax(load_step(reinterpret_cast<const T*>(stage), u), m);
+      }
+    } else {
+      T* staged = reinterpret_cast<T*>(stage);
+      for (int64_t e = threadIdx.x; e < tile_elems; e += kBlockThreads) {
+        const T v = tile[e];
+        staged[e] = v;
+        m = nan_max(m, fabsf(to_float(v)));
+      }
+    }
+    const float scale = nan_max(block_max<kBlockThreads>(m, red), 1e-12f) * inv_qmax;  // its syncs publish the stage
+    const float rcp = __frcp_rn(scale);
+    if (threadIdx.x == 0) scales[i] = scale;
+    if constexpr (VEC) {
+      for (int64_t u = threadIdx.x; u < tile_elems / PackStep<T>::kN; u += kBlockThreads) {
+        out_step<T>(qt, u) = quant_step<T, FMT>(load_step(reinterpret_cast<const T*>(stage), u), scale, rcp, qmax);
+      }
+    } else {
+      const T* staged = reinterpret_cast<const T*>(stage);
+      for (int64_t e = threadIdx.x; e < tile_elems; e += kBlockThreads) {
+        qt[e] = quantize_x<FMT>(to_float(staged[e]), scale, rcp, qmax);
+      }
+    }
+    __syncthreads();  // the next tile overwrites the stage
+  }
+}
+
+// Route grid: one cooperative launch of one block of kGridThreads an SM.
+// The blocks cut each tile into equal shares; a block keeps what of its
+// share fits on chip, kBlockBytes staged in shared memory by cp.async and
+// kHeldBytes a thread in registers, and streams the rest, reducing all
+// three; the blocks meet at a grid-wide barrier (which the cooperative
+// launch makes safe: every block is resident), each reduces all the partial
+// maxima into the scale, then quantizes what it kept and reads the rest
+// again, last-read first, where it is likeliest still in L2. partial holds
+// two slots of gridDim.x maxima, one for each parity of the tile.
+template <typename T, int FMT, bool VEC, typename Table>
+__global__ void __launch_bounds__(kGridThreads, 1)
+pack_quant_grid_kernel(const T* __restrict__ src, uint8_t* __restrict__ out, float* __restrict__ scales,
+                       int64_t tile_elems, int64_t C, float* __restrict__ partial, float inv_qmax, float qmax,
+                       const __grid_constant__ Table t) {
+  extern __shared__ __align__(16) unsigned char stage[];
+  __shared__ float red[kGridThreads / 32];
+  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
+  constexpr int kR = kHeldBytes / 16;  // steps a thread holds
+  constexpr int64_t kStaged = kBlockBytes / 16;
+  const int blocks = gridDim.x;
+  // a share in steps (VEC) or in elements: [lo, hi) = staged, then held,
+  // then streamed
+  const int64_t units = VEC ? tile_elems / PackStep<T>::kN : tile_elems;
+  const int64_t per = (units + blocks - 1) / blocks;
+  const int64_t lo = static_cast<int64_t>(blockIdx.x) * per < units ? static_cast<int64_t>(blockIdx.x) * per : units;
+  const int64_t hi = lo + per < units ? lo + per : units;
+  const int64_t held_lo = VEC ? (lo + kStaged < hi ? lo + kStaged : hi) : lo;
+  const int64_t rest_lo = VEC ? (held_lo + kR * kGridThreads < hi ? held_lo + kR * kGridThreads : hi) : lo;
+  const T* staged = reinterpret_cast<const T*>(stage);
+  for (int64_t i = 0; i < t.n; ++i) {
+    const T* tile = tile_at(src, t.start[i], C);
+    uint8_t* qt = out + i * tile_elems;
+    float m = 0.f;
+    PackStep<T> r[kR];
+    if constexpr (VEC) {
+      const int64_t chunks = held_lo - lo;  // a step is 16 bytes
+      const char* from = reinterpret_cast<const char*>(tile) + 16 * lo;
+      for (int64_t c = threadIdx.x; c < chunks; c += kGridThreads) cp_async16(stage + 16 * c, from + 16 * c);
+      asm volatile("cp.async.commit_group;\n" ::: "memory");
+#pragma unroll
+      for (int k = 0; k < kR; ++k) {
+        const int64_t u = held_lo + threadIdx.x + k * kGridThreads;
+        if (u < rest_lo) r[k] = load_step(tile, u);
+      }
+      for (int64_t u = rest_lo + threadIdx.x; u < hi; u += 2 * kGridThreads) {
+        const PackStep<T> a = load_step(tile, u);
+        if (u + kGridThreads < hi) m = step_absmax(load_step(tile, u + kGridThreads), m);
+        m = step_absmax(a, m);
+      }
+#pragma unroll
+      for (int k = 0; k < kR; ++k) {
+        if (held_lo + threadIdx.x + k * kGridThreads < rest_lo) m = step_absmax(r[k], m);
+      }
+      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+      __syncthreads();
+      for (int64_t u = threadIdx.x; u < held_lo - lo; u += kGridThreads) m = step_absmax(load_step(staged, u), m);
+    } else {
+      for (int64_t e = lo + threadIdx.x; e < hi; e += kGridThreads) m = nan_max(m, fabsf(to_float(tile[e])));
+    }
+    m = block_max<kGridThreads>(m, red);
+    float* slot = partial + (i & 1) * blocks;
+    if (threadIdx.x == 0) slot[blockIdx.x] = m;
+    grid.sync();
+    m = 0.f;
+    for (int c = threadIdx.x; c < blocks; c += kGridThreads) m = nan_max(m, slot[c]);
+    const float scale = nan_max(block_max<kGridThreads>(m, red), 1e-12f) * inv_qmax, rcp = __frcp_rn(scale);
+    if (blockIdx.x == 0 && threadIdx.x == 0) scales[i] = scale;
+    if constexpr (VEC) {
+#pragma unroll
+      for (int k = 0; k < kR; ++k) {
+        const int64_t u = held_lo + threadIdx.x + k * kGridThreads;
+        if (u < rest_lo) out_step<T>(qt, u) = quant_step<T, FMT>(r[k], scale, rcp, qmax);
+      }
+      for (int64_t u = threadIdx.x; u < held_lo - lo; u += kGridThreads) {
+        out_step<T>(qt, lo + u) = quant_step<T, FMT>(load_step(staged, u), scale, rcp, qmax);
+      }
+      for (int64_t u = hi - 1 - threadIdx.x; u >= rest_lo; u -= kGridThreads) {
+        out_step<T>(qt, u) = quant_step<T, FMT>(load_step(tile, u), scale, rcp, qmax);
+      }
+    } else {
+      for (int64_t e = hi - 1 - threadIdx.x; e >= lo; e -= kGridThreads) {
+        qt[e] = quantize_x<FMT>(to_float(tile[e]), scale, rcp, qmax);
+      }
+    }
+    __syncthreads();  // the next tile overwrites the stage
   }
 }
 
@@ -278,27 +547,130 @@ dequant_scatter_kernel(D* __restrict__ dst, const uint8_t* __restrict__ buf, con
   dequant_entries<D, FMT, VEC>(dst, buf, scales, C, block_rows, t);
 }
 
-// The parameters: three pointers, C, block_rows and the table.
+// The parameters: three pointers, C, block_rows and the table (dequant);
+// four pointers, tile, C, two floats and the starts (pack).
 static_assert(3 * sizeof(void*) + 2 * sizeof(int64_t) + sizeof(RowStarts<kParamStarts>) <= kParamBytes,
               "the by-value starts exceed the 32,764 bytes of kernel parameters");
+static_assert(4 * sizeof(void*) + 2 * sizeof(int64_t) + 2 * sizeof(float) + sizeof(RowStarts<kParamStarts>) <=
+                  kParamBytes,
+              "pack's by-value starts exceed the 32,764 bytes of kernel parameters");
 static_assert(3 * sizeof(void*) + 2 * sizeof(int64_t) + sizeof(RowTable<kParamSegs>) <= kParamBytes,
               "the by-value segments exceed the 32,764 bytes of kernel parameters");
 
+// pack_quant_rows' routes, as the wrapper's route() names them
+constexpr int kRouteWarp = 0;
+constexpr int kRouteBlock = 1;
+constexpr int kRouteGrid = 2;
+
+// The route of a tile of tile_bytes, as the wrapper's route() picks it: a
+// warp holds at most kWarpBytes in registers, a block kBlockBytes in shared
+// memory, and the grid route takes any tile.
+int route_of(int64_t tile_bytes) {
+  return tile_bytes <= kWarpBytes ? kRouteWarp : tile_bytes <= kBlockBytes ? kRouteBlock : kRouteGrid;
+}
+
+// The float scratch a launch needs: the grid route's two slots of one
+// maximum a block; none for the others.
+int64_t scratch_floats(int route, int blocks) { return route == kRouteGrid ? 2 * static_cast<int64_t>(blocks) : 0; }
+
+// The SMs of the current device, read once (an entry holds the GIL, so one
+// call at a time); 0 if it cannot be read.
+int sm_count() {
+  static int count[64] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
+  if (count[dev] == 0) cudaDeviceGetAttribute(&count[dev], cudaDevAttrMultiProcessorCount, dev);
+  return count[dev];
+}
+
+// Sets a kernel's dynamic shared memory limit to kBlockBytes, once per kernel.
+template <auto Kernel>
+cudaError_t allow_stage() {
+  static bool done = false;
+  if (done) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kBlockBytes);
+  done = err == cudaSuccess;
+  return err;
+}
+
+// One launch of `route` over the n host starts (by value, or through dev
+// past the capacity); VEC where C is a multiple of 8 and both arrays are
+// 16-byte aligned. scratch holds scratch_n floats.
 template <typename T, int FMT>
-cudaError_t launch_pack(const void* src, void* out, float* scales, float* partial,
-                        const int64_t* starts, int64_t nb, int64_t block_rows, int64_t C,
-                        int chunks, float qmax, cudaStream_t stream) {
-  const int64_t tile_elems = block_rows * C;
-  const dim3 grid(chunks, static_cast<unsigned>(nb < kMaxGridY ? nb : kMaxGridY));
-  tile_absmax_kernel<T><<<grid, kThreads, 0, stream>>>(static_cast<const T*>(src), starts, nb,
-                                                       tile_elems, C, chunks, partial);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
+int launch_pack(int route, const T* src, uint8_t* out, float* scales, float* scratch, int64_t scratch_n,
+                const int32_t* starts, int64_t n, int64_t block_rows, int64_t C, int32_t* dev, cudaStream_t s) {
+  const int64_t tile = block_rows * C;
+  if (route != route_of(tile * static_cast<int64_t>(sizeof(T)))) return cudaErrorInvalidValue;
+  const bool vec =
+      C % 8 == 0 && reinterpret_cast<uintptr_t>(src) % 16 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  const float qmax = FMT == kInt8 ? 127.f : 448.f;
   const float inv_qmax = static_cast<float>(1.0 / static_cast<double>(qmax));
-  tile_quant_kernel<T, FMT><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(src), starts, nb, tile_elems, C, chunks, partial, inv_qmax, qmax,
-      static_cast<uint8_t*>(out), scales);
-  return cudaGetLastError();
+  const int sms = sm_count();
+  if (sms == 0) return cudaErrorInvalidDevice;
+  if (scratch_n < scratch_floats(route, sms) || (route == kRouteGrid && scratch == nullptr)) {
+    return cudaErrorInvalidValue;
+  }
+  cudaError_t err = cudaSuccess;  // a launch's own error (cudaLaunchKernelEx, cudaFuncSetAttribute)
+  auto launch = [&](const auto& t) {
+    using Table = std::decay_t<decltype(t)>;
+    auto go = [&](auto vec_tag) {
+      constexpr bool V = decltype(vec_tag)::value;
+      if (route == kRouteWarp) {
+        const int64_t blocks = (n + kThreads / 32 - 1) / (kThreads / 32);
+        pack_quant_warp_kernel<T, FMT, V, Table><<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
+            src, out, scales, tile, C, inv_qmax, qmax, t);
+      } else if (route == kRouteBlock) {
+        err = allow_stage<pack_quant_block_kernel<T, FMT, V, Table>>();
+        if (err != cudaSuccess) return;
+        const size_t stage = (tile * sizeof(T) + 15) / 16 * 16;
+        pack_quant_block_kernel<T, FMT, V, Table><<<static_cast<unsigned>(n), kBlockThreads, stage, s>>>(
+            src, out, scales, tile, C, inv_qmax, qmax, t);
+      } else {
+        auto kernel = pack_quant_grid_kernel<T, FMT, V, Table>;
+        err = allow_stage<pack_quant_grid_kernel<T, FMT, V, Table>>();
+        if (err != cudaSuccess) return;
+        cudaLaunchConfig_t config = {};
+        cudaLaunchAttribute attr[1];
+        attr[0].id = cudaLaunchAttributeCooperative;
+        attr[0].val.cooperative = 1;
+        config.gridDim = dim3(static_cast<unsigned>(sms));
+        config.blockDim = dim3(kGridThreads);
+        config.dynamicSmemBytes = kBlockBytes;
+        config.stream = s;
+        config.attrs = attr;
+        config.numAttrs = 1;
+        err = cudaLaunchKernelEx(&config, kernel, src, out, scales, tile, C, scratch, inv_qmax, qmax, t);
+      }
+    };
+    if (vec) {
+      go(std::true_type{});
+    } else {
+      go(std::false_type{});
+    }
+  };
+  const cudaError_t last = with_starts(starts, n, dev, s, launch);
+  return static_cast<int>(err != cudaSuccess ? err : last);
+}
+
+int pack_entry(void* out, float* scales, const void* src, const int32_t* starts, int64_t n, int64_t block_rows,
+               int64_t C, int src_dtype, int fmt, int route, float* scratch, int64_t scratch_n, int32_t* dev,
+               void* stream) {
+  if (n == 0) return 0;
+  const auto s = static_cast<cudaStream_t>(stream);
+  auto* q = static_cast<uint8_t*>(out);
+  if (src_dtype == 0 && fmt == kInt8)
+    return launch_pack<float, kInt8>(route, static_cast<const float*>(src), q, scales, scratch, scratch_n, starts,
+                                     n, block_rows, C, dev, s);
+  if (src_dtype == 0 && fmt == kFp8)
+    return launch_pack<float, kFp8>(route, static_cast<const float*>(src), q, scales, scratch, scratch_n, starts, n,
+                                    block_rows, C, dev, s);
+  if (src_dtype == 1 && fmt == kInt8)
+    return launch_pack<__nv_bfloat16, kInt8>(route, static_cast<const __nv_bfloat16*>(src), q, scales, scratch,
+                                             scratch_n, starts, n, block_rows, C, dev, s);
+  if (src_dtype == 1 && fmt == kFp8)
+    return launch_pack<__nv_bfloat16, kFp8>(route, static_cast<const __nv_bfloat16*>(src), q, scales, scratch,
+                                            scratch_n, starts, n, block_rows, C, dev, s);
+  return cudaErrorInvalidValue;
 }
 
 // n entries (tiles or segments) of at most max_span elements: y over the
@@ -396,27 +768,40 @@ bool disjoint_tiles(const int32_t* starts, int64_t n, int64_t block_rows, int64_
 
 }  // namespace
 
-// src_dtype / dst_dtype: 0 = float32, 1 = bfloat16; fmt: 0 = int8 (qmax
-// 127), 1 = fp8-e4m3 (qmax 448); chunks: blocks per tile in pack (the
-// wrapper cuts tiles into 4096-element shares and sizes `partial`, nb x
-// chunks floats, to match). Each entry launches on `stream` and returns
-// cudaGetLastError() (0 on success); n == 0 launches nothing.
+// pack_quant_rows: out gets n * block_rows rows of C payload bytes, scales n
+// floats, from src (rows rows of C values; src_dtype 0 = float32, 1 =
+// bfloat16); fmt 0 = int8 (qmax 127), 1 = fp8-e4m3 (qmax 448); route 0 warp,
+// 1 block, 2 grid (refused where the tile is too large for it); scratch
+// holds scratch_n floats (the grid route needs two a block). Each
+// entry checks its starts, then launches on `stream` and returns
+// cudaGetLastError() (0 on success); n == 0 launches nothing. Past the
+// by-value capacity (repro_quant_param_starts) the starts need dev, the
+// device table (row_tables.cuh).
 
-extern "C" int repro_pack_quant_rows(const void* src, void* out, float* scales, float* partial,
-                                     const int64_t* starts, int64_t nb, int64_t block_rows,
-                                     int64_t C, int chunks, int src_dtype, int fmt, void* stream) {
-  if (nb < 0 || block_rows <= 0 || C <= 0 || chunks <= 0) return cudaErrorInvalidValue;
-  if (nb == 0) return 0;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (src_dtype == 0 && fmt == 0)
-    return launch_pack<float, kInt8>(src, out, scales, partial, starts, nb, block_rows, C, chunks, 127.f, st);
-  if (src_dtype == 0 && fmt == 1)
-    return launch_pack<float, kFp8>(src, out, scales, partial, starts, nb, block_rows, C, chunks, 448.f, st);
-  if (src_dtype == 1 && fmt == 0)
-    return launch_pack<__nv_bfloat16, kInt8>(src, out, scales, partial, starts, nb, block_rows, C, chunks, 127.f, st);
-  if (src_dtype == 1 && fmt == 1)
-    return launch_pack<__nv_bfloat16, kFp8>(src, out, scales, partial, starts, nb, block_rows, C, chunks, 448.f, st);
-  return cudaErrorInvalidValue;
+// starts: n int32 tile starts, in host memory.
+extern "C" int repro_pack_quant_rows(void* out, float* scales, const void* src, const int32_t* starts, int64_t n,
+                                     int64_t block_rows, int64_t C, int64_t rows, int src_dtype, int fmt, int route,
+                                     float* scratch, int64_t scratch_n, int32_t* dev, void* stream) {
+  if (C <= 0 || !starts_valid(starts, n, block_rows, rows, dev)) return cudaErrorInvalidValue;
+  return pack_entry(out, scales, src, starts, n, block_rows, C, src_dtype, fmt, route, scratch, scratch_n, dev,
+                    stream);
+}
+
+// The starts in a Python list of at most kParamStarts ints (the caller's n
+// is not used: the length is read here, under the GIL), read straight into
+// the by-value starts and checked on the way: a tile that leaves src's rows
+// rows gives kStartOutside, an item that is not an integer (or past int64)
+// kNotInteger, and neither launches. Starts may repeat or overlap.
+extern "C" int repro_pack_quant_rows_list(void* out, float* scales, const void* src, PyObject* list, int64_t n,
+                                          int64_t block_rows, int64_t C, int64_t rows, int src_dtype, int fmt,
+                                          int route, float* scratch, int64_t scratch_n, int32_t* dev, void* stream) {
+  n = PyList_Size(list);
+  if (n < 0 || n > kParamStarts || block_rows <= 0 || C <= 0) return cudaErrorInvalidValue;
+  int32_t starts[kParamStarts];
+  const int err = read_start_list(list, n, block_rows, rows, starts);
+  if (err != 0) return err;
+  return pack_entry(out, scales, src, starts, n, block_rows, C, src_dtype, fmt, route, scratch, scratch_n, nullptr,
+                    stream);
 }
 
 // dequant_scatter_rows: the buffer holds buf_rows = n * block_rows rows of C
@@ -439,9 +824,8 @@ extern "C" int repro_dequant_scatter_rows(void* dst, const void* buf, const floa
 // is not used: the length is read here, under the GIL), read straight into
 // the by-value starts and checked on the way. A tile that leaves dst's rows
 // rows gives kStartOutside, an item that is not an integer (or past int64)
-// kPyError with the Python error set, which ctypes raises; tiles that share
-// a row, or that this entry cannot tell apart, give kNotDisjoint and launch
-// nothing.
+// kNotInteger; tiles that share a row, or that this entry cannot tell apart,
+// give kNotDisjoint; none of these launches.
 extern "C" int repro_dequant_scatter_rows_list(void* dst, const void* buf, const float* scales, PyObject* list,
                                                int64_t n, int64_t block_rows, int64_t C, int64_t rows,
                                                int dst_dtype, int fmt, int32_t* dev, void* stream) {
@@ -465,9 +849,12 @@ extern "C" int repro_dequant_scatter_segments(void* dst, const void* buf, const 
   return dequant_entry(true, dst, buf, scales, segs, n, max_rows, block_rows, C, dst_dtype, fmt, dev, stream);
 }
 
-// The most starts and segments a by-value table holds.
+// The most starts and segments a by-value table holds, and the largest tile
+// (in bytes) of the warp and the block route of pack_quant_rows.
 extern "C" int repro_quant_param_starts() { return kParamStarts; }
 extern "C" int repro_quant_param_segs() { return kParamSegs; }
+extern "C" int repro_quant_warp_bytes() { return kWarpBytes; }
+extern "C" int repro_quant_block_bytes() { return kBlockBytes; }
 
 extern "C" const char* repro_quant_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

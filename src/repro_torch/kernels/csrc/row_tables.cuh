@@ -19,12 +19,15 @@
 // not write the device table before the kernel has read it.
 //
 // read_start_list reads a Python list of starts straight into the by-value
-// starts, so that the host reads the list once. The wrappers load the
-// libraries into the interpreter with ctypes.PyDLL: a call holds the GIL,
-// ctypes raises any Python error the call leaves set, and the CPython
-// functions below (stable ABI, declared here rather than through Python.h so
-// that the build needs no Python headers) resolve against the running
-// interpreter, as an extension module's do.
+// starts, so that the host reads the list once. An item that is not an
+// integer (a float above all) is refused with kNotInteger, its Python error
+// cleared, and the wrapper then raises the port's ValueError naming it, as
+// the CPU path does. The wrappers load the libraries into the interpreter
+// with ctypes.PyDLL: a call holds the GIL, ctypes raises any Python error the
+// call leaves set, and the CPython functions below (stable ABI, declared
+// here rather than through Python.h so that the build needs no Python
+// headers) resolve against the running interpreter, as an extension
+// module's do.
 
 #pragma once
 
@@ -39,6 +42,7 @@ ptrdiff_t PyList_Size(PyObject* list);
 PyObject* PyList_GetItem(PyObject* list, ptrdiff_t index);
 long long PyLong_AsLongLong(PyObject* obj);
 PyObject* PyErr_Occurred(void);
+void PyErr_Clear(void);
 }
 
 namespace {
@@ -85,17 +89,22 @@ constexpr int kParamClasses[] = {16, 256, 2720};
 constexpr int kParamSegs = kParamClasses[2];
 
 // What read_start_list returns for a block that leaves the array, and for an
-// item that is not an integer (or past int64), with the Python error set.
+// item that is not an integer (or past int64); the wrappers name these codes
+// _START_OUTSIDE and _NOT_INTEGER.
 constexpr int kStartOutside = -1;
-constexpr int kPyError = -2;
+constexpr int kNotInteger = -2;
 
 // Reads the n <= kParamStarts items of the Python list `list` into starts,
 // each checked on the way: a block of block_rows rows from it lies inside
-// the array's rows rows. Returns 0, kStartOutside or kPyError.
+// the array's rows rows. Returns 0, kStartOutside or kNotInteger (with no
+// Python error left set).
 inline int read_start_list(PyObject* list, int64_t n, int64_t block_rows, int64_t rows, int32_t* starts) {
   for (int64_t i = 0; i < n; ++i) {
     const long long s = PyLong_AsLongLong(PyList_GetItem(list, i));
-    if (s == -1 && PyErr_Occurred() != nullptr) return kPyError;
+    if (s == -1 && PyErr_Occurred() != nullptr) {
+      PyErr_Clear();
+      return kNotInteger;
+    }
     if (s < 0 || s > rows - block_rows) return kStartOutside;
     starts[i] = static_cast<int32_t>(s);
   }

@@ -166,20 +166,43 @@ def rmsnorm_ref(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torc
 # ---------------------------------------------------------------------------
 
 
+def _not_int64(what: str, starts) -> ValueError:
+    """The refusal of starts that are not all int64 integers, naming the
+    first start that is not an integer (a fractional one first), else the
+    first past int64."""
+    odd = [s for s in starts if not isinstance(s, (int, np.integer))]
+    if odd:
+        bad = next((s for s in odd if not (isinstance(s, (float, np.floating)) and float(s).is_integer())), odd[0])
+        return ValueError(f"{what}: start {bad!r} is not an integer")
+    big = next(s for s in starts if not -(2**63) <= int(s) < 2**63)
+    return ValueError(f"{what}: start {big} lies past int64")
+
+
 def row_starts(starts, block_rows: int, rows: int, what: str) -> np.ndarray:
     """``starts`` as a host int64 array, checked: every block of
     ``block_rows`` rows from a start lies inside ``rows`` rows.
 
     The JAX references clamp a start that runs past the end back into range
-    (``dynamic_slice``); no caller builds such a start, so the port refuses
-    it on every device instead of moving other rows than were named.
+    (``dynamic_slice``) and truncate a float start; no caller builds either,
+    so the port refuses both on every device, whatever the form of
+    ``starts`` (list, tuple, numpy array, tensor), instead of moving other
+    rows than were named. Integers of any kind pass, and so does an empty
+    sequence.
     """
     if isinstance(starts, torch.Tensor):
+        if starts.is_floating_point() or starts.is_complex():
+            raise _not_int64(what, starts.reshape(-1)[:8].tolist())
         starts = starts.detach().cpu().numpy()
     if isinstance(starts, list) and len(starts) > 1:  # struct reads a long list of ints ~2x faster
-        out = np.frombuffer(bytearray(struct.pack(f"{len(starts)}q", *starts)), dtype=np.int64)
+        try:
+            out = np.frombuffer(bytearray(struct.pack(f"{len(starts)}q", *starts)), dtype=np.int64)
+        except struct.error:
+            raise _not_int64(what, starts) from None
     else:
-        out = np.asarray(starts, dtype=np.int64).reshape(-1)
+        arr = np.asarray(starts)
+        if arr.size and arr.dtype.kind not in "iub":
+            raise _not_int64(what, starts if isinstance(starts, (list, tuple)) else arr.reshape(-1).tolist())
+        out = arr.astype(np.int64).reshape(-1)
     if block_rows < 1:
         raise ValueError(f"{what}: block_rows {block_rows} < 1")
     if out.size:

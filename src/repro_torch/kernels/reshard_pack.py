@@ -285,8 +285,12 @@ class _DeviceTables:
 _DEVICE_TABLES = _DeviceTables()
 
 
-# repro_pack_rows_list's code for a block that leaves the array
+# What the list entries return for a block that leaves the array and for a
+# start that is not an integer (kStartOutside, kNotInteger in
+# csrc/row_tables.cuh); they launch nothing, and the wrapper raises the
+# refusal through ref.row_starts, as the CPU path does.
 _START_OUTSIDE = -1
+_NOT_INTEGER = -2
 
 
 def launch_entry(fn, tensors: tuple, table, form: str, *args) -> int:
@@ -312,9 +316,9 @@ def launch_entry(fn, tensors: tuple, table, form: str, *args) -> int:
 def _launch_table(name: str, entry: str, a: torch.Tensor, b: torch.Tensor, table, form: str, *args) -> bool:
     """:func:`launch_entry` of ``repro_<entry>`` on ``(a, b)`` for the kernel
     ``name``, counted. False where the entry found a start outside the
-    array, and launched nothing."""
+    array or one that is not an integer, and launched nothing."""
     err = launch_entry(getattr(_lib(), f"repro_{entry}"), (a, b), table, form, *args)
-    if err == _START_OUTSIDE:
+    if err in (_START_OUTSIDE, _NOT_INTEGER):
         return False
     if err != 0:
         msg = _lib().repro_rows_error_string(err).decode()

@@ -14,13 +14,24 @@ float32 or bfloat16 array, for any start:
   place** (the torch counterpart of the JAX package's donation); rows no
   tile names keep their bytes.
 
-Starts that would leave the array raise ``ValueError``. Each wrapper
+Starts that would leave the array, or that are not integers, raise
+``ValueError`` on every route and device. Each wrapper
 launches on torch's current stream, does not synchronise, raises if the
 launch fails, and adds one to its entry of :data:`launches` where it
 launches; ``nb == 0`` launches nothing. The plain versions are
 ``repro_torch.kernels.ref.pack_quant_rows_ref`` and
 ``dequant_scatter_rows_ref``; ``ops`` picks between the two by the tensors'
 device.
+
+:func:`pack_quant_rows_cuda` costs about one launch on the host too: its
+int32 tile starts go by value in the kernel's parameters (a list of starts,
+the executor's form, the library reads and checks itself), and the kernel
+reads each source byte once where the tile fits on chip, by one of three
+routes that :func:`route` picks from the tile's size: a warp a tile in
+registers (up to :data:`WARP_BYTES`), a block a tile in shared memory (up to
+:data:`BLOCK_BYTES`), or, for larger tiles, one cooperative launch over the
+card whose blocks keep their shares on chip across a grid-wide barrier
+(:data:`route_launches` counts each).
 
 :func:`dequant_scatter_rows_cuda` costs about one launch on the host, with
 its table by value in the kernel's parameters (``csrc/row_tables.cuh``, as
@@ -52,6 +63,8 @@ from repro_torch.kernels.reshard_pack import (
 # Kernel launches in this process, by kernel; each is bumped once per
 # launch, nowhere else.
 launches = {"pack_quant_rows": 0, "dequant_scatter_rows": 0}
+# pack_quant_rows' launches by route.
+route_launches = {"warp": 0, "block": 0, "grid": 0}
 # dequant_scatter_rows' launches by the form of its table: int32 tile
 # starts by value ("starts") or through the device table ("starts_device");
 # int32 last-writer segments by value ("param") or through the device table
@@ -61,13 +74,38 @@ table_launches = {"starts": 0, "starts_device": 0, "param": 0, "device": 0}
 _VALUE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _FORMAT_CODES = {"int8": 0, "fp8_e4m3": 1}
 _FORMAT_OF = {WIRE_QDTYPE[f]: f for f in _FORMAT_CODES}
-# elements of a tile that one block of the absmax pass reduces
-_SHARE = 4096
+_ROUTE_CODES = {"warp": 0, "block": 1, "grid": 2}
+
+# pack_quant_rows' routes: the largest tile, in bytes, that a warp holds in
+# registers and that a block stages in shared memory (kWarpBytes and
+# kBlockBytes in csrc/reshard_quant.cu; the library's are checked at load);
+# the most SMs whose grid-route blocks the scratch covers.
+WARP_BYTES = 8192
+BLOCK_BYTES = 192 * 1024
+_MAX_SMS = 1024
 
 
-# What repro_dequant_scatter_rows_list returns for a tile that leaves the
-# array, and for tiles it did not find disjoint (it then launched nothing).
+def route(tile_elems: int, itemsize: int) -> str:
+    """The route of :func:`pack_quant_rows_cuda` for tiles of ``tile_elems``
+    elements of ``itemsize`` bytes: "warp" up to :data:`WARP_BYTES`, "block"
+    up to :data:`BLOCK_BYTES`, else "grid"."""
+    nbytes = tile_elems * itemsize
+    return "warp" if nbytes <= WARP_BYTES else "block" if nbytes <= BLOCK_BYTES else "grid"
+
+
+def scratch_floats(name: str) -> int:
+    """The float32 scratch a launch of route ``name`` needs (the library
+    checks it): the grid route's two slots of one maximum a block, for up to
+    :data:`_MAX_SMS` blocks; none for the others."""
+    return 2 * _MAX_SMS if name == "grid" else 0
+
+
+# What the list entries return for a tile that leaves the array, a start
+# that is not an integer (both: the wrapper raises the refusal through
+# ref.row_starts), and for tiles repro_dequant_scatter_rows_list did not find
+# disjoint; none of these launched.
 _START_OUTSIDE = -1
+_NOT_INTEGER = -2
 _NOT_DISJOINT = -3
 
 _LIB: ctypes.CDLL | None = None
@@ -84,7 +122,8 @@ def _lib() -> ctypes.CDLL:
     lib = ctypes.PyDLL(str(build.build_all(["reshard_quant"])["reshard_quant"]))
     p, i64, i = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
     argtypes = {
-        "pack_quant_rows": [p, p, p, p, p, i64, i64, i64, i, i, i, p],
+        "pack_quant_rows": [p, p, p, p, i64, i64, i64, i64, i, i, i, p, i64, p, p],
+        "pack_quant_rows_list": [p, p, p, ctypes.py_object, i64, i64, i64, i64, i, i, i, p, i64, p, p],
         "dequant_scatter_rows": [p, p, p, p, i64, i64, i64, i64, i, i, p, p],
         "dequant_scatter_rows_list": [p, p, p, ctypes.py_object, i64, i64, i64, i64, i, i, p, p],
         "dequant_scatter_segments": [p, p, p, p, i64, i64, i64, i64, i64, i, i, p, p],
@@ -95,8 +134,9 @@ def _lib() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.repro_quant_error_string.argtypes = [ctypes.c_int]
     lib.repro_quant_error_string.restype = ctypes.c_char_p
-    for what, want in (("starts", PARAM_STARTS), ("segs", PARAM_SEGS)):
-        fn = getattr(lib, f"repro_quant_param_{what}")
+    for what, want in (("param_starts", PARAM_STARTS), ("param_segs", PARAM_SEGS), ("warp_bytes", WARP_BYTES),
+                       ("block_bytes", BLOCK_BYTES)):
+        fn = getattr(lib, f"repro_quant_{what}")
         fn.restype = ctypes.c_int
         if fn() != want:
             raise RuntimeError(
@@ -104,13 +144,6 @@ def _lib() -> ctypes.CDLL:
             )
     _LIB = lib
     return lib
-
-
-def _table(a: np.ndarray, device: torch.device) -> torch.Tensor:
-    """An int64 host table on the card, copied on the current stream (the
-    pinned host buffer stays reserved until that copy has run)."""
-    host = torch.from_numpy(np.ascontiguousarray(a, dtype=np.int64)).pin_memory()
-    return host.to(device, non_blocking=True)
 
 
 def _check(what: str, x: torch.Tensor, dtypes) -> None:
@@ -132,24 +165,32 @@ def pack_quant_rows_cuda(src: torch.Tensor, starts, block_rows: int, fmt: str):
     _check("pack_quant_rows", src, _VALUE_CODES)
     if fmt not in _FORMAT_CODES:
         raise ValueError(f"pack_quant_rows: wire format {fmt!r} not in {sorted(_FORMAT_CODES)}")
-    st = row_starts(starts, block_rows, src.shape[0], "pack_quant_rows")
-    nb, C = st.size, src.shape[1]
+    rows, C = src.shape
+    if type(starts) is list and 0 < len(starts) <= PARAM_STARTS and block_rows >= 1 and rows <= INT32_MAX:
+        # the executor's form: the library reads the list into the by-value
+        # starts and checks each, so the host reads it once
+        table, nb, entry, form = starts, len(starts), "pack_quant_rows_list", "starts"
+    else:
+        table = start_table(starts, block_rows, rows, "pack_quant_rows")
+        nb, entry, form = table.size, "pack_quant_rows", table_form(table.size, starts=True)
+    tile = block_rows * C
+    name = route(tile, src.element_size())
+    n_scratch = scratch_floats(name) if nb else 0
     q = torch.empty((nb * block_rows, C), dtype=WIRE_QDTYPE[fmt], device=src.device)
-    scales = torch.empty((nb, 1), dtype=torch.float32, device=src.device)
+    floats = torch.empty((nb + n_scratch,), dtype=torch.float32, device=src.device)  # the scales, then the scratch
+    scales = floats[:nb].view(nb, 1)
     if nb == 0:
         return q, scales
-    chunks = -(-block_rows * C // _SHARE)
-    partial = torch.empty((nb * chunks,), dtype=torch.float32, device=src.device)
-    lib = _lib()
-    with torch.cuda.device(src.device):
-        table = _table(st, src.device)
-        stream = torch.cuda.current_stream(src.device).cuda_stream
-        err = lib.repro_pack_quant_rows(
-            src.data_ptr(), q.data_ptr(), scales.data_ptr(), partial.data_ptr(), table.data_ptr(),
-            nb, block_rows, C, chunks, _VALUE_CODES[src.dtype], _FORMAT_CODES[fmt], stream,
-        )
+    lib = _LIB or _lib()
+    err = launch_entry(getattr(lib, f"repro_{entry}"), (q, scales, src), table, form, block_rows, C, rows,
+                       _VALUE_CODES[src.dtype], _FORMAT_CODES[fmt], _ROUTE_CODES[name],
+                       floats.data_ptr() + 4 * nb if n_scratch else None, n_scratch)
+    if err in (_START_OUTSIDE, _NOT_INTEGER):
+        row_starts(starts, block_rows, rows, "pack_quant_rows")  # raises the refusal, naming the start
+        raise RuntimeError("pack_quant_rows: the library refused starts that the wrapper accepts")
     _raise_if(lib, err, "pack_quant_rows")
     launches["pack_quant_rows"] += 1
+    route_launches[name] += 1
     return q, scales
 
 
@@ -167,11 +208,11 @@ def dequant_tables(table: np.ndarray, block_rows: int, rows: int) -> tuple[str, 
 
 def _launch_dequant(entry: str, dst, buf, scales, table, form: str, *args) -> int:
     """``reshard_pack.launch_entry`` of ``repro_<entry>`` on ``(dst, buf,
-    scales)``, counted. Returns 0, or the list entry's :data:`_START_OUTSIDE`
-    or :data:`_NOT_DISJOINT` (nothing launched)."""
+    scales)``, counted. Returns 0, or the list entry's :data:`_START_OUTSIDE`,
+    :data:`_NOT_INTEGER` or :data:`_NOT_DISJOINT` (nothing launched)."""
     lib = _LIB or _lib()
     err = launch_entry(getattr(lib, f"repro_{entry}"), (dst, buf, scales), table, form, *args)
-    if err in (_START_OUTSIDE, _NOT_DISJOINT):
+    if err in (_START_OUTSIDE, _NOT_INTEGER, _NOT_DISJOINT):
         return err
     _raise_if(lib, err, "dequant_scatter_rows")
     launches["dequant_scatter_rows"] += 1
@@ -196,8 +237,8 @@ def dequant_scatter_rows_cuda(dst: torch.Tensor, buf: torch.Tensor, scales: torc
                               *codes)
         if err == 0:
             return dst
-        if err == _START_OUTSIDE:
-            row_starts(starts, block_rows, rows, "dequant_scatter_rows")  # raises the refusal, naming the starts
+        if err in (_START_OUTSIDE, _NOT_INTEGER):
+            row_starts(starts, block_rows, rows, "dequant_scatter_rows")  # raises the refusal, naming the start
             raise RuntimeError("dequant_scatter_rows: the library refused starts that the wrapper accepts")
     table = start_table(starts, block_rows, rows, "dequant_scatter_rows")
     nb = table.size

@@ -42,17 +42,22 @@ BACKWARD_TODO = (
 # Kernel launches in this process; bumped once per launch, nowhere else.
 launches = 0
 
+_LIB: ctypes.CDLL | None = None
+
 
 def _lib() -> ctypes.CDLL:
-    lib = build.load("ssd_scan")
-    fn = lib.repro_ssd_intra_chunk
-    if fn.argtypes is None:
+    """The kernel's library, built and loaded at first use, its argument
+    types set once."""
+    global _LIB
+    if _LIB is None:
+        lib = build.load("ssd_scan")
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 7 + [i] * 7 + [p]
-        fn.restype = ctypes.c_int
+        lib.repro_ssd_intra_chunk.argtypes = [p] * 7 + [i] * 7 + [p]
+        lib.repro_ssd_intra_chunk.restype = ctypes.c_int
         lib.repro_ssd_error_string.argtypes = [ctypes.c_int]
         lib.repro_ssd_error_string.restype = ctypes.c_char_p
-    return lib
+        _LIB = lib
+    return _LIB
 
 
 def check_args(x, dt, cum, B, C, chunk: int) -> None:
@@ -88,17 +93,19 @@ def ssd_intra_chunk_cuda(x, dt, cum, B, C, chunk: int) -> tuple[torch.Tensor, to
     Returns (y_intra (b,s,h,p) float32, S (b,nc,h,p,n) float32)."""
     global launches
     check_args(x, dt, cum, B, C, chunk)
+    index = x.get_device()
+    if index != torch.cuda.current_device():
+        with torch.cuda.device(index):
+            return ssd_intra_chunk_cuda(x, dt, cum, B, C, chunk)
     b, s, h, p = x.shape
     n = B.shape[-1]
-    lib = _lib()
+    lib = _LIB or _lib()
     y = torch.empty((b, s, h, p), dtype=torch.float32, device=x.device)
     S = torch.empty((b, s // chunk, h, p, n), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.repro_ssd_intra_chunk(
-            x.data_ptr(), dt.data_ptr(), cum.data_ptr(), B.data_ptr(), C.data_ptr(), y.data_ptr(), S.data_ptr(),
-            b, s, h, p, n, chunk, _DTYPE_CODES[x.dtype], stream,
-        )
+    err = lib.repro_ssd_intra_chunk(
+        x.data_ptr(), dt.data_ptr(), cum.data_ptr(), B.data_ptr(), C.data_ptr(), y.data_ptr(), S.data_ptr(),
+        b, s, h, p, n, chunk, _DTYPE_CODES[x.dtype], torch._C._cuda_getCurrentRawStream(index),
+    )
     if err != 0:
         msg = lib.repro_ssd_error_string(err).decode()
         raise RuntimeError(f"ssd intra-chunk launch failed: cudaError {err} ({msg})")
