@@ -53,7 +53,9 @@ non-zero without one. Phases, each printing one line or more:
    alone on the device, from the profiler; the call's host time is the
    difference) at the elastic path's per-layer move and at 4096 scattered
    embedding rows, beside their plain versions, one PyTorch call each and
-   the HBM bound, with the segment table's form;
+   the HBM bound, with the segment table's form; scatter_rows at the
+   per-layer move also with a 96 MB write between launches, which evicts
+   its staging buffer from the 50 MB L2;
 11. the flash-attention backward kernel against autograd of the plain
    version, over the forward's cases and the training shape, f32 and bf16
    (and the serving shape in bf16), on each route that takes the case;
@@ -86,35 +88,47 @@ non-zero without one. Phases, each printing one line or more:
    every flash launch of the run (forward and backward) on the tensor
    cores; the host time per call of the two quant wrappers over the
    streamed resize, and pack_quant_rows' launches by route;
-14. the new kernels' times (CUDA events, median of 20): the backward and
+14. the controller's lifecycle at full width: qwen3-1.7b as in 13, lossless,
+   ``WorldPool(capacity=2)``, stream_k 8 (a stream takes 4 rounds): on
+   dp2tp2 a speculative build of dp1tp4 (``prefetch_world``) beside a
+   streamed resize to dp2tp4; after its first pre-copy round,
+   ``retarget_resize`` to dp1tp4 (its Prepare served by the prefetch, the
+   commit reusing the streamed layers: every adopted carry the old tensor,
+   none aliasing a live one); then back to dp2tp2 from the pool, escalated
+   to a stop-copy after one round (``escalate_commit``: fell_back, bytes
+   moved). Each commit's state held against the cut, the losses bitwise
+   against a control run never resized, the launches of the path, the peak
+   memory within 5% of 13's; prints each Prepare's parts, both commits'
+   pauses and the stop-copy's rate;
+15. the new kernels' times (CUDA events, median of 20): the backward and
    its TFLOP/s beside the CUDA-core route,
    ``scaled_dot_product_attention``'s backward and the plain version's, the
    two quant kernels beside their plain versions, each with its bound
    (pack_quant_rows on each route: a stacked-moment row on the grid route,
    4096 embedding rows on the warp route, 128 tiles of 24 rows on the
    block route);
-15. the SSD intra-chunk kernel against its plain version (TF32 off): the
+16. the SSD intra-chunk kernel against its plain version (TF32 off): the
    JAX kernel tests' shapes, reduced mamba2's chunk, a ragged sequence
    through ``ops.ssd_scan``, the serving shape, x in f32 and bf16; and a
    gradient through the card's scan raises;
-16. the RMSNorm kernel against its plain version: rows 1-300, d 128, 256,
+17. the RMSNorm kernel against its plain version: rows 1-300, d 128, 256,
    2048, 2560, 2561 and 6400 and a misaligned row, f32 and bf16, both
    bodies (the row in registers, and the two-read body for a d above the
    register cap, an odd d and the misaligned row), each case checked for
    the body it took; on aligned rows the register body's bits against the
    two-read body's;
-17. small-input agreement: reduced mamba2 with ``d_ff = 0`` served on the
+18. small-input agreement: reduced mamba2 with ``d_ff = 0`` served on the
    card (kernel) and on the CPU (plain path) from the same weights;
-18. full-width serve of mamba2-2.7b (64 SSD layers, d_model 2560, 80 heads
+19. full-width serve of mamba2-2.7b (64 SSD layers, d_model 2560, 80 heads
    of 64, state 128): ``serve_once``, batch 8, prompt 512, 32 greedy
    tokens; exactly 64 SSD launches per prefill, repeatable tokens, the
    kernel against the plain version on the real inputs of the first and
    last layer, and a ``torch.profiler`` window over one prefill and 4
    decode steps;
-19. elastic serving of mamba2-2.7b at full width, as phase 8: params and
+20. elastic serving of mamba2-2.7b at full width, as phase 8: params and
    the live fp32 ssd/conv cache move at each of three resizes; launches,
    migrated bytes, the staging bound and the tokens checked as there;
-20. the two kernels' times (CUDA events, median of 30): the SSD kernel at
+21. the two kernels' times (CUDA events, median of 30): the SSD kernel at
    the serving shape (the call, and the kernel alone on the device) beside
    its plain version and three bounds (the bytes, the TF32 tensor-core
    products it issues, the f32 products on the CUDA cores), RMSNorm at (4096, 2560) bf16
@@ -154,16 +168,17 @@ from repro_torch.kernels import reshard_quant as rq  # noqa: E402
 from repro_torch.kernels import rmsnorm as rms_k  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd_k  # noqa: E402
 from repro_torch.kernels.ref import flash_attention_ref  # noqa: E402
+from repro_torch.launch.mesh import HBM_BW as HBM_BYTES_PER_S  # noqa: E402
+from repro_torch.launch.mesh import PEAK_FLOPS_BF16 as BF16_FLOP_PER_S  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.serve import controller as serve_controller  # noqa: E402
 from repro_torch.serve.controller import LiveServeController  # noqa: E402
 from repro_torch.serve.driver import demo_batch, serve_once  # noqa: E402
 from repro_torch.serve.loop import ServeSession  # noqa: E402
 
-# H100 SXM data sheet: HBM3 bandwidth, dense bf16 tensor-core peak,
-# float32 outside the tensor cores, and dense TF32 on the tensor cores
-HBM_BYTES_PER_S = 3.35e12
-BF16_FLOP_PER_S = 989e12
+# H100 SXM data sheet (HBM3 bandwidth and the dense bf16 peak are the
+# port's, from launch/mesh.py): float32 outside the tensor cores, and dense
+# TF32 on the tensor cores
 F32_FLOP_PER_S = 67e12
 TF32_FLOP_PER_S = 495e12
 
@@ -1107,6 +1122,22 @@ def phase_row_times(launches: dict) -> list[dict]:
                          f"max_abs_err {err:g}")
             assert len(forms) == 1, forms
             assert err == 0.0, f"{kind} disagrees with its plain version at {case}"
+            flushed_ms = None
+            if kind == "scatter_rows" and case == "cache_row":
+                # the same calls with a write larger than the 50 MB L2
+                # between launches: the staging row (8.9 MB) is read from
+                # HBM, not from the L2 the previous call left it in
+                flush = torch.empty(96 << 20, dtype=torch.uint8, device="cuda")
+
+                def flushed():
+                    flush.fill_(1)
+                    return kernel()
+
+                flushed_ms = device_ms(flushed, f"{kind}_kernel")
+                del flush
+                log("times", f"{kind} {case} on the device: {on_device_ms:.4f} ms with the staging row in L2 "
+                             f"(as the commit's pack_rows leaves it), {flushed_ms:.4f} ms after a 96 MB write "
+                             f"between launches (bound {bound_ms:.4f} ms, each byte once from HBM)")
             if case == "cache_row":  # the elastic path's per-layer move goes in the record
                 rec = {
                     "name": kind,
@@ -1127,6 +1158,8 @@ def phase_row_times(launches: dict) -> list[dict]:
                     "library_ms": library_ms,
                     "shape": f"{nb} of {rows} rows x {C} bf16",
                 }
+                if flushed_ms is not None:
+                    rec["device_ms_l2_flushed"] = flushed_ms
             del src, dst, buf, idx
             torch.cuda.empty_cache()
         out.append(rec)
@@ -1460,24 +1493,17 @@ def _round_trip_rows(x: torch.Tensor, fmt: str) -> torch.Tensor:
     return out.reshape(x.shape)
 
 
-def phase_train() -> dict:
-    """Live-resized training at full width (see the module docstring, 13)."""
-    from repro_torch.core import controller as C
-    from repro_torch.core.controller import LiveRController
-    from repro_torch.optim import AdamWConfig
-    from repro_torch.reshard import WirePolicy
+def cut_checker(commits: list, controller, rebuild):
+    """A ``rebuild_state`` that first holds the state a commit delivered
+    against the cut it was moved from, before any update: byte for byte on
+    the lossless wire, the plain round trip under the controller's
+    quantizing wire policy. Appends one entry to ``commits`` a commit.
+    ``controller()`` gives the controller, ``rebuild`` the original."""
     from repro_torch.utils.pytree import tree_paths
 
-    cfg = get_config(TRAIN["arch"])
-    opt = AdamWConfig(learning_rate=1e-4, warmup_steps=2, total_steps=1000)
-    kw = dict(seq_len=TRAIN["seq"], global_batch=TRAIN["batch"], device=TRAIN["device"], stream_k=TRAIN["stream_k"])
-    commits: list[dict] = []
-    orig_rebuild = C.rebuild_state
-
     def checked_rebuild(named, params_like, opt_like, extras):
-        """At each commit, before any update: the delivered state against
-        the cut it was moved from."""
         t0 = time.perf_counter()
+        ctrl = controller()
         policy = ctrl.wire_policy
         old = {f"params/{p}": x for p, x in tree_paths(params_like).items()}
         for coll in ("mu", "nu"):
@@ -1498,11 +1524,28 @@ def phase_train() -> dict:
         torch.cuda.synchronize()
         commits.append({"step": ctrl.step, "adopted": adopted, "quantized": quantized, "nu_zeroed": nu_zeroed,
                         "check_s": time.perf_counter() - t0})
-        return orig_rebuild(named, params_like, opt_like, extras)
+        return rebuild(named, params_like, opt_like, extras)
+
+    return checked_rebuild
+
+
+def phase_train() -> tuple[dict, int, float]:
+    """Live-resized training at full width (see the module docstring, 13)."""
+    from repro_torch.core import controller as C
+    from repro_torch.core.controller import LiveRController
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.reshard import WirePolicy
+    from repro_torch.utils.pytree import tree_paths
+
+    cfg = get_config(TRAIN["arch"])
+    opt = AdamWConfig(learning_rate=1e-4, warmup_steps=2, total_steps=1000)
+    kw = dict(seq_len=TRAIN["seq"], global_batch=TRAIN["batch"], device=TRAIN["device"], stream_k=TRAIN["stream_k"])
+    commits: list[dict] = []
+    orig_rebuild = C.rebuild_state
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    C.rebuild_state = checked_rebuild
+    C.rebuild_state = cut_checker(commits, lambda: ctrl, orig_rebuild)
     try:
         ctrl = LiveRController(cfg, ParallelConfig(dp=2, tp=2), opt, overlap="stream", wire_policy=WirePolicy(), **kw)
         _zero_counts()  # the training path's counts start here ...
@@ -1657,7 +1700,7 @@ def phase_train() -> dict:
     assert worst < 1e-2, f"resized params diverge from the control run: {worst}"
     del control, snapshot
     torch.cuda.empty_cache()
-    return launches, len(losses)
+    return launches, len(losses), peak_gb
 
 
 def check_train_launches(launches: dict, steps: int) -> None:
@@ -1685,6 +1728,160 @@ def check_train_launches(launches: dict, steps: int) -> None:
     assert launches["pack_quant_rows_warp"] > 0 and launches["pack_quant_rows_grid"] > 0, launches
     assert sum(launches[f"pack_quant_rows_{k}"] for k in rq.route_launches) == launches["pack_quant_rows"]
     assert launches["pack_rows"] == launches["scatter_rows"]
+
+
+# the lifecycle phase: qwen3-1.7b as in TRAIN, lossless; stream_k 8 makes a
+# stream of its 29 layers (28 blocks and the embedding's) take 4 rounds
+LIFECYCLE = dict(stream_k=8, before=2, after=2)
+TOL_PEAK = 1.05  # the lifecycle's peak memory against the train phase's
+
+
+def phase_lifecycle(train_peak_gb: float) -> dict:
+    """The controller's lifecycle around the commit at full width (see the
+    module docstring, 14): the warm pool with a speculative prefetch, a
+    mid-stream retarget that adopts the streamed state, and a deadline
+    escalation to a byte-moving stop-copy, against a control run never
+    resized. Returns the launches of the path."""
+    from repro_torch.core import controller as C
+    from repro_torch.core.controller import LiveRController
+    from repro_torch.core.topology_search import likely_next_targets
+    from repro_torch.core.world_pool import WorldPool
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.reshard import OverlapSession
+    from repro_torch.reshard.overlap import shares_storage
+
+    cfg = get_config(TRAIN["arch"])
+    opt = AdamWConfig(learning_rate=1e-4, warmup_steps=2, total_steps=1000)
+    kw = dict(seq_len=TRAIN["seq"], global_batch=TRAIN["batch"], device=TRAIN["device"])
+    SRC, T1, T = ParallelConfig(dp=2, tp=2), ParallelConfig(dp=2, tp=4), ParallelConfig(dp=1, tp=4)
+    log("lifecycle", f"likely next targets of {SRC.describe()} (max world 8, batch {TRAIN['batch']} x "
+                     f"{TRAIN['seq']}, no pipeline; H100 constants, for information): "
+                     + ", ".join(p.describe() for p in likely_next_targets(
+                         cfg, SRC, max_world=8, global_batch=TRAIN["batch"], seq_len=TRAIN["seq"], max_pp=1)))
+    commits: list[dict] = []
+    adoptions: list[dict] = []
+    orig_rebuild, orig_adopt = C.rebuild_state, OverlapSession.adopt
+
+    def adopt(session, carries, streamed_at, live):
+        """The adoption's outcome, by tensor ids (holding the tensors here
+        would keep the old state alive past the commit)."""
+        n = orig_adopt(session, carries, streamed_at, live)
+        live = list(live.values())
+        adoptions.append({"reused": n, "carries": {k: id(t) for k, t in carries.items()},
+                          "kept": [k for k, t in carries.items() if session.executor.dst.get(k) is t],
+                          "aliasing": [k for k, t in carries.items() if shares_storage(t, live)]})
+        return n
+
+    def prepared(what: str) -> dict:
+        """Wait for the in-flight Prepare; its timings."""
+        ctrl.wait_shadow_ready()
+        t = dict(ctrl._builder.result().timings)
+        prepares[what] = t
+        return t
+
+    def train_until(done, limit: int = 60) -> None:
+        while not done():
+            losses.extend(ctrl.train_steps(1))
+            assert len(losses) < limit, "the lifecycle never got there"
+
+    prepares: dict[str, dict] = {}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    C.rebuild_state = cut_checker(commits, lambda: ctrl, orig_rebuild)
+    OverlapSession.adopt = adopt
+    try:
+        ctrl = LiveRController(cfg, SRC, opt, overlap="stream", stream_k=LIFECYCLE["stream_k"],
+                               world_pool=WorldPool(capacity=2), **kw)
+        _zero_counts()  # the lifecycle path's counts start here ...
+        t_run = time.perf_counter()
+        losses = ctrl.train_steps(LIFECYCLE["before"])
+        # a speculative build of T beside a real resize to T1
+        assert ctrl.prefetch_world(T), "the prefetch did not start"
+        ctrl.request_resize(T1)
+        assert "prepare_source" not in prepared("cold"), prepares["cold"]  # a full build
+        train_until(lambda: ctrl._session is not None and ctrl._session.report.precopy_rounds >= 1)
+        old_carries = {k: id(t) for k, t in ctrl._session.executor.dst.items()}
+        # T supersedes T1 mid-stream
+        ctrl.retarget_resize(T)
+        retargeted = ctrl.records[-1]
+        assert retargeted.outcome == "retargeted" and retargeted.dst == T1.describe(), retargeted
+        source = prepared("retarget")["prepare_source"]
+        assert source in ("speculative_join", "pool"), prepares["retarget"]
+        train_until(lambda: len(ctrl.records) == 2)
+        rec_t = ctrl.records[-1]
+        assert rec_t.outcome == "committed" and rec_t.dst == T.describe(), rec_t
+        assert rec_t.prepare_source == source and rec_t.reused_layers >= 1, rec_t
+        # every carry of the superseded session was handed on and adopted as
+        # the same tensor, and none aliases a live one
+        [a] = adoptions
+        assert a["reused"] >= 1 and a["carries"] == old_carries, a
+        assert sorted(a["kept"]) == sorted(old_carries) and not a["aliasing"], a
+        # back to the retired source world, warm; escalated after one round
+        ctrl.request_resize(SRC)
+        prepared("warm")
+        train_until(lambda: ctrl._session is not None and ctrl._session.report.precopy_rounds >= 1)
+        escalated = ctrl.escalate_commit()
+        assert escalated is ctrl.records[-1] and escalated.outcome == "fell_back", escalated
+        assert escalated.warm_hit and escalated.prepare_source == "pool", escalated
+        assert escalated.executed_bytes > 0 and escalated.precopy_bytes > 0, escalated
+        assert ctrl.world.parallel == SRC and not ctrl.reconfig_pending
+        losses += ctrl.train_steps(LIFECYCLE["after"])
+        run_s = time.perf_counter() - t_run
+        launches = _all_counts()  # ... and are read here
+    finally:
+        C.rebuild_state, OverlapSession.adopt = orig_rebuild, orig_adopt
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    pool = ctrl.world_pool.stats.to_dict()
+    assert [r.outcome for r in ctrl.records] == ["retargeted", "committed", "fell_back"], ctrl.records
+    assert len(commits) == 2 and all(not c["quantized"] for c in commits)
+    streamed, stop = (ctrl.records[1], commits[0]), (ctrl.records[2], commits[1])
+    log("lifecycle", f"{cfg.name} full width, batch {TRAIN['batch']} x {TRAIN['seq']}, lossless wire, stream_k "
+                     f"{LIFECYCLE['stream_k']}, WorldPool(capacity=2): {SRC.describe()} -> {T1.describe()} "
+                     f"(retargeted after {retargeted.precopy_bytes / 1e9:.4f} GB of pre-copy) -> {T.describe()} "
+                     f"(prepare_source {rec_t.prepare_source}, reused layers {rec_t.reused_layers}) -> "
+                     f"{SRC.describe()} (warm, escalated): {len(losses)} steps in {run_s:.1f}s, peak memory "
+                     f"{peak_gb:.2f} GB (train phase {train_peak_gb:.2f} GB), pool {pool}, launches {launches}")
+    for what, t in prepares.items():
+        log("lifecycle", f"{what} Prepare: prepare_s {t['prepare_total_s']:.4f} (warm_s {t.get('warm_s', 0.0):.4f}, "
+                         f"refresh_s {t.get('refresh_s', 0.0):.4f}, plan_s {t['plan_s']:.4f}, orphan_wait_s "
+                         f"{t['orphan_wait_s']:.4f}, alloc_s {t['alloc_s']:.4f}), source "
+                         f"{t.get('prepare_source', 'cold')}")
+    rec, c = streamed
+    log("lifecycle", f"streamed commit {rec.src} -> {rec.dst} at step {c['step']}: pause_s "
+                     f"{rec.total_pause_s - c['check_s']:.4f}, executed {rec.executed_bytes / 1e9:.4f} GB, "
+                     f"dirty layers {rec.dirty_layers}/{rec.layers_total}, {len(c['adopted'])} tensors adopted")
+    rec, c = stop
+    transfer_s = rec.transfer_s - c["check_s"]
+    log("lifecycle", f"escalated stop-copy {rec.src} -> {rec.dst} at step {c['step']}: pause_s "
+                     f"{rec.total_pause_s - c['check_s']:.4f}, transfer_s {transfer_s:.4f}, executed "
+                     f"{rec.executed_bytes / 1e9:.4f} GB ({rec.executed_bytes / transfer_s / 1e9:.1f} GB/s), "
+                     f"pre-copy wasted {rec.precopy_bytes / 1e9:.4f} GB, {len(c['adopted'])} tensors adopted")
+    assert all(np.isfinite(losses)), "a loss is not finite"
+    assert peak_gb <= TOL_PEAK * train_peak_gb, f"peak {peak_gb:.2f} GB: a second set of destination tensors?"
+    del ctrl
+    torch.cuda.empty_cache()
+    control = LiveRController(cfg, SRC, opt, **kw)
+    c_losses = control.train_steps(len(losses))
+    log("lifecycle", f"losses {[round(x, 4) for x in losses]}; bitwise equal to the control run never resized: "
+                     f"{c_losses == losses}")
+    assert c_losses == losses, "the lifecycle's losses differ from the control run's"
+    del control
+    torch.cuda.empty_cache()
+    check_lifecycle_launches(launches, len(losses))
+    return launches
+
+
+def check_lifecycle_launches(launches: dict, steps: int) -> None:
+    """The lifecycle path's kernels: flash forward and backward every step,
+    the row kernels in each byte-moving commit and round, relayout_rows on
+    its equal-size resizes, no quant kernel on the lossless wire."""
+    layers = get_config(TRAIN["arch"]).num_layers
+    assert launches["flash_attention"] == 2 * layers * steps, launches
+    assert launches["flash_attention_bwd"] == layers * steps, launches
+    for name in ("pack_rows", "scatter_rows", "relayout_rows"):
+        assert launches[name] > 0, f"{name} was not launched on the lifecycle path"
+    assert launches["pack_rows"] == launches["scatter_rows"]
+    assert launches["pack_quant_rows"] == launches["dequant_scatter_rows"] == 0, launches
 
 
 def _record(name, source, replaces, launches, err, ms, plain_ms, bound_ms, bound_by, library_ms, **extra) -> dict:
@@ -1998,7 +2195,7 @@ def phase_rms_cases() -> float:
 
 def phase_serve_ssm() -> tuple[int, float]:
     """mamba2-2.7b at full width through ``serve_once``; see the module
-    docstring, 18."""
+    docstring, 19."""
     cfg = get_config("mamba2-2.7b")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -2187,8 +2384,9 @@ def main() -> int:
     phase_quant_cases()
     phase_quant_routes()
     phase_start_types()
-    train_launches, train_steps = phase_train()
+    train_launches, train_steps, train_peak_gb = phase_train()
     check_train_launches(train_launches, train_steps)
+    lifecycle_launches = phase_lifecycle(train_peak_gb)
     bwd = phase_bwd_times(train_launches["flash_attention_bwd"], bwd_err)
     quants = phase_quant_times(train_launches)
     ssd_err = phase_ssd_cases()
@@ -2201,9 +2399,10 @@ def main() -> int:
     # each record's launches: its counts on the main paths, each counted
     # from zero just before its run and read just after. No path runs
     # rmsnorm: as in the JAX package, the model's norms are plain and only
-    # ops.rmsnorm reaches the kernel (phases 16 and 20)
+    # ops.rmsnorm reaches the kernel (phases 17 and 21)
     paths = {"serve": {"flash_attention": launches}, "elastic": elastic_launches, "train": train_launches,
-             "serve_mamba2": {"ssd_intra_chunk": ssm_launches}, "elastic_mamba2": ssm_elastic_launches}
+             "lifecycle": lifecycle_launches, "serve_mamba2": {"ssd_intra_chunk": ssm_launches},
+             "elastic_mamba2": ssm_elastic_launches}
     records = [record, *rows, bwd, *quants, ssd, rms]
     for rec in records:
         rec["launches_by_path"] = {p: counts.get(rec["name"], 0) for p, counts in paths.items()}

@@ -128,6 +128,7 @@ class ShadowBuilder:
         except BaseException as e:  # surfaced on result()
             self._error = e
         finally:
+            self._build_fn = None  # what the build closed over goes now
             self._done.set()
         self._maybe_discard()
 
@@ -156,6 +157,16 @@ class ShadowBuilder:
         self.abandoned = True
         if self._done.is_set():
             self._maybe_discard()
+
+    @property
+    def running(self) -> bool:
+        """The worker thread has not ended yet."""
+        return self._thread.is_alive()
+
+    def join(self) -> None:
+        """Wait until the worker thread has ended: its world built and, if
+        the builder was abandoned, discarded."""
+        self._thread.join()
 
     def result(self, timeout: Optional[float] = None) -> WorldHandle:
         if not self._done.wait(timeout):
@@ -247,13 +258,26 @@ def build_train_world(
     )
 
 
-def state_buffers(specs, plan, device: torch.device) -> dict[str, torch.Tensor]:
-    """Zeroed destination tensors for every tensor the plan moves bytes
-    into. Tensors whose every cell is resident are adopted in place at the
-    commit (``reshard/executors.py``) and get none."""
+def state_buffers(specs, plan, device: torch.device, reuse: Optional[dict] = None) -> dict[str, torch.Tensor]:
+    """Destination tensors for every tensor the plan moves bytes into.
+    Tensors whose every cell is resident are adopted in place at the
+    commit (``reshard/executors.py``) and get none.
+
+    ``reuse``: tensors by name that may serve as destinations (a superseded
+    session's carries and unused buffers, at a retarget): one of the same
+    name, shape, dtype and device is taken as it is, with whatever bytes it
+    holds (the plan overwrites every row it moves), and only the rest are
+    allocated, zeroed."""
     moved = {t.tensor for t in plan.tasks if t.kind != "resident"}
-    return {
-        s.name: torch.zeros(s.shape, dtype=getattr(torch, s.dtype), device=device)
-        for s in specs
-        if s.name in moved
-    }
+    reuse = reuse or {}
+    out = {}
+    for s in specs:
+        if s.name not in moved:
+            continue
+        dtype = getattr(torch, s.dtype)
+        buf = reuse.get(s.name)
+        if buf is not None and tuple(buf.shape) == tuple(s.shape) and buf.dtype == dtype and buf.device == device:
+            out[s.name] = buf
+        else:
+            out[s.name] = torch.zeros(s.shape, dtype=dtype, device=device)
+    return out

@@ -13,8 +13,11 @@ behind both execution backends.
   * :class:`WirePolicy` — per-collection wire formats: lossless, or the
     moments quantized by the hand-written CUDA kernels of
     ``kernels/reshard_quant.py``.
+  * :class:`OperatingPoint` / :func:`tune_operating_point` — a
+    reconfiguration's tuned ``stream_k`` and staging budget.
 """
 
+from repro_torch.reshard.autotune import OperatingPoint, tune_operating_point
 from repro_torch.reshard.chunking import chunk_task, row_batches
 from repro_torch.reshard.engine import DEFAULT_STAGING_BYTES, ReshardEngine, StreamStats
 from repro_torch.reshard.executors import LiveExecutor, SimExecutor
@@ -24,6 +27,7 @@ from repro_torch.reshard.wire import WirePolicy, wire_nbytes
 __all__ = [
     "DEFAULT_STAGING_BYTES",
     "LiveExecutor",
+    "OperatingPoint",
     "OverlapReport",
     "OverlapSession",
     "ReshardEngine",
@@ -32,5 +36,6 @@ __all__ = [
     "WirePolicy",
     "chunk_task",
     "row_batches",
+    "tune_operating_point",
     "wire_nbytes",
 ]

@@ -23,8 +23,20 @@ its call returns.
 As in the JAX package, under a dense optimizer every pre-copied layer is
 dirty again by commit, so the re-sync moves the same bytes; what shrinks
 the pause is that they move while the last gradients are computed, into
-destination storage that is already there. ``adopt`` (retarget reuse) is
-not ported: retargeting waits for ROADMAP queue 1 item 7's rest.
+destination storage that is already there.
+
+Retarget reuse (:meth:`OverlapSession.adopt`). A newer event may supersede
+the reconfiguration mid-stream; the successor session adopts the carries
+the superseded one streamed. On one card every world's carry is a global
+tensor on the same device, so a carry of the right shape and dtype is laid
+out as the new target wants it, and adoption is zero-copy: the new
+executor's destination *is* the old carry (the JAX package relays out a
+carry whose sharding differs). What the JAX package's liveness probe
+guards against has another form here: the executor adopts a fully resident
+tensor by aliasing the live source (``reshard/executors.py``), and a carry
+that shares storage with a live params or moment tensor must never be
+adopted, or the successor's scatters would write into the state that is
+training. Such a carry is left behind and its layers re-stream.
 """
 
 from __future__ import annotations
@@ -38,15 +50,30 @@ import torch
 
 from repro_torch.core.intersection import TransferPlan
 from repro_torch.core.records import ReuseRecordMixin
-from repro_torch.core.resource_view import TensorSpec
+from repro_torch.core.resource_view import TensorSpec, dtype_name
 from repro_torch.reshard.engine import ReshardEngine, StreamStats
 from repro_torch.reshard.executors import LiveExecutor
+
+
+def shares_storage(t: torch.Tensor, others) -> bool:
+    """True when ``t``'s storage overlaps the storage of any tensor in
+    ``others`` on the same device (a view or an alias of it, or it of them)."""
+    lo = t.untyped_storage().data_ptr()
+    hi = lo + t.untyped_storage().nbytes()
+    for o in others:
+        if o.device != t.device:
+            continue
+        o_lo = o.untyped_storage().data_ptr()
+        if o_lo < hi and lo < o_lo + o.untyped_storage().nbytes():
+            return True
+    return False
 
 
 @dataclass
 class OverlapReport(ReuseRecordMixin):
     # reused_layers / resident_layers / skipped_bytes come from the shared
-    # ReuseRecordMixin: resident layers never stream
+    # ReuseRecordMixin: resident layers never stream; adopt() adds layers
+    # inherited from a superseded session at retarget
     precopy_rounds: int = 0
     precopy_bytes: int = 0
     precopy_seconds: float = 0.0
@@ -113,6 +140,51 @@ class OverlapSession:
     @property
     def done_precopy(self) -> bool:
         return not self.pending
+
+    def adopt(
+        self,
+        carries: dict[str, torch.Tensor],
+        streamed_at: dict[int, int],
+        live: dict[str, torch.Tensor],
+    ) -> int:
+        """Retarget reuse (DESIGN.md §10): seed this session from a
+        superseded session's streamed state instead of restarting the stream
+        from scratch.
+
+        ``carries``: the superseded executor's destination tensors by name;
+        ``streamed_at``: its layers' stream steps; ``live``: the training
+        state's params and moment tensors (``named_state_leaves``). A carry
+        of its spec's shape and dtype on this session's device becomes this
+        executor's destination as it is (no copy), unless it shares storage
+        with a live tensor. A layer counts as reused iff the old session
+        streamed it and every tensor its tasks touch has an adopted carry;
+        it keeps its original ``streamed_at`` step, so the commit-time dirty
+        re-sync still refreshes whatever the optimizer has since touched.
+        Returns the number of reused layers.
+
+        Must be called before the first ``stream_next``; the caller must
+        have drained the old session (its writes must have landed)."""
+        assert not self.streamed_at, "adopt() must precede streaming"
+        live_tensors = list(live.values())
+        adopted: set[str] = set()
+        for name, leaf in carries.items():
+            spec = self.spec_map.get(name)
+            if spec is None or tuple(leaf.shape) != tuple(spec.shape) or dtype_name(leaf.dtype) != spec.dtype:
+                continue
+            if leaf.device != self.executor.device or shares_storage(leaf, live_tensors):
+                continue
+            self.executor.dst[name] = leaf
+            self.executor.dst_buffers.pop(name, None)
+            adopted.add(name)
+        reused = [
+            l for l in self.pending if l in streamed_at and {t.tensor for t in self.plan.by_layer(l)} <= adopted
+        ]
+        for l in reused:
+            self.pending.remove(l)
+            self.streamed_at[l] = streamed_at[l]
+        # += : resident layers were already counted as reused at __init__
+        self.report.reused_layers += len(reused)
+        return len(reused)
 
     def dirty_layers(self, step: int) -> list[int]:
         """Layers whose stream predates the optimizer's latest update."""

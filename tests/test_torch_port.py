@@ -204,18 +204,21 @@ TRAINING = [
 ]
 # serving mamba2: the SSM mixer and the last two kernels
 SSM = ["models/ssm", "kernels/ssd_scan", "kernels/rmsnorm"]
+# the controller's lifecycle: the H100's constants, the topology search and
+# the operating-point tuner
+LIFECYCLE = ["launch/mesh", "core/topology_search", "reshard/autotune"]
 
 
 def test_port_sources_do_not_import_jax_or_repro():
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 20
-    assert {PORT / f"{m}.py" for m in RESHARD_AND_ELASTIC_SERVE + TRAINING + SSM} <= set(files)
+    assert {PORT / f"{m}.py" for m in RESHARD_AND_ELASTIC_SERVE + TRAINING + SSM + LIFECYCLE} <= set(files)
     offenders = [f"{f}: {m.group(0).strip()}" for f in files for m in _FORBIDDEN_IMPORT.finditer(f.read_text())]
     assert offenders == []
 
 
 def test_importing_the_port_loads_no_jax():
-    wanted = [f"repro_torch.{m.replace('/', '.')}" for m in RESHARD_AND_ELASTIC_SERVE + TRAINING + SSM]
+    wanted = [f"repro_torch.{m.replace('/', '.')}" for m in RESHARD_AND_ELASTIC_SERVE + TRAINING + SSM + LIFECYCLE]
     code = f"""
 import importlib, pkgutil, sys
 sys.path.insert(0, {str(REPO)!r})
@@ -228,7 +231,7 @@ bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "rep
 assert not bad, bad
 missing = sorted(set({wanted!r}) - set(names))
 assert not missing, missing
-assert len(names) >= 66, names
+assert len(names) >= 69, names
 print("ok", len(names))
 """
     out = subprocess.run([sys.executable, "-c", code], env=ENV, capture_output=True, text=True, timeout=120)
