@@ -100,35 +100,51 @@ non-zero without one. Phases, each printing one line or more:
    against a control run never resized, the launches of the path, the peak
    memory within 5% of 13's; prints each Prepare's parts, both commits'
    pauses and the stop-copy's rate;
-15. the new kernels' times (CUDA events, median of 20): the backward and
+15. fail-stop recovery at full width: qwen3-1.7b as in 13, seed 0; a
+   control run never interrupted (12 steps, the losses and a digest of
+   every state tensor's bytes at each step), then four cases, each from a
+   fresh controller and each held to the control by the state's digest at
+   its step and the next 2 losses, bitwise: DP donors (dp2tp2, ranks 0 and
+   1 lost after 3 steps, 24.38 GB streamed from ranks 2 and 3 through
+   ``FaultInjector.kill``); the parity spare (dp1tp4 refreshing its XOR
+   word every step, rank 3's regions poisoned, 6.10 GB rebuilt from the
+   word); the fault matrix (dp2tp2 under the int8 moment wire, a fault
+   at an idle boundary, mid-stream and mid-commit of a streamed resize to
+   dp2tp4, recovered losslessly to dp1tp2 with no quant launch); the
+   checkpoint rung (dp1tp4, ``checkpoint_now`` at step 2, rank 3 lost at
+   step 4 without parity: restored and rolled back to step 2). Prints each
+   recovery's pause and its parts, bytes, GB/s and peak memory, the
+   refresh's and the checkpoint's seconds, and the rung's pause with its
+   save against each peer pause; fails on a peak above 1.05x 13's;
+16. the new kernels' times (CUDA events, median of 20): the backward and
    its TFLOP/s beside the CUDA-core route,
    ``scaled_dot_product_attention``'s backward and the plain version's, the
    two quant kernels beside their plain versions, each with its bound
    (pack_quant_rows on each route: a stacked-moment row on the grid route,
    4096 embedding rows on the warp route, 128 tiles of 24 rows on the
    block route);
-16. the SSD intra-chunk kernel against its plain version (TF32 off): the
+17. the SSD intra-chunk kernel against its plain version (TF32 off): the
    JAX kernel tests' shapes, reduced mamba2's chunk, a ragged sequence
    through ``ops.ssd_scan``, the serving shape, x in f32 and bf16; and a
    gradient through the card's scan raises;
-17. the RMSNorm kernel against its plain version: rows 1-300, d 128, 256,
+18. the RMSNorm kernel against its plain version: rows 1-300, d 128, 256,
    2048, 2560, 2561 and 6400 and a misaligned row, f32 and bf16, both
    bodies (the row in registers, and the two-read body for a d above the
    register cap, an odd d and the misaligned row), each case checked for
    the body it took; on aligned rows the register body's bits against the
    two-read body's;
-18. small-input agreement: reduced mamba2 with ``d_ff = 0`` served on the
+19. small-input agreement: reduced mamba2 with ``d_ff = 0`` served on the
    card (kernel) and on the CPU (plain path) from the same weights;
-19. full-width serve of mamba2-2.7b (64 SSD layers, d_model 2560, 80 heads
+20. full-width serve of mamba2-2.7b (64 SSD layers, d_model 2560, 80 heads
    of 64, state 128): ``serve_once``, batch 8, prompt 512, 32 greedy
    tokens; exactly 64 SSD launches per prefill, repeatable tokens, the
    kernel against the plain version on the real inputs of the first and
    last layer, and a ``torch.profiler`` window over one prefill and 4
    decode steps;
-20. elastic serving of mamba2-2.7b at full width, as phase 8: params and
+21. elastic serving of mamba2-2.7b at full width, as phase 8: params and
    the live fp32 ssd/conv cache move at each of three resizes; launches,
    migrated bytes, the staging bound and the tokens checked as there;
-21. the two kernels' times (CUDA events, median of 30): the SSD kernel at
+22. the two kernels' times (CUDA events, median of 30): the SSD kernel at
    the serving shape (the call, and the kernel alone on the device) beside
    its plain version and three bounds (the bytes, the TF32 tensor-core
    products it issues, the f32 products on the CUDA cores), RMSNorm at (4096, 2560) bf16
@@ -1884,6 +1900,233 @@ def check_lifecycle_launches(launches: dict, steps: int) -> None:
     assert launches["pack_quant_rows"] == launches["dequant_scatter_rows"] == 0, launches
 
 
+# the recovery phase: qwen3-1.7b as in TRAIN, lossless but for the fault
+# matrix's int8 moment wire; stream_k 10 streams its 29 layers in 3 rounds
+RECOVERY = dict(control_steps=12, before=3, after=2, stream_k=10, ckpt_at=2, lost_at=4)
+DIGEST_CHUNK = 1 << 24  # 32-bit words a digest pass reads at once
+
+
+def _digest(x: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """Two int64 sums of a tensor's 32-bit words on its device, plain and
+    position-weighted (wrapping): equal bytes give equal digests, and a
+    changed or moved word changes them."""
+    w = x.detach().reshape(-1).view(torch.int32)
+    s1 = torch.zeros((), dtype=torch.int64, device=x.device)
+    s2 = torch.zeros((), dtype=torch.int64, device=x.device)
+    for lo in range(0, w.numel(), DIGEST_CHUNK):
+        c = w[lo : lo + DIGEST_CHUNK].to(torch.int64)
+        total = c.sum()
+        s1 += total
+        s2 += (c * weights[: c.numel()]).sum() + lo * total
+    return torch.stack([s1, s2])
+
+
+def state_digest(ctrl) -> dict:
+    """The digest of every tensor of the training state (params, moments
+    and the step count), by name; one wait for the card."""
+    from repro_torch.core.reshard import named_state_leaves
+
+    named, extras = named_state_leaves(ctrl.params, ctrl.opt_state)
+    weights = torch.arange(1, DIGEST_CHUNK + 1, dtype=torch.int64, device=ctrl.device)
+    names = [*named, "count"]
+    sums = torch.stack([_digest(x, weights) for x in [*named.values(), extras["count"]]]).tolist()
+    return dict(zip(names, map(tuple, sums)))
+
+
+def _take_counts(into: dict) -> dict:
+    """The launches since the counts were last zeroed, added into ``into``;
+    the counts start from zero again."""
+    got = _all_counts()
+    for k, v in got.items():
+        into[k] = into.get(k, 0) + v
+    _zero_counts()
+    return got
+
+
+def phase_recovery(train_peak_gb: float) -> dict:
+    """Fail-stop recovery at full width (see the module docstring, 15): a
+    control run never interrupted, then four cases from fresh controllers,
+    each held to the control by the state's digest and the next losses.
+    Returns the launches of the path (the cases, not the control)."""
+    import gc
+    import shutil
+    import tempfile
+
+    from repro_torch.core.controller import LiveRController
+    from repro_torch.core.reshard import named_state_leaves, plan_state_transfer
+    from repro_torch.core.resource_view import build_tensor_specs
+    from repro_torch.elastic import FaultInjector
+    from repro_torch.elastic.redundancy import _shard_groups, survivors_for
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.reshard import WirePolicy
+
+    cfg = get_config(TRAIN["arch"])
+    opt = AdamWConfig(learning_rate=1e-4, warmup_steps=2, total_steps=1000)
+    kw = dict(seq_len=TRAIN["seq"], global_batch=TRAIN["batch"], device=TRAIN["device"])
+    P = ParallelConfig
+    DP2TP2, DP1TP2, DP1TP4, DP2TP4 = P(dp=2, tp=2), P(dp=1, tp=2), P(dp=1, tp=4), P(dp=2, tp=4)
+    peaks: list[float] = []
+
+    def fresh(parallel, **extra):
+        gc.collect()  # the last case's controller, whatever cycle holds it
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        return LiveRController(cfg, parallel, opt, **kw, **extra)
+
+    def peak() -> float:
+        peaks.append(torch.cuda.max_memory_allocated() / 1e9)
+        return peaks[-1]
+
+    # the control: never interrupted
+    t0 = time.perf_counter()
+    ctrl = fresh(DP2TP2)
+    digests, losses = [state_digest(ctrl)], []
+    for _ in range(RECOVERY["control_steps"]):
+        losses += ctrl.train_steps(1)
+        digests.append(state_digest(ctrl))
+    log("recovery", f"control {DP2TP2.describe()}: {len(losses)} steps in {time.perf_counter() - t0:.1f}s, losses "
+                    f"{[round(x, 4) for x in losses]}, peak {peak():.2f} GB, a digest of {len(digests[0])} "
+                    "tensors at each step")
+    del ctrl
+
+    def held(ctrl, what: str) -> None:
+        """The state is the control's at this step, and so are the next
+        losses."""
+        step = ctrl.step
+        assert state_digest(ctrl) == digests[step], f"{what}: the state differs from the control's at step {step}"
+        got = ctrl.train_steps(RECOVERY["after"])
+        assert got == losses[step : step + RECOVERY["after"]], f"{what}: losses {got} differ from the control's"
+        assert all(np.isfinite(got))
+
+    def show(what: str, rec, step: int, quant=None) -> None:
+        rate = rec.executed_bytes / rec.transfer_s / 1e9 if rec.executed_bytes else 0.0
+        rest = rec.total_pause_s - rec.plan_s - rec.prepare_s - rec.drain_s - rec.transfer_s - rec.switch_s
+        log("recovery", f"{what}: {rec.mode}/{rec.outcome} {rec.src} -> {rec.dst}, step after {step}: "
+                        f"pause_s {rec.total_pause_s:.4f} (plan_s {rec.plan_s:.4f}, "
+                        f"prepare_s {rec.prepare_s:.4f} [{rec.prepare_source}], drain_s {rec.drain_s:.4f}, "
+                        f"transfer_s {rec.transfer_s:.4f}, switch_s {rec.switch_s:.4f}, the rest {rest:.4f}: "
+                        "the session's drain, the parity repair), moved "
+                        f"{rec.executed_bytes / 1e9:.4f} GB ({rate:.1f} GB/s), parity {rec.parity_bytes / 1e9:.4f} "
+                        f"GB, donors {rec.donors}, lost {rec.lost_devices}, peak {peak():.2f} GB"
+                        + ("" if quant is None else f", quant launches in the recovery {quant}"))
+
+    path: dict = {}
+    pauses: dict[str, float] = {}
+    _zero_counts()  # the recovery path's counts start here ...
+
+    # 1. DP donors: ranks 0 and 1 lost, their replicas 2 and 3 donate
+    ctrl = fresh(DP2TP2)
+    ctrl.train_steps(RECOVERY["before"])
+    _take_counts(path)
+    rep = FaultInjector(ctrl).kill(DP1TP2, lost_ranks=(0, 1))
+    rc = _take_counts(path)
+    rec = ctrl.records[-1]
+    assert (rep.mode, rep.donors, rep.step_before, rep.step_after) == ("peer_recover", 2, 3, 3), rep
+    assert rc["pack_rows"] > 0 and rc["pack_rows"] == rc["scatter_rows"] and rc["pack_quant_rows"] == 0, rc
+    show("dp donors, lost (0, 1)", rec, ctrl.step)
+    pauses["dp donors"] = rec.total_pause_s
+    held(ctrl, "dp donors")
+    del ctrl, rec
+
+    # 2. the parity spare: dp1tp4, rank 3 lost, its regions poisoned after
+    # the last refresh so that only the word can give them back
+    ctrl = fresh(DP1TP4, parity_every=1)
+    ctrl.train_steps(RECOVERY["before"])
+    store = ctrl._parity
+    assert store.covers(RECOVERY["before"])
+    refresh = (store.last_refresh_s, store.refreshed_bytes, ctrl.iteration_times[-1])
+    specs = build_tensor_specs(cfg, include_optimizer=True, zero_sharding=False)
+    named, _ = named_state_leaves(ctrl.params, ctrl.opt_state)
+    for sp in specs:
+        for bounds, owners in _shard_groups(sp, DP1TP4):
+            if owners == [3]:
+                named[sp.name][tuple(slice(lo, hi) for lo, hi in bounds)].fill_(-777.0)
+    del named
+    _, plan = plan_state_transfer(cfg, DP1TP4, DP1TP2, allowed_src=survivors_for(DP1TP4, (3,)))
+    lost_bytes = plan.lost_bytes
+    del plan
+    _take_counts(path)
+    rep = FaultInjector(ctrl).kill(DP1TP2, lost_ranks=(3,))
+    rc = _take_counts(path)
+    rec = ctrl.records[-1]
+    assert (rep.mode, rep.step_after) == ("peer_recover", RECOVERY["before"]) and rep.parity_bytes == lost_bytes, rep
+    assert rc["pack_quant_rows"] == 0, rc
+    log("recovery", f"parity refresh at dp1tp4: {refresh[0]:.4f} s for a {refresh[1] / 1e9:.4f} GB word to host "
+                    f"memory ({refresh[1] / refresh[0] / 1e9:.1f} GB/s), beside a step of {refresh[2]:.4f} s")
+    show("parity spare, lost (3,)", rec, ctrl.step)
+    pauses["parity spare"] = rec.total_pause_s
+    held(ctrl, "parity spare")
+    del ctrl, rec, store
+
+    # 3. the fault matrix: a fault at each phase of a streamed resize to
+    # dp2tp4 under the int8 moment wire; the recovery is lossless
+    for phase in ("idle", "mid_stream", "mid_commit"):
+        ctrl = fresh(DP2TP2, overlap="stream", stream_k=RECOVERY["stream_k"], wire_policy=WirePolicy())
+        ctrl.train_steps(RECOVERY["before"])
+        quant: dict = {}
+
+        def counted(self, *args, _quant=quant, **kwargs):
+            _take_counts(path)
+            try:
+                return recover(self, *args, **kwargs)
+            finally:
+                _quant.update(_take_counts(path))
+
+        recover, LiveRController.fail_stop_recover = LiveRController.fail_stop_recover, counted
+        try:
+            rep = FaultInjector(ctrl).inject(phase, DP1TP2, lost_ranks=(2, 3), resize_target=DP2TP4)
+        finally:
+            LiveRController.fail_stop_recover = recover
+        rec = ctrl.records[-1]
+        assert (rep.phase, rep.mode, rep.outcome) == (phase, "peer_recover", "committed"), rep
+        assert rep.step_before == rep.step_after and quant["pack_quant_rows"] == quant["dequant_scatter_rows"] == 0
+        show(f"fault matrix, {phase}, lost (2, 3)", rec, ctrl.step, quant["pack_quant_rows"])
+        pauses[f"fault {phase}"] = rec.total_pause_s
+        held(ctrl, f"fault {phase}")
+        del ctrl, rec
+
+    # 4. the checkpoint rung: dp1tp4 without parity, rank 3 lost; the step
+    # rolls back to the checkpoint's
+    ckpt_dir = tempfile.mkdtemp(prefix="_recovery_ckpt_", dir=Path(__file__).resolve().parent)
+    try:
+        ctrl = fresh(DP1TP4, ckpt_dir=ckpt_dir)
+        ctrl.train_steps(RECOVERY["ckpt_at"])
+        t0 = time.perf_counter()
+        ctrl.checkpoint_now()
+        save_s = time.perf_counter() - t0
+        snap_s, write_s = ctrl._ckpt.last_snapshot_seconds, ctrl._ckpt.last_save_seconds
+        ctrl.train_steps(RECOVERY["lost_at"] - RECOVERY["ckpt_at"])
+        _take_counts(path)
+        rep = FaultInjector(ctrl).kill(DP1TP2, lost_ranks=(3,))
+        rc = _take_counts(path)
+        rec = ctrl.records[-1]
+        assert (rep.mode, rep.outcome, rep.step_after) == ("fallback", "fell_back", RECOVERY["ckpt_at"]), rep
+        assert sum(rc.values()) == 0, rc  # the restore launches no kernel
+        state_gb = sum(sp.nbytes for sp in build_tensor_specs(cfg, include_optimizer=True, zero_sharding=False)) / 1e9
+        log("recovery", f"checkpoint of step {RECOVERY['ckpt_at']} ({state_gb:.4f} GB of state): checkpoint_now "
+                        f"{save_s:.4f} s (snapshot to host {snap_s:.4f} s, write {write_s:.4f} s); restore (load "
+                        f"into the live tensors) {rec.transfer_s:.4f} s ({state_gb / rec.transfer_s:.2f} GB/s)")
+        show(f"checkpoint rung, lost (3,) at step {RECOVERY['lost_at']}", rec, ctrl.step)
+        rung_s = rec.total_pause_s + save_s
+        held(ctrl, "checkpoint rung")
+        del ctrl, rec
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    _take_counts(path)  # ... and are read here
+    log("recovery", f"the checkpoint rung's pause with its save, {rung_s:.4f} s, against each peer recovery's: "
+                    + ", ".join(f"{k} {v:.4f} s ({rung_s / v:.1f}x)" for k, v in pauses.items()))
+    phase_peak = max(peaks)
+    log("recovery", f"every case's state equal to the control's at its step and its next {RECOVERY['after']} "
+                    f"losses bitwise; peak memory {phase_peak:.2f} GB (train phase {train_peak_gb:.2f} GB); "
+                    f"launches {path}")
+    assert phase_peak <= TOL_PEAK * train_peak_gb, f"peak {phase_peak:.2f} GB: a second set of the state?"
+    torch.cuda.empty_cache()
+    for name in ("flash_attention", "flash_attention_bwd", "pack_rows", "scatter_rows", "pack_quant_rows",
+                 "dequant_scatter_rows"):
+        assert path[name] > 0, f"{name} was not launched on the recovery path"
+    return path
+
+
 def _record(name, source, replaces, launches, err, ms, plain_ms, bound_ms, bound_by, library_ms, **extra) -> dict:
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches,
             "max_abs_err": err, "max_err": err, "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
@@ -2195,7 +2438,7 @@ def phase_rms_cases() -> float:
 
 def phase_serve_ssm() -> tuple[int, float]:
     """mamba2-2.7b at full width through ``serve_once``; see the module
-    docstring, 19."""
+    docstring, 20."""
     cfg = get_config("mamba2-2.7b")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -2387,6 +2630,7 @@ def main() -> int:
     train_launches, train_steps, train_peak_gb = phase_train()
     check_train_launches(train_launches, train_steps)
     lifecycle_launches = phase_lifecycle(train_peak_gb)
+    recovery_launches = phase_recovery(train_peak_gb)
     bwd = phase_bwd_times(train_launches["flash_attention_bwd"], bwd_err)
     quants = phase_quant_times(train_launches)
     ssd_err = phase_ssd_cases()
@@ -2399,10 +2643,10 @@ def main() -> int:
     # each record's launches: its counts on the main paths, each counted
     # from zero just before its run and read just after. No path runs
     # rmsnorm: as in the JAX package, the model's norms are plain and only
-    # ops.rmsnorm reaches the kernel (phases 17 and 21)
+    # ops.rmsnorm reaches the kernel (phases 18 and 22)
     paths = {"serve": {"flash_attention": launches}, "elastic": elastic_launches, "train": train_launches,
-             "lifecycle": lifecycle_launches, "serve_mamba2": {"ssd_intra_chunk": ssm_launches},
-             "elastic_mamba2": ssm_elastic_launches}
+             "lifecycle": lifecycle_launches, "recovery": recovery_launches,
+             "serve_mamba2": {"ssd_intra_chunk": ssm_launches}, "elastic_mamba2": ssm_elastic_launches}
     records = [record, *rows, bwd, *quants, ssd, rms]
     for rec in records:
         rec["launches_by_path"] = {p: counts.get(rec["name"], 0) for p, counts in paths.items()}

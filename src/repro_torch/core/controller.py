@@ -42,38 +42,62 @@ every world maps to that one device (the card by default; a CUDA request
 without one raises), and ``params=`` (a param tree to train in place of
 the seeded init, e.g. the JAX package's weights through
 ``models.convert.params_from_jax``). The step count, the one piece of
-state outside the resource view, stays where it is on one device.
+state outside the resource view, goes through the plan-less
+``live_reshard`` at every commit and recovery, as in the JAX controller;
+on one card it is already on the new world's device and passes through.
 
-Not ported, each raising ``NotImplementedError`` with its ROADMAP item
-(queue 1 item 9): fail-stop recovery, the checkpoint rung, the parity
-spare, and the two transfer prewarms (``prewarm_transfer``,
-``prewarm_failover_ahead``), which compile a throwaway transfer mirroring
-``fail_stop_recover``'s survivor-constrained plan.
+Fail-stop recovery (DESIGN.md §15), as in the JAX controller:
+``fail_stop_recover`` recovers from the surviving peers in memory (the DP
+replicas donate, a fresh XOR parity word, ``parity_every=``, repairs a
+shard whose whole replica group died), and demotes to the durable
+checkpoint (``ckpt_dir=``, ``ckpt_interval=``, ``checkpoint_now``) only
+when the peers cannot cover the state; neither raises a typed
+``RecoveryError``. The recovery stream is always lossless and keeps the
+step; the checkpoint rung rolls it back. On one card the loss is
+simulated: survivors and lost ranks share the device and its global
+tensors, so the peers' bytes are the live tensors, and what the dead ranks
+held exclusively is rewritten from the parity word in place before the
+stream runs. A session, a residual shadow or an abandoned shadow's
+destination tensors are handed to the recovery stream, so that it
+allocates no second set. The two transfer prewarms (``prewarm_transfer``,
+``prewarm_failover_ahead``) keep the JAX bookkeeping, but eager PyTorch
+has no compile cache to warm: they load the kernel libraries the transfer
+launches and plan the survivor-constrained pair, whose plan the recovery
+then takes, and move no byte (a throwaway transfer at full width would be
+two more sets of the state). The control plane that drives these verbs
+(the scheduler, its protocol and endpoints) is not ported yet (ROADMAP
+queue 1 item 9).
 """
 
 from __future__ import annotations
 
+import threading
 import time
 from dataclasses import dataclass
 from typing import Any, Callable, Optional
 
 import torch
 
+from repro_torch.checkpoint import AsyncCheckpointer, load_checkpoint
 from repro_torch.configs.base import ModelConfig, ParallelConfig
 from repro_torch.core.downtime import GoodputLedger
+from repro_torch.core.errors import RecoveryError
 from repro_torch.core.generations import GenerationMachine, GenState
 from repro_torch.core.intersection import TransferPlan
 from repro_torch.core.records import ReuseRecordMixin
 from repro_torch.core.reshard import (
     DEFAULT_STAGING_BYTES,
+    live_reshard,
     live_reshard_planned,
     named_state_leaves,
     plan_state_transfer,
     rebuild_state,
 )
-from repro_torch.core.shadow import ShadowBuilder, WorldHandle, build_train_world, state_buffers
+from repro_torch.core.resource_view import build_tensor_specs
+from repro_torch.core.shadow import ShadowBuilder, WorldHandle, build_train_world, state_buffers, warm_device
 from repro_torch.core.world_pool import WorldPool
 from repro_torch.data import SyntheticLM
+from repro_torch.elastic.redundancy import ParityStore, balance_donors, heal_plan, survivors_for
 from repro_torch.optim import AdamWConfig, adamw_init
 from repro_torch.reshard import OperatingPoint, OverlapSession
 from repro_torch.reshard.overlap import shares_storage
@@ -84,23 +108,20 @@ __all__ = ["LiveRController", "ReconfigRecord"]
 # speculative world builds in flight at once (``prefetch_world``)
 MAX_SPEC_BUILDS = 1
 
-_RECOVERY = "fail-stop recovery, the checkpoint rung and the parity spare are not ported yet (ROADMAP queue 1 item 9)"
-_PREWARM = (
-    "the transfer prewarms mirror fail_stop_recover's survivor-constrained plan, which is not ported "
-    "yet (ROADMAP queue 1 item 9)"
-)
-
 
 @dataclass
 class ReconfigRecord(ReuseRecordMixin):
-    """One reconfiguration (the JAX record's fields; those of the unported
-    recovery path keep their defaults).
+    """One reconfiguration (the JAX record's fields).
 
-    ``outcome``: committed | retargeted (superseded before its commit; its
-    streamed state may have been adopted by the successor) | fell_back
-    (committed by stop-copy under deadline pressure) | aborted.
-    ``prepare_source``: cold (a full build) | pool (a warm world;
-    ``warm_hit``) | speculative_join (joined an in-flight prefetch)."""
+    ``mode``: live (stop-copy) | live_overlap (stream) | peer_recover (a
+    fail-stop recovered from the survivors) | fallback (from the
+    checkpoint). ``outcome``: committed | retargeted (superseded before its
+    commit; its streamed state may have been adopted by the successor) |
+    fell_back (committed by stop-copy under deadline pressure, or restored
+    from the checkpoint) | aborted. ``prepare_source``: cold (a full
+    build) | pool (a warm world; ``warm_hit``) | speculative_join (joined
+    an in-flight prefetch) | residual (a recovery took the ready shadow
+    built for its target)."""
 
     gen_id: int
     src: str
@@ -111,7 +132,6 @@ class ReconfigRecord(ReuseRecordMixin):
     switch_s: float = 0.0
     total_pause_s: float = 0.0
     moved_bytes: int = 0
-    # live (stop-copy) | live_overlap (stream)
     mode: str = "live"
     outcome: str = "committed"
     warm_hit: bool = False
@@ -132,9 +152,10 @@ class ReconfigRecord(ReuseRecordMixin):
     stream_drain_s: float = 0.0
     generic_cells: int = 0
     operating_point: Optional[dict] = None
-    donors: int = 0
-    lost_devices: int = 0
-    parity_bytes: int = 0
+    # peer recovery (DESIGN.md §15): how a fail-stop was sourced
+    donors: int = 0  # distinct ranks that donated cells
+    lost_devices: int = 0  # ranks lost to the failure
+    parity_bytes: int = 0  # bytes reconstructed from the XOR parity word
 
 
 def _resolve(device) -> torch.device:
@@ -156,6 +177,7 @@ class LiveRController:
         global_batch: int,
         data: Optional[SyntheticLM] = None,
         ckpt_dir: Optional[str] = None,
+        ckpt_interval: int = 50,
         staging_bytes: int = DEFAULT_STAGING_BYTES,
         device="cuda",
         microbatches: int = 1,
@@ -169,8 +191,6 @@ class LiveRController:
         parity_every: int = 0,
         params: Optional[dict] = None,
     ):
-        if ckpt_dir is not None or parity_every:
-            raise NotImplementedError(_RECOVERY)
         if overlap not in ("stop_copy", "stream"):
             raise ValueError(f"overlap={overlap!r}: want 'stop_copy' or 'stream'")
         self.cfg = cfg
@@ -214,6 +234,22 @@ class LiveRController:
         self.iteration_times: list[float] = []
         self.step = 0
         self.data = data or SyntheticLM(cfg.vocab_size, seq_len, global_batch, seed)
+        self.ckpt_dir = ckpt_dir
+        self.ckpt_interval = ckpt_interval
+        self._ckpt = AsyncCheckpointer(ckpt_dir) if ckpt_dir else None
+        # transfer prewarm (DESIGN.md §15): (src, dst) pairs already planned
+        # off the critical path, and their survivor-constrained plans by
+        # (src, dst, survivors)
+        self._prewarmed_pairs: set = set()
+        self._prewarmed_plans: dict[tuple, tuple] = {}
+        self._prewarm_thread: Optional[threading.Thread] = None
+        self._prewarm_pair: Optional[tuple] = None
+        self._inflight_target: Optional[ParallelConfig] = None
+        # spare-shard scheme (DESIGN.md §15): refresh the XOR parity words
+        # every N step boundaries so dp=1 worlds can reconstruct a shard
+        # whose only owner died; 0 disables
+        self.parity_every = parity_every
+        self._parity: Optional[ParityStore] = None
 
         # Active World (generation 0)
         world = self._build_world(parallel)
@@ -421,6 +457,8 @@ class LiveRController:
 
         builder = ShadowBuilder(build, gen.gen_id, on_discard=self._discard_world)
         self._builder = builder.start()
+        # knowable-now metadata for the stream-ahead prewarm (§15)
+        self._inflight_target = target
         return gen.gen_id
 
     def _abandon_builder(self) -> None:
@@ -557,17 +595,352 @@ class LiveRController:
         carries = {n: t for n, t in ex.dst.items() if not shares_storage(t, live)}
         return carries, {**ex.dst_buffers, **carries}
 
-    def prewarm_transfer(self, *args, **kwargs):
-        raise NotImplementedError(_PREWARM)
+    # ------------------------------------------------------------------
+    # Transfer prewarm (DESIGN.md §15)
+    # ------------------------------------------------------------------
+    def prewarm_failover_ahead(self) -> int:
+        """During a resize, prewarm the transfer of (incoming world ->
+        pooled world) pairs, the incoming world's failover paths: the pair
+        is knowable the moment the resize is requested. Same policy as the
+        JAX controller: non-growing pairs only, nearest size first, one
+        pair at a time. Returns prewarm threads started (<= 1)."""
+        target = self._inflight_target
+        if target is None or self.world_pool is None:
+            return 0
+        needed = sorted(
+            (
+                key[1]
+                for key in self.world_pool.keys()
+                if key[1] != target
+                and key[1].world_size <= target.world_size
+                and (target, key[1]) not in self._prewarmed_pairs
+            ),
+            key=lambda p: target.world_size - p.world_size,
+        )
+        if not needed or (self._prewarm_thread is not None and self._prewarm_thread.is_alive()):
+            return 0
+        return sum(self.prewarm_transfer(tgt, src_parallel=target) for tgt in needed)
 
-    def prewarm_failover_ahead(self, *args, **kwargs):
-        raise NotImplementedError(_PREWARM)
+    def prewarm_transfer(self, target: ParallelConfig, src_parallel: Optional[ParallelConfig] = None) -> bool:
+        """Prepare the recovery transfer (current world -> ``target``, or
+        ``src_parallel`` -> ``target`` for the stream-ahead path) off the
+        critical path, against a pooled world for ``target``.
 
-    def fail_stop_recover(self, *args, **kwargs):
-        raise NotImplementedError(_RECOVERY)
+        The JAX prewarm runs a throwaway transfer to fill jax's compile
+        cache. Eager PyTorch has none, so here a non-daemon thread loads
+        the kernel libraries the lossless transfer launches on the pooled
+        world's device and plans the survivor-constrained pair, with the
+        warned rung's geometry (the ranks beyond ``target`` lost), as
+        ``fail_stop_recover`` would; a recovery of the same pair and
+        survivors takes that plan. No byte moves. Returns True when a
+        prewarm thread was started."""
+        if self.world_pool is None:
+            return False
+        ahead = src_parallel is not None
+        if not ahead and self.reconfig_pending:
+            return False
+        if src_parallel is None:
+            src_parallel = self.world.parallel
+        if target == src_parallel:
+            return False
+        pair = (src_parallel, target)
+        if pair in self._prewarmed_pairs:
+            return False
+        if self._prewarm_thread is not None and self._prewarm_thread.is_alive():
+            return False
+        handle = self.world_pool.peek(self.pool_key(target))
+        if handle is None or handle.released:
+            return False
+        self._prewarmed_pairs.add(pair)
+        self._prewarm_pair = pair
+        device = handle.device
+        dtype = getattr(torch, self.cfg.dtype)
 
-    def checkpoint_now(self, *args, **kwargs):
-        raise NotImplementedError(_RECOVERY)
+        def warm() -> None:
+            try:
+                if device.type == "cuda":
+                    warm_device(device, dtype, kernels=("reshard_pack",))
+                lost = tuple(range(target.world_size, src_parallel.world_size))
+                survivors = survivors_for(src_parallel, lost, target=target, devices_failed=False)
+                self._prewarmed_plans[(src_parallel, target, survivors)] = plan_state_transfer(
+                    self.cfg, src_parallel, target, source_policy=self.source_policy, allowed_src=survivors
+                )
+            except Exception:
+                # speculation must never take down training: the recovery
+                # plans (and loads the kernels) on its own
+                pass
+
+        # non-daemon: a daemon thread killed inside a CUDA call at
+        # interpreter exit can abort the process
+        self._prewarm_thread = threading.Thread(target=warm, name="transfer-prewarm", daemon=False)
+        self._prewarm_thread.start()
+        return True
+
+    # ------------------------------------------------------------------
+    # Fail-stop recovery (DESIGN.md §15) and the checkpoint rung (I4)
+    # ------------------------------------------------------------------
+    def checkpoint_now(self) -> None:
+        """Durable snapshot of the current step, synchronously: the
+        scheduler's checkpoint rung (a warned event whose window fits no
+        live path saves now, so the follow-up restore loses no progress)."""
+        if self._ckpt is not None:
+            self._ckpt.save(self.step, {"params": self.params, "opt": self.opt_state})
+            self._ckpt.wait()
+
+    def peer_coverage(self, target: ParallelConfig, lost_ranks: tuple = (), devices_failed: bool = True):
+        """(survivor-constrained plan covers the state?, donor wire bytes).
+
+        Metadata only (one intersection plan), used by the deadline
+        estimator to price the ``peer_recover`` rung. Counts state the
+        fresh parity word could repair as covered."""
+        src = self.world.parallel
+        survivors = survivors_for(src, lost_ranks, target=target, devices_failed=devices_failed)
+        _, plan = plan_state_transfer(
+            self.cfg, src, target, source_policy=self.source_policy, allowed_src=survivors
+        )
+        lost_bytes = plan.lost_bytes
+        parity_ok = self._parity is not None and self._parity.covers(self.step)
+        covered = lost_bytes == 0 or parity_ok
+        return covered, plan.network_bytes + (lost_bytes if parity_ok else 0)
+
+    def _drop_reconfig(self, target: ParallelConfig) -> tuple[Optional[WorldHandle], dict]:
+        """Retire the in-flight reconfiguration for a recovery: (a ready
+        shadow built for ``target``, or None; the destination tensors it,
+        the streaming session or an abandoned shadow held, less any that
+        alias a live tensor). The session is drained first (its side stream
+        may still write into them), the rest abandoned, and a superseded
+        build still running is waited for, since it may still allocate: the
+        recovery allocates no second set."""
+        residual, buffers = None, {}
+        if self._session is not None:
+            self._session.drain()
+            _, buffers = self._session_tensors()
+        if self._builder is not None and self._builder.ready and self.machine.shadow is not None:
+            # its partially streamed state may predate this cut: only its
+            # world and its tensors are kept, and the whole plan re-streams
+            cand: WorldHandle = self._builder.result()
+            buffers.update(cand.buffers)
+            cand.buffers = {}
+            if cand.parallel == target:
+                residual = cand
+        if self._builder is not None and residual is None:
+            self._abandon_builder()
+        if self.machine.state in (GenState.PREPARE, GenState.READY):
+            self.machine.cancel()
+        self._reset_reconfig_state()
+        for b in self._orphans:
+            b.join()
+        self._orphans = []
+        return residual, buffers
+
+    def _survivor_world(self, target: ParallelConfig, rec: ReconfigRecord, residual) -> WorldHandle:
+        """The recovered world: the residual shadow, the warm pool, an
+        in-flight speculative build (joined), then a cold build. Records
+        its source and time."""
+        t0 = time.perf_counter()
+        world = residual
+        rec.prepare_source = "residual" if residual is not None else "cold"
+        if world is None and self.world_pool is not None:
+            world = self.world_pool.take(self.pool_key(target))
+            if world is not None:
+                rec.prepare_source = "pool"
+            else:
+                join = self._spec_builders.pop(self.pool_key(target), None)
+                if join is not None:
+                    try:
+                        world = self._refresh_pooled(join.result(), source="speculative_join")
+                        rec.prepare_source = "speculative_join"
+                    except Exception:
+                        world = None
+        rec.warm_hit = world is not None and rec.prepare_source == "pool"
+        if world is None:
+            world = self._build_world(target)
+        rec.prepare_s = time.perf_counter() - t0
+        return world
+
+    def _switch_to(self, world: WorldHandle, target: ParallelConfig, devices_failed: bool) -> None:
+        """Make ``world`` the active generation after a recovery."""
+        gen = self.machine.begin_prepare("failstop-" + target.describe())
+        self.machine.mark_ready(gen.gen_id, payload=world)
+        self.machine.begin_switch(gen.gen_id)
+        old = self.machine.commit_switch(gen.gen_id)
+        if devices_failed:
+            # the outgoing world ran on the (partially) failed device set:
+            # never pool it
+            old.payload = None
+        else:
+            self._retire_world(old)
+        self.machine.finish_cleanup()
+        # the parity word XORs images of the old layout
+        self._parity = None
+
+    def fail_stop_recover(
+        self, target: ParallelConfig, devices_failed: bool = True, lost_ranks: tuple = ()
+    ) -> ReconfigRecord:
+        """Recover a fail-stop from surviving peers, in memory (§15).
+
+        The rungs, in order:
+
+        1. **peer_recover**: plan the state transfer with sources
+           restricted to the survivors; DP replicas donate the cells the
+           dead ranks held (donor-balanced), and cells whose whole replica
+           group died are reconstructed from the XOR parity word when it
+           is fresh. The survivor world comes residual-shadow- and
+           warm-pool-first, then the stream runs over the same engine as a
+           live resize, losslessly whatever ``wire_policy`` is. No step
+           rollback: the survivors' state is the current step's.
+        2. **checkpoint** (last resort): only when survivors and parity
+           cannot cover the state and a ``ckpt_dir`` exists; rolls the
+           step back to the checkpoint's.
+        3. Neither: a typed :class:`RecoveryError`.
+
+        ``devices_failed`` tells an unannounced failure (the old world is
+        not pooled, and pooled worlds over the lost device prefix are
+        invalidated) from the scheduler's past-deadline rung for a warned
+        event (everyone survives). ``lost_ranks`` names the dead ranks;
+        empty means the prefix default (the ranks beyond ``target``'s
+        world died)."""
+        src_parallel = self.world.parallel
+        survivors = survivors_for(src_parallel, lost_ranks, target=target, devices_failed=devices_failed)
+        lost = frozenset(range(src_parallel.world_size)) - survivors
+        if devices_failed and self.world_pool is not None and lost:
+            # under prefix allocation a pooled world of size W runs on
+            # devices[:W]: it overlaps the dead set iff W exceeds the
+            # lowest lost device id
+            min_lost = min(lost)
+            self.world_pool.invalidate(lambda key, h: h.parallel.world_size > min_lost)
+
+        rec = ReconfigRecord(
+            gen_id=-1, src=src_parallel.describe(), dst=target.describe(), mode="peer_recover", outcome="committed"
+        )
+        rec.lost_devices = len(lost)
+        pause_start = time.perf_counter()
+        residual, buffers = self._drop_reconfig(target)
+
+        # a prewarm planning exactly this pair is waited for: its plan is
+        # taken below
+        if (
+            self._prewarm_thread is not None
+            and self._prewarm_thread.is_alive()
+            and self._prewarm_pair == (src_parallel, target)
+        ):
+            self._prewarm_thread.join(timeout=60.0)
+
+        # survivor-constrained plan (metadata only)
+        t0 = time.perf_counter()
+        planned = self._prewarmed_plans.pop((src_parallel, target, survivors), None)
+        specs, plan = planned or plan_state_transfer(
+            self.cfg, src_parallel, target, source_policy=self.source_policy, allowed_src=survivors
+        )
+        rec.plan_s = time.perf_counter() - t0
+
+        lost_tasks = plan.lost_tasks()
+        parity_fresh = (
+            self._parity is not None and self._parity.cfg == src_parallel and self._parity.covers(self.step)
+        )
+        if lost_tasks and not parity_fresh:
+            del buffers  # the restore writes into the live tensors
+            return self._checkpoint_restore(
+                target, devices_failed, pause_start, rec.lost_devices, residual,
+                reason=f"{plan.lost_bytes} bytes have no surviving replica and no fresh parity",
+            )
+
+        # consistent cut: all in-flight device work lands before survivor
+        # bytes are read (and before parity mixes them into a repair)
+        t0 = time.perf_counter()
+        self._sync()
+        rec.drain_s = time.perf_counter() - t0
+
+        named, extras = named_state_leaves(self.params, self.opt_state)
+        if lost_tasks:
+            named, rec.parity_bytes = self._parity.repair(named, lost, self.step)
+            plan, _ = heal_plan(plan, specs)
+        plan = balance_donors(plan, specs, survivors)
+        rec.plan_network_bytes = plan.network_bytes
+        rec.plan_local_bytes = plan.local_bytes
+        rec.donors = len({t.src_rank for t in plan.tasks if t.kind == "remote"})
+
+        world = self._survivor_world(target, rec, residual)
+
+        # donor stream over the shared engine, always lossless: a lossy
+        # wire would make the recovered state diverge from the survivors'
+        t0 = time.perf_counter()
+        moved, stats = live_reshard_planned(
+            specs, plan, named, self.world.devices, world.devices,
+            staging_bytes=self.staging_bytes, wire_policy=None, dst_buffers=buffers,
+        )
+        del buffers
+        new_extras, rep_x = self._move_extras(extras, world, self.staging_bytes)
+        self.params, self.opt_state = rebuild_state(moved, self.params, self.opt_state, new_extras)
+        rec.transfer_s = time.perf_counter() - t0
+        rec.moved_bytes = stats.network_bytes + stats.local_bytes + rep_x.moved_bytes
+        rec.skipped_bytes = stats.resident_bytes
+        rec.resident_cells = stats.resident_cells
+        rec.wire_bytes = stats.wire_bytes
+        rec.logical_bytes = stats.logical_bytes
+        rec.executed_bytes = stats.executed_bytes + rep_x.moved_bytes
+        rec.stream_dispatch_s = stats.dispatch_seconds
+        rec.stream_drain_s = stats.drain_seconds
+        rec.generic_cells = stats.generic_cells
+        # no step rollback: the survivors carry the current step's state
+
+        t0 = time.perf_counter()
+        self._switch_to(world, target, devices_failed)
+        rec.switch_s = time.perf_counter() - t0
+        rec.total_pause_s = time.perf_counter() - pause_start
+        self.ledger.record(pause_start, pause_start + rec.total_pause_s, "pause", target.world_size)
+        self.records.append(rec)
+        return rec
+
+    def _checkpoint_restore(
+        self,
+        target: ParallelConfig,
+        devices_failed: bool,
+        pause_start: float,
+        lost_devices: int,
+        residual: Optional[WorldHandle],
+        reason: str = "",
+    ) -> ReconfigRecord:
+        """The last-resort rung: restore the latest durable checkpoint (the
+        step rolls back to it), copying each leaf into the live tensors, so
+        no second state is held. Only reached when the survivors and parity
+        cannot cover the state."""
+        if not self.ckpt_dir:
+            raise RecoveryError(
+                f"fail-stop to {target.describe()} is unrecoverable: {reason or 'peers cannot cover the state'}, "
+                "and no checkpoint directory is configured"
+            )
+        if self._ckpt:
+            try:
+                self._ckpt.wait()
+            except RuntimeError:
+                # a failed background write surfaces here; an older durable
+                # step may still exist: load_checkpoint decides
+                pass
+        rec = ReconfigRecord(
+            gen_id=-1, src=self.world.parallel.describe(), dst=target.describe(), mode="fallback", outcome="fell_back"
+        )
+        rec.lost_devices = lost_devices
+        world = self._survivor_world(target, rec, residual)
+        try:
+            state, step, load_s = load_checkpoint(
+                self.ckpt_dir, {"params": self.params, "opt": self.opt_state}, in_place=True
+            )
+        except (OSError, KeyError, ValueError, RuntimeError) as e:
+            raise RecoveryError(
+                f"fail-stop to {target.describe()} is unrecoverable: {reason or 'peers cannot cover the state'}, "
+                f"and no durable checkpoint could be loaded from {self.ckpt_dir}"
+            ) from e
+        self.params, self.opt_state = state["params"], state["opt"]
+        self.step = step
+        t0 = time.perf_counter()
+        self._switch_to(world, target, devices_failed)
+        rec.switch_s = time.perf_counter() - t0
+        rec.transfer_s = load_s
+        rec.total_pause_s = time.perf_counter() - pause_start
+        self.ledger.record(pause_start, pause_start + rec.total_pause_s, "pause", target.world_size)
+        self.records.append(rec)
+        return rec
 
     # ------------------------------------------------------------------
     # Training loop
@@ -595,8 +968,20 @@ class LiveRController:
             self.step += 1
             if collect:
                 collect(self.step, metrics)
+            if self._ckpt and self.step % self.ckpt_interval == 0:
+                self._ckpt.save(self.step, {"params": self.params, "opt": self.opt_state})
+            if self.parity_every and self.step % self.parity_every == 0:
+                self._refresh_parity()
             self._poll_boundary()
         return losses
+
+    def _refresh_parity(self) -> None:
+        """Step-boundary XOR parity snapshot (spare-shard scheme, §15)."""
+        if self._parity is None or self._parity.cfg != self.world.parallel:
+            specs = build_tensor_specs(self.cfg, include_optimizer=True, zero_sharding=False)
+            self._parity = ParityStore(specs, self.world.parallel)
+        named, _ = named_state_leaves(self.params, self.opt_state)
+        self._parity.refresh(named, self.step)
 
     def _batch(self) -> dict:
         tokens = torch.from_numpy(self.data.global_batch_at(self.step))
@@ -734,14 +1119,15 @@ class LiveRController:
             dst_buffers=new_world.buffers,
         )
         new_world.buffers = {}
-        self.params, self.opt_state = rebuild_state(moved, self.params, self.opt_state, extras)
+        new_extras, rep_x = self._move_extras(extras, new_world, staging_bytes)
+        self.params, self.opt_state = rebuild_state(moved, self.params, self.opt_state, new_extras)
         rec.transfer_s = time.perf_counter() - t0
-        rec.moved_bytes = stats.network_bytes + stats.local_bytes
+        rec.moved_bytes = stats.network_bytes + stats.local_bytes + rep_x.moved_bytes
         rec.skipped_bytes = stats.resident_bytes
         rec.resident_cells = stats.resident_cells
         rec.wire_bytes = stats.wire_bytes
         rec.logical_bytes = stats.logical_bytes
-        rec.executed_bytes = stats.executed_bytes
+        rec.executed_bytes = stats.executed_bytes + rep_x.moved_bytes
         rec.stream_dispatch_s = stats.dispatch_seconds
         rec.stream_drain_s = stats.drain_seconds
         rec.generic_cells = stats.generic_cells
@@ -783,6 +1169,8 @@ class LiveRController:
         # this boundary's cut; drain=False only dispatches
         named, extras = named_state_leaves(self.params, self.opt_state)
         session.resync(named, self.step, drain=False, after=cut)
+        _, staging_bytes = self._op_params()
+        new_extras, _ = self._move_extras(extras, new_world, staging_bytes)
         t1 = time.perf_counter()
         if self.device.type == "cuda":
             torch.cuda.current_stream(self.device).synchronize()
@@ -802,7 +1190,6 @@ class LiveRController:
         )
         g_named = {f"params/{p}": g for p, g in tree_paths(grads).items()}
         del grads
-        _, staging_bytes = self._op_params()
         g_moved, g_stats = live_reshard_planned(
             p_specs, p_plan, g_named, self.world.devices, new_world.devices,
             staging_bytes=staging_bytes, wire_policy=self.wire_policy,
@@ -812,7 +1199,7 @@ class LiveRController:
         rec.transfer_s = time.perf_counter() - t0
 
         t0 = time.perf_counter()
-        params_new, opt_new = rebuild_state(session.results(), self.params, self.opt_state, extras)
+        params_new, opt_new = rebuild_state(session.results(), self.params, self.opt_state, new_extras)
         self.params, self.opt_state, om = new_world.update_fn(grads_new, opt_new, params_new)
         self._sync()
         rec.update_s = time.perf_counter() - t0
@@ -850,8 +1237,15 @@ class LiveRController:
         self.machine.finish_cleanup()
         return {"loss": loss, **metrics, **om}
 
+    @staticmethod
+    def _move_extras(extras: dict, world: WorldHandle, staging_bytes: int):
+        """The state outside the resource view (the step count) onto
+        ``world``'s device by the plan-less path: (new extras, report)."""
+        return live_reshard(extras, tree_map_with_path(lambda _, x: world.device, extras), staging_bytes=staging_bytes)
+
     def _reset_reconfig_state(self) -> None:
         self._builder = None
+        self._inflight_target = None
         self._session = None
         self._session_specs = None
         self._session_plan = None

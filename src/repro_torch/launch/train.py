@@ -8,13 +8,16 @@ Each ``--resize STEP:SPEC`` (SPEC comma-separated, ``dp2,tp4``) requests a
 live reconfiguration at that step; the switch lands at the first iteration
 boundary after the shadow world is ready (invariant I3), by stop-copy or,
 with ``--overlap stream``, by overlapped streaming and a split-step commit.
+``--failstop STEP:SPEC`` fails the ranks beyond SPEC's world at that step
+and recovers onto SPEC from the survivors (``fail_stop_recover``), or from
+the latest checkpoint under ``--ckpt-dir`` (written every
+``--ckpt-interval`` steps) when they cannot cover the state.
 Runs on the GPU unless ``--device cpu`` is given; a CUDA request without a
 card exits with an error. The reshard wire is lossless here, as in the JAX
 launcher; the compressed wire is the controller's ``wire_policy``.
 
-Not ported, and refused with a message: pipeline stages (``--pp`` > 1), int8
-gradient compression (``--compression int8_ef``), checkpoints
-(``--ckpt-dir``) and fail-stop injection (``--failstop``). An SSM model
+Not ported, and refused with a message: pipeline stages (``--pp`` > 1) and
+int8 gradient compression (``--compression int8_ef``). An SSM model
 (mamba2-2.7b) trains on the CPU only: on the card its SSD kernel has no
 backward yet, and the launcher raises ``NotImplementedError``.
 """
@@ -56,6 +59,7 @@ def main() -> None:
     ap.add_argument("--stream-k", type=int, default=4,
                     help="layers pre-copied per iteration boundary (overlap=stream)")
     ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-interval", type=int, default=25)
     ap.add_argument("--resize", action="append", default=[], metavar="STEP:SPEC")
     ap.add_argument("--failstop", default=None, metavar="STEP:SPEC")
     ap.add_argument("--device", default="cuda")
@@ -65,8 +69,6 @@ def main() -> None:
     unported = {
         "--pp > 1 (pipeline stages, ROADMAP queue 1 item 5)": args.pp > 1,
         "--compression int8_ef (gradient compression, ROADMAP queue 1 item 5)": args.compression != "none",
-        "--ckpt-dir (checkpoints, ROADMAP queue 1 item 9)": args.ckpt_dir is not None,
-        "--failstop (fail-stop recovery, ROADMAP queue 1 item 9)": args.failstop is not None,
     }
     refused = [what for what, given in unported.items() if given]
     if refused:
@@ -88,9 +90,14 @@ def main() -> None:
           f"steps={args.steps} device={args.device}", flush=True)
     ctrl = LiveRController(
         cfg, parallel, opt, seq_len=args.seq, global_batch=args.batch, device=args.device,
+        ckpt_dir=args.ckpt_dir, ckpt_interval=args.ckpt_interval,
         microbatches=args.microbatches, overlap=args.overlap, stream_k=args.stream_k,
     )
     resizes = sorted((int(s.split(":")[0]), parse_parallel(s.split(":")[1])) for s in args.resize)
+    failstop = None
+    if args.failstop:
+        at, spec = args.failstop.split(":")
+        failstop = (int(at), parse_parallel(spec))
 
     losses: list[float] = []
     t0 = time.perf_counter()
@@ -100,6 +107,12 @@ def main() -> None:
             print(f"[event] step {ctrl.step}: resize -> {target.describe()} "
                   "(shadow prepare in background)", flush=True)
             ctrl.request_resize(target)
+        if failstop and failstop[0] == ctrl.step:
+            print(f"[event] step {ctrl.step}: FAIL-STOP -> {failstop[1].describe()}", flush=True)
+            rec = ctrl.fail_stop_recover(failstop[1])
+            print(f"[event] recovered via {rec.mode} at step {ctrl.step} in {rec.total_pause_s:.2f}s "
+                  f"(moved {rec.moved_bytes / 1e6:.1f}MB, donors {rec.donors})", flush=True)
+            failstop = None
         before = len(ctrl.records)
         losses += ctrl.train_steps(1)
         if len(ctrl.records) > before:

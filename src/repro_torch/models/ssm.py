@@ -165,7 +165,9 @@ def ssm_forward(
 # ---------------------------------------------------------------------------
 
 
-def ssm_init_state(cfg: ModelConfig, batch: int, dtype=torch.float32, device="cpu") -> dict:
+def ssm_init_state(cfg: ModelConfig, batch: int, dtype, device) -> dict:
+    """Zero ssd and conv state for ``batch`` sequences, in ``dtype`` on
+    ``device`` (no default: a serving cache belongs on the world's device)."""
     i, h, n, conv_ch = ssm_dims(cfg)
     return {
         "ssd": torch.zeros((batch, h, SSM_HEAD_DIM, n), dtype=dtype, device=device),

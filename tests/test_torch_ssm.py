@@ -342,7 +342,7 @@ def test_ssm_decode_equals_jax_over_four_steps(mamba):
     jp, tp = _layer0(jparams, tparams)
     rng = np.random.default_rng(12)
     jstate = jax_ssm.ssm_init_state(jcfg, 2)
-    tstate = ssm.ssm_init_state(cfg, 2)
+    tstate = ssm.ssm_init_state(cfg, 2, torch.float32, "cpu")
     assert {k: tuple(v.shape) for k, v in tstate.items()} == {k: v.shape for k, v in jstate.items()}
     jdecode = jax.jit(lambda p, x, st: jax_ssm.ssm_decode(p, jcfg, x, st))
     for step in range(4):

@@ -389,12 +389,15 @@ def test_cancel_and_the_unported_verbs():
     ctrl.train_steps(2)
     assert ctrl.world.parallel.tp == 2 and ctrl.step == 3
     # retarget_resize, escalate_commit and prefetch_world are ported
-    # (tests/test_torch_lifecycle.py); what waits for recovery raises
-    for verb in ("prewarm_transfer", "prewarm_failover_ahead", "fail_stop_recover", "checkpoint_now"):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            getattr(ctrl, verb)()
-    with pytest.raises(NotImplementedError, match="item 9"):
-        _controller(ckpt_dir="/nonexistent")
+    # (tests/test_torch_lifecycle.py), and so are the recovery verbs
+    # (tests/test_torch_recovery.py): without a pool or a checkpoint
+    # directory the prewarms and checkpoint_now do nothing, and a loss the
+    # DP replicas cover is recovered from them
+    assert ctrl.prewarm_transfer(configs.ParallelConfig(dp=1, tp=2)) is False
+    assert ctrl.prewarm_failover_ahead() == 0
+    ctrl.checkpoint_now()
+    rec = ctrl.fail_stop_recover(configs.ParallelConfig(dp=1, tp=2))
+    assert (rec.mode, ctrl.step, ctrl.world.parallel) == ("peer_recover", 3, configs.ParallelConfig(dp=1, tp=2))
     with pytest.raises(NotImplementedError, match="item 5"):
         ctrl.request_resize(configs.ParallelConfig(pp=2, tp=2))
         ctrl.wait_shadow_ready(60)
@@ -426,9 +429,8 @@ def test_train_cli_resizes_on_cpu(tmp_path):
     assert [r["dst"] for r in rec["reconfigs"]] == ["dp2xpp1xtp4", "dp1xpp1xtp4"]
 
 
-@pytest.mark.parametrize("flags,why", [(("--pp", "2"), "pipeline stages"), (("--failstop", "3:dp1,tp2"), "fail-stop"),
-                                       (("--compression", "int8_ef"), "gradient compression"),
-                                       (("--ckpt-dir", "x"), "checkpoints")])
+@pytest.mark.parametrize("flags,why", [(("--pp", "2"), "pipeline stages"),
+                                       (("--compression", "int8_ef"), "gradient compression")])
 def test_train_cli_refuses_what_is_not_ported(flags, why):
     res = _train_cli("--device", "cpu", *flags)
     assert res.returncode != 0 and why in res.stderr and "[train]" not in res.stdout
