@@ -150,7 +150,29 @@ non-zero without one. Phases, each printing one line or more:
    products it issues, the f32 products on the CUDA cores), RMSNorm at (4096, 2560) bf16
    and f32 beside its plain version and ``F.rms_norm`` (the calls in turns,
    the median of 5 medians, and each kernel alone on the device, the
-   two-read body's too), each with its bound.
+   two-read body's too), each with its bound;
+23. the elastic control plane driving the training controller at full
+   width: qwen3-1.7b as in 13, ``WorldPool(capacity=2)``, a pool of 8 ranks
+   on the card. Part A: ``ElasticScheduler`` -> ``WireEndpoint`` ->
+   ``ControllerEndpoint`` over a trace on fixed steps (a clock of a step
+   each 1000 trace seconds): a streamed resize to dp2tp4, a retarget to
+   dp1tp4 a step later that adopts the streamed layers, its duplicate
+   (coalesced), and a fail-stop of ranks 2 and 3 a step after that, its
+   target asked of the endpoint and recovered from the surviving replica;
+   then the same commands made directly on a fresh controller, held to the
+   scheduler's run by the state's digest and the next 2 losses, bitwise.
+   Part B: the fallback lattice on the card's own timings (the wall clock,
+   time scale 1, the int8 moment wire, the real estimator, the prefetch
+   policy on): an unbounded stream, a window between the estimate's two
+   totals (stop-copy), a zero window the peers cover (peer recovery), and a
+   stream forced on a window that fits only stop-copy (escalated). Each
+   decision held to ``choose_mode`` of the estimate it was made on; prints
+   each event's estimated and measured Prepare and pause, ``met_deadline``,
+   the goodput, the pause seconds, the speculative builds and the launches
+   of the path; fails on a peak above 1.05x 13's. It runs last: on the
+   card's machine ``torch.profiler`` loses more of a trace's device
+   records the later the trace comes in a run, and run after phase 15
+   this phase left the traces of phases 16 and 22 with none.
 The second-to-last line is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.
 
@@ -2127,6 +2149,241 @@ def phase_recovery(train_peak_gb: float) -> dict:
     return path
 
 
+# the schedule phase: qwen3-1.7b as in TRAIN; Part A's events land on fixed
+# steps (a clock of STEP_CLOCK_S trace seconds a step), Part B's on the wall
+# clock at time scale 1
+SCHEDULE = dict(before=2, tail=2, after=2, pool_ranks=8, prefetch_k=2, safety=1.25)
+STEP_CLOCK_S = 1000.0  # far above the wall time of any one command
+
+
+def _schedule_endpoints():
+    """Two endpoint wrappers of the phase, over the port's ``Endpoint``:
+    ``StepClock`` reports a clock of ``STEP_CLOCK_S`` a train step, so that
+    the scheduler's events land on fixed steps whatever the wall clock does;
+    ``Estimates`` keeps every estimate the scheduler was answered."""
+    from repro_torch.elastic import Endpoint
+    from repro_torch.elastic import protocol as pr
+
+    class Wrapper(Endpoint):
+        def __init__(self, inner):
+            self.inner, self.kind = inner, inner.kind
+
+        @property
+        def prefetch(self):
+            return getattr(self.inner, "prefetch", None)
+
+    class StepClock(Wrapper):
+        steps = 0
+
+        def handle(self, cmd):
+            resp = self.inner.handle(cmd)
+            if isinstance(resp, pr.StepResult):
+                self.steps += resp.steps
+                resp = pr.StepResult(steps=resp.steps, clock_s=self.steps * STEP_CLOCK_S)
+            return resp
+
+    class Estimates(Wrapper):
+        def __init__(self, inner):
+            super().__init__(inner)
+            self.seen: list = []
+
+        def handle(self, cmd):
+            resp = self.inner.handle(cmd)
+            if isinstance(resp, pr.EstimateResponse):
+                self.seen.append(resp.estimate)
+            return resp
+
+    return StepClock, Estimates
+
+
+def phase_schedule(train_peak_gb: float) -> dict:
+    """The elastic control plane driving the training controller at full
+    width (see the module docstring, 23): Part A, a scheduler-driven trace
+    against the same commands made directly, bitwise; Part B, the fallback
+    lattice on the card's own timings. Returns the launches of the path
+    (the scheduler's runs, not the direct run)."""
+    import gc
+
+    from repro_torch.core.controller import LiveRController
+    from repro_torch.core.events import FailStopEvent
+    from repro_torch.core.world_pool import WorldPool
+    from repro_torch.elastic import ControllerEndpoint, ElasticScheduler, WireEndpoint, choose_mode
+    from repro_torch.elastic import protocol as pr
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.reshard import OperatingPoint, WirePolicy
+
+    cfg = get_config(TRAIN["arch"])
+    opt = AdamWConfig(learning_rate=1e-4, warmup_steps=2, total_steps=1000)
+    kw = dict(seq_len=TRAIN["seq"], global_batch=TRAIN["batch"], device=TRAIN["device"],
+              devices=[TRAIN["device"]] * SCHEDULE["pool_ranks"])
+    P = ParallelConfig
+    DP2TP2, DP2TP4, DP1TP4, DP1TP2 = P(dp=2, tp=2), P(dp=2, tp=4), P(dp=1, tp=4), P(dp=1, tp=2)
+    StepClock, Estimates = _schedule_endpoints()
+    safety, k, inf = SCHEDULE["safety"], SCHEDULE["before"], float("inf")
+    peaks: list[float] = []
+    path: dict = {}
+
+    def fresh(**extra):
+        gc.collect()  # the last controller, whatever cycle holds it
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        return LiveRController(cfg, DP2TP2, opt, world_pool=WorldPool(capacity=2), **kw, **extra)
+
+    def peak() -> float:
+        peaks.append(torch.cuda.max_memory_allocated() / 1e9)
+        return peaks[-1]
+
+    def ending(ctrl) -> tuple:
+        """The state's digest and the next losses."""
+        digest = state_digest(ctrl)
+        losses = ctrl.train_steps(SCHEDULE["after"])
+        assert all(np.isfinite(losses)), losses
+        return digest, losses
+
+    # Part A: a stream, a retarget a step later that adopts its layers, a
+    # duplicate of it, and a fail-stop of ranks 2 and 3 a step after that,
+    # its target asked of the endpoint; then the same commands directly
+    t0 = time.perf_counter()
+    a = fresh(overlap="stream")
+    trace = [ResizeEvent(k * STEP_CLOCK_S, DP2TP4, inf), ResizeEvent((k + 1) * STEP_CLOCK_S, DP1TP4, inf),
+             ResizeEvent((k + 1) * STEP_CLOCK_S, DP1TP4, inf), FailStopEvent((k + 2) * STEP_CLOCK_S, lost_ranks=(2, 3))]
+    _zero_counts()  # the schedule path's counts start here ...
+    rep = ElasticScheduler(StepClock(WireEndpoint(ControllerEndpoint(a))), sync_prepare=True,
+                           tail_steps=SCHEDULE["tail"]).run(trace)
+    _take_counts(path)
+    got = [(o.decision, o.outcome) for o in rep.outcomes]
+    assert got == [("stream", "retargeted"), ("stream", "retargeted"), ("coalesce", "coalesced"),
+                   ("peer_recover", "committed")], got
+    assert [(r.mode, r.outcome) for r in a.records] == [
+        ("live_overlap", "retargeted"), ("live_overlap", "retargeted"), ("peer_recover", "committed")], a.records
+    adopted, recovered = a.records[1], a.records[2]
+    assert adopted.reused_layers >= 1, a.records
+    survivor = a.world.parallel
+    ops = [OperatingPoint(**o.operating_point) for o in rep.outcomes[:2]]
+    sched_end, sched_step, a_peak = ending(a), a.step, peak()
+    log("schedule", f"A: {cfg.name} full width, batch {TRAIN['batch']} x {TRAIN['seq']}, {len(a.devices)} ranks, "
+                    f"WorldPool(capacity=2), through ElasticScheduler -> WireEndpoint -> ControllerEndpoint "
+                    f"(sync_prepare, a clock of a step each {STEP_CLOCK_S:.0f} trace s): "
+                    + "; ".join(f"{o.kind} -> {o.target} {o.decision}/{o.outcome}" for o in rep.outcomes)
+                    + f"; adopted {adopted.reused_layers} layers, recovered to {survivor.describe()} from "
+                      f"{recovered.donors} donors ({recovered.executed_bytes / 1e9:.4f} GB, pause "
+                      f"{recovered.total_pause_s:.4f} s); {rep.steps} steps, {time.perf_counter() - t0:.1f}s, "
+                      f"peak {a_peak:.2f} GB")
+    del a, adopted, recovered
+
+    t0 = time.perf_counter()
+    b = fresh(overlap="stream")
+    for _ in range(k):
+        b.train_steps(1)
+    b.request_resize(DP2TP4, overlap="stream", operating_point=ops[0])
+    b.wait_shadow_ready()
+    b.train_steps(1)
+    b.retarget_resize(DP1TP4, overlap="stream", operating_point=ops[1])
+    b.wait_shadow_ready()
+    b.train_steps(1)
+    b.cancel_resize(outcome="retargeted")
+    b.fail_stop_recover(survivor, devices_failed=True, lost_ranks=(2, 3))
+    for _ in range(SCHEDULE["tail"]):
+        b.train_steps(1)
+    _zero_counts()  # the direct run is the comparison, not the path
+    direct_end, direct_step = ending(b), b.step
+    log("schedule", f"A: the same commands made directly in {time.perf_counter() - t0:.1f}s, peak {peak():.2f} GB: "
+                    f"step {direct_step} against {sched_step}, the state's digest equal "
+                    f"{direct_end[0] == sched_end[0]}, the next {SCHEDULE['after']} losses {direct_end[1]} against "
+                    f"{sched_end[1]}")
+    assert direct_step == sched_step and direct_end == sched_end, "the scheduler's run differs from the direct one"
+    del b
+
+    # Part B: the lattice on the card's own timings, the wall clock at
+    # time scale 1, the int8 moment wire, the real estimator, prefetch on
+    t0 = time.perf_counter()
+    c = fresh(wire_policy=WirePolicy())
+    ep = Estimates(WireEndpoint(ControllerEndpoint(c, prefetch_k=SCHEDULE["prefetch_k"])))
+    _zero_counts()
+    sched = ElasticScheduler(ep, time_scale=1.0, safety=safety, tail_steps=SCHEDULE["tail"])
+    events: list[dict] = []
+
+    def estimate(target):
+        return ep.handle(pr.QueryEstimate(target=target)).estimate
+
+    def run(scheduler, target, window, wanted):
+        seen = len(ep.seen)
+        records = len(c.records)
+        report = scheduler.run([ResizeEvent(scheduler.clock, target, window)])
+        out = report.outcomes[-1]
+        used = ep.seen[seen] if len(ep.seen) > seen else None
+        assert used is not None and len(c.records) == records + 1, (ep.seen[seen:], c.records[records:])
+        events.append({"o": out, "est": used, "rec": c.records[-1], "override": scheduler.mode_override,
+                       "report": report})
+        assert out.decision_lossless, out
+        if scheduler.mode_override is None:
+            assert out.decision == choose_mode(used, out.window_s, safety, 1.0), (out, used)
+            assert out.decision_lossless == choose_mode(used, out.window_s, safety, 1.0, lossless=True), out
+        assert (out.decision, out.outcome) == wanted, (out, used)
+        return used
+
+    # 1. unbounded: a stream, which gives the estimator its history
+    run(sched, DP2TP4, inf, ("stream", "committed"))
+    # 2. a window between the two totals of the estimate read just before it
+    est = estimate(DP2TP2)
+    lo, hi = safety * est.stop_copy_total_s, safety * est.stream_total_s
+    assert lo < hi, est
+    run(sched, DP2TP2, (lo + hi) / 2, ("stop_copy", "committed"))
+    # 3. no window, the peers cover the state
+    assert estimate(DP1TP2).peer_ok
+    run(sched, DP1TP2, 0.0, ("peer_recover", "committed"))
+    # 4. a stream forced on a window that fits only stop-copy, near its
+    # lower end: escalated. Its Prepare is waited for (sync_prepare), so that
+    # the escalation finds the shadow ready and the window's end, with the
+    # peers' rung beneath it, does not come first
+    est = estimate(DP1TP4)
+    lo, hi = safety * est.stop_copy_total_s, safety * est.stream_total_s
+    window = lo + 0.1 * (hi - lo)
+    assert choose_mode(est, window, safety, 1.0) == "stop_copy", est
+    forced = ElasticScheduler(ep, time_scale=1.0, safety=safety, tail_steps=SCHEDULE["tail"], mode_override="stream",
+                              sync_prepare=True)
+    used = run(forced, DP1TP4, window, ("stream", "fell_back"))
+    assert choose_mode(used, window, safety, 1.0) == "stop_copy", used
+    _take_counts(path)  # ... and are read here
+    b_peak = peak()
+    report = events[-1]["report"]  # the endpoint's ledger over the whole of Part B
+    escalations = sum(e["rec"].outcome == "fell_back" and e["rec"].mode != "fallback" for e in events)
+    peer = sum(e["rec"].mode == "peer_recover" for e in events)
+    assert (escalations, peer) == (1, 1), [(e["rec"].mode, e["rec"].outcome) for e in events]
+    for i, e in enumerate(events):
+        o, est, rec = e["o"], e["est"], e["rec"]
+        pause_est = {"stream": est.stream_pause_s, "stop_copy": est.stop_copy_pause_s,
+                     "peer_recover": est.peer_pause_s}[o.decision]
+        if rec.outcome == "fell_back":
+            pause_est = est.stop_copy_pause_s  # the escalation commits by stop-copy
+        log("schedule", f"B{i + 1}: {rec.src} -> {rec.dst}, window {o.window_s:.4f} s, decision {o.decision}"
+                        + (f" (mode_override; choose_mode gives {choose_mode(est, o.window_s, safety, 1.0)})"
+                           if e["override"] else "")
+                        + f", decision_lossless {o.decision_lossless}, outcome {o.outcome} ({rec.mode}); "
+                          f"prepare_s est {est.prepare_s:.4f} ({'warm' if est.warm else 'cold'}) measured "
+                          f"{rec.prepare_s:.4f} [{rec.prepare_source}]; pause est {pause_est:.4f} measured "
+                          f"{o.pause_s:.4f} s; est totals stream {est.stream_total_s:.4f} stop-copy "
+                          f"{est.stop_copy_total_s:.4f} s (rounds {est.rounds}, step {est.step_s:.4f} s, wire "
+                          f"{est.wire_bytes / 1e9:.4f} GB at {est.measured_bw / 1e9:.2f} GB/s measured); "
+                          f"met_deadline {o.met_deadline} (trigger to commit "
+                          f"{o.commit_clock_s - o.time_s:.4f} s on the trace clock); operating point "
+                          f"{o.operating_point}")
+    log("schedule", f"B: {len(events)} events in {time.perf_counter() - t0:.1f}s, {sched.total_steps + forced.total_steps} "
+                    f"steps; ScheduleReport goodput {report.goodput:.6f}, pause_seconds {report.pause_seconds:.4f}; "
+                    f"speculative builds started by PrefetchPolicy {ep.prefetch.started}, pool "
+                    f"{c.world_pool.stats.to_dict()}; peak {b_peak:.2f} GB")
+    del c, ep, events, report
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_peak = max(peaks)
+    log("schedule", f"peak memory {phase_peak:.2f} GB (train phase {train_peak_gb:.2f} GB); launches {path}")
+    assert phase_peak <= TOL_PEAK * train_peak_gb, f"peak {phase_peak:.2f} GB: a second set of the state?"
+    for name in ("flash_attention", "flash_attention_bwd", "pack_rows", "scatter_rows", "pack_quant_rows",
+                 "dequant_scatter_rows"):
+        assert path[name] > 0, f"{name} was not launched on the schedule path"
+    return path
+
+
 def _record(name, source, replaces, launches, err, ms, plain_ms, bound_ms, bound_by, library_ms, **extra) -> dict:
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches,
             "max_abs_err": err, "max_err": err, "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
@@ -2640,12 +2897,13 @@ def main() -> int:
     ssm_elastic_launches = phase_elastic("mamba2-2.7b")
     ssd = phase_ssd_times(ssm_launches, max(ssd_err, ssm_err))
     rms = phase_rms_times(rms_err)
+    schedule_launches = phase_schedule(train_peak_gb)  # last: see the module docstring, 23
     # each record's launches: its counts on the main paths, each counted
     # from zero just before its run and read just after. No path runs
     # rmsnorm: as in the JAX package, the model's norms are plain and only
     # ops.rmsnorm reaches the kernel (phases 18 and 22)
     paths = {"serve": {"flash_attention": launches}, "elastic": elastic_launches, "train": train_launches,
-             "lifecycle": lifecycle_launches, "recovery": recovery_launches,
+             "lifecycle": lifecycle_launches, "recovery": recovery_launches, "schedule": schedule_launches,
              "serve_mamba2": {"ssd_intra_chunk": ssm_launches}, "elastic_mamba2": ssm_elastic_launches}
     records = [record, *rows, bwd, *quants, ssd, rms]
     for rec in records:

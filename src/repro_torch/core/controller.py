@@ -37,14 +37,20 @@ A build superseded before it ended (a retarget or cancel during Prepare)
 allocates nothing once it sees that, and the next Prepare allocates only
 after it has ended and dropped whatever it held.
 
-The JAX API, with ``device=`` in place of its device list: every rank of
+The JAX API, with ``device=`` beside its device list: every rank of
 every world maps to that one device (the card by default; a CUDA request
 without one raises), and ``params=`` (a param tree to train in place of
 the seeded init, e.g. the JAX package's weights through
-``models.convert.params_from_jax``). The step count, the one piece of
-state outside the resource view, goes through the plan-less
-``live_reshard`` at every commit and recovery, as in the JAX controller;
-on one card it is already on the new world's device and passes through.
+``models.convert.params_from_jax``). ``devices=`` is the rank pool, the
+JAX controller's device list: its length is the device count the prefetch
+policy's topology search plans within (``elastic/endpoint.py``), and every
+entry must be ``device``. It defaults to ``DEFAULT_RANK_POOL`` = 8 ranks,
+where the JAX controller defaults to every device it sees. A world still
+maps each of its ranks to the one device whatever its size. The step
+count, the one piece of state outside the resource view, goes through the
+plan-less ``live_reshard`` at every commit and recovery, as in the JAX
+controller; on one card it is already on the new world's device and
+passes through.
 
 Fail-stop recovery (DESIGN.md §15), as in the JAX controller:
 ``fail_stop_recover`` recovers from the surviving peers in memory (the DP
@@ -65,8 +71,7 @@ has no compile cache to warm: they load the kernel libraries the transfer
 launches and plan the survivor-constrained pair, whose plan the recovery
 then takes, and move no byte (a throwaway transfer at full width would be
 two more sets of the state). The control plane that drives these verbs
-(the scheduler, its protocol and endpoints) is not ported yet (ROADMAP
-queue 1 item 9).
+from an event stream is ``elastic/{protocol,endpoint,scheduler}.py``.
 """
 
 from __future__ import annotations
@@ -107,6 +112,8 @@ __all__ = ["LiveRController", "ReconfigRecord"]
 
 # speculative world builds in flight at once (``prefetch_world``)
 MAX_SPEC_BUILDS = 1
+# ranks in the default rank pool (``devices=``)
+DEFAULT_RANK_POOL = 8
 
 
 @dataclass
@@ -190,6 +197,7 @@ class LiveRController:
         wire_policy=None,
         parity_every: int = 0,
         params: Optional[dict] = None,
+        devices: Optional[list] = None,
     ):
         if overlap not in ("stop_copy", "stream"):
             raise ValueError(f"overlap={overlap!r}: want 'stop_copy' or 'stream'")
@@ -199,6 +207,12 @@ class LiveRController:
         self.global_batch = global_batch
         self.staging_bytes = staging_bytes
         self.device = _resolve(device)
+        self.devices = [self.device] * DEFAULT_RANK_POOL if devices is None else [_resolve(d) for d in devices]
+        if not self.devices or any(d != self.device for d in self.devices):
+            raise ValueError(
+                f"devices={sorted(set(map(str, self.devices)))}: every rank of the pool must be "
+                f"device={self.device} (placing ranks on several cards is not ported yet)"
+            )
         self.microbatches = microbatches
         self.compression = compression
         self.overlap = overlap

@@ -4,9 +4,8 @@ The fallback lattice (elastic/scheduler.py) picks a *rung* — stream,
 stop-copy, checkpoint — but until now the rung's *operating point* was
 hand-set: ``stream_k = 4`` layers per pre-copy round (overlap.py) and the
 paper's 512 MB staging budget (engine.py). Both are now documented
-fallbacks: when the deadline scheduler's estimator (the JAX package's
-``elastic/scheduler.py``, not ported yet: ROADMAP queue 1 item 9) has
-measured bandwidth and step-time history, :func:`tune_operating_point`
+fallbacks: when the :class:`~repro_torch.elastic.endpoint.DeadlineEstimator`
+has measured bandwidth and step-time history, :func:`tune_operating_point`
 derives the round size, chunk size and staging budget for a specific
 (plan remote bytes, warning window) pair.
 
