@@ -125,8 +125,7 @@ non-zero without one. Phases, each printing one line or more:
    block route);
 17. the SSD intra-chunk kernel against its plain version (TF32 off): the
    JAX kernel tests' shapes, reduced mamba2's chunk, a ragged sequence
-   through ``ops.ssd_scan``, the serving shape, x in f32 and bf16; and a
-   gradient through the card's scan raises;
+   through ``ops.ssd_scan``, the serving shape, x in f32 and bf16;
 18. the RMSNorm kernel against its plain version: rows 1-300, d 128, 256,
    2048, 2560, 2561 and 6400 and a misaligned row, f32 and bf16, both
    bodies (the row in registers, and the two-read body for a d above the
@@ -173,6 +172,39 @@ non-zero without one. Phases, each printing one line or more:
    card's machine ``torch.profiler`` loses more of a trace's device
    records the later the trace comes in a run, and run after phase 15
    this phase left the traces of phases 16 and 22 with none.
+   Phases 24-28 run before it.
+24. the SSD backward kernel (``csrc/ssd_scan_bwd.cu``) against the plain
+   backward ``ref.ssd_intra_chunk_bwd_ref`` (TF32 off): the JAX kernel
+   tests' shapes, reduced mamba2's chunk 8 and state 16, the training shape
+   (4 x 1024 tokens, 80 heads of 64, state 128, chunk 64), x in f32 and
+   bf16, each at the spans drawn and at a chunk span past 88 (where the
+   JAX reference's gradient is NaN); every output finite, within its
+   tolerance, a second launch bitwise equal; ``ops.ssd_scan`` on a ragged
+   sequence with an initial state, the gradients of x, dt, A, B, C and the
+   state against the same glue around ``SSDIntraChunkRef``; each bad
+   argument refused;
+25. the backward's times at the training shape (CUDA events, median of 30;
+   and its two kernels alone on the device): beside the plain backward,
+   autograd of the plain forward and the bound;
+26. mamba2-2.7b trained at full width and depth (64 layers, d_model 2560,
+   fp32 params, bf16 compute, AdamW, remat per layer), batch 4 x 1024 on
+   dp2tp2 under ``LiveRController``: the first step's gradients against
+   the same step through ``SSDIntraChunkRef`` (plain forward and backward
+   on the card), leaf by leaf, in f32 compute within a tolerance and in
+   the run's bf16 compute against one f32 ulp of noise on the plain
+   block's outputs (bf16 roundings through 64 layers move every gradient
+   by ~7% for either); 4 steps of finite losses, 2 x 64 forward and
+   64 backward SSD launches a step; a second run from the same seed
+   bitwise equal (losses and a digest of the state); the median step time,
+   tokens/s, peak memory, and one step under ``torch.profiler`` (busy
+   share, the SSD backward's share);
+27. live-resized mamba2 training at full width and 48 of its 64 layers:
+   dp2tp2 -> dp1tp2 by stop-copy, then dp1tp2 -> dp2tp2 streamed with the
+   split-step commit, lossless; the machine's history passes through
+   prepare, ready, switch, cleanup and stable; the losses and the state's
+   digest bitwise those of a control run never resized; each commit's
+   pause, Prepare and bytes, the peak;
+28. ``sim/calibrate.measure`` on the card: every constant.
 The second-to-last line is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.
 
@@ -1510,11 +1542,13 @@ def phase_start_types() -> None:
 def _all_counts() -> dict:
     return {"flash_attention": fa.launches, "flash_attention_bwd": fa.bwd_launches,
             "flash_attention_tc": fa.tc_launches, "flash_attention_bwd_tc": fa.tc_bwd_launches,
+            "ssd_intra_chunk": ssd_k.launches, "ssd_intra_chunk_bwd": ssd_k.bwd_launches,
             **rp.launches, **rq.launches, **{f"pack_quant_rows_{k}": v for k, v in rq.route_launches.items()}}
 
 
 def _zero_counts() -> None:
     fa.launches = fa.bwd_launches = fa.tc_launches = fa.cc_launches = fa.tc_bwd_launches = fa.cc_bwd_launches = 0
+    ssd_k.launches = ssd_k.bwd_launches = 0
     for counts in (rp.launches, rq.launches, rq.route_launches):
         for k in counts:
             counts[k] = 0
@@ -2570,8 +2604,8 @@ def ssd_kernel_vs_plain(x, dt, cum, B, C, chunk) -> float:
 def phase_ssd_cases() -> float:
     """The SSD kernel against its plain version, TF32 off for the plain
     version's products; a ragged sequence through ``ops.ssd_scan`` (padded
-    with dt = 0) against the plain scan; a gradient through the card's scan
-    raises. Returns the worst error at the serving shape."""
+    with dt = 0) against the plain scan (its gradients: phase_ssd_bwd_cases).
+    Returns the worst error at the serving shape."""
     worst = 0.0
     for dtype in (torch.float32, torch.bfloat16):
         for i, case in enumerate(SSD_CASES + [SSD_SERVE_SHAPE]):
@@ -2599,14 +2633,6 @@ def phase_ssd_cases() -> float:
                    f"max |plain| {err:.3e} over y and the final state (tol {SSD_TOL:g})")
         assert err <= SSD_TOL, f"ops.ssd_scan disagrees with the plain scan at s={s}"
     x, dt, A, B, C, _ = ssd_inputs(SSD_CASES[0], torch.float32, seed=1)
-    xg = x.clone().requires_grad_(True)
-    try:
-        ops.ssd_scan(xg, dt, A, B, C, SSD_CASES[0][-1])[0].sum().backward()
-    except NotImplementedError as e:
-        assert "ROADMAP" in str(e)
-        log("ssd", f"a gradient through the card's scan raises: {e}")
-    else:
-        raise AssertionError("a gradient through the card's SSD scan did not raise")
     for why, call in {
         "a sequence not a multiple of the chunk": lambda: ssd_k.ssd_intra_chunk_cuda(
             x[:, :60].contiguous(), dt[:, :60].contiguous(), dt[:, :60].contiguous(), B[:, :60].contiguous(),
@@ -2863,6 +2889,491 @@ def phase_rms_times(err: float, rounds: int = 5) -> dict:
                    err_is="max |error|, bf16 (within one bf16 step of the plain version)")
 
 
+# ---------------------------------------------------------------------------
+# Slice 13: the SSD backward kernel; training and live-resizing mamba2-2.7b
+# ---------------------------------------------------------------------------
+
+# the training path's SSD block: batch 4 x 1024 tokens, 80 heads of 64,
+# state 128, chunk 64
+SSD_TRAIN_SHAPE = (4, 1024, 80, 64, 128, 64)
+SSD_BWD_NAMES = ("dx", "ddt", "dcum", "dB", "dC")
+# the backward's f32 outputs against the plain backward, relative to the
+# largest |plain| value: f32 sums in another order. The plain backward in
+# f32 is within 5.1e-7 of the same in f64 on these shapes and spans
+# (tests/test_torch_ssd_bwd.py), so the forward's SSD_TOL leaves a margin of
+# ~40. A bf16 dx is rounded from f32 sums that differ in their last bits:
+# within one bf16 step at its magnitude plus that f32 bound (where a sum
+# cancels to near 0, the f32 error exceeds the value's own step).
+SSD_BWD_TOL = SSD_TOL
+# the mean span |sum dt*A| of a chunk in the overflow cases: A is scaled so
+# that exp(cum_t - cum_s) above the diagonal (s > t) overflows f32 (~88)
+SSD_SPAN = 150.0
+# ops.ssd_scan's gradients: mamba2's head dim and state on a ragged sequence
+SSD_SCAN_CASE = (2, 300, 8, 64, 128, 64)
+MAMBA_TRAIN = dict(arch="mamba2-2.7b", batch=4, seq=1024, steps=4)
+# the first step's gradients, the kernels against SSDIntraChunkRef on the
+# same glue, leaf by leaf as ||g - g_plain|| / ||g_plain||. In f32 compute
+# at full width and depth: within MAMBA_GRAD_TOL (the kernels measured
+# 1.6e-5 to 1.8e-5, and one f32 ulp of noise on the plain block's outputs
+# 1.4e-5 to 1.5e-5, on an H100 80GB HBM3 at 700 W). In bf16 compute (the
+# run's) any f32 rounding of y_intra flips bf16 roundings of the activations, which 64 layers carry to
+# ~7% of every gradient (both measured 2.6e-2 to 7.9e-2): there the kernels
+# may move a leaf at most MAMBA_NOISE_RATIO times as far as that one-ulp
+# noise does (measured 0.97-1.07x)
+MAMBA_GRAD_TOL = 1e-4
+MAMBA_NOISE_RATIO = 2.0
+# the elastic phase: 48 of mamba2's 64 layers (the cut is its docstring's)
+MAMBA_ELASTIC = dict(layers=48, before=2, after=2, stream_k=8)
+
+
+def ssd_bwd_inputs(case, dtype, seed, span=None):
+    """``ssd_inputs`` with A scaled so that a chunk's mean span is ``span``
+    (None: as drawn), and the output gradients dy, dS: x, dt, A, B, C, cum,
+    dy, dS on the card."""
+    b, s, h, p, n, chunk = case
+    x, dt, A, B, C, cum = ssd_inputs(case, dtype, seed)
+    if span is not None:
+        A = A * (span / (-cum.reshape(b, s // chunk, chunk, h)[:, :, -1]).mean())
+        cum = torch.cumsum(dt.reshape(b, s // chunk, chunk, h) * A, dim=2).reshape(b, s, h)
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    dy = torch.randn(b, s, h, p, generator=g, device="cuda")
+    dS = torch.randn(b, s // chunk, h, p, n, generator=g, device="cuda")
+    return x, dt, A, B, C, cum, dy, dS
+
+
+def _bf16_units(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| over one bf16 step at want's magnitude plus
+    SSD_BWD_TOL of max |want|."""
+    w = want.float()
+    step = torch.exp2(torch.floor(torch.log2(w.abs().clamp_min(2.0**-126))) - 7)
+    return ((got.float() - w).abs() / (step + SSD_BWD_TOL * w.abs().max())).max().item()
+
+
+def _grad_errors(names, got, want) -> dict:
+    """Each gradient's error against the plain one, in units of its
+    tolerance: max |error| / max |plain| over SSD_BWD_TOL in f32, ``_bf16_units``
+    in bf16."""
+    out = {}
+    for name, g, w in zip(names, got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype, (name, g.shape, g.dtype, w.shape, w.dtype)
+        assert torch.isfinite(g.float()).all(), f"SSD backward: {name} is not finite"
+        assert torch.isfinite(w.float()).all(), f"the plain SSD backward: {name} is not finite"
+        if g.dtype == torch.bfloat16:
+            out[name] = _bf16_units(g, w)
+        else:
+            out[name] = (g - w).abs().max().item() / w.abs().max().item() / SSD_BWD_TOL
+    return out
+
+
+def ssd_bwd_vs_plain(x, dt, cum, B, C, dy, dS, chunk) -> dict:
+    """The backward kernel against the plain backward on the same inputs:
+    every output finite, of the plain version's shape and dtype, the same
+    bits in a second launch; each output's error in units of its tolerance
+    (``_grad_errors``)."""
+    before = ssd_k.bwd_launches
+    got = ssd_k.ssd_intra_chunk_bwd_cuda(x, dt, cum, B, C, dy, dS, chunk)
+    again = ssd_k.ssd_intra_chunk_bwd_cuda(x, dt, cum, B, C, dy, dS, chunk)
+    want = R.ssd_intra_chunk_bwd_ref(x, dt, cum, B, C, dy, dS, chunk)
+    torch.cuda.synchronize()
+    assert ssd_k.bwd_launches == before + 2, "a backward call is not one counted launch"
+    for name, g, a in zip(SSD_BWD_NAMES, got, again):
+        assert torch.equal(_bytes(g), _bytes(a)), f"SSD backward: {name} differs between two launches"
+    return _grad_errors(SSD_BWD_NAMES, got, want)
+
+
+def phase_ssd_bwd_cases() -> float:
+    """The SSD backward kernel against the plain backward (TF32 off), every
+    case in x f32 and bf16, at the spans drawn and past exp's overflow: the
+    JAX kernel tests' shapes, reduced mamba2's chunk 8 and state 16, the
+    training shape; ``ops.ssd_scan`` on a ragged sequence with an initial
+    state, every input's gradient against the same glue around
+    ``SSDIntraChunkRef``; each bad argument refused. Returns the worst f32
+    error at the training shape (max |error| / max |plain|)."""
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for i, case in enumerate(SSD_CASES + [SSD_TRAIN_SHAPE]):
+            b, s, h, p, n, chunk = case
+            for span in (None, SSD_SPAN):
+                x, dt, A, B, C, cum, dy, dS = ssd_bwd_inputs(case, dtype, 300 + i, span)
+                reach = (-cum.reshape(b, s // chunk, chunk, h)[:, :, -1]).max().item()
+                errs = ssd_bwd_vs_plain(x, dt, cum, B, C, dy, dS, chunk)
+                log("ssd-bwd", f"ssd_intra_chunk_bwd {case} x {str(dtype)[6:]}, largest chunk span {reach:.1f}: "
+                               + ", ".join(f"{k} {v:.3f}" for k, v in errs.items())
+                               + f" of the tolerance ({SSD_BWD_TOL:g} of max |plain|; a bf16 dx one bf16 step more); "
+                                 "finite; a second launch bitwise equal")
+                assert max(errs.values()) <= 1.0, f"SSD backward disagrees with the plain backward on {case}"
+                if span is not None:
+                    assert reach > 88, f"the overflow case's span {reach} does not pass 88"
+                if case == SSD_TRAIN_SHAPE:
+                    worst = max(worst, max(v for k, v in errs.items() if k != "dx" or dtype == torch.float32))
+                del x, dt, A, B, C, cum, dy, dS
+    b, s, h, p, n, chunk = SSD_SCAN_CASE
+    for dtype in (torch.float32, torch.bfloat16):
+        x, dt, A, B, C, _, _, _ = ssd_bwd_inputs((b, s + (-s) % chunk, h, p, n, chunk), dtype, 400)
+        x, dt, B, C = (t[:, :s].contiguous() for t in (x, dt, B, C))
+        g = torch.Generator(device="cuda").manual_seed(401)
+        h0 = torch.randn(b, h, p, n, generator=g, device="cuda")
+        gy = torch.randn(b, s, h, p, generator=g, device="cuda")
+        gf = torch.randn(b, h, p, n, generator=g, device="cuda")
+        leaves = (x, dt, A, B, C, h0)
+
+        def grads(scan):
+            ins = [t.detach().clone().requires_grad_(True) for t in leaves]
+            y, final = scan(*ins)
+            return y.detach(), final.detach(), torch.autograd.grad((y, final), ins, (gy, gf))
+
+        before = (ssd_k.launches, ssd_k.bwd_launches)
+        yk, fk, gk = grads(lambda x, dt, A, B, C, h0: ops.ssd_scan(x, dt, A, B, C, chunk, init_state=h0))
+        yp, fp, gp = grads(lambda x, dt, A, B, C, h0: ops.ssd_scan_chunked(
+            x, dt, A, B, C, chunk, h0, R.SSDIntraChunkRef.apply))
+        torch.cuda.synchronize()
+        assert (ssd_k.launches, ssd_k.bwd_launches) == (before[0] + 1, before[1] + 1), "not one launch of each"
+        errs = {"y": (yk - yp).abs().max().item() / yp.abs().max().item() / SSD_TOL,
+                "final": (fk - fp).abs().max().item() / fp.abs().max().item() / SSD_TOL}
+        errs.update(_grad_errors(("dx", "ddt", "dA", "dB", "dC", "dinit_state"), gk, gp))
+        log("ssd-bwd", f"ops.ssd_scan {SSD_SCAN_CASE[:5]}, ragged s {s} of chunk {chunk}, x {str(dtype)[6:]}, "
+                       "a nonzero initial state, against ssd_scan_chunked around SSDIntraChunkRef: "
+                       + ", ".join(f"{k} {v:.3f}" for k, v in errs.items()) + " of the tolerance")
+        assert max(errs.values()) <= 1.0, f"ops.ssd_scan's gradients disagree with the plain glue's ({dtype})"
+    x, dt, A, B, C, cum, dy, dS = ssd_bwd_inputs(SSD_CASES[1], torch.float32, 1)
+    chunk = SSD_CASES[1][-1]
+    bwd = ssd_k.ssd_intra_chunk_bwd_cuda
+    before = ssd_k.bwd_launches
+    for why, call in {
+        "dy of the wrong shape": lambda: bwd(x, dt, cum, B, C, dy[:, :64].contiguous(), dS, chunk),
+        "dS in bf16": lambda: bwd(x, dt, cum, B, C, dy, dS.bfloat16(), chunk),
+        "a dy that is not contiguous": lambda: bwd(x, dt, cum, B, C, dy.transpose(1, 2).contiguous().transpose(1, 2),
+                                                   dS, chunk),
+        "dS on the CPU": lambda: bwd(x, dt, cum, B, C, dy, dS.cpu(), chunk),
+        "x in float16": lambda: bwd(x.half(), dt, cum, B, C, dy, dS, chunk),
+        "chunk 128": lambda: bwd(x, dt, cum, B, C, dy, dS, 128),
+        "a sequence not a multiple of the chunk": lambda: bwd(*(t[:, :120].contiguous() for t in (x, dt, cum, B, C, dy)),
+                                                              dS, chunk),
+    }.items():
+        try:
+            call()
+        except ValueError:
+            log("ssd-bwd", f"refused {why}")
+        else:
+            raise AssertionError(f"SSD backward accepted {why}")
+    assert ssd_k.bwd_launches == before, "a refused call launched"
+    return worst
+
+
+def ssd_bwd_flops(case) -> int:
+    """The least f32 work of the backward: C.B^T over the causal half of a
+    chunk once a (batch row, chunk); a head's G = dy.x^T and M^T.dy over the
+    causal half, dS.B_s and dS^T.x_s over every step, D.B and D^T.C over
+    the causal half (2 FLOPs a multiply-add)."""
+    b, s, h, p, n, chunk = case
+    pairs = chunk * (chunk + 1) // 2
+    return b * (s // chunk) * (2 * n * pairs + h * (4 * p * pairs + 4 * chunk * p * n + 4 * n * pairs))
+
+
+def phase_ssd_bwd_times(launches: int, err: float) -> dict:
+    """The SSD backward at the training shape (x bf16): the call (CUDA
+    events, median of 30) and its two kernels alone on the device (the
+    profiler), beside the plain backward, autograd of the plain forward and
+    the card's bound. No single PyTorch call computes it."""
+    b, s, h, p, n, chunk = SSD_TRAIN_SHAPE
+    x, dt, A, B, C, cum, dy, dS = ssd_bwd_inputs(SSD_TRAIN_SHAPE, torch.bfloat16, seed=98)
+    case_err = max(v for k, v in ssd_bwd_vs_plain(x, dt, cum, B, C, dy, dS, chunk).items() if k != "dx")
+    kernel = lambda: ssd_k.ssd_intra_chunk_bwd_cuda(x, dt, cum, B, C, dy, dS, chunk)  # noqa: E731
+    kernel_ms = median_ms(kernel)
+    on_device_ms = device_ms(kernel, ("ssd_intra_chunk_bwd_kernel", "sum_groups_kernel"),
+                             per_call=lambda: ssd_k.bwd_launches)
+    plain_ms = median_ms(lambda: R.ssd_intra_chunk_bwd_ref(x, dt, cum, B, C, dy, dS, chunk))
+    ins = [t.detach().clone().requires_grad_(True) for t in (x, dt, cum, B, C)]
+    y, S = R.ssd_intra_chunk_ref(*ins, chunk)
+    autograd_ms = median_ms(lambda: torch.autograd.grad((y, S), ins, (dy, dS), retain_graph=True))
+    del y, S, ins
+    outs = kernel()
+    # each input read once, each output written once
+    nbytes = sum(t.numel() * t.element_size() for t in (x, dt, cum, B, C, dy, dS, *outs))
+    flops = ssd_bwd_flops(SSD_TRAIN_SHAPE)
+    bytes_ms, flops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOP_PER_S * 1e3
+    # the card's fastest f32-accurate products are on the tensor cores, three
+    # TF32 products each (the 3xTF32 split the forward kernel uses): the least
+    # time is the larger of the bytes and that; the CUDA cores' f32 bound,
+    # where this kernel does its products, is reported beside it
+    tc_ms = 3 * flops / TF32_FLOP_PER_S * 1e3
+    bound_ms = max(bytes_ms, tc_ms)
+    log("times", f"ssd_intra_chunk_bwd {SSD_TRAIN_SHAPE} x bf16: kernel {kernel_ms:.4f} ms (its two kernels on the "
+                 f"device {on_device_ms:.4f} ms, {flops / on_device_ms / 1e9:.2f} TFLOP/s of the useful f32 work), "
+                 f"plain backward {plain_ms:.4f} ms, autograd of the plain forward {autograd_ms:.4f} ms, library "
+                 f"none, bound {bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB -> {bytes_ms:.4f} ms; {flops / 1e9:.2f} "
+                 f"GFLOP f32 as 3xTF32 on the tensor cores -> {tc_ms:.4f} ms, on the CUDA cores -> "
+                 f"{flops_ms:.4f} ms), worst f32 error {case_err:.3f} of the tolerance")
+    return _record("ssd_intra_chunk_bwd", "src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
+                   "src/repro/kernels/ssd_scan.py:86 (backward; the TPU kernel has none)", launches,
+                   max(err, case_err) * SSD_BWD_TOL, kernel_ms, plain_ms, bound_ms,
+                   "bytes" if bytes_ms >= tc_ms else "operations", None, device_ms=on_device_ms,
+                   autograd_ms=autograd_ms, bytes_bound_ms=bytes_ms, tensor_core_bound_ms=tc_ms,
+                   f32_cuda_core_bound_ms=flops_ms,
+                   shape=list(SSD_TRAIN_SHAPE),
+                   err_is="max |error| / max |plain| over ddt, dcum, dB and dC (and dx in f32), the cases at the "
+                          "training shape and the timed inputs")
+
+
+class _OneUlp(torch.autograd.Function):
+    """The plain block whose outputs carry one f32 ulp of seeded noise
+    (each element times 1 + k 2^-23, k in {-1, 0, 1}), with the plain
+    backward: how far rounding alone moves what comes after the block."""
+
+    @staticmethod
+    def forward(ctx, x, dt, cum, B, C, chunk: int):
+        ctx.save_for_backward(x, dt, cum, B, C)
+        ctx.chunk = chunk
+        g = torch.Generator(device=x.device).manual_seed(17)
+        return tuple(t * (1 + (torch.randint(0, 3, t.shape, generator=g, device=t.device) - 1) * 2.0**-23)
+                     for t in R.ssd_intra_chunk_ref(x, dt, cum, B, C, chunk))
+
+    @staticmethod
+    def backward(ctx, dy, dS):
+        x, dt, cum, B, C = ctx.saved_tensors
+        return (*R.ssd_intra_chunk_bwd_ref(x, dt, cum, B, C, dy, dS, ctx.chunk), None)
+
+
+def _grads_against_plain(grad_fn, params, batch, noise: bool = False) -> dict:
+    """``grad_fn``'s gradients through the kernels (and, with ``noise``,
+    through ``_OneUlp``), each leaf against the same through
+    ``SSDIntraChunkRef``: {"kernels": {path: ||g - g_plain|| / ||g_plain||},
+    "one ulp": ...}. One other set of gradients is held at a time."""
+    from repro_torch.utils.pytree import tree_paths
+
+    orig = ssd_k.ssd_intra_chunk
+
+    def grads(intra):
+        ssd_k.ssd_intra_chunk = intra
+        try:
+            return tree_paths(grad_fn(params, batch)[2])
+        finally:
+            ssd_k.ssd_intra_chunk = orig
+
+    plain = grads(R.SSDIntraChunkRef.apply)
+    out = {}
+    for name, intra in [("kernels", orig)] + ([("one ulp", _OneUlp.apply)] if noise else []):
+        got = grads(intra)
+        assert all(torch.isfinite(g).all() for g in got.values()), f"{name}: a gradient is not finite"
+        out[name] = {p: ((g - plain[p]).norm() / plain[p].norm()).item() for p, g in got.items()}
+        del got
+    return out
+
+
+def _mamba_opt():
+    from repro_torch.optim import AdamWConfig
+
+    return AdamWConfig(learning_rate=1e-4, warmup_steps=2, total_steps=1000)
+
+
+def phase_train_mamba2() -> tuple[dict, float]:
+    """mamba2-2.7b trained at full width and depth (see the module
+    docstring, 26). Returns the launches of the path and the peak memory."""
+    import gc
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.controller import LiveRController
+    from repro_torch.distribution.step import make_grad_fn
+
+    cfg = get_config(MAMBA_TRAIN["arch"])
+    kw = dict(seq_len=MAMBA_TRAIN["seq"], global_batch=MAMBA_TRAIN["batch"], device="cuda")
+    steps, layers = MAMBA_TRAIN["steps"], cfg.num_layers
+    gc.collect()
+    torch.cuda.empty_cache()
+    # a first step's gradients in f32 compute (the run's init, a seeded
+    # batch), the kernels against the plain block with its written-out backward
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params = M.init_params(cfg32, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (MAMBA_TRAIN["batch"], MAMBA_TRAIN["seq"]),
+                                     generator=torch.Generator().manual_seed(0)).to("cuda")}
+    rel32 = _grads_against_plain(make_grad_fn(cfg32), params, batch)["kernels"]
+    del params
+    worst32 = max(rel32.values())
+    log("train-ssm", f"first step's gradients in f32 compute, the kernels against SSDIntraChunkRef (plain forward and "
+                     f"backward on the card): {len(rel32)} leaves, ||g - g_plain|| / ||g_plain|| at most "
+                     f"{worst32:.3e} (tol {MAMBA_GRAD_TOL:g}; {max(rel32, key=rel32.get)})")
+    assert worst32 <= MAMBA_GRAD_TOL, "the kernels' f32 gradients disagree with the plain block's"
+
+    ctrl = LiveRController(cfg, ParallelConfig(dp=2, tp=2), _mamba_opt(), **kw)
+    # the run's first step (bf16 compute): the kernels and one f32 ulp of
+    # noise on the plain block's outputs, each against the plain block
+    batch = {"tokens": torch.from_numpy(ctrl.data.global_batch_at(ctrl.step)).to("cuda", torch.long)}
+    rel = _grads_against_plain(ctrl.world.grad_fn, ctrl.params, batch, noise=True)
+    del batch
+    ratio = {p: rel["kernels"][p] / rel["one ulp"][p] for p in rel["kernels"]}
+    log("train-ssm", f"the run's first step's gradients (bf16 compute), against SSDIntraChunkRef: the kernels "
+                     f"{min(rel['kernels'].values()):.3e} to {max(rel['kernels'].values()):.3e}, one f32 ulp of "
+                     f"noise on the plain block's outputs {min(rel['one ulp'].values()):.3e} to "
+                     f"{max(rel['one ulp'].values()):.3e}; the kernels over the noise {min(ratio.values()):.3f} to "
+                     f"{max(ratio.values()):.3f}x (at most {MAMBA_NOISE_RATIO:g}x)")
+    assert max(ratio.values()) <= MAMBA_NOISE_RATIO, "the kernels move the bf16 gradients more than f32 noise does"
+
+    def run(controller) -> tuple[list, dict, dict]:
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts()  # the training path's counts start here ...
+        losses = controller.train_steps(steps)
+        launches = _all_counts()  # ... and are read here
+        return losses, launches, state_digest(controller)
+
+    losses, launches, digest = run(ctrl)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    times = ctrl.iteration_times[1:]  # the first step warms up
+    step_s = statistics.median(times)
+    log("train-ssm", f"{cfg.name} full width and depth ({layers} SSD layers, d_model {cfg.d_model}, fp32 params, "
+                     f"{cfg.dtype} compute, AdamW, remat per layer), batch {MAMBA_TRAIN['batch']} x "
+                     f"{MAMBA_TRAIN['seq']} on dp2tp2: losses {losses}, median step {step_s:.4f} s over steps 2-{steps} "
+                     f"({MAMBA_TRAIN['batch'] * MAMBA_TRAIN['seq'] / step_s:.0f} tokens/s; {[round(t, 4) for t in times]}), "
+                     f"peak memory {peak_gb:.2f} GB, SSD launches {launches['ssd_intra_chunk']} forward / "
+                     f"{launches['ssd_intra_chunk_bwd']} backward")
+    assert all(np.isfinite(losses)), "a loss is not finite"
+    assert launches["ssd_intra_chunk"] == 2 * layers * steps, launches
+    assert launches["ssd_intra_chunk_bwd"] == layers * steps, launches
+    assert launches["flash_attention"] == 0, launches
+
+    # where a step's time goes: one more step, its halves apart, under the
+    # profiler (after the digest: it changes the state)
+    world = ctrl.world
+    batch = {"tokens": torch.from_numpy(ctrl.data.global_batch_at(ctrl.step)).to("cuda", torch.long)}
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        open_trace()
+        t0 = time.perf_counter()
+        marks[0].record()
+        _, _, grads = world.grad_fn(ctrl.params, batch)
+        marks[1].record()
+        world.update_fn(grads, ctrl.opt_state, ctrl.params)
+        marks[2].record()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        time.sleep(TRACE_PAD_S)
+    del grads
+    busy: dict[str, float] = {}
+    by_name: dict[str, float] = {}
+    for e in device_events(prof):
+        if "ssd_intra_chunk_bwd_kernel" in e.name or "sum_groups_kernel" in e.name:
+            cls = "ssd backward"
+        elif "ssd_intra_chunk_kernel" in e.name:
+            cls = "ssd forward"
+        else:
+            cls = _kernel_class(e.name)
+        ms = e.time_range.elapsed_us() / 1e3
+        busy[cls] = busy.get(cls, 0.0) + ms
+        by_name[e.name] = by_name.get(e.name, 0.0) + ms
+    total = sum(busy.values())
+    if total == 0:
+        log("train-ssm", "one step under the profiler: device time not measured (the profiler saw no kernels)")
+    else:
+        log("train-ssm", f"one step under the profiler: wall {wall_ms:.3f} ms (gradients "
+                         f"{marks[0].elapsed_time(marks[1]):.3f} ms, AdamW update {marks[1].elapsed_time(marks[2]):.3f}"
+                         f" ms on the card's clock), device busy {total:.3f} ms ({100 * total / wall_ms:.1f}%); the "
+                         f"SSD backward {busy.get('ssd backward', 0.0):.3f} ms "
+                         f"({100 * busy.get('ssd backward', 0.0) / total:.1f}% of the busy time): "
+                         + ", ".join(f"{k} {v:.3f} ms" for k, v in sorted(busy.items(), key=lambda kv: -kv[1])))
+        for kname, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+            log("train-ssm", f"  step: {ms:8.3f} ms  {kname[:110]}")
+    del ctrl, world, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # a second run from the same seed: the same losses and state, bit for bit
+    again = LiveRController(cfg, ParallelConfig(dp=2, tp=2), _mamba_opt(), **kw)
+    a_losses, a_launches, a_digest = run(again)
+    log("train-ssm", f"a second run from seed 0: losses bitwise equal {a_losses == losses}, the state's digest "
+                     f"({len(digest)} tensors) equal {a_digest == digest}")
+    assert a_losses == losses and a_digest == digest and a_launches == launches, "a second run differs"
+    del again
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, peak_gb
+
+
+def phase_elastic_train_mamba2() -> dict:
+    """Live-resized mamba2 training at full width, at 48 of its 64 layers
+    (see the module docstring, 27): the JAX package's scale-in dp2tp2 ->
+    dp1tp2 by stop-copy, then dp1tp2 -> dp2tp2 streamed with the split-step
+    commit, lossless, against a control run never resized. The depth is cut
+    because a resize may hold the target world's params and moments beside
+    the source's: at 64 layers that is ~79 GB with the gradients, past the
+    card's 80 GB. Returns the launches of the path."""
+    import gc
+
+    from repro_torch.core.controller import LiveRController
+
+    cfg = dataclasses.replace(get_config(MAMBA_TRAIN["arch"]), num_layers=MAMBA_ELASTIC["layers"])
+    kw = dict(seq_len=MAMBA_TRAIN["seq"], global_batch=MAMBA_TRAIN["batch"], device="cuda")
+    SRC, DST = ParallelConfig(dp=2, tp=2), ParallelConfig(dp=1, tp=2)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ctrl = LiveRController(cfg, SRC, _mamba_opt(), stream_k=MAMBA_ELASTIC["stream_k"], **kw)
+    _zero_counts()  # the elastic path's counts start here ...
+    t_run = time.perf_counter()
+    losses = ctrl.train_steps(MAMBA_ELASTIC["before"])
+    cuts = []
+    for target, overlap in ((DST, "stop_copy"), (SRC, "stream")):
+        ctrl.request_resize(target, overlap=overlap)
+        n = len(ctrl.records)
+        while len(ctrl.records) == n:
+            losses += ctrl.train_steps(1)
+            assert len(losses) < 60, f"the {overlap} resize to {target.describe()} never committed"
+        cuts.append(len(losses))
+    losses += ctrl.train_steps(MAMBA_ELASTIC["after"])
+    run_s = time.perf_counter() - t_run
+    launches = _all_counts()  # ... and are read here
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    digest = state_digest(ctrl)
+    history = [s for s, _ in ctrl.machine.history]
+    records = list(ctrl.records)
+    layers = cfg.num_layers
+    log("elastic-train-ssm", f"{cfg.name} at {layers} of 64 layers, full width, batch {MAMBA_TRAIN['batch']} x "
+                             f"{MAMBA_TRAIN['seq']}, lossless: {SRC.describe()} -> {DST.describe()} (stop-copy) -> "
+                             f"{SRC.describe()} (stream, stream_k {MAMBA_ELASTIC['stream_k']}): {len(losses)} steps in "
+                             f"{run_s:.1f}s, commits after steps {cuts}, losses {losses}, peak memory {peak_gb:.2f} GB, "
+                             f"SSD launches {launches['ssd_intra_chunk']} forward / "
+                             f"{launches['ssd_intra_chunk_bwd']} backward")
+    for i, rec in enumerate(records):
+        log("elastic-train-ssm", f"commit {i + 1} {rec.mode} {rec.src} -> {rec.dst}: pause_s {rec.total_pause_s:.4f}, "
+                                 f"prepare_s {rec.prepare_s:.4f}, logical {rec.logical_bytes / 1e9:.4f} GB, wire "
+                                 f"{rec.wire_bytes / 1e9:.4f} GB, executed {rec.executed_bytes / 1e9:.4f} GB")
+    assert [(r.mode, r.dst, r.outcome) for r in records] == [
+        ("live", DST.describe(), "committed"), ("live_overlap", SRC.describe(), "committed")], records
+    for phase in ("prepare", "ready", "switch", "cleanup", "stable"):
+        assert phase in history, f"the machine never passed through {phase}: {history}"
+    assert all(np.isfinite(losses)), "a loss is not finite"
+    assert launches["ssd_intra_chunk"] == 2 * layers * len(losses), launches
+    assert launches["ssd_intra_chunk_bwd"] == layers * len(losses), launches
+    del ctrl
+    gc.collect()
+    torch.cuda.empty_cache()
+    control = LiveRController(cfg, SRC, _mamba_opt(), **kw)
+    c_losses = control.train_steps(len(losses))
+    c_digest = state_digest(control)
+    log("elastic-train-ssm", f"against a control run never resized: losses bitwise equal {c_losses == losses} "
+                             f"(after the commits: {losses[cuts[0]:]}), the state's digest equal {c_digest == digest}; "
+                             f"the machine passed through {sorted(set(history))}")
+    assert c_losses == losses, "the resized run's losses differ from the control run's"
+    assert c_digest == digest, "the resized run's state differs from the control run's"
+    del control
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_calibrate() -> dict:
+    """``sim/calibrate.measure`` on the card, into a temporary cache."""
+    import tempfile
+
+    from repro_torch.sim import calibrate
+
+    with tempfile.TemporaryDirectory() as tmp:
+        consts = calibrate.measure(force=True, cache=str(Path(tmp) / "calibration_torch.json"))
+    log("calibrate", f"on {consts['device']}: " + ", ".join(f"{k} {consts[k]:.6g}" for k in calibrate.KEYS))
+    assert consts["device"] == torch.cuda.get_device_name(0)
+    assert all(consts[k] > 0 for k in calibrate.KEYS), consts
+    return consts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -2897,6 +3408,13 @@ def main() -> int:
     ssm_elastic_launches = phase_elastic("mamba2-2.7b")
     ssd = phase_ssd_times(ssm_launches, max(ssd_err, ssm_err))
     rms = phase_rms_times(rms_err)
+    ssd_bwd_err = phase_ssd_bwd_cases()
+    # the timing phase before the training phases: the profiler loses more
+    # of a trace the later it comes in a run (see the module docstring, 23)
+    ssd_bwd = phase_ssd_bwd_times(0, ssd_bwd_err)
+    train_ssm_launches, _ = phase_train_mamba2()
+    elastic_train_ssm_launches = phase_elastic_train_mamba2()
+    phase_calibrate()
     schedule_launches = phase_schedule(train_peak_gb)  # last: see the module docstring, 23
     # each record's launches: its counts on the main paths, each counted
     # from zero just before its run and read just after. No path runs
@@ -2904,15 +3422,16 @@ def main() -> int:
     # ops.rmsnorm reaches the kernel (phases 18 and 22)
     paths = {"serve": {"flash_attention": launches}, "elastic": elastic_launches, "train": train_launches,
              "lifecycle": lifecycle_launches, "recovery": recovery_launches, "schedule": schedule_launches,
-             "serve_mamba2": {"ssd_intra_chunk": ssm_launches}, "elastic_mamba2": ssm_elastic_launches}
-    records = [record, *rows, bwd, *quants, ssd, rms]
+             "serve_mamba2": {"ssd_intra_chunk": ssm_launches}, "elastic_mamba2": ssm_elastic_launches,
+             "train_mamba2": train_ssm_launches, "elastic_train_mamba2": elastic_train_ssm_launches}
+    records = [record, *rows, bwd, *quants, ssd, rms, ssd_bwd]
     for rec in records:
         rec["launches_by_path"] = {p: counts.get(rec["name"], 0) for p, counts in paths.items()}
         rec["launches"] = sum(rec["launches_by_path"].values())
         assert rec["launches"] > 0 or rec["name"] in ("unpack_rows", "rmsnorm"), rec
     assert [r["name"] for r in records] == [
         "flash_attention", "pack_rows", "scatter_rows", "relayout_rows", "unpack_rows", "flash_attention_bwd",
-        "pack_quant_rows", "dequant_scatter_rows", "ssd_intra_chunk", "rmsnorm"]
+        "pack_quant_rows", "dequant_scatter_rows", "ssd_intra_chunk", "rmsnorm", "ssd_intra_chunk_bwd"]
     log("profile", f"device times from {TRACES['taken']} traces, of which {TRACES['not whole']} were not "
                    f"whole; {TRACES['used not whole']} measurements used a trace that was not")
     log("done", f"{time.perf_counter() - t0:.1f}s")

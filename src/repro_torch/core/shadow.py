@@ -183,6 +183,18 @@ class ShadowBuilder:
 
 _TRAIN_KERNELS = ("flash_attention", "flash_attention_tc", "flash_attention_bwd", "flash_attention_bwd_tc",
                   "reshard_pack", "reshard_quant")
+_SSM_TRAIN_KERNELS = ("ssd_scan", "ssd_scan_bwd")
+
+
+def train_kernels(cfg: ModelConfig) -> tuple[str, ...]:
+    """The kernel libraries a train world of ``cfg`` launches: the flash
+    and reshard libraries, and the SSD forward and backward when a block
+    has an SSM mixer, so that a cold Prepare has loaded them all before the
+    commit."""
+    from repro_torch.models.transformer import block_program
+
+    has_ssm = any(mixer == "ssm" for mixer, _ in block_program(cfg))
+    return _TRAIN_KERNELS + (_SSM_TRAIN_KERNELS if has_ssm else ())
 
 
 def warm_device(device: torch.device, dtype: torch.dtype, kernels=_TRAIN_KERNELS) -> None:
@@ -231,7 +243,7 @@ def build_train_world(
     the step, its grad and update halves, and on the card the kernel
     libraries and cuBLAS warmed in this thread."""
     from repro_torch.distribution.step import make_grad_fn, make_train_step
-    from repro_torch.models.transformer import check_trainable
+    from repro_torch.models.transformer import check_ported
 
     if parallel.pp != 1:
         raise NotImplementedError(
@@ -241,12 +253,12 @@ def build_train_world(
     if len(devices) != parallel.world_size:
         raise ValueError(f"{len(devices)} devices for a world of {parallel.world_size} ranks")
     device = world_device(devices)
-    check_trainable(cfg, device)  # an SSM mixer has no backward kernel on the card
+    check_ported(cfg)  # MoE and enc-dec raise NotImplementedError
     abstract_batch(cfg, global_batch, seq_len)  # refuses what the step cannot take
     timings: dict = {}
     t0 = time.perf_counter()
     if device.type == "cuda":
-        warm_device(device, getattr(torch, cfg.dtype))
+        warm_device(device, getattr(torch, cfg.dtype), train_kernels(cfg))
     timings["warm_s"] = time.perf_counter() - t0
     return WorldHandle(
         parallel=parallel,
@@ -254,7 +266,7 @@ def build_train_world(
         step_fn=make_train_step(cfg, opt_cfg, microbatches, remat, compression),
         timings=timings,
         update_fn=build_update_world_fn(cfg, parallel, opt_cfg, compression),
-        grad_fn=make_grad_fn(cfg, microbatches, remat, device),
+        grad_fn=make_grad_fn(cfg, microbatches, remat),
     )
 
 

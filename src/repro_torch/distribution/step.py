@@ -61,19 +61,18 @@ def _autograd_leaves(paths: dict) -> dict:
     return out
 
 
-def make_grad_fn(cfg: ModelConfig, microbatches: int = 1, remat: str = "full", device=None):
+def make_grad_fn(cfg: ModelConfig, microbatches: int = 1, remat: str = "full"):
     """Returns ``grad_step(params, batch) -> (loss, metrics, grads)``: the
     forward/backward half of the step. With ``microbatches > 1`` the batch
     is cut into equal slices along dim 0, the float32 gradients summed and
     divided by their number, and so is the loss (the JAX package's
     "explicit" accumulation).
 
-    Raises ``NotImplementedError`` for a model that cannot train on
-    ``device`` when one is given (an SSM mixer on the card,
-    ``transformer.check_trainable``); without it, a gradient through the
-    card's SSD kernel raises at the backward."""
-    if device is not None:
-        T.check_trainable(cfg, device)
+    Raises ``NotImplementedError`` for a model the port cannot run
+    (``transformer.check_ported``: the MoE MLP and enc-dec models, ROADMAP
+    queue 1 item 10). On the card an SSM mixer's gradient goes through the
+    SSD backward kernel."""
+    T.check_ported(cfg)
 
     def grads_of(paths: dict, batch: dict):
         leaves = _autograd_leaves(paths)

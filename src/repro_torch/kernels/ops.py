@@ -83,7 +83,9 @@ def ssd_scan_chunked(x, dt, A, B, C, chunk: int, init_state, intra):
     ``dt*A``, ``intra(x, dt, cum, B, C, chunk) -> (y_intra, S)``, the
     per-chunk decay and the inter-chunk recurrence, then the crop.
     Shapes as :func:`ssd_scan`. On the card ``intra`` is the kernel; the
-    CPU tests pass ``ref.ssd_intra_chunk_ref`` to test this glue."""
+    CPU tests pass ``ref.ssd_intra_chunk_ref`` or, for gradients through
+    the written-out backward, ``ref.SSDIntraChunkRef.apply`` to test this
+    glue."""
     b, s, h, p = x.shape
     n = B.shape[-1]
     if init_state is None:
@@ -123,8 +125,9 @@ def ssd_scan(x, dt, A, B, C, chunk: int, init_state=None):
     init_state (b,h,p,n) or None. Returns (y (b,s,h,p) float32, final state
     (b,h,p,n) float32).
 
-    On the card: :func:`ssd_scan_chunked` around the intra-chunk kernel (a
-    gradient through it raises, ``kernels/ssd_scan.py``). On the CPU: the
+    On the card: :func:`ssd_scan_chunked` around the intra-chunk kernel's
+    autograd node (forward and backward kernels, ``kernels/ssd_scan.py``);
+    the rest is plain torch under autograd. On the CPU: the
     plain scan whole, on the padded sequence, as the JAX package's ``ops``
     runs its reference."""
     return _dispatch("ssd_scan", _ssd_scan_cuda, _ssd_scan_cpu, (x, dt, A, B, C), chunk, init_state)

@@ -74,6 +74,16 @@ def decode_attention_ref(
 # ---------------------------------------------------------------------------
 
 
+def _causal_decay(cumc: torch.Tensor) -> torch.Tensor:
+    """``L[t, s] = exp(cum_t - cum_s)`` for ``s <= t``, else 0, over
+    ``cumc`` (b, nc, q, h): (b, nc, t, s, h). The mask selects ``-inf``
+    before the exponent, so no entry is ever ``inf``."""
+    q = cumc.shape[2]
+    diff = cumc[:, :, :, None, :] - cumc[:, :, None, :, :]  # (b,nc,t,s,h)
+    tri = torch.tril(torch.ones((q, q), dtype=torch.bool, device=cumc.device))
+    return torch.exp(torch.where(tri[None, None, :, :, None], diff, -torch.inf))
+
+
 def ssd_intra_chunk_ref(
     x: torch.Tensor,  # (b, s, h, p) float
     dt: torch.Tensor,  # (b, s, h) float32, post-softplus
@@ -87,7 +97,14 @@ def ssd_intra_chunk_ref(
     ``y = ((C·Bᵀ) ∘ L ∘ dtᵀ)·x`` with ``L[t, s] = exp(cum_t - cum_s)`` for
     ``s <= t`` (else 0), and the chunk's state ``S = Σ_s exp(cum_last -
     cum_s)·dt_s·x_s ⊗ B_s``. Returns (y_intra (b,s,h,p) f32, S (b,nc,h,p,n)
-    f32). ``s`` must be a multiple of ``chunk``."""
+    f32). ``s`` must be a multiple of ``chunk``.
+
+    The mask is taken before the exponent (:func:`_causal_decay`), so the
+    masked entries are ``exp(-inf) = 0`` and their gradient is 0. The JAX
+    reference masks after it (``jnp.where(tri, jnp.exp(diff), 0.0)``): the
+    forward is the same bits, but once a chunk's ``|Σ dt·A|`` passes ~88 the
+    masked ``exp`` overflows and autograd's ``0·inf`` makes the gradient
+    NaN."""
     b, s, h, p = x.shape
     n = B.shape[-1]
     if s % chunk:
@@ -98,15 +115,83 @@ def ssd_intra_chunk_ref(
     cumc = cum.reshape(b, nc, q, h)
     Bc = B.reshape(b, nc, q, n)
     Cc = C.reshape(b, nc, q, n)
-    diff = cumc[:, :, :, None, :] - cumc[:, :, None, :, :]  # (b,nc,t,s,h)
-    tri = torch.tril(torch.ones((q, q), dtype=torch.bool, device=x.device))
-    L = torch.where(tri[None, None, :, :, None], torch.exp(diff), 0.0)
+    L = _causal_decay(cumc)
     CB = torch.einsum("bcin,bcjn->bcij", Cc, Bc)  # (b,nc,t,s)
     M = CB[..., None] * L * dtc[:, :, None, :, :]
     y = torch.einsum("bctsh,bcshp->bcthp", M, xf).reshape(b, s, h, p)
     decay_to_end = torch.exp(cumc[:, :, -1:, :] - cumc)  # (b,nc,q,h)
     S = torch.einsum("bcqh,bcqn,bcqhp->bchpn", decay_to_end * dtc, Bc, xf)
     return y, S
+
+
+def ssd_intra_chunk_bwd_ref(x, dt, cum, B, C, dy, dS, chunk: int):
+    """The gradient of :func:`ssd_intra_chunk_ref` written out, the mask
+    taken before every exponent. ``dy`` (b,s,h,p) and ``dS`` (b,nc,h,p,n)
+    are the gradients of its two outputs. Per chunk and head, with ``CB =
+    C·Bᵀ``, ``L`` the causal decay, ``w_s = exp(cum_last - cum_s)·dt_s``,
+    ``G[t,s] = dy_t·x_s`` and ``R_s = x_s·(dS B_s)``:
+
+    - ``dx_s = Σ_t CB·L·dt_s·dy_t + w_s·(dS B_s)``, in ``x``'s dtype;
+    - ``ddt_s = Σ_t CB·L·G + exp(cum_last - cum_s)·R_s``;
+    - ``dcum_t = Σ_s P[t,s] - Σ_t' P[t',t] - w_t·R_t`` with ``P = CB·L·dt_s·G``,
+      plus ``Σ_s w_s·R_s`` at the chunk's last step;
+    - ``dC_t = Σ_h Σ_s (L·dt_s·G)[t,s]·B_s`` and ``dB_s = Σ_h Σ_t
+      (L·dt_s·G)[t,s]·C_t + Σ_h w_s·(dSᵀ x_s)``.
+
+    Returns (dx, ddt, dcum, dB, dC); all but dx float32. What the CUDA
+    backward (``csrc/ssd_scan_bwd.cu``) is held against on the card."""
+    b, s, h, p = x.shape
+    n = B.shape[-1]
+    if s % chunk:
+        raise ValueError(f"sequence {s} is not a multiple of chunk {chunk}")
+    nc, q = s // chunk, chunk
+    xf = x.float().reshape(b, nc, q, h, p)
+    dyc = dy.float().reshape(b, nc, q, h, p)
+    dtc = dt.reshape(b, nc, q, h)
+    cumc = cum.reshape(b, nc, q, h)
+    Bc = B.reshape(b, nc, q, n)
+    Cc = C.reshape(b, nc, q, n)
+    dSf = dS.float()
+    L = _causal_decay(cumc)  # (b,nc,t,s,h)
+    CB = torch.einsum("bcin,bcjn->bcij", Cc, Bc)[..., None]  # (b,nc,t,s,1)
+    dt_s = dtc[:, :, None, :, :]  # (b,nc,1,s,h)
+    G = torch.einsum("bcthp,bcshp->bctsh", dyc, xf)
+    LG = L * G
+    Q = CB * LG  # dy.x weighted: d y / d dt_s
+    P = Q * dt_s  # d y / d cum
+    D = LG * dt_s  # d y / d CB, per head
+    E = torch.exp(cumc[:, :, -1:, :] - cumc)  # (b,nc,q,h)
+    w = E * dtc
+    dSB = torch.einsum("bchpn,bcsn->bcshp", dSf, Bc)  # (dS B_s)
+    R = (xf * dSB).sum(-1)  # (b,nc,q,h)
+    dx = torch.einsum("bctsh,bcthp->bcshp", CB * L * dt_s, dyc) + w[..., None] * dSB
+    ddt = Q.sum(2) + E * R
+    wR = w * R
+    dcum = P.sum(3) - P.sum(2) - wR
+    dcum[:, :, -1, :] += wR.sum(2)
+    dC = torch.einsum("bctsh,bcsn->bctn", D, Bc)
+    dB = torch.einsum("bctsh,bctn->bcsn", D, Cc) + torch.einsum("bcsh,bchpn,bcshp->bcsn", w, dSf, xf)
+    return (dx.reshape(b, s, h, p).to(x.dtype), ddt.reshape(b, s, h), dcum.reshape(b, s, h),
+            dB.reshape(b, s, n), dC.reshape(b, s, n))
+
+
+class SSDIntraChunkRef(torch.autograd.Function):
+    """The plain intra-chunk block as an autograd node: forward
+    :func:`ssd_intra_chunk_ref`, backward :func:`ssd_intra_chunk_bwd_ref`.
+    Tests and ``chip_smoke.py`` pass ``SSDIntraChunkRef.apply`` to
+    ``ops.ssd_scan_chunked`` as ``intra``, the yardstick of the kernels'
+    autograd node on the same glue; no main path uses it."""
+
+    @staticmethod
+    def forward(ctx, x, dt, cum, B, C, chunk: int):
+        ctx.save_for_backward(x, dt, cum, B, C)
+        ctx.chunk = chunk
+        return ssd_intra_chunk_ref(x, dt, cum, B, C, chunk)
+
+    @staticmethod
+    def backward(ctx, dy, dS):
+        x, dt, cum, B, C = ctx.saved_tensors
+        return (*ssd_intra_chunk_bwd_ref(x, dt, cum, B, C, dy, dS, ctx.chunk), None)
 
 
 def ssd_inter_ref(cum, Cc, S, chunk_decay, init_state):

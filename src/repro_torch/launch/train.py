@@ -17,9 +17,18 @@ card exits with an error. The reshard wire is lossless here, as in the JAX
 launcher; the compressed wire is the controller's ``wire_policy``.
 
 Not ported, and refused with a message: pipeline stages (``--pp`` > 1) and
-int8 gradient compression (``--compression int8_ef``). An SSM model
-(mamba2-2.7b) trains on the CPU only: on the card its SSD kernel has no
-backward yet, and the launcher raises ``NotImplementedError``.
+int8 gradient compression (``--compression int8_ef``). An SSM model trains
+on the card through the SSD forward and backward kernels, at full width
+for example
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-2.7b \\
+        --dp 2 --tp 2 --steps 10 --seq 1024 --batch 4
+
+(fp32 params, gradients and Adam moments, about 45 GB at 64 layers by
+count; the ``[done]`` line prints the card's peak. A live resize, which
+holds the target world's state beside it, does not fit one 80 GB card at
+that depth). The MoE MLP
+and enc-dec models raise ``NotImplementedError`` (ROADMAP queue 1 item 10).
 """
 
 from __future__ import annotations
@@ -27,6 +36,8 @@ from __future__ import annotations
 import argparse
 import json
 import time
+
+import torch
 
 
 def parse_parallel(spec: str):
@@ -77,13 +88,13 @@ def main() -> None:
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ParallelConfig
     from repro_torch.core.controller import LiveRController
-    from repro_torch.models.transformer import check_trainable
+    from repro_torch.models.transformer import check_ported
     from repro_torch.optim import AdamWConfig
 
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    check_trainable(cfg, args.device)  # an SSM mixer on the card raises NotImplementedError
+    check_ported(cfg)  # the MoE MLP and enc-dec raise NotImplementedError
     parallel = ParallelConfig(dp=args.dp, pp=args.pp, tp=args.tp)
     opt = AdamWConfig(learning_rate=args.lr, warmup_steps=max(args.steps // 10, 1), total_steps=args.steps)
     print(f"[train] {cfg.name} {parallel.describe()} seq={args.seq} batch={args.batch} "
@@ -124,8 +135,11 @@ def main() -> None:
                   flush=True)
 
     wall = time.perf_counter() - t0
+    peak = ""
+    if ctrl.device.type == "cuda":
+        peak = f" peak={torch.cuda.max_memory_allocated(ctrl.device) / 1e9:.2f}GB"
     print(f"[done] {args.steps} steps in {wall:.1f}s; goodput={ctrl.ledger.goodput * 100:.2f}% "
-          f"pause_total={ctrl.ledger.pause_seconds:.3f}s reconfigs={len(ctrl.records)}", flush=True)
+          f"pause_total={ctrl.ledger.pause_seconds:.3f}s reconfigs={len(ctrl.records)}{peak}", flush=True)
     if args.out:
         rec = {
             "arch": cfg.name,

@@ -121,9 +121,8 @@ def forward(cfg: ModelConfig, params: dict, batch: dict, remat: str = "full"):
     ``batch = {"tokens": (b, s) integer tensor}``. Attention goes through
     ``ops.flash_attention``: on the card the CUDA kernel and its backward
     kernel, on the CPU the plain version under autograd. The SSM mixer's
-    scan goes through ``ops.ssd_scan``: on the CPU the plain version under
-    autograd; on the card its kernel runs forward only, and a gradient
-    through it raises (``transformer.check_trainable``)."""
+    scan goes through ``ops.ssd_scan``: on the card the intra-chunk kernel
+    and its backward kernel, on the CPU the plain version under autograd."""
     T.check_ported(cfg)
     adt = _dtype(cfg.dtype)
     tokens = batch["tokens"]

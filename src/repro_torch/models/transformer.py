@@ -6,9 +6,8 @@ of a period keeps its parameters stacked over ``n_periods`` on a leading
 axis (``blocks/pos0/mixer/wq`` is ``(n_periods, d, h*hd)``). The JAX
 ``lax.scan`` over periods becomes a loop over the stacked index. The port
 runs attention and SSM (Mamba-2) mixers with a dense MLP or none
-(mamba2-2.7b at full width has ``d_ff = 0``); the MoE MLP and enc-dec
-models raise. An SSM mixer trains on the CPU only: on the card its SSD
-kernel has no backward yet (:func:`check_trainable`).
+(mamba2-2.7b at full width has ``d_ff = 0``), and both train on the card
+and on the CPU; the MoE MLP and enc-dec models raise.
 """
 
 from __future__ import annotations
@@ -26,10 +25,6 @@ from repro_torch.models.layers import MLP_AXES, RMSNORM_AXES, mlp_apply, mlp_ini
 _NOT_PORTED = {
     "moe": "the MoE MLP (ROADMAP queue 1 item 10)",
 }
-SSM_TRAINING_TODO = (
-    "training the SSM mixer on the card needs a backward of the SSD intra-chunk kernel, which is "
-    "not written yet (ROADMAP queue 1 item 14: SSM training); on the CPU the plain version trains"
-)
 
 
 # ---------------------------------------------------------------------------
@@ -76,15 +71,6 @@ def check_ported(cfg: ModelConfig) -> None:
         for kind in (mixer, mlp):
             if kind in _NOT_PORTED:
                 raise NotImplementedError(f"{cfg.name}: {_NOT_PORTED[kind]} is not ported yet")
-
-
-def check_trainable(cfg: ModelConfig, device) -> None:
-    """Raise ``NotImplementedError`` for a model that cannot train on
-    ``device``: an SSM mixer on the card. Takes a device or its name and
-    builds no tensor."""
-    check_ported(cfg)
-    if torch.device(device).type == "cuda" and any(m == "ssm" for m, _ in block_program(cfg)):
-        raise NotImplementedError(f"{cfg.name}: {SSM_TRAINING_TODO}")
 
 
 def _period(tree: dict, i: int) -> dict:

@@ -1,6 +1,6 @@
-"""The reconfiguration simulator: a copy of the JAX package's ``sim/``
-(without ``calibrate.py``). Its cluster models are the reference's, not
-measurements of the H100."""
+"""The reconfiguration simulator: a copy of the JAX package's ``sim/``,
+with ``calibrate.py`` rewritten over torch and the card. Its cluster
+models are the reference's, not measurements of the H100."""
 
 from repro_torch.sim.des import Simulator
 from repro_torch.sim.cluster import ClusterModel, PAPER_TESTBED, TPU_V5E_POD

@@ -213,18 +213,20 @@ CONTROL_PLANE = [
     "elastic/protocol", "elastic/trace", "elastic/endpoint", "elastic/scheduler", "sim/des", "sim/cluster",
     "sim/liver_sim", "sim/volatility", "roofline/analysis", "fleet/policies", "fleet/arbiter",
 ]
+# SSM training's timing copy and the calibration
+TIMING_AND_CALIBRATION = ["utils/timing", "sim/calibrate"]
 
 
 def test_port_sources_do_not_import_jax_or_repro():
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 20
-    assert {PORT / f"{m}.py" for m in RESHARD_AND_ELASTIC_SERVE + TRAINING + SSM + LIFECYCLE + CONTROL_PLANE} <= set(files)
+    assert {PORT / f"{m}.py" for m in RESHARD_AND_ELASTIC_SERVE + TRAINING + SSM + LIFECYCLE + CONTROL_PLANE + TIMING_AND_CALIBRATION} <= set(files)
     offenders = [f"{f}: {m.group(0).strip()}" for f in files for m in _FORBIDDEN_IMPORT.finditer(f.read_text())]
     assert offenders == []
 
 
 def test_importing_the_port_loads_no_jax():
-    wanted = [f"repro_torch.{m.replace('/', '.')}" for m in RESHARD_AND_ELASTIC_SERVE + TRAINING + SSM + LIFECYCLE + CONTROL_PLANE]
+    wanted = [f"repro_torch.{m.replace('/', '.')}" for m in RESHARD_AND_ELASTIC_SERVE + TRAINING + SSM + LIFECYCLE + CONTROL_PLANE + TIMING_AND_CALIBRATION]
     code = f"""
 import importlib, pkgutil, sys
 sys.path.insert(0, {str(REPO)!r})

@@ -194,10 +194,24 @@ def test_ssd_wrapper_refuses_what_the_kernel_does_not_compute():
 
 
 def test_ssd_backward_raises_naming_the_roadmap_item():
-    """A raw-pointer kernel is not connected to autograd: the Function's
-    backward refuses, so a gradient through the card's scan fails loudly."""
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 14"):
-        ssd_k.SSDIntraChunk.backward(None, torch.zeros(1), torch.zeros(1))
+    """The backward kernel's wrapper checks ``dy`` and ``dS`` as the
+    forward's checks its inputs, before any launch: a wrong shape, dtype or
+    layout raises ``ValueError`` naming the argument."""
+    x, dt, A, B, C = _t(*_ssd_inputs(1, 64, 2, 64, 128))
+    cum = torch.from_numpy(_cum(dt.numpy(), A.numpy(), 16))
+    dy, dS = torch.zeros(1, 64, 2, 64), torch.zeros(1, 4, 2, 64, 128)
+    before = ssd_k.bwd_launches
+    with pytest.raises(ValueError, match="dy: want"):
+        ssd_k.ssd_intra_chunk_bwd_cuda(x, dt, cum, B, C, dy[:, :, :1], dS, 16)
+    with pytest.raises(ValueError, match="dS: want"):
+        ssd_k.ssd_intra_chunk_bwd_cuda(x, dt, cum, B, C, dy, dS[:, :3], 16)
+    with pytest.raises(ValueError, match="dS: want float32"):
+        ssd_k.ssd_intra_chunk_bwd_cuda(x, dt, cum, B, C, dy, dS.double(), 16)
+    with pytest.raises(ValueError, match="dy must be contiguous"):
+        ssd_k.ssd_intra_chunk_bwd_cuda(x, dt, cum, B, C, torch.zeros(1, 2, 64, 64).transpose(1, 2), dS, 16)
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        ssd_k.ssd_intra_chunk_bwd_cuda(x, dt, cum, B, C, dy, dS, 16)
+    assert ssd_k.bwd_launches == before
 
 
 def test_new_sources_are_built_with_the_others():
@@ -440,7 +454,7 @@ def test_loss_and_grads_equal_jax(mamba, variant):
         lambda p: JM.loss_fn(jcfg, p, {"tokens": jnp.asarray(tokens)}), has_aux=True
     ))(jparams)
     params = params_from_jax(flat, cfg, "cpu")
-    loss, metrics, grads = make_grad_fn(cfg, device="cpu")(params, {"tokens": torch.from_numpy(tokens).long()})
+    loss, metrics, grads = make_grad_fn(cfg)(params, {"tokens": torch.from_numpy(tokens).long()})
     np.testing.assert_allclose(float(loss), float(jloss), rtol=LOSS_TOL)
     np.testing.assert_allclose(float(metrics["nll"]), float(jaux["nll"]), rtol=LOSS_TOL)
     want = jax_tree_paths(jgrads)
@@ -478,20 +492,32 @@ def test_bf16_prefill_reads_the_fp32_leaves_as_the_uncast_params_do(mamba):
     assert torch.equal(a2, b2)
 
 
-def test_training_on_the_card_is_refused_without_a_tensor():
-    """An SSM model has no backward kernel on the card: the train world,
-    the grad function and the launcher's check raise before any tensor is
-    built, naming the ROADMAP item; the CPU and attention models pass."""
+def test_training_on_the_card_is_refused_without_a_tensor(monkeypatch):
+    """An SSM model trains on the card: the train world, the grad function
+    and the launcher's check take mamba2 before any tensor is built (the
+    world's kernel warm-up stubbed here: there is no card), while the MoE
+    MLP and enc-dec models are refused before any tensor too, naming
+    ROADMAP queue 1 item 10."""
     from repro_torch.configs.base import ParallelConfig
+    from repro_torch.core import shadow
     from repro_torch.core.shadow import build_train_world
     from repro_torch.optim import AdamWConfig
 
+    warmed = []
+    monkeypatch.setattr(shadow, "warm_device", lambda device, dtype, kernels: warmed.append(kernels))
     cfg = get_config("mamba2-2.7b")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 14"):
-        build_train_world(cfg, ParallelConfig(dp=1, tp=1), AdamWConfig(), 4, 64, devices=["cuda"])
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 14"):
-        make_grad_fn(cfg, device="cuda")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 14"):
-        T.check_trainable(cfg, torch.device("cuda", 0))
-    T.check_trainable(cfg, "cpu")
-    T.check_trainable(get_config("qwen3-1.7b"), "cuda")
+    world = build_train_world(cfg, ParallelConfig(dp=1, tp=1), AdamWConfig(), 4, 64, devices=["cuda"])
+    assert world.grad_fn is not None and "ssd_scan_bwd" in warmed[0]
+    make_grad_fn(cfg)
+    T.check_ported(cfg)
+    T.check_ported(get_config("qwen3-1.7b"))
+    for arch in ("mixtral-8x7b", "seamless-m4t-large-v2"):
+        other = get_config(arch)
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 10"):
+            T.check_ported(other)
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 10"):
+            make_grad_fn(other)
+        for device in ("cuda", "cpu"):
+            with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 10"):
+                build_train_world(other, ParallelConfig(dp=1, tp=1), AdamWConfig(), 4, 64, devices=[device])
+    assert len(warmed) == 1
