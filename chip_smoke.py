@@ -185,7 +185,8 @@ non-zero without one. Phases, each printing one line or more:
    argument refused;
 25. the backward's times at the training shape (CUDA events, median of 30;
    and its two kernels alone on the device): beside the plain backward,
-   autograd of the plain forward and the bound;
+   autograd of the plain forward and the bound, and the TF32 products it
+   issues;
 26. mamba2-2.7b trained at full width and depth (64 layers, d_model 2560,
    fp32 params, bf16 compute, AdamW, remat per layer), batch 4 x 1024 on
    dp2tp2 under ``LiveRController``: the first step's gradients against
@@ -272,9 +273,10 @@ SERVE = dict(batch=8, prompt_len=512, gen=32)
 SLICE_SHAPE = (8, 512, 512, 16, 8, 128, True, 0)  # the serve phase's prefill attention
 # the training path's attention: batch 4 x 1024 tokens, 16 q / 8 kv heads of 128
 TRAIN_SHAPE = (4, 1024, 1024, 16, 8, 128, True, 0)
-# the flash libraries and the route each one serves
-FLASH_LIBS = {"flash_attention_tc": "tensor_cores", "flash_attention_bwd_tc": "tensor_cores",
-              "flash_attention": "cuda_cores", "flash_attention_bwd": "cuda_cores"}
+# the libraries whose SASS phase_build reads, and where each runs its
+# products: the flash routes, and the SSD backward (mma.sync)
+SASS_LIBS = {"flash_attention_tc": "tensor_cores", "flash_attention_bwd_tc": "tensor_cores",
+             "flash_attention": "cuda_cores", "flash_attention_bwd": "cuda_cores", "ssd_scan_bwd": "tensor_cores"}
 
 
 def log(phase: str, msg: str) -> None:
@@ -347,10 +349,10 @@ def phase_build() -> None:
         for line in build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 log("build", f"{name}: {line.strip()}")
-    # which instructions carry the flash products: wgmma is HGMMA in SASS,
-    # mma.sync HMMA; the CUDA-core route has neither
+    # which instructions carry the products: wgmma is HGMMA in SASS,
+    # mma.sync HMMA; the CUDA-core routes have neither
     cuobjdump = Path(build.nvcc()).parent / "cuobjdump"
-    for name, route in FLASH_LIBS.items():
+    for name, route in SASS_LIBS.items():
         sass = subprocess.run([str(cuobjdump), "-sass", str(libs[name])], capture_output=True, text=True,
                               check=True, timeout=120).stdout
         hgmma, hmma = sass.count("HGMMA"), sass.count("HMMA")
@@ -3063,11 +3065,34 @@ def phase_ssd_bwd_cases() -> float:
 def ssd_bwd_flops(case) -> int:
     """The least f32 work of the backward: C.B^T over the causal half of a
     chunk once a (batch row, chunk); a head's G = dy.x^T and M^T.dy over the
-    causal half, dS.B_s and dS^T.x_s over every step, D.B and D^T.C over
-    the causal half (2 FLOPs a multiply-add)."""
+    causal half, dS.B_s and dS^T.x_s over every step; D.B and D^T.C over the
+    causal half once a (batch row, chunk), D summed over the heads first
+    (linear in D, C and B the same for every head), as csrc/ssd_scan_bwd.cu
+    forms them (2 FLOPs a multiply-add)."""
     b, s, h, p, n, chunk = case
     pairs = chunk * (chunk + 1) // 2
-    return b * (s // chunk) * (2 * n * pairs + h * (4 * p * pairs + 4 * chunk * p * n + 4 * n * pairs))
+    return b * (s // chunk) * (2 * n * pairs + 4 * n * pairs + h * (4 * p * pairs + 4 * chunk * p * n))
+
+
+def ssd_bwd_tensor_core_flops(case, x_dtype) -> int:
+    """The TF32 tensor-core FLOPs the SSD backward issues (mma.sync m16n8k8,
+    2048 FLOPs each), on the 16 x 16 blocks at or below the diagonal where
+    an operand is causal: once a block, C.B^T (10 blocks of 2 n-tiles, 16
+    k-steps) and D^T.C and D.B of D summed over its heads (20 m-tile k-steps
+    of 16 n-tiles each), 3 products each; a head's G = dy.x^T (10 blocks of
+    2 n-tiles, 8 k-steps) and x.dS (4 x 16 tiles, 8 k-steps), 3 products
+    each or 2 for a bf16 x (exact in TF32), B.dS^T (4 x 8 tiles, 16
+    k-steps) and M^T.dy (20 m-tile k-steps of 8 n-tiles), 3 products each.
+    A block takes a group of heads, as many groups as one wave of one block
+    an SM holds (csrc/ssd_scan_bwd.cu)."""
+    b, s, h, p, n, chunk = case
+    bcs = b * (s // chunk)
+    groups = min(h, max(1, torch.cuda.get_device_properties(0).multi_processor_count // bcs))
+    groups = -(-h // -(-h // groups))
+    x_passes = 2 if x_dtype == torch.bfloat16 else 3
+    per_block = (10 * 2 * 16 + 2 * 20 * 16) * 3
+    per_head = (10 * 2 * 8 + 4 * 16 * 8) * x_passes + (4 * 8 * 16 + 20 * 8) * 3
+    return 2048 * (bcs * groups * per_block + bcs * h * per_head)
 
 
 def phase_ssd_bwd_times(launches: int, err: float) -> dict:
@@ -3093,13 +3118,13 @@ def phase_ssd_bwd_times(launches: int, err: float) -> dict:
     flops = ssd_bwd_flops(SSD_TRAIN_SHAPE)
     bytes_ms, flops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOP_PER_S * 1e3
     # the card's fastest f32-accurate products are on the tensor cores, three
-    # TF32 products each (the 3xTF32 split the forward kernel uses): the least
-    # time is the larger of the bytes and that; the CUDA cores' f32 bound,
-    # where this kernel does its products, is reported beside it
+    # TF32 products each (the 3xTF32 split both kernels use): the least time
+    # is the larger of the bytes and that; the CUDA cores' f32 bound is
+    # reported beside it
     tc_ms = 3 * flops / TF32_FLOP_PER_S * 1e3
     bound_ms = max(bytes_ms, tc_ms)
     log("times", f"ssd_intra_chunk_bwd {SSD_TRAIN_SHAPE} x bf16: kernel {kernel_ms:.4f} ms (its two kernels on the "
-                 f"device {on_device_ms:.4f} ms, {flops / on_device_ms / 1e9:.2f} TFLOP/s of the useful f32 work), "
+                 f"device {on_device_ms:.4f} ms, {flops / on_device_ms / 1e9:.2f} TFLOP/s of the least f32 work), "
                  f"plain backward {plain_ms:.4f} ms, autograd of the plain forward {autograd_ms:.4f} ms, library "
                  f"none, bound {bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB -> {bytes_ms:.4f} ms; {flops / 1e9:.2f} "
                  f"GFLOP f32 as 3xTF32 on the tensor cores -> {tc_ms:.4f} ms, on the CUDA cores -> "
@@ -3412,6 +3437,10 @@ def main() -> int:
     # the timing phase before the training phases: the profiler loses more
     # of a trace the later it comes in a run (see the module docstring, 23)
     ssd_bwd = phase_ssd_bwd_times(0, ssd_bwd_err)
+    issued = ssd_bwd_tensor_core_flops(SSD_TRAIN_SHAPE, torch.bfloat16)
+    log("times", f"ssd_intra_chunk_bwd issues {issued / 1e9:.2f} GFLOP of TF32 products, "
+                 f"{issued / ssd_bwd['device_ms'] / 1e9:.2f} TFLOP/s on the tensor cores, for "
+                 f"{ssd_bwd_flops(SSD_TRAIN_SHAPE) / 1e9:.2f} GFLOP of least f32 work")
     train_ssm_launches, _ = phase_train_mamba2()
     elastic_train_ssm_launches = phase_elastic_train_mamba2()
     phase_calibrate()

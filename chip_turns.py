@@ -19,7 +19,9 @@ on its tree:
   the wrapper's launch count); one JSON line;
 - ``chip_smoke.py``'s ``phase_ssd_times`` (the SSD kernel at the serving
   shape) and ``phase_serve_ssm`` (mamba2-2.7b served at full width, its
-  prefill profiled by kernel class), which print their own lines.
+  prefill profiled by kernel class), then ``phase_ssd_bwd_cases`` and
+  ``phase_ssd_bwd_times`` (the SSD backward against the plain backward, and
+  timed at the training shape), which print their own lines.
 
 Needs one CUDA card.
 """
@@ -72,6 +74,7 @@ def one(src: Path) -> dict:
     print(json.dumps(out), flush=True)
     launches, err = cs.phase_serve_ssm()
     cs.phase_ssd_times(launches, err)
+    cs.phase_ssd_bwd_times(0, cs.phase_ssd_bwd_cases())
     return out
 
 
