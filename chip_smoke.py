@@ -14,9 +14,10 @@ non-zero without one. Phases, each printing one line or more:
    tensor-core libraries;
 3. kernel against its plain version on the card, over the JAX kernel
    tests' shapes, ragged and windowed cases, the serving and the training
-   shape, on each route that takes the case (bf16 at head dims 64, 128 and
-   256 on the tensor cores and on the CUDA cores; float32 and bf16 at 16
-   and 32 on the CUDA cores);
+   shape and seamless's non-causal encoder shapes (8 x 512 and 4 x 1024,
+   16 heads of 64), on each route that takes the case (bf16 at head dims
+   64, 128 and 256 on the tensor cores and on the CUDA cores; float32 and
+   bf16 at 16 and 32 on the CUDA cores);
 4. small-input agreement: reduced qwen3-1.7b served on the card (kernel)
    and on the CPU (plain path) from the same weights;
 5. full-width serve: ``serve_once`` on qwen3-1.7b (28 layers, d_model
@@ -27,10 +28,10 @@ non-zero without one. Phases, each printing one line or more:
    the real q/k/v of the first and last layer; then a ``torch.profiler``
    window over one prefill and 4 decode steps: device time by kernel class
    and the device's busy share;
-6. forward times at the serving and the training shape (CUDA events,
-   median of 30): the tensor-core kernel and its TFLOP/s, the CUDA-core
-   route, the plain version, ``scaled_dot_product_attention`` as a
-   yardstick, and the card's bound;
+6. forward times at the serving and the training shape and at seamless's
+   encoder serving shape (CUDA events, median of 30): the tensor-core
+   kernel and its TFLOP/s, the CUDA-core route, the plain version,
+   ``scaled_dot_product_attention`` as a yardstick, and the card's bound;
 7. the reshard row kernels (pack_rows, scatter_rows, relayout_rows,
    unpack_rows) against their plain versions, byte for byte, on the CPU
    tests' cases in f32/bf16/int8 and at the elastic path's shapes, and the
@@ -58,7 +59,8 @@ non-zero without one. Phases, each printing one line or more:
    its staging buffer from the 50 MB L2;
 11. the flash-attention backward kernel against autograd of the plain
    version, over the forward's cases and the training shape, f32 and bf16
-   (and the serving shape in bf16), on each route that takes the case;
+   (and the serving shape and seamless's encoder shapes in bf16), on each
+   route that takes the case;
 12. the compressed wire's kernels (pack_quant_rows, dequant_scatter_rows)
    against their plain versions, byte for byte, int8 and fp8-e4m3, from
    f32 and bf16: random tiles, the edge tiles (zero, denormal, 3.38e38),
@@ -116,7 +118,8 @@ non-zero without one. Phases, each printing one line or more:
    recovery's pause and its parts, bytes, GB/s and peak memory, the
    refresh's and the checkpoint's seconds, and the rung's pause with its
    save against each peer pause; fails on a peak above 1.05x 13's;
-16. the new kernels' times (CUDA events, median of 20): the backward and
+16. the new kernels' times (CUDA events, median of 20): the backward (at
+   the training shape and at seamless's encoder training shape) and
    its TFLOP/s beside the CUDA-core route,
    ``scaled_dot_product_attention``'s backward and the plain version's, the
    two quant kernels beside their plain versions, each with its bound
@@ -172,7 +175,7 @@ non-zero without one. Phases, each printing one line or more:
    card's machine ``torch.profiler`` loses more of a trace's device
    records the later the trace comes in a run, and run after phase 15
    this phase left the traces of phases 16 and 22 with none.
-   Phases 24-28 run before it.
+   Phases 24-31 run before it.
 24. the SSD backward kernel (``csrc/ssd_scan_bwd.cu``) against the plain
    backward ``ref.ssd_intra_chunk_bwd_ref`` (TF32 off): the JAX kernel
    tests' shapes, reduced mamba2's chunk 8 and state 16, the training shape
@@ -205,7 +208,32 @@ non-zero without one. Phases, each printing one line or more:
    prepare, ready, switch, cleanup and stable; the losses and the state's
    digest bitwise those of a control run never resized; each commit's
    pause, Prepare and bytes, the peak;
-28. ``sim/calibrate.measure`` on the card: every constant.
+28. ``sim/calibrate.measure`` on the card: every constant;
+29. seamless-m4t-large-v2 (enc-dec) at full width and depth: reduced
+   seamless served on the card and on the CPU from the same weights and
+   frames; then ``serve_once`` (24 encoder + 24 decoder layers, d_model
+   1024, 16 heads of 64, vocab 256206), batch 8, prompt 512 with 512
+   frames, 32 greedy tokens: 48 flash launches a prefill (24 non-causal,
+   24 causal), every one on the tensor cores, repeatable tokens, the
+   first encoder and decoder layers' q/k/v held against the plain version
+   forward and backward, the cross KV's shapes and dtype, prefill_s,
+   decode tokens/s, the peak memory and a ``torch.profiler`` window;
+30. elastic serving of seamless at full width, as phase 8, each request
+   with 512 frames: params, the self-attention cache and the cross KV
+   move at each of three resizes, the cross cells planned at every commit
+   and moved where the tp degree changes; launches, bytes, the staging
+   bound and the tokens checked as there;
+31. seamless trained at full width and depth as qwen3 in 13 (fp32 params,
+   bf16 compute, AdamW, remat per layer, batch 4 x 1024 with 1024 frames
+   of ``data.SyntheticFrames`` a sample, as the launcher trains it: the
+   JAX controller's zero frames give non-finite encoder gradients at 24
+   layers; dp2tp2 -> dp2tp4 streamed with int8 moments -> dp1tp4
+   stop-copy): first the run's first step's gradients in f32 compute,
+   through the kernels against the plain attention, leaf by leaf; then 2
+   x 48 forward and 48 backward flash
+   launches a step, all on the tensor cores, the commits' bytes, the peak
+   memory, the step time and one step under the profiler, and the params
+   after the lossless commit bitwise those of a control run never resized.
 The second-to-last line is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.
 
@@ -270,9 +298,17 @@ FLASH_CASES = [
     (1, 96, 96, 4, 2, 256, True, 0),
 ]
 SERVE = dict(batch=8, prompt_len=512, gen=32)
+SEAMLESS = "seamless-m4t-large-v2"
+SEAMLESS_SERVE = dict(SERVE, frames_len=512)  # 512 frames: the encoder's real work
 SLICE_SHAPE = (8, 512, 512, 16, 8, 128, True, 0)  # the serve phase's prefill attention
 # the training path's attention: batch 4 x 1024 tokens, 16 q / 8 kv heads of 128
 TRAIN_SHAPE = (4, 1024, 1024, 16, 8, 128, True, 0)
+# seamless-m4t-large-v2's encoder self-attention (non-causal, 16 heads of
+# 64): the serve phase's prefill over 512 frames, the training batch's
+ENC_SERVE_SHAPE = (8, 512, 512, 16, 16, 64, False, 0)
+ENC_TRAIN_SHAPE = (4, 1024, 1024, 16, 16, 64, False, 0)
+# the bf16 cases past FLASH_CASES: the paths' own shapes
+PATH_SHAPES = [SLICE_SHAPE, TRAIN_SHAPE, ENC_SERVE_SHAPE, ENC_TRAIN_SHAPE]
 # the libraries whose SASS phase_build reads, and where each runs its
 # products: the flash routes, and the SSD backward (mma.sync)
 SASS_LIBS = {"flash_attention_tc": "tensor_cores", "flash_attention_bwd_tc": "tensor_cores",
@@ -363,7 +399,7 @@ def phase_build() -> None:
 
 def phase_kernel_cases() -> None:
     for dtype in (torch.float32, torch.bfloat16):
-        for i, case in enumerate(FLASH_CASES + ([SLICE_SHAPE, TRAIN_SHAPE] if dtype == torch.bfloat16 else [])):
+        for i, case in enumerate(FLASH_CASES + (PATH_SHAPES if dtype == torch.bfloat16 else [])):
             q, k, v = rand_qkv(case, dtype, seed=i)
             for route in routes(dtype, case[5]):
                 before = (fa.tc_launches, fa.cc_launches)
@@ -394,25 +430,30 @@ def phase_kernel_cases() -> None:
             raise AssertionError(f"kernel accepted {why}")
 
 
-def phase_small_agreement(cfg=None, prompt_len: int = 96) -> None:
+def phase_small_agreement(cfg=None, prompt_len: int = 96, frames_len: int = 0) -> None:
     """A reduced model in f32 (qwen3 unless ``cfg`` is given), the same
-    weights on the card and on the CPU: the card's path (kernels) against
-    the CPU's (plain versions)."""
+    weights (and, for an enc-dec model, ``frames_len`` seeded frames) on
+    the card and on the CPU: the card's path (kernels) against the CPU's
+    (plain versions)."""
     cfg = cfg or get_config("qwen3-1.7b").reduced()
     params = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     gpu = _to(params, "cuda")
-    tokens = torch.randint(0, cfg.vocab_size, (2, prompt_len), generator=torch.Generator().manual_seed(1))
+    gen = torch.Generator().manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, prompt_len), generator=gen)}
+    if cfg.family == "encdec":
+        batch["frames"] = torch.randn((2, frames_len, cfg.d_model), generator=gen)
     worst, same = 0.0, True
     with torch.inference_mode():
-        lc, cc, _ = M.prefill(cfg, params, {"tokens": tokens}, torch.float32, prompt_len + 4)
-        lg, cg, _ = M.prefill(cfg, gpu, {"tokens": tokens.cuda()}, torch.float32, prompt_len + 4)
+        lc, cc, xc = M.prefill(cfg, params, batch, torch.float32, prompt_len + 4)
+        lg, cg, xg = M.prefill(cfg, gpu, _to(batch, "cuda"), torch.float32, prompt_len + 4)
         for i in range(4):
             worst = max(worst, (lg.cpu() - lc).abs().max().item())
             tc, tg = lc[:, -1].argmax(-1, keepdim=True), lg[:, -1].argmax(-1, keepdim=True)
             same &= torch.equal(tc, tg.cpu())
-            lc, cc = M.decode_step(cfg, params, cc, tc, prompt_len + i)
-            lg, cg = M.decode_step(cfg, gpu, cg, tg, prompt_len + i)
-    log("agree", f"{cfg.name} (d_ff {cfg.d_ff}) f32, prompt {prompt_len}, card vs CPU: max logit diff "
+            lc, cc = M.decode_step(cfg, params, cc, tc, prompt_len + i, xc)
+            lg, cg = M.decode_step(cfg, gpu, cg, tg, prompt_len + i, xg)
+    frames = f", {frames_len} frames" if cfg.family == "encdec" else ""
+    log("agree", f"{cfg.name} (d_ff {cfg.d_ff}) f32, prompt {prompt_len}{frames}, card vs CPU: max logit diff "
                  f"{worst:.3e}, greedy tokens equal {same}")
     assert worst <= 1e-3 and same, "card and CPU paths disagree"
 
@@ -486,6 +527,90 @@ def phase_serve() -> tuple[int, float]:
     return launches, worst
 
 
+def phase_serve_encdec() -> tuple[int, float]:
+    """seamless-m4t-large-v2 at full width and depth served on the card
+    (see the module docstring, 29). Returns the flash launches of the
+    serving run and the captured layers' worst forward error."""
+    import gc
+
+    cfg = get_config(SEAMLESS)
+    shape = SEAMLESS_SERVE
+    layers = cfg.encoder_layers + cfg.num_layers
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fa.launches = fa.tc_launches = fa.cc_launches = 0  # the main path's counts start here
+    out = serve_once(cfg, device="cuda", seed=0, **shape)
+    launches, tc_launches = fa.launches, fa.tc_launches  # ... and are read here
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    toks = out["tokens"]
+    tok_s = shape["batch"] * shape["gen"] / out["decode_s"]
+    log("serve-encdec", f"{cfg.name} full width ({cfg.encoder_layers} encoder + {cfg.num_layers} decoder layers, "
+                        f"d_model {cfg.d_model}, {cfg.num_heads} heads of {cfg.resolved_head_dim}, vocab "
+                        f"{cfg.vocab_size}), batch {shape['batch']} x prompt {shape['prompt_len']} with "
+                        f"{shape['frames_len']} frames, {shape['gen']} greedy tokens: prefill_s "
+                        f"{out['prefill_s']:.4f}, decode_s {out['decode_s']:.4f} ({tok_s:.1f} tok/s), peak memory "
+                        f"{peak_gb:.2f} GB, flash launches {launches}")
+    # bf16 at head dim 64: every launch on the tensor cores, one a layer
+    assert fa.route(getattr(torch, cfg.dtype), cfg.resolved_head_dim) == "tensor_cores"
+    assert launches == layers and tc_launches == launches, (launches, tc_launches)
+    log("serve-encdec", f"flash launches by route: tensor_cores {tc_launches}, cuda_cores {launches - tc_launches}")
+    assert toks.shape == (shape["batch"], shape["gen"] + 1), toks.shape
+    assert toks.min() >= 0 and toks.max() < cfg.vocab_size
+
+    # second run: same tokens; every launch's causality, and the q/k/v of
+    # the first encoder layer (launch 0) and the first decoder layer
+    captured, flags, orig = {}, [], ops.flash_attention
+
+    def capture(q, k, v, **kw):
+        flags.append(kw["causal"])
+        if len(flags) - 1 in (0, cfg.encoder_layers):
+            captured[len(flags) - 1] = (q.clone(), k.clone(), v.clone(), kw)
+        return orig(q, k, v, **kw)
+
+    ops.flash_attention = capture
+    try:
+        again = serve_once(cfg, device="cuda", seed=0, **shape)
+    finally:
+        ops.flash_attention = orig
+    assert (again["tokens"] == toks).all(), "a second run gave other tokens"
+    assert flags == [False] * cfg.encoder_layers + [True] * cfg.num_layers, flags
+    log("serve-encdec", f"a prefill's flash launches: {flags.count(False)} non-causal (encoder), "
+                        f"{flags.count(True)} causal (decoder); a second run's tokens identical")
+    worst = 0.0
+    for i, (q, k, v, kw) in sorted(captured.items()):
+        err = kernel_vs_plain(q, k, v, **kw)
+        case = (*q.shape[:2], k.shape[1], q.shape[2], k.shape[2], q.shape[3], kw["causal"], kw["window"])
+        rel = bwd_vs_plain(case, q.dtype, seed=i, qkv=(q, k, v), scale=kw["scale"])
+        where = "encoder layer 0" if i == 0 else "decoder layer 0"
+        log("serve-encdec", f"{where} attention {tuple(q.shape)} {str(q.dtype)[6:]} causal {kw['causal']}: kernel "
+                            f"vs plain max_abs_err {err:.3e} (tol {TOL[q.dtype]:g}); backward max |error| / max "
+                            f"|plain| {rel:.3e} (tol {BWD_TOL[q.dtype]:g})")
+        assert err <= TOL[q.dtype] and rel <= BWD_TOL[q.dtype]
+        worst = max(worst, err)
+    del captured
+
+    # the logits themselves: finite, of the expected shape, the first tokens
+    params = M.cast_params(
+        M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda"), cfg.dtype
+    )
+    batch = demo_batch(cfg, shape["batch"], shape["prompt_len"], frames_len=shape["frames_len"])
+    with torch.inference_mode():
+        logits, cache, cross = M.prefill(cfg, params, batch, max_seq=shape["prompt_len"] + 4)
+    assert logits.shape == (shape["batch"], 1, cfg.vocab_size)
+    assert torch.isfinite(logits.float()).all(), "full-width logits not finite"
+    assert (logits[:, -1].argmax(-1).cpu().numpy() == toks[:, 0]).all()
+    kv = (cfg.num_layers, shape["batch"], shape["frames_len"], cfg.num_kv_heads, cfg.resolved_head_dim)
+    assert all(tuple(x.shape) == kv and x.dtype == torch.bfloat16 for c in cross.values() for x in c.values())
+    log("serve-encdec", f"full-width prefill logits {tuple(logits.shape)} finite; first tokens match; cross KV "
+                        f"{len(cross)} x (k, v) of {kv} bf16")
+    phase_profile(cfg, params, logits, cache, cross, frames_len=shape["frames_len"])
+    del params, logits, cache, cross
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, worst
+
+
 def _kernel_class(name: str) -> str:
     if "fa_fwd" in name:
         return "flash"
@@ -527,18 +652,19 @@ def device_events(prof) -> list:
             if e.device_type == torch.autograd.DeviceType.CUDA and SPIN_KERNEL not in e.name]
 
 
-def phase_profile(cfg, params, logits, cache) -> None:
+def phase_profile(cfg, params, logits, cache, cross=None, frames_len: int = 16) -> None:
     """Where the serve path's time goes: ``torch.profiler`` over one
     full-width prefill and 4 decode steps, device time by kernel class
     against the window's wall time (the profiler's own host cost inflates
-    the wall time, so the busy share is a lower bound)."""
+    the wall time, so the busy share is a lower bound). ``cross`` and
+    ``frames_len``: an enc-dec model's cross-attention KV and frames."""
     from torch.profiler import ProfilerActivity, profile
 
-    batch = demo_batch(cfg, SERVE["batch"], SERVE["prompt_len"])
+    batch = demo_batch(cfg, SERVE["batch"], SERVE["prompt_len"], frames_len=frames_len)
     cur = logits[:, -1].argmax(-1, keepdim=True)
     runs = {
         "prefill": lambda: M.prefill(cfg, params, batch, max_seq=SERVE["prompt_len"] + 4),
-        "decode x4": lambda: [M.decode_step(cfg, params, cache, cur, SERVE["prompt_len"] + i)
+        "decode x4": lambda: [M.decode_step(cfg, params, cache, cur, SERVE["prompt_len"] + i, cross)
                               for i in range(4)],
     }
     for name, fn in runs.items():
@@ -558,10 +684,10 @@ def phase_profile(cfg, params, logits, cache) -> None:
             by_name[e.name] = by_name.get(e.name, 0.0) + ms
             count += 1
         if count == 0:
-            log("profile", f"{name}: device time not measured (the profiler saw no kernels)")
+            log("profile", f"{cfg.name} {name}: device time not measured (the profiler saw no kernels)")
             continue
         total = sum(busy.values())
-        log("profile", f"{name}: wall {wall_ms:.3f} ms under the profiler, {count} kernels, device busy "
+        log("profile", f"{cfg.name} {name}: wall {wall_ms:.3f} ms under the profiler, {count} kernels, device busy "
                        f"{total:.3f} ms ({100 * total / wall_ms:.1f}%): matmul {busy['matmul']:.3f} ms, "
                        f"flash {busy['flash']:.3f} ms, ssd {busy['ssd']:.3f} ms, other {busy['other']:.3f} ms")
         for kname, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
@@ -603,10 +729,12 @@ def _fwd_times(shape) -> dict:
 
 
 def phase_times(launches: int, serve_err: float) -> dict:
-    """The forward at the serving shape (the record's numbers) and at the
-    training shape (kept in the record beside them)."""
-    serve, train = _fwd_times(SLICE_SHAPE), _fwd_times(TRAIN_SHAPE)
-    max_err = max(serve["err"], train["err"], serve_err)  # these shapes and the serve phase's real layers
+    """The forward at the serving shape (the record's numbers), at the
+    training shape and at seamless's encoder shape (non-causal, heads of
+    64; both kept in the record beside them)."""
+    serve, train, enc = _fwd_times(SLICE_SHAPE), _fwd_times(TRAIN_SHAPE), _fwd_times(ENC_SERVE_SHAPE)
+    # these shapes and the serve phase's real layers
+    max_err = max(serve["err"], train["err"], enc["err"], serve_err)
     # the record carries both the smoke contract's key names (ms,
     # max_abs_err) and the issue's (kernel_ms, max_err)
     return {
@@ -631,6 +759,7 @@ def phase_times(launches: int, serve_err: float) -> dict:
         "library_device_ms": serve["library_device_ms"],
         "shape": list(SLICE_SHAPE),
         "train_shape": {k: v for k, v in train.items() if k != "err"} | {"shape": list(TRAIN_SHAPE)},
+        "encoder_shape": {k: v for k, v in enc.items() if k != "err"} | {"shape": list(ENC_SERVE_SHAPE)},
     }
 
 # ---------------------------------------------------------------------------
@@ -649,7 +778,7 @@ ROW_DTYPES = (torch.float32, torch.bfloat16, torch.int8)
 EMBED = (151936, 2048)  # qwen3-1.7b's embedding table
 CACHE_ROW = (28, 8 * 544 * 8 * 128)  # a stacked cache leaf, 8 slots x 544 positions, flattened
 OVERLAP_STARTS = [[3, 17, 5, 5, 29], [30, 1, 12, 9, 2]]  # unaligned, overlapping, repeated
-ELASTIC = dict(n_slots=8, prompt_len=512, max_seq=544, gen=32)
+ELASTIC = dict(n_slots=8, prompt_len=512, max_seq=544, gen=32, frames_len=512)  # frames: seamless's
 ELASTIC_TRACE = [(8.0, (1, 2)), (16.0, (1, 4)), (24.0, (2, 2))]  # (time, (dp, tp)); starts on dp2tp2
 
 
@@ -840,12 +969,16 @@ def phase_table_forms() -> None:
     log("rows", "pack_rows call by size class of its starts (rows of 64 bf16, median of 50): " + ", ".join(costs))
 
 
-def elastic_session(cfg, prompts, trace):
+def elastic_session(cfg, prompts, trace, frames=None):
+    """``prompts`` served on dp2tp2 through ``trace``; ``frames``, one
+    array a prompt, feed an enc-dec model's encoder."""
+    frames = frames if frames is not None else [None] * len(prompts)
     ctrl = LiveServeController(cfg, ParallelConfig(dp=2, tp=2), ELASTIC["n_slots"], ELASTIC["prompt_len"],
-                               ELASTIC["max_seq"], cache_dtype=torch.bfloat16, device="cuda", sync_prepare=True)
+                               ELASTIC["max_seq"], cache_dtype=torch.bfloat16, frames_len=ELASTIC["frames_len"],
+                               device="cuda", sync_prepare=True)
     sess = ServeSession(ctrl, step_time_s=1.0)
-    for p in prompts:
-        sess.submit(p, ELASTIC["gen"])
+    for p, f in zip(prompts, frames):
+        sess.submit(p, ELASTIC["gen"], frames=f)
     events = [ResizeEvent(time_s=t, target=ParallelConfig(dp=dp, tp=tp)) for t, (dp, tp) in trace]
     results, metrics = sess.run(events)
     records = list(ctrl.records)
@@ -854,17 +987,24 @@ def elastic_session(cfg, prompts, trace):
 
 
 def phase_elastic(arch: str = "qwen3-1.7b") -> dict:
-    """``arch`` (qwen3-1.7b, or mamba2-2.7b) at full width serves 8
-    requests (512-token prompts, 32 greedy tokens) on dp2tp2 and resizes
-    three times mid-generation; params and the live cache (KV, or the SSD
-    and conv states) move through the planner, the engine and the row
-    kernels. A wrapper around ``live_reshard_planned`` counts each commit's
-    launches, checks every migrated tensor against its source byte for byte
-    and the staging bound. Tokens must equal an uninterrupted run."""
+    """``arch`` (qwen3-1.7b, mamba2-2.7b or seamless-m4t-large-v2) at full
+    width serves 8 requests (512-token prompts, 32 greedy tokens; seamless
+    with 512 frames each) on dp2tp2 and resizes three times
+    mid-generation; params and the live cache (KV, or the SSD and conv
+    states, and seamless's cross-attention KV) move through the planner,
+    the engine and the row kernels. A wrapper around
+    ``live_reshard_planned`` counts each commit's launches, checks every
+    migrated tensor against its source byte for byte and the staging bound.
+    Tokens must equal an uninterrupted run."""
     cfg = get_config(arch)
+    encdec = cfg.family == "encdec"
     mixer = "ssd_intra_chunk" if cfg.family == "ssm" else "flash_attention"
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size, ELASTIC["prompt_len"]) for _ in range(ELASTIC["n_slots"])]
+    frames = None
+    if encdec:
+        frames = [rng.standard_normal((ELASTIC["frames_len"], cfg.d_model), dtype=np.float32)
+                  for _ in range(ELASTIC["n_slots"])]
     commits: list[dict] = []
     orig_reshard, orig_relayout = serve_controller.live_reshard_planned, ops.relayout_rows
     relayout_ptrs: set[int] = set()
@@ -888,6 +1028,8 @@ def phase_elastic(arch: str = "qwen3-1.7b") -> dict:
             "launched": {k: rp.launches[k] - before[k] for k in before},
             "relayout": sorted(n for n, t in dst.items() if t.data_ptr() in relayout_ptrs),
             "check_s": time.perf_counter() - t0, "stats": stats, "peak_gb": peak / 1e9,
+            "cross": {t.tensor for t in plan.tasks if t.collection == "cross"},
+            "cross_moved": {t.tensor for t in plan.tasks if t.collection == "cross" and t.kind != "resident"},
         })
         return dst, stats
 
@@ -896,15 +1038,20 @@ def phase_elastic(arch: str = "qwen3-1.7b") -> dict:
         fa.launches = ssd_k.launches = 0  # the elastic path's counts start here ...
         for k in rp.launches:
             rp.launches[k] = 0
-        results, metrics, records = elastic_session(cfg, prompts, ELASTIC_TRACE)
+        results, metrics, records = elastic_session(cfg, prompts, ELASTIC_TRACE, frames)
         # ... and are read here
         launches = {"flash_attention": fa.launches, "ssd_intra_chunk": ssd_k.launches, **rp.launches}
     finally:
         serve_controller.live_reshard_planned, ops.relayout_rows = orig_reshard, orig_relayout
-    plain, _, _ = elastic_session(cfg, prompts, [])
-    state_gb = sum(s.nbytes for s in serve_controller.serve_state_specs(
-        cfg, ELASTIC["n_slots"], ELASTIC["max_seq"], torch.bfloat16)) / 1e9
-    log("elastic", f"{cfg.name} full width (serving state {state_gb:.4f} GB), {ELASTIC['n_slots']} requests x prompt {ELASTIC['prompt_len']}, "
+    plain, _, _ = elastic_session(cfg, prompts, [], frames)
+    specs = serve_controller.serve_state_specs(cfg, ELASTIC["n_slots"], ELASTIC["max_seq"], torch.bfloat16,
+                                               cross_len=ELASTIC["frames_len"] if encdec else 0)
+    state_gb = sum(s.nbytes for s in specs) / 1e9
+    by_coll = {c: sum(s.nbytes for s in specs if s.collection == c) / 1e9 for c in ("params", "cache", "cross")}
+    log("elastic", f"{cfg.name} full width (serving state {state_gb:.4f} GB: params {by_coll['params']:.4f}, "
+                   f"cache {by_coll['cache']:.4f}, cross KV {by_coll['cross']:.4f}), "
+                   f"{ELASTIC['n_slots']} requests x prompt {ELASTIC['prompt_len']}"
+                   + (f" with {ELASTIC['frames_len']} frames each" if encdec else "") + ", "
                    f"{ELASTIC['gen']} greedy tokens, dp2tp2 -> " + " -> ".join(f"dp{d}tp{t}" for _, (d, t) in ELASTIC_TRACE)
                    + f": {metrics.commits} commits, {metrics.tokens_emitted} tokens, dropped {metrics.dropped}, "
                      f"wall {metrics.wall_s:.3f}s; main-path launches {launches}")
@@ -917,17 +1064,27 @@ def phase_elastic(arch: str = "qwen3-1.7b") -> dict:
                        f"{rec.executed_bytes / 1e9 / plane_s:.1f} GB/s over {plane_s:.4f}s, peak memory "
                        f"{c['peak_gb']:.2f} GB, launches {c['launched']}, relayout on {c['relayout']}, "
                        f"cache-resident layers {rec.cache_resident_layers}, resident tensors adopted "
-                       f"{rec.skipped_bytes / 1e9:.4f} GB")
+                       f"{rec.skipped_bytes / 1e9:.4f} GB"
+                       + (f", cross KV moved {sorted(c['cross_moved'])}" if encdec else ""))
         assert rec.cut_step > 0, rec.cut_step
     first, second, third = commits
     assert not any(first["launched"].values()) and records[0].executed_bytes == 0, first["launched"]
     assert second["launched"]["relayout_rows"] == 0 and not second["relayout"]
-    assert third["relayout"] == ["params/embed/tok", "params/final_norm/scale"], third["relayout"]
+    # the tensors that stay whole on every rank: the embedding and the final
+    # norms (seamless's encoder has one too)
+    norms = ["params/encoder/final_norm/scale"] if encdec else []
+    assert third["relayout"] == ["params/embed/tok", *norms, "params/final_norm/scale"], third["relayout"]
     for c in (second, third):
         assert c["launched"]["pack_rows"] == c["launched"]["scatter_rows"] > 0, c["launched"]
         assert c["launched"]["unpack_rows"] == 0
-    assert launches[mixer] == cfg.num_layers, launches  # one wave, one prefill
-    assert launches["flash_attention"] + launches["ssd_intra_chunk"] == cfg.num_layers, launches
+    # the cross KV is planned at every commit and moves where tp changes
+    # (16 kv heads over 2, then 4, then 2 ranks)
+    cross = {"cross/pos0/k", "cross/pos0/v"} if encdec else set()
+    assert all(c["cross"] == cross for c in commits), [c["cross"] for c in commits]
+    assert [c["cross_moved"] for c in commits] == [set(), cross, cross], [c["cross_moved"] for c in commits]
+    layers = cfg.num_layers + cfg.encoder_layers  # flash layers (and SSD layers) of a prefill
+    assert launches[mixer] == layers, launches  # one wave, one prefill
+    assert launches["flash_attention"] + launches["ssd_intra_chunk"] == layers, launches
     assert all(launches[k] == sum(c["launched"][k] for c in commits) for k in ROW_KERNELS)
     assert results == plain, "the resized run's tokens differ from the uninterrupted run's"
     assert all(0 <= t < cfg.vocab_size for toks in results.values() for t in toks)
@@ -1280,7 +1437,8 @@ def bwd_vs_plain(case, dtype, seed, route=None, qkv=None, scale=None) -> float:
 def phase_bwd_cases() -> float:
     worst = 0.0
     for dtype in (torch.float32, torch.bfloat16):
-        for i, case in enumerate(FLASH_CASES + [TRAIN_SHAPE] + ([SLICE_SHAPE] if dtype == torch.bfloat16 else [])):
+        for i, case in enumerate(FLASH_CASES + [TRAIN_SHAPE] + (
+                [SLICE_SHAPE, ENC_SERVE_SHAPE, ENC_TRAIN_SHAPE] if dtype == torch.bfloat16 else [])):
             for route in routes(dtype, case[5]):
                 rel = bwd_vs_plain(case, dtype, seed=100 + i, route=route)
                 log("bwd", f"flash_attention backward {case} {str(dtype)[6:]} {route}: max |error| / max |plain| "
@@ -1603,6 +1761,63 @@ def cut_checker(commits: list, controller, rebuild):
     return checked_rebuild
 
 
+def _flash_class(name: str) -> str:
+    if any(k in name for k in ("bwd_dkdv", "bwd_dq", "bwd_rowdot")):
+        return "flash backward"
+    return "flash forward" if "fa_fwd" in name else _kernel_class(name)
+
+
+def profile_step(world, params, opt_state, batch, classify) -> dict:
+    """One train step on ``world`` under ``torch.profiler``, its two halves
+    (gradients, update) apart: the wall time, each half on the card's
+    clock, and the device time by ``classify(kernel name)`` and by kernel
+    (both empty when the profiler saw no kernel). The step changes the
+    state."""
+    from torch.profiler import ProfilerActivity, profile
+
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        open_trace()
+        t0 = time.perf_counter()
+        marks[0].record()
+        _, _, grads = world.grad_fn(params, batch)
+        marks[1].record()
+        world.update_fn(grads, opt_state, params)
+        marks[2].record()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        time.sleep(TRACE_PAD_S)
+    del grads
+    busy: dict[str, float] = {}
+    by_name: dict[str, float] = {}
+    for e in device_events(prof):
+        cls = classify(e.name)
+        ms = e.time_range.elapsed_us() / 1e3
+        busy[cls] = busy.get(cls, 0.0) + ms
+        by_name[e.name] = by_name.get(e.name, 0.0) + ms
+    return {"wall_ms": wall_ms, "grads_ms": marks[0].elapsed_time(marks[1]),
+            "update_ms": marks[1].elapsed_time(marks[2]), "busy": busy, "by_name": by_name}
+
+
+def int8_control(cfg, opt, kw, first: dict, at_commit: int):
+    """The control of a resized run on dp2tp2: never resized, the same int8
+    round trip of its moments at the first commit's cut (what the wire
+    delivered there, ``first["quantized"]``), trained to step
+    ``at_commit``. Returns the controller and its losses."""
+    from repro_torch.core.controller import LiveRController
+    from repro_torch.utils.pytree import tree_paths
+
+    control = LiveRController(cfg, ParallelConfig(dp=2, tp=2), opt, **kw)
+    losses = control.train_steps(first["step"])
+    with torch.no_grad():
+        for coll in ("mu", "nu"):
+            for p, x in tree_paths(control.opt_state[coll]).items():
+                if f"{coll}/{p}" in first["quantized"]:
+                    x.copy_(_round_trip_rows(x, "int8"))
+    losses += control.train_steps(at_commit - first["step"])
+    return control, losses
+
+
 def phase_train() -> tuple[dict, int, float]:
     """Live-resized training at full width (see the module docstring, 13)."""
     from repro_torch.core import controller as C
@@ -1704,46 +1919,8 @@ def phase_train() -> tuple[dict, int, float]:
 
     # where a step's time goes: one more step on the final world, its two
     # halves (gradients, update) apart, under the profiler
-    from torch.profiler import ProfilerActivity, profile
-
-    world = ctrl.world
-    batch = {"tokens": torch.from_numpy(ctrl.data.global_batch_at(ctrl.step)).to("cuda", torch.long)}
-    marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        open_trace()
-        t0 = time.perf_counter()
-        marks[0].record()
-        _, _, grads = world.grad_fn(ctrl.params, batch)
-        marks[1].record()
-        world.update_fn(grads, ctrl.opt_state, ctrl.params)
-        marks[2].record()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-        time.sleep(TRACE_PAD_S)
-    del grads
-    busy: dict[str, float] = {}
-    by_name: dict[str, float] = {}
-    for e in device_events(prof):
-        name = e.name
-        if any(k in name for k in ("bwd_dkdv", "bwd_dq", "bwd_rowdot")):
-            cls = "flash backward"
-        elif "fa_fwd" in name:
-            cls = "flash forward"
-        else:
-            cls = _kernel_class(name)
-        ms = e.time_range.elapsed_us() / 1e3
-        busy[cls] = busy.get(cls, 0.0) + ms
-        by_name[name] = by_name.get(name, 0.0) + ms
-    total = sum(busy.values())
-    if total == 0:
-        log("train", "one step under the profiler: device time not measured (the profiler saw no kernels)")
-    else:
-        log("train", f"one step on dp1tp4 under the profiler: wall {wall_ms:.3f} ms (gradients "
-                     f"{marks[0].elapsed_time(marks[1]):.3f} ms, AdamW update {marks[1].elapsed_time(marks[2]):.3f} "
-                     f"ms on the card's clock), device busy {total:.3f} ms ({100 * total / wall_ms:.1f}%): "
-                     + ", ".join(f"{k} {v:.3f} ms" for k, v in sorted(busy.items(), key=lambda kv: -kv[1])))
-        for kname, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
-            log("train", f"  step: {ms:8.3f} ms  {kname[:110]}")
+    log_step_profile("train", "one step on dp1tp4", profile_step(ctrl.world, ctrl.params, ctrl.opt_state,
+                                                                 ctrl._batch(), _flash_class))
     # iteration i ran step i + 1; the split commit ran inside the step at
     # its cut, the stop-copy commit at the boundary after the step before it
     with_commit = {first["step"], second["step"] - 1}
@@ -1754,16 +1931,7 @@ def phase_train() -> tuple[dict, int, float]:
     del ctrl
     torch.cuda.empty_cache()
 
-    # the control: never resized, the same int8 round trip of its moments
-    # at the first commit's cut (what the wire delivered there)
-    control = LiveRController(cfg, ParallelConfig(dp=2, tp=2), opt, **kw)
-    c_losses = control.train_steps(first["step"])
-    with torch.no_grad():
-        for coll in ("mu", "nu"):
-            for p, x in tree_paths(control.opt_state[coll]).items():
-                if f"{coll}/{p}" in first["quantized"]:
-                    x.copy_(_round_trip_rows(x, "int8"))
-    c_losses += control.train_steps(at_commit - first["step"])
+    control, c_losses = int8_control(cfg, opt, kw, first, at_commit)
     worst, equal = 0.0, True
     for p, x in tree_paths(control.params).items():
         worst = max(worst, (x - snapshot[p]).abs().max().item())
@@ -1777,13 +1945,31 @@ def phase_train() -> tuple[dict, int, float]:
     return launches, len(losses), peak_gb
 
 
-def check_train_launches(launches: dict, steps: int) -> None:
-    """Every kernel of the training path ran on it: the forward twice a
-    layer a step (remat reruns it), the backward once, the quant kernels
-    in the streamed commit, the row kernels in it too. qwen3 computes in
-    bf16 at head dim 128, so every flash launch is on the tensor cores."""
-    cfg = get_config(TRAIN["arch"])
-    layers = cfg.num_layers
+def log_step_profile(phase: str, what: str, prof: dict, share_of: str = "") -> None:
+    """The lines of a ``profile_step``: the busy time by class (and
+    ``share_of``'s share of it), then the 8 longest kernels."""
+    busy, total = prof["busy"], sum(prof["busy"].values())
+    if total == 0:
+        log(phase, f"{what} under the profiler: device time not measured (the profiler saw no kernels)")
+        return
+    share = (f"; the {share_of} {busy.get(share_of, 0.0):.3f} ms "
+             f"({100 * busy.get(share_of, 0.0) / total:.1f}% of the busy time)") if share_of else ""
+    log(phase, f"{what} under the profiler: wall {prof['wall_ms']:.3f} ms (gradients {prof['grads_ms']:.3f} ms, "
+               f"AdamW update {prof['update_ms']:.3f} ms on the card's clock), device busy {total:.3f} ms "
+               f"({100 * total / prof['wall_ms']:.1f}%){share}: "
+               + ", ".join(f"{k} {v:.3f} ms" for k, v in sorted(busy.items(), key=lambda kv: -kv[1])))
+    for kname, ms in sorted(prof["by_name"].items(), key=lambda kv: -kv[1])[:8]:
+        log(phase, f"  step: {ms:8.3f} ms  {kname[:110]}")
+
+
+def check_train_launches(launches: dict, steps: int, arch: str = TRAIN["arch"], phase: str = "train") -> None:
+    """Every kernel of the training path ran on it: the forward twice an
+    attention layer a step (remat reruns it; an enc-dec model's encoder
+    layers count), the backward once, the quant kernels in the streamed
+    commit, the row kernels in it too. qwen3 and seamless compute in bf16
+    at head dim 128 and 64, so every flash launch is on the tensor cores."""
+    cfg = get_config(arch)
+    layers = cfg.num_layers + cfg.encoder_layers
     for name in ("flash_attention", "flash_attention_bwd", "pack_rows", "scatter_rows",
                  "pack_quant_rows", "dequant_scatter_rows"):
         assert launches[name] > 0, f"{name} was not launched on the training path"
@@ -1792,10 +1978,10 @@ def check_train_launches(launches: dict, steps: int) -> None:
     assert fa.route(getattr(torch, cfg.dtype), cfg.resolved_head_dim) == "tensor_cores"
     assert launches["flash_attention_tc"] == launches["flash_attention"], launches
     assert launches["flash_attention_bwd_tc"] == launches["flash_attention_bwd"], launches
-    log("train", f"flash launches by route: forward {launches['flash_attention_tc']} tensor_cores / "
-                 f"{launches['flash_attention'] - launches['flash_attention_tc']} cuda_cores, backward "
-                 f"{launches['flash_attention_bwd_tc']} / "
-                 f"{launches['flash_attention_bwd'] - launches['flash_attention_bwd_tc']}")
+    log(phase, f"flash launches by route: forward {launches['flash_attention_tc']} tensor_cores / "
+               f"{launches['flash_attention'] - launches['flash_attention_tc']} cuda_cores, backward "
+               f"{launches['flash_attention_bwd_tc']} / "
+               f"{launches['flash_attention_bwd'] - launches['flash_attention_bwd_tc']}")
     assert launches["pack_quant_rows"] == launches["dequant_scatter_rows"]
     # the embedding's and norms' moment rows are small tiles, the stacked
     # layers' rows large ones
@@ -2426,13 +2612,12 @@ def _record(name, source, replaces, launches, err, ms, plain_ms, bound_ms, bound
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms, **extra}
 
 
-def phase_bwd_times(launches: int, case_err: float) -> dict:
-    """The backward kernel at the training shape (bf16), beside the
-    CUDA-core route, the plain version's backward and
-    ``scaled_dot_product_attention``'s backward, each timed alone on graphs
-    kept for reuse."""
-    b, s, t, h, kh, d, causal, window = TRAIN_SHAPE
-    q, k, v = rand_qkv(TRAIN_SHAPE, torch.bfloat16, seed=7)
+def _bwd_times(shape) -> dict:
+    """The backward kernel at ``shape`` (bf16), beside the CUDA-core route,
+    the plain version's backward and ``scaled_dot_product_attention``'s
+    backward, each timed alone on graphs kept for reuse."""
+    b, s, t, h, kh, d, causal, window = shape
+    q, k, v = rand_qkv(shape, torch.bfloat16, seed=7)
     dout = torch.randn(q.shape, generator=torch.Generator(device="cuda").manual_seed(8), device="cuda").to(q.dtype)
     kw = dict(causal=causal, window=window)
     out, lse = fa.flash_attention_cuda(q, k, v, return_lse=True, **kw)
@@ -2456,19 +2641,30 @@ def phase_bwd_times(launches: int, case_err: float) -> dict:
     bytes_ms, flops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOP_PER_S * 1e3
     bound_ms = max(bytes_ms, flops_ms)
     tflops = flops / kernel_ms / 1e9  # the 5 products' FLOPs: the kernel does 7
-    log("times", f"flash_attention backward {TRAIN_SHAPE} bf16: kernel {kernel_ms:.4f} ms ({tflops:.1f} TFLOP/s of "
+    log("times", f"flash_attention backward {shape} bf16: kernel {kernel_ms:.4f} ms ({tflops:.1f} TFLOP/s of "
                  f"the 5 products; its three kernels on the device {on_device_ms:.4f} ms), the CUDA-core route "
                  f"{cuda_cores_ms:.4f} ms, plain backward {plain_ms:.4f} ms, sdpa backward {library_ms:.4f} ms "
                  f"(on the device {library_device_ms:.4f} ms), bound {bound_ms:.4f} ms "
                  f"({nbytes / 1e6:.1f} MB -> {bytes_ms:.4f} ms; {flops / 1e9:.2f} GFLOP -> {flops_ms:.4f} ms)")
+    return {"ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes" if bytes_ms >= flops_ms else "operations", "library_ms": library_ms,
+            "device_ms": on_device_ms, "library_device_ms": library_device_ms, "tflops": tflops,
+            "cuda_cores_ms": cuda_cores_ms, "shape": list(shape)}
+
+
+def phase_bwd_times(launches: int, case_err: float) -> dict:
+    """The backward at the training shape (the record's numbers) and at
+    seamless's encoder training shape (non-causal, heads of 64; kept in
+    the record beside them)."""
+    train, enc = _bwd_times(TRAIN_SHAPE), _bwd_times(ENC_TRAIN_SHAPE)
     return _record("flash_attention_bwd", "src/repro_torch/kernels/csrc/flash_attention_bwd_tc.cu",
                    "src/repro/kernels/flash_attention.py:124 (backward; the TPU kernel has none)", launches,
-                   case_err, kernel_ms, plain_ms, bound_ms, "bytes" if bytes_ms >= flops_ms else "operations",
-                   library_ms, device_ms=on_device_ms, library_device_ms=library_device_ms, tflops=tflops,
-                   cuda_cores_ms=cuda_cores_ms,
+                   case_err, train["ms"], train["plain_ms"], train["bound_ms"], train["bound_by"],
+                   train["library_ms"], device_ms=train["device_ms"], library_device_ms=train["library_device_ms"],
+                   tflops=train["tflops"], cuda_cores_ms=train["cuda_cores_ms"],
                    sources={"tensor_cores": "src/repro_torch/kernels/csrc/flash_attention_bwd_tc.cu",
                             "cuda_cores": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"},
-                   shape=list(TRAIN_SHAPE),
+                   shape=train["shape"], encoder_shape=enc,
                    err_is="max |error| / max |plain gradient| over the cases, bf16, both routes")
 
 
@@ -3196,8 +3392,6 @@ def phase_train_mamba2() -> tuple[dict, float]:
     docstring, 26). Returns the launches of the path and the peak memory."""
     import gc
 
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.core.controller import LiveRController
     from repro_torch.distribution.step import make_grad_fn
 
@@ -3258,46 +3452,14 @@ def phase_train_mamba2() -> tuple[dict, float]:
 
     # where a step's time goes: one more step, its halves apart, under the
     # profiler (after the digest: it changes the state)
-    world = ctrl.world
-    batch = {"tokens": torch.from_numpy(ctrl.data.global_batch_at(ctrl.step)).to("cuda", torch.long)}
-    marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        open_trace()
-        t0 = time.perf_counter()
-        marks[0].record()
-        _, _, grads = world.grad_fn(ctrl.params, batch)
-        marks[1].record()
-        world.update_fn(grads, ctrl.opt_state, ctrl.params)
-        marks[2].record()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-        time.sleep(TRACE_PAD_S)
-    del grads
-    busy: dict[str, float] = {}
-    by_name: dict[str, float] = {}
-    for e in device_events(prof):
-        if "ssd_intra_chunk_bwd_kernel" in e.name or "sum_groups_kernel" in e.name:
-            cls = "ssd backward"
-        elif "ssd_intra_chunk_kernel" in e.name:
-            cls = "ssd forward"
-        else:
-            cls = _kernel_class(e.name)
-        ms = e.time_range.elapsed_us() / 1e3
-        busy[cls] = busy.get(cls, 0.0) + ms
-        by_name[e.name] = by_name.get(e.name, 0.0) + ms
-    total = sum(busy.values())
-    if total == 0:
-        log("train-ssm", "one step under the profiler: device time not measured (the profiler saw no kernels)")
-    else:
-        log("train-ssm", f"one step under the profiler: wall {wall_ms:.3f} ms (gradients "
-                         f"{marks[0].elapsed_time(marks[1]):.3f} ms, AdamW update {marks[1].elapsed_time(marks[2]):.3f}"
-                         f" ms on the card's clock), device busy {total:.3f} ms ({100 * total / wall_ms:.1f}%); the "
-                         f"SSD backward {busy.get('ssd backward', 0.0):.3f} ms "
-                         f"({100 * busy.get('ssd backward', 0.0) / total:.1f}% of the busy time): "
-                         + ", ".join(f"{k} {v:.3f} ms" for k, v in sorted(busy.items(), key=lambda kv: -kv[1])))
-        for kname, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
-            log("train-ssm", f"  step: {ms:8.3f} ms  {kname[:110]}")
-    del ctrl, world, batch
+    def ssd_class(name: str) -> str:
+        if "ssd_intra_chunk_bwd_kernel" in name or "sum_groups_kernel" in name:
+            return "ssd backward"
+        return "ssd forward" if "ssd_intra_chunk_kernel" in name else _kernel_class(name)
+
+    log_step_profile("train-ssm", "one step", profile_step(ctrl.world, ctrl.params, ctrl.opt_state, ctrl._batch(),
+                                                           ssd_class), share_of="ssd backward")
+    del ctrl
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3399,6 +3561,154 @@ def phase_calibrate() -> dict:
     return consts
 
 
+# seamless-m4t-large-v2 trained as qwen3 in TRAIN: batch 4 x 1024 tokens
+# with frames (4, 1024, 1024) from data.SyntheticFrames
+SEAMLESS_TRAIN = dict(batch=4, seq=1024, before=3, after=3, stream_k=8)
+# the first step's f32 gradients through the kernels against the plain
+# attention's: per leaf, max |g - g_plain| / max |g_plain|
+SEAMLESS_GRAD_TOL = 1e-4
+
+
+def _grads_vs_plain_attention(grad_fn, params, batch) -> tuple[dict, tuple[int, int]]:
+    """``grad_fn``'s gradients through the flash kernels against the same
+    step with ``ops.flash_attention`` replaced by the plain version (under
+    autograd on the card): {path: (max |g - g_plain| / max |g_plain|,
+    ||g - g_plain|| / ||g_plain||)}, and the flash forward and backward
+    launches of the kernels' step."""
+    from repro_torch.utils.pytree import tree_paths
+
+    orig = ops.flash_attention
+    ops.flash_attention = flash_attention_ref
+    try:
+        plain = tree_paths(grad_fn(params, batch)[2])
+    finally:
+        ops.flash_attention = orig
+    before = (fa.launches, fa.bwd_launches)
+    got = tree_paths(grad_fn(params, batch)[2])
+    launched = (fa.launches - before[0], fa.bwd_launches - before[1])
+    out = {}
+    for p, g in got.items():
+        assert torch.isfinite(g).all(), f"{p}: a gradient is not finite"
+        w = plain[p]
+        out[p] = (((g - w).abs().max() / w.abs().max()).item(), ((g - w).norm() / w.norm()).item())
+    return out, launched
+
+
+def phase_train_encdec() -> dict:
+    """seamless-m4t-large-v2 trained and live-resized at full width and
+    depth (see the module docstring, 31). Returns the launches of the
+    path."""
+    import gc
+
+    from repro_torch.core import controller as C
+    from repro_torch.core.controller import LiveRController
+    from repro_torch.data import SyntheticFrames
+    from repro_torch.distribution.step import make_grad_fn
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.reshard import WirePolicy
+    from repro_torch.utils.pytree import tree_paths
+
+    cfg = get_config(SEAMLESS)
+    layers = cfg.encoder_layers + cfg.num_layers
+    B, S = SEAMLESS_TRAIN["batch"], SEAMLESS_TRAIN["seq"]
+    data = SyntheticFrames(cfg.vocab_size, S, B, cfg.d_model)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the run's first step (its init, tokens and frames) in f32 compute:
+    # the kernels against the plain attention
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params = M.init_params(cfg32, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    batch = {"tokens": torch.from_numpy(data.global_batch_at(0)).to("cuda", torch.long),
+             "frames": data.frames_at(0, "cuda")}
+    errs, launched = _grads_vs_plain_attention(make_grad_fn(cfg32), params, batch)
+    del params, batch
+    worst = max(errs, key=lambda p: errs[p][0])
+    log("train-encdec", f"the run's first step's gradients in f32 compute, the flash kernels (CUDA-core "
+                        f"route: f32) against the plain attention on the card: {len(errs)} leaves, max |g - g_plain| "
+                        f"/ max |g_plain| at most {errs[worst][0]:.3e} (tol {SEAMLESS_GRAD_TOL:g}; {worst}), "
+                        f"||g - g_plain|| / ||g_plain|| at most {max(e[1] for e in errs.values()):.3e}; flash "
+                        f"launches {launched[0]} forward / {launched[1]} backward")
+    assert launched == (2 * layers, layers), launched
+    assert errs[worst][0] <= SEAMLESS_GRAD_TOL, "the kernels' f32 gradients disagree with the plain attention's"
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    opt = AdamWConfig(learning_rate=1e-4, warmup_steps=2, total_steps=1000)
+    kw = dict(seq_len=S, global_batch=B, data=data, device="cuda", stream_k=SEAMLESS_TRAIN["stream_k"])
+    commits: list[dict] = []
+    orig_rebuild = C.rebuild_state
+    torch.cuda.reset_peak_memory_stats()
+    C.rebuild_state = cut_checker(commits, lambda: ctrl, orig_rebuild)
+    try:
+        ctrl = LiveRController(cfg, ParallelConfig(dp=2, tp=2), opt, overlap="stream", wire_policy=WirePolicy(), **kw)
+        _zero_counts()  # the training path's counts start here ...
+        t_run = time.perf_counter()
+        losses = ctrl.train_steps(SEAMLESS_TRAIN["before"])
+        ctrl.request_resize(ParallelConfig(dp=2, tp=4))
+        while not ctrl.records:
+            losses += ctrl.train_steps(1)
+            assert len(losses) < 200, "the streamed resize never committed"
+        ctrl.wire_policy = None  # the second resize is lossless
+        ctrl.request_resize(ParallelConfig(dp=1, tp=4), overlap="stop_copy")
+        while len(ctrl.records) < 2:
+            losses += ctrl.train_steps(1)
+            assert len(losses) < 400, "the stop-copy resize never committed"
+        snapshot = {p: x.clone() for p, x in tree_paths(ctrl.params).items()}
+        at_commit = ctrl.step
+        losses += ctrl.train_steps(SEAMLESS_TRAIN["after"])
+        run_s = time.perf_counter() - t_run
+        launches = _all_counts()  # ... and are read here
+    finally:
+        C.rebuild_state = orig_rebuild
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log("train-encdec", f"{cfg.name} full width ({cfg.encoder_layers} encoder + {cfg.num_layers} decoder layers, "
+                        f"d_model {cfg.d_model}, vocab {cfg.vocab_size}, fp32 params, {cfg.dtype} compute, AdamW, "
+                        f"remat per layer), batch {B} x {S} with frames ({B}, {S}, {cfg.d_model}), dp2tp2 -> "
+                        f"dp2tp4 (stream, int8 moments) -> dp1tp4 (stop-copy, lossless): {len(losses)} steps in "
+                        f"{run_s:.1f}s, losses {[round(x, 4) for x in losses]}, peak memory {peak_gb:.2f} GB, "
+                        f"launches {launches}")
+    assert all(np.isfinite(losses)), "a loss is not finite"
+    assert [r.dst for r in ctrl.records] == ["dp2xpp1xtp4", "dp1xpp1xtp4"], [r.dst for r in ctrl.records]
+    for i, (rec, c) in enumerate(zip(ctrl.records, commits)):
+        pause_s = rec.total_pause_s - c["check_s"]  # the smoke's own check is not the system's pause
+        log("train-encdec", f"commit {i + 1} {rec.mode} {rec.src} -> {rec.dst} at step {c['step']}: pause_s "
+                            f"{pause_s:.4f}, prepare_s {rec.prepare_s:.4f}, wire {rec.wire_bytes / 1e9:.4f} GB, "
+                            f"logical {rec.logical_bytes / 1e9:.4f} GB, executed {rec.executed_bytes / 1e9:.4f} GB, "
+                            f"dirty layers {rec.dirty_layers}/{rec.layers_total}, {len(c['quantized'])} tensors "
+                            f"quantized, {len(c['adopted'])} adopted")
+        assert rec.generic_cells == 0
+    first, second = commits
+    assert ctrl.records[0].executed_bytes > 0 and ctrl.records[0].wire_bytes < ctrl.records[0].logical_bytes
+    assert first["quantized"] and all(n.split("/")[0] in ("mu", "nu") for n in first["quantized"])
+    assert any(n.startswith(("mu/encoder/", "nu/encoder/")) for n in first["quantized"])
+    assert not second["quantized"] and ctrl.records[1].wire_bytes == ctrl.records[1].logical_bytes
+    check_train_launches(launches, len(losses), SEAMLESS, phase="train-encdec")
+    with_commit = {first["step"], second["step"] - 1}  # as in phase_train
+    plain_steps = [t for i, t in enumerate(ctrl.iteration_times) if i not in with_commit]
+    step_s = statistics.median(plain_steps)
+    log("train-encdec", f"step time on the card (host clock, steps without a commit): median {step_s:.4f} s over "
+                        f"{len(plain_steps)} steps, {B * S / step_s:.0f} tokens/s; flash launches a step "
+                        f"{launches['flash_attention'] // len(losses)} forward / "
+                        f"{launches['flash_attention_bwd'] // len(losses)} backward")
+    log_step_profile("train-encdec", "one step on dp1tp4", profile_step(ctrl.world, ctrl.params, ctrl.opt_state,
+                                                                        ctrl._batch(), _flash_class))
+    del ctrl
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    control, c_losses = int8_control(cfg, opt, kw, first, at_commit)
+    unequal = [p for p, x in tree_paths(control.params).items() if not torch.equal(x, snapshot[p])]
+    log("train-encdec", f"params after the lossless commit (step {at_commit}) against the control run never "
+                        f"resized: {len(snapshot) - len(unequal)} of {len(snapshot)} tensors bitwise equal; losses "
+                        f"to there equal {c_losses == losses[:at_commit]}")
+    assert not unequal, f"resized params differ from the control run's: {unequal[:4]}"
+    assert c_losses == losses[:at_commit], "the resized run's losses differ from the control run's"
+    del control, snapshot
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -3444,6 +3754,11 @@ def main() -> int:
     train_ssm_launches, _ = phase_train_mamba2()
     elastic_train_ssm_launches = phase_elastic_train_mamba2()
     phase_calibrate()
+    phase_small_agreement(get_config(SEAMLESS).reduced(), prompt_len=96, frames_len=64)
+    seamless_launches, seamless_err = phase_serve_encdec()
+    record["max_abs_err"] = record["max_err"] = max(record["max_abs_err"], seamless_err)
+    elastic_seamless_launches = phase_elastic(SEAMLESS)
+    train_seamless_launches = phase_train_encdec()
     schedule_launches = phase_schedule(train_peak_gb)  # last: see the module docstring, 23
     # each record's launches: its counts on the main paths, each counted
     # from zero just before its run and read just after. No path runs
@@ -3452,7 +3767,9 @@ def main() -> int:
     paths = {"serve": {"flash_attention": launches}, "elastic": elastic_launches, "train": train_launches,
              "lifecycle": lifecycle_launches, "recovery": recovery_launches, "schedule": schedule_launches,
              "serve_mamba2": {"ssd_intra_chunk": ssm_launches}, "elastic_mamba2": ssm_elastic_launches,
-             "train_mamba2": train_ssm_launches, "elastic_train_mamba2": elastic_train_ssm_launches}
+             "train_mamba2": train_ssm_launches, "elastic_train_mamba2": elastic_train_ssm_launches,
+             "serve_seamless": {"flash_attention": seamless_launches}, "elastic_seamless": elastic_seamless_launches,
+             "train_seamless": train_seamless_launches}
     records = [record, *rows, bwd, *quants, ssd, rms, ssd_bwd]
     for rec in records:
         rec["launches_by_path"] = {p: counts.get(rec["name"], 0) for p, counts in paths.items()}

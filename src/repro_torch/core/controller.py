@@ -101,7 +101,7 @@ from repro_torch.core.reshard import (
 from repro_torch.core.resource_view import build_tensor_specs
 from repro_torch.core.shadow import ShadowBuilder, WorldHandle, build_train_world, state_buffers, warm_device
 from repro_torch.core.world_pool import WorldPool
-from repro_torch.data import SyntheticLM
+from repro_torch.data import SyntheticFrames, SyntheticLM
 from repro_torch.elastic.redundancy import ParityStore, balance_donors, heal_plan, survivors_for
 from repro_torch.optim import AdamWConfig, adamw_init
 from repro_torch.reshard import OperatingPoint, OverlapSession
@@ -999,7 +999,18 @@ class LiveRController:
 
     def _batch(self) -> dict:
         tokens = torch.from_numpy(self.data.global_batch_at(self.step))
-        return {"tokens": tokens.to(device=self.device, dtype=torch.long)}
+        batch = {"tokens": tokens.to(device=self.device, dtype=torch.long)}
+        if self.cfg.family == "encdec":
+            # the data's frames where it draws them, else zeros (the audio
+            # frontend's stub, as the JAX controller feeds them), in cfg.dtype
+            dtype = getattr(torch, self.cfg.dtype)
+            if isinstance(self.data, SyntheticFrames):
+                batch["frames"] = self.data.frames_at(self.step, self.device).to(dtype)
+            else:
+                batch["frames"] = torch.zeros(
+                    (self.global_batch, self.seq_len, self.cfg.d_model), dtype=dtype, device=self.device
+                )
+        return batch
 
     def _poll_boundary(self) -> None:
         """Iteration boundary = the consistent cut (invariant I3)."""

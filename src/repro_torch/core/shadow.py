@@ -212,12 +212,14 @@ def warm_device(device: torch.device, dtype: torch.dtype, kernels=_TRAIN_KERNELS
 
 def abstract_batch(cfg: ModelConfig, global_batch: int, seq_len: int) -> dict:
     """The batch a train step takes, on the meta device: shapes and dtypes
-    (the JAX package's ``ShapeDtypeStruct`` tree)."""
+    (the JAX package's ``ShapeDtypeStruct`` tree). An enc-dec model's
+    ``frames`` are (global_batch, seq_len, d_model) in ``cfg.dtype``."""
+    abatch = {"tokens": torch.empty((global_batch, seq_len), dtype=torch.long, device="meta")}
     if cfg.family == "encdec":
-        raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder models are not ported yet (ROADMAP queue 1 item 10)"
+        abatch["frames"] = torch.empty(
+            (global_batch, seq_len, cfg.d_model), dtype=getattr(torch, cfg.dtype), device="meta"
         )
-    return {"tokens": torch.empty((global_batch, seq_len), dtype=torch.long, device="meta")}
+    return abatch
 
 
 def build_update_world_fn(cfg: ModelConfig, parallel: ParallelConfig, opt_cfg, compression: str = "none"):
@@ -253,8 +255,7 @@ def build_train_world(
     if len(devices) != parallel.world_size:
         raise ValueError(f"{len(devices)} devices for a world of {parallel.world_size} ranks")
     device = world_device(devices)
-    check_ported(cfg)  # MoE and enc-dec raise NotImplementedError
-    abstract_batch(cfg, global_batch, seq_len)  # refuses what the step cannot take
+    check_ported(cfg)  # the MoE MLP raises NotImplementedError
     timings: dict = {}
     t0 = time.perf_counter()
     if device.type == "cuda":

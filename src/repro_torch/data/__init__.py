@@ -1,3 +1,3 @@
-from repro_torch.data.pipeline import DataState, SyntheticLM
+from repro_torch.data.pipeline import DataState, SyntheticFrames, SyntheticLM
 
-__all__ = ["DataState", "SyntheticLM"]
+__all__ = ["DataState", "SyntheticFrames", "SyntheticLM"]

@@ -21,6 +21,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
 
 @dataclass
@@ -81,3 +82,25 @@ class SyntheticLM:
         while True:
             yield self.global_batch_at(state.step)
             state.step += 1
+
+
+class SyntheticFrames(SyntheticLM):
+    """``SyntheticLM``'s token stream with frame embeddings for an enc-dec
+    model, in place of the audio frontend: ``frames_at(step, device)`` is a
+    (global_batch, seq_len, d_model) float32 batch of standard normals,
+    drawn on ``device`` from a generator keyed on (seed, step), so a step's
+    frames do not depend on the world's layout or on how often they are
+    drawn. The JAX controller feeds zero frames; through 24 encoder layers
+    their gradients overflow (an RMSNorm of an all-zero row scales the
+    gradient by 1/sqrt(eps) a layer, and a zero activation times an
+    infinite gradient is NaN), so the port trains enc-dec models on these
+    (``launch/train.py``)."""
+
+    def __init__(self, vocab_size: int, seq_len: int, global_batch: int, d_model: int, seed: int = 0,
+                 mode: str = "structured"):
+        super().__init__(vocab_size, seq_len, global_batch, seed, mode)
+        self.d_model = d_model
+
+    def frames_at(self, step: int, device) -> torch.Tensor:
+        gen = torch.Generator(device=device).manual_seed((self.seed + 1) * 1_000_003 + step)
+        return torch.randn((self.global_batch, self.seq_len, self.d_model), generator=gen, device=device)

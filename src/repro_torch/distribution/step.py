@@ -48,13 +48,14 @@ def _check_compression(compression: str) -> None:
 def _autograd_leaves(paths: dict) -> dict:
     """The leaves autograd differentiates, aliasing the params' storage: a
     stacked block parameter (``blocks/...``, periods on dim 0) becomes one
-    leaf per period. Through views of one stacked leaf, autograd would
-    zero-fill a copy of the whole stack for every period's gradient and add
-    them up, moving the stack's bytes once per period."""
+    leaf per period (``encoder/blocks/...`` too). Through views of one
+    stacked leaf, autograd would zero-fill a copy of the whole stack for
+    every period's gradient and add them up, moving the stack's bytes once
+    per period."""
     out = {}
     for path, x in paths.items():
         base = x.detach()
-        if path.startswith("blocks/"):
+        if path.startswith(("blocks/", "encoder/blocks/")):
             out[path] = [base[i].requires_grad_(True) for i in range(base.shape[0])]
         else:
             out[path] = base.requires_grad_(True)
@@ -69,9 +70,9 @@ def make_grad_fn(cfg: ModelConfig, microbatches: int = 1, remat: str = "full"):
     "explicit" accumulation).
 
     Raises ``NotImplementedError`` for a model the port cannot run
-    (``transformer.check_ported``: the MoE MLP and enc-dec models, ROADMAP
-    queue 1 item 10). On the card an SSM mixer's gradient goes through the
-    SSD backward kernel."""
+    (``transformer.check_ported``: the MoE MLP, ROADMAP queue 1 item 10).
+    On the card an SSM mixer's gradient goes through the SSD backward
+    kernel; an enc-dec model's batch carries ``frames``."""
     T.check_ported(cfg)
 
     def grads_of(paths: dict, batch: dict):

@@ -4,6 +4,8 @@
         --batch 8 --prompt-len 512 --gen 32
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b \\
         --reduced --device cpu --batch 2 --prompt-len 32 --gen 4
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch seamless-m4t-large-v2 --reduced --device cpu --frames-len 8
 
 Runs on the GPU unless ``--device cpu`` is given; a CUDA request without a
 card exits with an error. Thin front-end over
@@ -25,6 +27,7 @@ def main() -> None:
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--frames-len", type=int, default=16, help="encoder frames of an enc-dec model")
     args = ap.parse_args()
 
     from repro_torch.configs import get_config
@@ -41,6 +44,7 @@ def main() -> None:
         temperature=args.temperature,
         seed=args.seed,
         device=args.device,
+        frames_len=args.frames_len,
     )
     toks = out["tokens"]
     print(f"[prefill] {args.batch}x{args.prompt_len} tokens in {out['prefill_s']:.3f}s")

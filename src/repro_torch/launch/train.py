@@ -27,8 +27,10 @@ for example
 (fp32 params, gradients and Adam moments, about 45 GB at 64 layers by
 count; the ``[done]`` line prints the card's peak. A live resize, which
 holds the target world's state beside it, does not fit one 80 GB card at
-that depth). The MoE MLP
-and enc-dec models raise ``NotImplementedError`` (ROADMAP queue 1 item 10).
+that depth). An enc-dec model (``--arch seamless-m4t-large-v2``) trains on
+the seeded frames of ``data.SyntheticFrames``: the JAX launcher's zero
+frames make the encoder's gradients overflow at full depth. The MoE MLP
+raises ``NotImplementedError`` (ROADMAP queue 1 item 10).
 """
 
 from __future__ import annotations
@@ -88,19 +90,23 @@ def main() -> None:
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ParallelConfig
     from repro_torch.core.controller import LiveRController
+    from repro_torch.data import SyntheticFrames
     from repro_torch.models.transformer import check_ported
     from repro_torch.optim import AdamWConfig
 
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    check_ported(cfg)  # the MoE MLP and enc-dec raise NotImplementedError
+    check_ported(cfg)  # the MoE MLP raises NotImplementedError
     parallel = ParallelConfig(dp=args.dp, pp=args.pp, tp=args.tp)
     opt = AdamWConfig(learning_rate=args.lr, warmup_steps=max(args.steps // 10, 1), total_steps=args.steps)
     print(f"[train] {cfg.name} {parallel.describe()} seq={args.seq} batch={args.batch} "
           f"steps={args.steps} device={args.device}", flush=True)
+    data = None
+    if cfg.family == "encdec":
+        data = SyntheticFrames(cfg.vocab_size, args.seq, args.batch, cfg.d_model)
     ctrl = LiveRController(
-        cfg, parallel, opt, seq_len=args.seq, global_batch=args.batch, device=args.device,
+        cfg, parallel, opt, seq_len=args.seq, global_batch=args.batch, data=data, device=args.device,
         ckpt_dir=args.ckpt_dir, ckpt_interval=args.ckpt_interval,
         microbatches=args.microbatches, overlap=args.overlap, stream_k=args.stream_k,
     )

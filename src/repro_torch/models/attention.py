@@ -4,7 +4,8 @@ Weights are stored 2-D flattened ``(d_model, heads*head_dim)`` as in the JAX
 package. Prefill routes the attention product through
 ``ops.flash_attention`` (the CUDA kernel on the card, the plain version on
 the CPU); ``use_kernel=False`` takes the written-out ``_sdpa`` instead.
-Chunked-prefill and cross attention are not ported yet.
+Cross attention (enc-dec) stays plain torch, ``_sdpa``, as the JAX package
+computes it in jnp outside any kernel. Chunked prefill is not ported yet.
 """
 
 from __future__ import annotations
@@ -18,7 +19,9 @@ from repro_torch.models.layers import _dense_init, apply_rope, head_rmsnorm_appl
 NEG_INF = -1e30
 
 
-def attn_init(gen, cfg: ModelConfig, dtype, device, lead=()) -> dict:
+def attn_init(gen, cfg: ModelConfig, dtype, device, lead=(), cross: bool = False) -> dict:
+    """Projections of one attention layer; a cross-attention layer
+    (``cross=True``) has no qkv bias and no qk-norm, as in the JAX package."""
     d = cfg.d_model
     h, k, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     params = {
@@ -27,13 +30,13 @@ def attn_init(gen, cfg: ModelConfig, dtype, device, lead=()) -> dict:
         "wv": _dense_init(gen, (d, k * hd), dtype, device, lead),
         "wo": _dense_init(gen, (h * hd, d), dtype, device, lead),
     }
-    if cfg.qkv_bias:
+    if cfg.qkv_bias and not cross:
         params.update(
             bq=torch.zeros((*lead, h * hd), dtype=dtype, device=device),
             bk=torch.zeros((*lead, k * hd), dtype=dtype, device=device),
             bv=torch.zeros((*lead, k * hd), dtype=dtype, device=device),
         )
-    if cfg.qk_norm:
+    if cfg.qk_norm and not cross:
         params.update(
             q_norm=torch.ones((*lead, hd), dtype=dtype, device=device),
             k_norm=torch.ones((*lead, hd), dtype=dtype, device=device),
@@ -41,7 +44,7 @@ def attn_init(gen, cfg: ModelConfig, dtype, device, lead=()) -> dict:
     return params
 
 
-def attn_axes(cfg: ModelConfig) -> dict:
+def attn_axes(cfg: ModelConfig, cross: bool = False) -> dict:
     """Logical axes of :func:`attn_init`'s params, as in the JAX package."""
     axes = {
         "wq": ("embed", "heads"),
@@ -49,9 +52,9 @@ def attn_axes(cfg: ModelConfig) -> dict:
         "wv": ("embed", "kv_heads"),
         "wo": ("heads", "embed"),
     }
-    if cfg.qkv_bias:
+    if cfg.qkv_bias and not cross:
         axes.update(bq=("heads",), bk=("kv_heads",), bv=("kv_heads",))
-    if cfg.qk_norm:
+    if cfg.qk_norm and not cross:
         axes.update(q_norm=("head_dim",), k_norm=("head_dim",))
     return axes
 
@@ -130,6 +133,28 @@ def attn_forward(
     if return_kv:
         return out, k, v
     return out
+
+
+def cross_attn_forward(params: dict, cfg: ModelConfig, x: torch.Tensor, kv_src) -> torch.Tensor:
+    """Cross attention (enc-dec). ``kv_src`` is the encoder output
+    (forward, prefill) or a precomputed ``(k, v)`` pair (decode). No RoPE;
+    every query sees all ``t`` encoder positions."""
+    b, s, _ = x.shape
+    h, hd = cfg.num_heads, cfg.resolved_head_dim
+    q = (x @ params["wq"].to(x.dtype)).reshape(b, s, h, hd)
+    k, v = kv_src if isinstance(kv_src, tuple) else cross_attn_kv(params, cfg, kv_src)
+    mask = torch.ones((1, 1, s, k.shape[1]), dtype=torch.bool, device=x.device)
+    out = _sdpa(q, k, v, mask, hd**-0.5).reshape(b, s, h * hd)
+    return out @ params["wo"].to(x.dtype)
+
+
+def cross_attn_kv(params: dict, cfg: ModelConfig, enc_out: torch.Tensor):
+    """The cross-attention keys and values of ``enc_out``, in its dtype."""
+    kh, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    b, t, _ = enc_out.shape
+    k = (enc_out @ params["wk"].to(enc_out.dtype)).reshape(b, t, kh, hd)
+    v = (enc_out @ params["wv"].to(enc_out.dtype)).reshape(b, t, kh, hd)
+    return k, v
 
 
 # ---------------------------------------------------------------------------

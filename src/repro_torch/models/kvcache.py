@@ -1,12 +1,12 @@
-"""Decode-time caches: KV ring buffers of attention layers and the SSD
-recurrent states of SSM (Mamba-2) layers.
+"""Decode-time caches: KV ring buffers of attention layers, the SSD
+recurrent states of SSM (Mamba-2) layers, and the cross-attention KV of
+enc-dec models.
 
 Cache capacity: full attention => ``max_seq``; sliding window =>
 ``min(max_seq, window)`` (ring buffer, see attention.attn_decode). An SSM
 layer keeps ``ssd`` (b, h, 64, n) and ``conv`` (b, CONV_WIDTH-1, conv_ch),
 both float32 whatever the cache dtype, as in the JAX package. Leaves are
-stacked over ``n_periods`` on a leading axis. The enc-dec cross-attention
-KV comes with its model family.
+stacked over ``n_periods`` on a leading axis.
 """
 
 from __future__ import annotations
@@ -44,6 +44,22 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=torch.bfloat16,
                 for name, leaf in state.items()
             }
     return cache
+
+
+def init_cross_kv(cfg: ModelConfig, batch: int, enc_len: int, dtype=torch.bfloat16, device="cuda"):
+    """Zero cross-attention KV of an enc-dec model (None for any other):
+    ``{"pos{j}": {"k", "v"}}``, each (n_periods, batch, enc_len, kv heads,
+    head dim)."""
+    if cfg.family != "encdec":
+        return None
+    shape = (n_periods(cfg), batch, enc_len, cfg.num_kv_heads, cfg.resolved_head_dim)
+    return {
+        f"pos{j}": {
+            "k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device),
+        }
+        for j in range(len(block_program(cfg)))
+    }
 
 
 def cache_from_prefill(cfg: ModelConfig, collected: dict, cache_dtype=torch.bfloat16, max_seq: int = 0):

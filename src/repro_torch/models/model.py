@@ -1,12 +1,15 @@
 """Public model API: init / forward / loss / prefill / decode.
 
 The counterpart of ``repro/models/model.py`` for decoder-only models with
-attention or SSM (Mamba-2) mixers and dense or no MLPs; the MoE and enc-dec
-families raise ``NotImplementedError`` naming their ROADMAP item.
+attention or SSM (Mamba-2) mixers and dense or no MLPs, and for enc-dec
+models (an encoder over precomputed frame embeddings, the audio frontend's
+stub, and a decoder with cross attention); the MoE family raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
@@ -55,14 +58,25 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None, devi
         generator = torch.Generator(device=dev).manual_seed(0)
     T.check_ported(cfg)
     pdt = _dtype(cfg.param_dtype)
-    params = {
-        "embed": L.embed_init(generator, cfg, pdt, dev),
-        "blocks": T.stack_init(generator, cfg, pdt, dev),
-        "final_norm": L.rmsnorm_init(cfg.d_model, pdt, dev),
-    }
+    params = {"embed": L.embed_init(generator, cfg, pdt, dev)}
+    if cfg.family == "encdec":
+        params["encoder"] = {
+            "blocks": T.stack_init(generator, _encoder_cfg(cfg), pdt, dev),
+            "final_norm": L.rmsnorm_init(cfg.d_model, pdt, dev),
+        }
+    params["blocks"] = T.stack_init(generator, cfg, pdt, dev, cross=cfg.family == "encdec")
+    params["final_norm"] = L.rmsnorm_init(cfg.d_model, pdt, dev)
     if not cfg.tie_embeddings:
         params["lm_head"] = L.lm_head_init(generator, cfg, pdt, dev)
     return params
+
+
+def _encoder_cfg(cfg: ModelConfig) -> ModelConfig:
+    """The encoder's stack of an enc-dec ``cfg``: dense attention blocks,
+    ``encoder_layers`` of them."""
+    return dataclasses.replace(
+        cfg, family="dense", num_layers=cfg.encoder_layers, num_experts=0, attn_period=0, frontend=None
+    )
 
 
 def abstract_params(cfg: ModelConfig) -> dict:
@@ -75,9 +89,11 @@ def param_logical_axes(cfg: ModelConfig) -> dict:
     """Logical-axis tuples mirroring the param tree (tuples are leaves)."""
     axes = {
         "embed": L.EMBED_AXES,
-        "blocks": T.stack_axes(cfg),
+        "blocks": T.stack_axes(cfg, cross=cfg.family == "encdec"),
         "final_norm": L.RMSNORM_AXES,
     }
+    if cfg.family == "encdec":
+        axes["encoder"] = {"blocks": T.stack_axes(_encoder_cfg(cfg)), "final_norm": L.RMSNORM_AXES}
     if not cfg.tie_embeddings:
         axes["lm_head"] = L.LM_HEAD_AXES
     return axes
@@ -115,10 +131,25 @@ def cast_params(params: dict, dtype) -> dict:
 # ---------------------------------------------------------------------------
 
 
+def encode(cfg: ModelConfig, params: dict, frames: torch.Tensor, remat: str = "full") -> torch.Tensor:
+    """The encoder of an enc-dec model over ``frames`` (b, s_enc, d_model),
+    cast to ``cfg.dtype``: non-causal self-attention through
+    ``ops.flash_attention`` at positions ``0..s_enc-1``, then the encoder's
+    final norm."""
+    b, s, _ = frames.shape
+    positions = torch.arange(s, dtype=torch.int32, device=frames.device).expand(b, s)
+    x, _ = T.stack_forward(
+        params["encoder"]["blocks"], _encoder_cfg(cfg), frames.to(_dtype(cfg.dtype)), positions,
+        causal=False, remat=remat,
+    )
+    return L.rmsnorm_apply(params["encoder"]["final_norm"], x)
+
+
 def forward(cfg: ModelConfig, params: dict, batch: dict, remat: str = "full"):
     """Full-sequence forward. Returns (logits (b, s, V), moe aux loss).
 
-    ``batch = {"tokens": (b, s) integer tensor}``. Attention goes through
+    ``batch = {"tokens": (b, s) integer tensor}``, plus ``"frames"`` (b,
+    s_enc, d_model) for an enc-dec model. Attention goes through
     ``ops.flash_attention``: on the card the CUDA kernel and its backward
     kernel, on the CPU the plain version under autograd. The SSM mixer's
     scan goes through ``ops.ssd_scan``: on the card the intra-chunk kernel
@@ -130,8 +161,9 @@ def forward(cfg: ModelConfig, params: dict, batch: dict, remat: str = "full"):
     positions = torch.arange(s, dtype=torch.int32, device=tokens.device).expand(b, s)
     # the JAX package pins the embedding output's and the logits' sharding
     # (shard_hints.constrain); one process has nothing to pin
+    enc_out = encode(cfg, params, batch["frames"], remat=remat) if cfg.family == "encdec" else None
     x = L.embed_apply(params["embed"], tokens, adt)
-    x, aux = T.stack_forward(params["blocks"], cfg, x, positions, causal=True, remat=remat)
+    x, aux = T.stack_forward(params["blocks"], cfg, x, positions, causal=True, enc_out=enc_out, remat=remat)
     x = L.rmsnorm_apply(params["final_norm"], x)
     logits = L.lm_head_apply(params.get("lm_head"), params["embed"], x)
     return logits, aux
@@ -163,9 +195,12 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=torch.bfloat16,
 def prefill(cfg: ModelConfig, params: dict, batch: dict, cache_dtype=torch.bfloat16, max_seq: int = 0):
     """Process the prompt; returns (last_logits (b,1,V), cache, cross_kv).
 
-    ``batch = {"tokens": (b, s) integer tensor}``. ``max_seq`` is the total
-    decode horizon: the cache is sized for it. ``cross_kv`` is None (enc-dec
-    models are not ported yet).
+    ``batch = {"tokens": (b, s) integer tensor}``, plus ``"frames"`` for an
+    enc-dec model. ``max_seq`` is the total decode horizon: the cache is
+    sized for it. ``cross_kv`` is the decoder's cross-attention KV of an
+    enc-dec model (``kvcache.init_cross_kv``'s layout) in ``cache_dtype``,
+    as the serving specs hold it (the JAX package returns it in
+    ``cfg.dtype``), else None.
     """
     T.check_ported(cfg)
     adt = _dtype(cfg.dtype)
@@ -174,21 +209,42 @@ def prefill(cfg: ModelConfig, params: dict, batch: dict, cache_dtype=torch.bfloa
     positions = torch.arange(s, dtype=torch.int32, device=tokens.device).expand(b, s)
     # the JAX package pins the embedding output's sharding here
     # (shard_hints.constrain); one process has nothing to pin
+    enc_out = cross_kv = None
+    if cfg.family == "encdec":
+        enc_out = encode(cfg, params, batch["frames"])
+        cross_kv = _build_cross_kv(cfg, params, enc_out, cache_dtype)
     x = L.embed_apply(params["embed"], tokens, adt)
-    x, collected = T.stack_prefill(params["blocks"], cfg, x, positions)
+    x, collected = T.stack_prefill(params["blocks"], cfg, x, positions, enc_out=enc_out)
     x = L.rmsnorm_apply(params["final_norm"], x[:, -1:])
     logits = L.lm_head_apply(params.get("lm_head"), params["embed"], x)
     cache = kvcache.cache_from_prefill(cfg, collected, cache_dtype, max_seq=max_seq)
-    return logits, cache, None
+    return logits, cache, cross_kv
 
 
-def decode_step(cfg: ModelConfig, params: dict, cache: dict, tokens: torch.Tensor, pos: int):
+def _build_cross_kv(cfg: ModelConfig, params: dict, enc_out: torch.Tensor, dtype) -> dict:
+    """Each decoder layer's cross-attention (k, v) of ``enc_out``, stacked
+    over periods per block position, cast to ``dtype``."""
+    from repro_torch.models.attention import cross_attn_kv
+
+    out = {}
+    for j in range(len(T.block_program(cfg))):
+        cross = params["blocks"][f"pos{j}"]["cross"]
+        kv = [cross_attn_kv(T._period(cross, i), cfg, enc_out) for i in range(T.n_periods(cfg))]
+        out[f"pos{j}"] = {
+            "k": torch.stack([k for k, _ in kv]).to(dtype),
+            "v": torch.stack([v for _, v in kv]).to(dtype),
+        }
+    return out
+
+
+def decode_step(cfg: ModelConfig, params: dict, cache: dict, tokens: torch.Tensor, pos: int, cross_kv=None):
     """One serving step: returns (logits (b,1,V), cache). ``tokens`` is
-    (b, 1); ``pos`` the absolute position of the new token. The cache is
-    updated in place and returned."""
+    (b, 1); ``pos`` the absolute position of the new token; ``cross_kv``
+    the prefill's cross-attention KV (enc-dec). The cache is updated in
+    place and returned."""
     adt = _dtype(cfg.dtype)
     x = L.embed_apply(params["embed"], tokens, adt)
-    x, cache = T.stack_decode(params["blocks"], cfg, x, cache, int(pos))
+    x, cache = T.stack_decode(params["blocks"], cfg, x, cache, int(pos), cross_kv)
     x = L.rmsnorm_apply(params["final_norm"], x)
     logits = L.lm_head_apply(params.get("lm_head"), params["embed"], x)
     return logits, cache

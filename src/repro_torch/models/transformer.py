@@ -6,8 +6,9 @@ of a period keeps its parameters stacked over ``n_periods`` on a leading
 axis (``blocks/pos0/mixer/wq`` is ``(n_periods, d, h*hd)``). The JAX
 ``lax.scan`` over periods becomes a loop over the stacked index. The port
 runs attention and SSM (Mamba-2) mixers with a dense MLP or none
-(mamba2-2.7b at full width has ``d_ff = 0``), and both train on the card
-and on the CPU; the MoE MLP and enc-dec models raise.
+(mamba2-2.7b at full width has ``d_ff = 0``), and an enc-dec decoder's
+blocks with cross attention (``cross=True``: ``ln_x`` and ``cross`` after
+the mixer); all train on the card and on the CPU. The MoE MLP raises.
 """
 
 from __future__ import annotations
@@ -63,10 +64,6 @@ def n_periods(cfg: ModelConfig) -> int:
 
 def check_ported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for a block kind this slice lacks."""
-    if cfg.family == "encdec":
-        raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder models are not ported yet (ROADMAP queue 1 item 10)"
-        )
     for mixer, mlp in block_program(cfg):
         for kind in (mixer, mlp):
             if kind in _NOT_PORTED:
@@ -83,34 +80,41 @@ def _period(tree: dict, i: int) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def _block_init(gen, cfg: ModelConfig, mixer: str, mlp: str, dtype, device, lead) -> dict:
+def _block_init(gen, cfg: ModelConfig, mixer: str, mlp: str, dtype, device, lead, cross: bool) -> dict:
     params = {"ln1": rmsnorm_init(cfg.d_model, dtype, device, lead)}
     if mixer == "attn":
         params["mixer"] = attn.attn_init(gen, cfg, dtype, device, lead)
     else:
         params["mixer"] = ssm_mod.ssm_init(gen, cfg, dtype, device, lead)
+    if cross:
+        params["ln_x"] = rmsnorm_init(cfg.d_model, dtype, device, lead)
+        params["cross"] = attn.attn_init(gen, cfg, dtype, device, lead, cross=True)
     if mlp != "none":
         params["ln2"] = rmsnorm_init(cfg.d_model, dtype, device, lead)
         params["mlp"] = mlp_init(gen, cfg, dtype, device, lead)
     return params
 
 
-def stack_init(gen, cfg: ModelConfig, dtype, device) -> dict:
+def stack_init(gen, cfg: ModelConfig, dtype, device, cross: bool = False) -> dict:
+    """The stack's params; ``cross=True`` gives each block cross attention
+    (an enc-dec decoder)."""
     check_ported(cfg)
     lead = (n_periods(cfg),)
     return {
-        f"pos{j}": _block_init(gen, cfg, mixer, mlp, dtype, device, lead)
+        f"pos{j}": _block_init(gen, cfg, mixer, mlp, dtype, device, lead, cross)
         for j, (mixer, mlp) in enumerate(block_program(cfg))
     }
 
 
-def stack_axes(cfg: ModelConfig) -> dict:
+def stack_axes(cfg: ModelConfig, cross: bool = False) -> dict:
     """Logical axes of :func:`stack_init`'s params: each block's axes with
     the stacked ``"layers"`` axis in front."""
     check_ported(cfg)
     out = {}
     for j, (mixer, mlp) in enumerate(block_program(cfg)):
         block = {"ln1": RMSNORM_AXES, "mixer": attn.attn_axes(cfg) if mixer == "attn" else ssm_mod.SSM_AXES}
+        if cross:
+            block.update(ln_x=RMSNORM_AXES, cross=attn.attn_axes(cfg, cross=True))
         if mlp != "none":
             block.update(ln2=RMSNORM_AXES, mlp=MLP_AXES)
         out[f"pos{j}"] = {
@@ -125,7 +129,7 @@ def stack_axes(cfg: ModelConfig) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def _period_forward(period: dict, cfg: ModelConfig, prog, x, positions, causal: bool):
+def _period_forward(period: dict, cfg: ModelConfig, prog, x, positions, causal: bool, enc_out=None):
     for j, (mixer, mlp) in enumerate(prog):
         bp = period[f"pos{j}"]
         h = rmsnorm_apply(bp["ln1"], x)
@@ -133,6 +137,7 @@ def _period_forward(period: dict, cfg: ModelConfig, prog, x, positions, causal: 
             x = x + attn.attn_forward(bp["mixer"], cfg, h, positions, causal=causal)
         else:
             x = x + ssm_mod.ssm_forward(bp["mixer"], cfg, h)
+        x = _cross(bp, cfg, x, enc_out)
         x = _mlp(bp, cfg, mlp, x)
         # the JAX package re-anchors the residual's sharding here
         # (shard_hints.constrain); one process has nothing to anchor
@@ -145,10 +150,12 @@ def stack_forward(
     x: torch.Tensor,
     positions: torch.Tensor,
     causal: bool = True,
+    enc_out: torch.Tensor | None = None,
     remat: str = "full",
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward over the stack; returns (x, moe aux loss),
-    the aux loss a float32 zero (no MoE layer is ported).
+    the aux loss a float32 zero (no MoE layer is ported). ``enc_out`` is
+    the encoder's output, which blocks with cross attention attend to.
 
     ``remat="full"`` recomputes each period in the backward pass, as the
     JAX package's ``jax.checkpoint`` over the scanned period body does:
@@ -163,12 +170,20 @@ def stack_forward(
         period = _period(params, i)
         if remat == "full" and torch.is_grad_enabled():
             x = torch.utils.checkpoint.checkpoint(
-                _period_forward, period, cfg, prog, x, positions, causal, use_reentrant=False
+                _period_forward, period, cfg, prog, x, positions, causal, enc_out, use_reentrant=False
             )
         else:
-            x = _period_forward(period, cfg, prog, x, positions, causal)
+            x = _period_forward(period, cfg, prog, x, positions, causal, enc_out)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
+
+
+def _cross(bp: dict, cfg: ModelConfig, x: torch.Tensor, kv_src) -> torch.Tensor:
+    """The cross-attention sublayer of a block that has one: ``kv_src`` is
+    the encoder output or the layer's cached ``(k, v)``; None skips it."""
+    if kv_src is None or "cross" not in bp:
+        return x
+    return x + attn.cross_attn_forward(bp["cross"], cfg, rmsnorm_apply(bp["ln_x"], x), kv_src)
 
 
 def _mlp(bp: dict, cfg: ModelConfig, mlp: str, x: torch.Tensor) -> torch.Tensor:
@@ -177,8 +192,9 @@ def _mlp(bp: dict, cfg: ModelConfig, mlp: str, x: torch.Tensor) -> torch.Tensor:
     return x + mlp_apply(bp["mlp"], rmsnorm_apply(bp["ln2"], x), cfg.act)
 
 
-def stack_prefill(params: dict, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor):
-    """Forward pass that also materializes the decode cache.
+def stack_prefill(params: dict, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor, enc_out=None):
+    """Forward pass that also materializes the decode cache; ``enc_out``
+    as in :func:`stack_forward`.
 
     Returns (x, collected) where collected mirrors the per-position
     structure of :func:`repro_torch.models.kvcache.init_cache`, stacked
@@ -201,7 +217,7 @@ def stack_prefill(params: dict, cfg: ModelConfig, x: torch.Tensor, positions: to
                 out, leaves = ssm_mod.ssm_forward(bp["mixer"], cfg, h, return_state=True)
             for name, leaf in leaves.items():
                 per_pos[f"pos{j}"].setdefault(name, []).append(leaf)
-            x = _mlp(bp, cfg, mlp, x + out)
+            x = _mlp(bp, cfg, mlp, _cross(bp, cfg, x + out, enc_out))
             # the JAX package re-anchors the residual's sharding here
             # (shard_hints.constrain); one process has nothing to anchor
     collected = {
@@ -210,18 +226,21 @@ def stack_prefill(params: dict, cfg: ModelConfig, x: torch.Tensor, positions: to
     return x, collected
 
 
-def stack_decode(params: dict, cfg: ModelConfig, x: torch.Tensor, cache: dict, pos: int):
+def stack_decode(params: dict, cfg: ModelConfig, x: torch.Tensor, cache: dict, pos: int, cross_kv=None):
     """One token through the stack; ``cache`` is updated in place (see
     ``attention.attn_decode``; an SSM position's new state is copied into
-    its cache leaves) and returned."""
+    its cache leaves) and returned. ``cross_kv`` is the stacked
+    cross-attention ``{"k", "v"}`` of each position (enc-dec)."""
     check_ported(cfg)
     prog = block_program(cfg)
     for i in range(n_periods(cfg)):
         period = _period(params, i)
         period_cache = _period(cache, i)
+        period_cross = _period(cross_kv, i) if cross_kv is not None else None
         for j, (mixer, mlp) in enumerate(prog):
             bp = period[f"pos{j}"]
             c = period_cache[f"pos{j}"]
+            kv = (period_cross[f"pos{j}"]["k"], period_cross[f"pos{j}"]["v"]) if period_cross else None
             h = rmsnorm_apply(bp["ln1"], x)
             if mixer == "attn":
                 out, _, _ = attn.attn_decode(bp["mixer"], cfg, h, c["k"], c["v"], pos)
@@ -229,5 +248,5 @@ def stack_decode(params: dict, cfg: ModelConfig, x: torch.Tensor, cache: dict, p
                 out, state = ssm_mod.ssm_decode(bp["mixer"], cfg, h, c)
                 c["ssd"].copy_(state["ssd"])
                 c["conv"].copy_(state["conv"])
-            x = _mlp(bp, cfg, mlp, x + out)
+            x = _mlp(bp, cfg, mlp, _cross(bp, cfg, x + out, kv))
     return x, cache

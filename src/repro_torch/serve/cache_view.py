@@ -1,4 +1,5 @@
-"""Resource view of the serving state (params + KV cache).
+"""Resource view of the serving state (params + KV cache, + the
+cross-attention KV of an enc-dec model).
 
 The serving analogue of ``core/resource_view.py``: every decode-cache leaf
 (``models/kvcache.py`` layout) gets a :class:`TensorSpec`, so cache state is
@@ -18,9 +19,8 @@ field for field; at full width (bfloat16) each matrix's bytes are half the
 JAX plan's.
 
 The JAX package's ``role_sharding`` has no counterpart: a world's state is
-global tensors on its one device (``reshard/executors.py``). Attention KV
-and SSM (Mamba-2) state leaves are covered; the encoder-decoder
-cross-attention KV comes with its model family.
+global tensors on its one device (``reshard/executors.py``). Attention KV,
+SSM (Mamba-2) state and enc-dec cross-attention KV leaves are covered.
 """
 
 from __future__ import annotations
@@ -43,20 +43,22 @@ __all__ = [
 
 
 
-def cache_tensor_specs(cfg: ModelConfig, batch: int, max_seq: int, cache_dtype="float32") -> list[TensorSpec]:
-    """Specs for the decode cache tree. Shapes mirror ``kvcache.init_cache``
-    exactly; names (``cache/pos{j}/k``) carry the ``/pos{j}/`` marker the
-    planner's layer-granular streaming keys on, so cache cells land in the
-    same global layer ids as the params of that block position."""
+def cache_tensor_specs(
+    cfg: ModelConfig, batch: int, max_seq: int, cache_dtype="float32", cross_len: int = 0
+) -> list[TensorSpec]:
+    """Specs for the decode cache tree (+ the cross-attention KV of an
+    enc-dec model, ``cross_len`` encoder positions). Shapes mirror
+    ``kvcache.init_cache`` / ``init_cross_kv`` exactly; names
+    (``cache/pos{j}/k``, ``cross/pos{j}/k``) carry the ``/pos{j}/`` marker
+    the planner's layer-granular streaming keys on, so cache cells land in
+    the same global layer ids as the params of that block position."""
     from repro_torch.models.kvcache import cache_capacity
     from repro_torch.models.transformer import block_program, n_periods
 
     from repro_torch.models import ssm as ssm_mod
 
-    if cfg.family == "encdec":
-        raise NotImplementedError(
-            f"{cfg.name}: the cross-attention KV of enc-dec models is not ported yet (ROADMAP queue 1 item 10)"
-        )
+    if cfg.family == "encdec" and cross_len <= 0:
+        raise ValueError(f"{cfg.name}: an enc-dec serving state needs the encoder length (cross_len > 0)")
     prog = block_program(cfg)
     np_ = n_periods(cfg)
     kh, hd = cfg.num_kv_heads, cfg.resolved_head_dim
@@ -99,12 +101,27 @@ def cache_tensor_specs(cfg: ModelConfig, batch: int, max_seq: int, cache_dtype="
                 collection="cache",
             )
         )
+    if cfg.family == "encdec":
+        for j in range(len(prog)):
+            for leaf in ("k", "v"):
+                specs.append(
+                    TensorSpec(
+                        name=f"cross/pos{j}/{leaf}",
+                        shape=(np_, batch, cross_len, kh, hd),
+                        dtype=dtype_name(cache_dtype),
+                        roles=("pp", "none", "none", "tp", "none"),
+                        stage_scope="stages",
+                        collection="cross",
+                    )
+                )
     return specs
 
 
-def serve_state_specs(cfg: ModelConfig, batch: int, max_seq: int, cache_dtype="float32") -> list[TensorSpec]:
-    """Params + cache: the full migratable serving state, params in the
-    dtypes the port serves with (module docstring)."""
+def serve_state_specs(
+    cfg: ModelConfig, batch: int, max_seq: int, cache_dtype="float32", cross_len: int = 0
+) -> list[TensorSpec]:
+    """Params + cache (+ cross-KV): the full migratable serving state,
+    params in the dtypes the port serves with (module docstring)."""
     from repro_torch.models import model as M
 
     served = tree_paths(M.cast_params(M.abstract_params(cfg), cfg.dtype))
@@ -112,7 +129,7 @@ def serve_state_specs(cfg: ModelConfig, batch: int, max_seq: int, cache_dtype="f
         dataclasses.replace(s, dtype=dtype_name(served[s.name.removeprefix("params/")].dtype))
         for s in build_tensor_specs(cfg, include_optimizer=False)
     ]
-    return params + cache_tensor_specs(cfg, batch, max_seq, cache_dtype=cache_dtype)
+    return params + cache_tensor_specs(cfg, batch, max_seq, cache_dtype=cache_dtype, cross_len=cross_len)
 
 
 def serve_plan(
@@ -137,22 +154,23 @@ def serve_plan(
     )
 
 
-def named_serve_leaves(params: Any, cache: Optional[Any] = None) -> dict[str, Any]:
+def named_serve_leaves(params: Any, cache: Optional[Any] = None, cross_kv: Optional[Any] = None) -> dict[str, Any]:
     """Flatten live serving state into the resource view's tensor names.
     ``cache=None`` covers wave-boundary commits: no generation in flight,
     so only params migrate."""
     named: dict[str, Any] = {}
-    for path, leaf in tree_paths(params).items():
-        named[f"params/{path}"] = leaf
-    for path, leaf in tree_paths(cache or {}).items():
-        named[f"cache/{path}"] = leaf
+    for prefix, tree in (("params", params), ("cache", cache), ("cross", cross_kv)):
+        for path, leaf in tree_paths(tree or {}).items():
+            named[f"{prefix}/{path}"] = leaf
     return named
 
 
-def rebuild_serve_state(named: dict[str, Any], params_like: Any, cache_like: Any = None):
-    """Inverse of :func:`named_serve_leaves`. Returns (params, cache)."""
-    params = tree_from_paths({p: named[f"params/{p}"] for p in tree_paths(params_like)})
-    cache = None
-    if cache_like is not None:
-        cache = tree_from_paths({p: named[f"cache/{p}"] for p in tree_paths(cache_like)})
-    return params, cache
+def rebuild_serve_state(named: dict[str, Any], params_like: Any, cache_like: Any = None, cross_like: Any = None):
+    """Inverse of :func:`named_serve_leaves`. Returns (params, cache, cross)."""
+
+    def rebuild(prefix, like):
+        if like is None:
+            return None
+        return tree_from_paths({p: named[f"{prefix}/{p}"] for p in tree_paths(like)})
+
+    return rebuild("params", params_like), rebuild("cache", cache_like), rebuild("cross", cross_like)

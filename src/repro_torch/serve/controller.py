@@ -15,8 +15,9 @@ CUDA request without one raises), and ``params=`` (a param tree to serve in
 place of the seeded init, e.g. the JAX package's weights through
 ``models.convert.params_from_jax``). The controller holds the params cast
 once to ``cfg.dtype`` (``model.cast_params``), which is what the port
-computes with. Enc-dec cross-attention KV is not ported, so ``commit``
-takes the cache alone.
+computes with. ``frames_len`` is an enc-dec model's encoder length: the
+cross-attention KV (``cross/`` specs) migrates with the cache, and
+``commit(cache, cross_kv, cut_step)`` returns both, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -61,7 +62,7 @@ class ServeRecord(ReuseRecordMixin):
     executed_bytes: int = 0
     plan_network_bytes: int = 0
     plan_local_bytes: int = 0
-    # layers whose CACHE cells were all resident (the serving reuse
+    # layers whose CACHE/cross cells were all resident (the serving reuse
     # headline: tp-preserving resizes keep every live cache shard in place)
     cache_resident_layers: int = 0
     warm_hit: bool = False
@@ -101,6 +102,7 @@ class LiveServeController:
         prompt_len: int,
         max_seq: int,
         cache_dtype=torch.float32,
+        frames_len: int = 16,
         pool: Optional[WorldPool] = None,
         pool_capacity: int = 2,
         staging_bytes: int = DEFAULT_STAGING_BYTES,
@@ -116,6 +118,7 @@ class LiveServeController:
         self.prompt_len = prompt_len
         self.max_seq = max_seq
         self.cache_dtype = cache_dtype
+        self.frames_len = frames_len
         self.device = _resolve(device)
         self.world_pool = pool if pool is not None else WorldPool(capacity=pool_capacity)
         self.staging_bytes = staging_bytes
@@ -125,7 +128,9 @@ class LiveServeController:
         self._pending: Optional[_Pending] = None
         # one spec list serves every topology: specs are config-level, the
         # planner applies each ParallelConfig's factors at plan time
-        self.specs = serve_state_specs(cfg, n_slots, max_seq, cache_dtype=cache_dtype)
+        self.specs = serve_state_specs(
+            cfg, n_slots, max_seq, cache_dtype=cache_dtype, cross_len=frames_len if cfg.family == "encdec" else 0
+        )
         self.active = self._acquire(parallel)
         self.active.gen_id = self.gen_id
         # params live on the controller; the seeded init is one generator
@@ -153,6 +158,7 @@ class LiveServeController:
             self.prompt_len,
             self.max_seq,
             dtype_name(self.cache_dtype),
+            self.frames_len,
         )
 
     def _build(self, target: ParallelConfig) -> WorldHandle:
@@ -164,6 +170,7 @@ class LiveServeController:
             self.max_seq,
             devices=self._device_subset(target),
             cache_dtype=self.cache_dtype,
+            frames_len=self.frames_len,
         )
 
     def _acquire(self, target: ParallelConfig) -> WorldHandle:
@@ -216,11 +223,12 @@ class LiveServeController:
         return self._pending is not None and self._pending.ready
 
     # -- Switch (the mid-generation commit) -----------------------------
-    def commit(self, cache: Any, cut_step: int):
+    def commit(self, cache: Any, cross_kv: Any, cut_step: int):
         """Commit the pending resize at a decode-step boundary.
 
-        Streams params + the live cache through one intersection plan on
-        the shared engine; returns the cache re-hosted on the new world.
+        Streams params + the live cache (+ cross-KV) through one
+        intersection plan on the shared engine; returns (cache, cross_kv)
+        re-hosted on the new world.
         Token-for-token continuity is the migrated state: byte-identical
         cache rows, same positions, same params.
         """
@@ -242,7 +250,7 @@ class LiveServeController:
         t0 = time.perf_counter()
         plan = serve_plan(self.cfg, specs, self.active.parallel, handle.parallel)
         plan_s = time.perf_counter() - t0
-        named = named_serve_leaves(self.params, cache)
+        named = named_serve_leaves(self.params, cache, cross_kv)
         dst_named, stats = live_reshard_planned(
             specs,
             plan,
@@ -251,7 +259,7 @@ class LiveServeController:
             handle.devices,
             staging_bytes=self.staging_bytes,
         )
-        params, new_cache = rebuild_serve_state(dst_named, self.params, cache)
+        params, new_cache, new_cross = rebuild_serve_state(dst_named, self.params, cache, cross_kv)
 
         old, old_key = self.active, self.pool_key(self.active.parallel)
         self.active, self.params, self.gen_id = handle, params, handle.gen_id
@@ -259,8 +267,9 @@ class LiveServeController:
         self.world_pool.put(old_key, old)
         pause_s = time.perf_counter() - t_pause
 
-        cache_layers = {t.layer for t in plan.tasks if t.collection == "cache"}
-        cache_moved = {t.layer for t in plan.tasks if t.collection == "cache" and t.kind != "resident"}
+        live = ("cache", "cross")
+        cache_layers = {t.layer for t in plan.tasks if t.collection in live}
+        cache_moved = {t.layer for t in plan.tasks if t.collection in live and t.kind != "resident"}
         rec = ServeRecord(
             gen_id=self.gen_id,
             src=old.parallel.describe(),
@@ -283,7 +292,7 @@ class LiveServeController:
             wire_bytes=stats.wire_bytes,
         )
         self.records.append(rec)
-        return new_cache
+        return new_cache, new_cross
 
     def shutdown(self, retire_to_pool: bool = True) -> None:
         """Release controller-held worlds. ``retire_to_pool`` deposits the

@@ -1,7 +1,8 @@
 """Prefill/decode serving driver: a prompt batch -> prefill -> greedy (or
 sampled) autoregressive decode, on one device. The counterpart of
-``repro/serve/driver.py``. It serves the attention (qwen3) and SSM
-(mamba2) families; the elastic serving path is ``serve/loop.py``.
+``repro/serve/driver.py``. It serves the attention (qwen3), SSM (mamba2)
+and enc-dec (seamless) families; the elastic serving path is
+``serve/loop.py``.
 """
 
 from __future__ import annotations
@@ -22,13 +23,19 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def demo_batch(cfg: ModelConfig, batch: int, prompt_len: int, device="cuda", seed: int = 1) -> dict:
+def demo_batch(
+    cfg: ModelConfig, batch: int, prompt_len: int, device="cuda", seed: int = 1, frames_len: int = 16
+) -> dict:
     """Deterministic synthetic prompt batch: token ids from a seeded
-    generator on ``device``."""
+    generator on ``device``, and for an enc-dec model ``frames`` (batch,
+    frames_len, d_model) of standard normals from the same generator, the
+    audio frontend's stub."""
     dev = M.resolve_device(device)
-    gen =torch.Generator(device=dev).manual_seed(seed)
-    tokens = torch.randint(0, cfg.vocab_size, (batch, prompt_len), generator=gen, device=dev)
-    return {"tokens": tokens}
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    out = {"tokens": torch.randint(0, cfg.vocab_size, (batch, prompt_len), generator=gen, device=dev)}
+    if cfg.family == "encdec":
+        out["frames"] = torch.randn((batch, frames_len, cfg.d_model), generator=gen, device=dev)
+    return out
 
 
 def serve_once(
@@ -39,8 +46,10 @@ def serve_once(
     temperature: float = 0.0,
     seed: int = 0,
     device="cuda",
+    frames_len: int = 16,
 ) -> dict:
-    """Prefill a prompt batch and decode ``gen`` tokens per request.
+    """Prefill a prompt batch and decode ``gen`` tokens per request
+    (``frames_len`` encoder positions for an enc-dec model).
 
     Parameters come from the port's own init (seed ``seed``) and are cast
     to ``cfg.dtype`` once (``model.cast_params``). Returns ``{"tokens":
@@ -52,7 +61,7 @@ def serve_once(
     horizon = prompt_len + gen
     params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(seed), dev)
     params = M.cast_params(params, cfg.dtype)
-    inputs = demo_batch(cfg, batch, prompt_len, dev)
+    inputs = demo_batch(cfg, batch, prompt_len, dev, frames_len=frames_len)
     sampler = torch.Generator(device=dev).manual_seed(7)
 
     def pick(logits: torch.Tensor) -> torch.Tensor:
@@ -64,7 +73,7 @@ def serve_once(
     with torch.inference_mode():
         _sync(dev)
         t0 = time.perf_counter()
-        logits, cache, _ = M.prefill(cfg, params, inputs, max_seq=horizon)
+        logits, cache, cross = M.prefill(cfg, params, inputs, max_seq=horizon)
         cur = pick(logits)
         _sync(dev)
         prefill_s = time.perf_counter() - t0
@@ -72,7 +81,7 @@ def serve_once(
         out = [cur]
         t0 = time.perf_counter()
         for i in range(gen):
-            logits, cache = M.decode_step(cfg, params, cache, cur, prompt_len + i)
+            logits, cache = M.decode_step(cfg, params, cache, cur, prompt_len + i, cross)
             cur = pick(logits)
             out.append(cur)
         _sync(dev)

@@ -74,8 +74,10 @@ class ServeSession:
         self.global_step = 0  # decode steps across all waves (cut_step unit)
         self._t0 = 0.0
 
-    def submit(self, prompt, max_new_tokens: int):
-        return self.queue.submit(prompt, max_new_tokens, now_s=self.clock)
+    def submit(self, prompt, max_new_tokens: int, frames=None):
+        """Queue a request; ``frames`` (frames_len, d_model) feed an enc-dec
+        model's encoder."""
+        return self.queue.submit(prompt, max_new_tokens, now_s=self.clock, frames=frames)
 
     # -- event replay ---------------------------------------------------
     def _fire_due(self, events: list, ei: int) -> int:
@@ -91,13 +93,22 @@ class ServeSession:
             self.clock = (time.perf_counter() - self._t0) * self.time_scale
 
     def _assemble_batch(self, wave) -> dict:
-        n, plen = self.ctrl.n_slots, self.ctrl.prompt_len
+        cfg, n, plen = self.ctrl.cfg, self.ctrl.n_slots, self.ctrl.prompt_len
+        device = self.ctrl.active.device
         tokens = np.zeros((n, plen), np.int64)
         for req in wave:
             if req.prompt.shape != (plen,):
                 raise ValueError(f"prompt of shape {req.prompt.shape}, want ({plen},)")
             tokens[req.slot] = req.prompt
-        return {"tokens": torch.from_numpy(tokens).to(self.ctrl.active.device)}
+        batch = {"tokens": torch.from_numpy(tokens).to(device)}
+        if cfg.family == "encdec":
+            # zeros in every slot that has no frames, as the JAX loop fills them
+            frames = torch.zeros((n, self.ctrl.frames_len, cfg.d_model), dtype=getattr(torch, cfg.dtype), device=device)
+            for req in wave:
+                if req.frames is not None:
+                    frames[req.slot] = torch.as_tensor(req.frames, device=device).to(frames.dtype)
+            batch["frames"] = frames
+        return batch
 
     def _emit(self, live, cur, results, metrics):
         """Record this step's token for every in-flight request; finished
@@ -136,7 +147,7 @@ class ServeSession:
                 # generation in flight commits params-only (nothing to migrate)
                 ei = self._fire_due(events, ei)
                 if self.ctrl.resize_ready:
-                    self.ctrl.commit(None, cut_step=self.global_step)
+                    self.ctrl.commit(None, None, cut_step=self.global_step)
                     metrics.commits += 1
                 wave = plan_admission(self.queue, self.slots, now_s=self.clock)
                 metrics.waves += 1
@@ -145,7 +156,7 @@ class ServeSession:
 
                 # prefill writes the prompt into the cache; its last-token
                 # logits are the wave's first emission
-                logits, cache, _ = self.ctrl.active.update_fn(self.ctrl.params, batch)
+                logits, cache, cross = self.ctrl.active.update_fn(self.ctrl.params, batch)
                 cur = _greedy(logits)
                 live = self._emit(live, cur, results, metrics)
                 t_last = self._stall(metrics, t_last)
@@ -158,11 +169,11 @@ class ServeSession:
                     if self.ctrl.resize_ready:
                         # the cut: old world decoded up to here, the new world
                         # continues this very wave token-for-token
-                        cache = self.ctrl.commit(cache, cut_step=self.global_step)
+                        cache, cross = self.ctrl.commit(cache, cross, cut_step=self.global_step)
                         metrics.commits += 1
                     pos = self.ctrl.prompt_len + step_in_wave
                     tokens = torch.from_numpy(cur).to(self.ctrl.active.device)
-                    logits, cache = self.ctrl.active.step_fn(self.ctrl.params, cache, tokens, pos)
+                    logits, cache = self.ctrl.active.step_fn(self.ctrl.params, cache, tokens, pos, cross)
                     cur = _greedy(logits)
                     live = self._emit(live, cur, results, metrics)
                     t_last = self._stall(metrics, t_last)

@@ -2,8 +2,10 @@
 ``build_train_world``, returning a :class:`WorldHandle` so serving worlds
 are first-class citizens of the warm :class:`WorldPool`:
 
-  * ``step_fn``   — the batched decode step (one token per slot);
-  * ``update_fn`` — the prefill (wave admission);
+  * ``step_fn``   — the batched decode step (one token per slot; an
+    enc-dec model's takes the cross-attention KV too);
+  * ``update_fn`` — the prefill (wave admission), returning the logits,
+    the cache and the cross-attention KV (None but for enc-dec);
   * ``devices``   — the rank -> device list; with one card every rank maps
     to it, and the world's params and cache are global tensors there.
 
@@ -41,12 +43,14 @@ def build_serve_world(
     max_seq: int,
     devices,
     cache_dtype=torch.float32,
+    frames_len: int = 16,
 ) -> WorldHandle:
     """Synchronous serving-world construction (the shadow thread's body).
     ``devices`` is the rank -> device list (``parallel.world_size``
-    entries, all one device). ``n_slots`` and ``prompt_len`` are kept for
-    the JAX package's signature, where they shape the ahead-of-time
-    compile; eager PyTorch compiles nothing ahead."""
+    entries, all one device). ``n_slots``, ``prompt_len`` and
+    ``frames_len`` (an enc-dec model's encoder positions) are kept for the
+    JAX package's signature, where they shape the ahead-of-time compile;
+    eager PyTorch compiles nothing ahead."""
     from repro_torch.models import model as M
 
     if parallel.pp != 1:
@@ -61,8 +65,8 @@ def build_serve_world(
         warm_device(device, getattr(torch, cfg.dtype), _SERVE_KERNELS)
     timings["warm_s"] = time.perf_counter() - t0
 
-    def step_fn(params, cache, tokens, pos):
-        return M.decode_step(cfg, params, cache, tokens, pos)
+    def step_fn(params, cache, tokens, pos, cross_kv=None):
+        return M.decode_step(cfg, params, cache, tokens, pos, cross_kv)
 
     def prefill_fn(params, batch):
         return M.prefill(cfg, params, batch, cache_dtype=cache_dtype, max_seq=max_seq)

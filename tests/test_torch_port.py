@@ -30,8 +30,8 @@ torch.set_num_threads(2)
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "src" / "repro_torch"
 ENV = {**os.environ, "PYTHONPATH": str(REPO / "src")}
-# the families the port runs: dense decoders and mamba2 (ssm)
-PORTED = sorted(n for n, c in configs.REGISTRY.items() if c.family in ("dense", "ssm"))
+# the families the port runs: dense decoders, mamba2 (ssm) and seamless (encdec)
+PORTED = sorted(n for n, c in configs.REGISTRY.items() if c.family in ("dense", "ssm", "encdec"))
 
 
 # ---------------------------------------------------------------------------
@@ -73,7 +73,7 @@ def test_registry_shapes_and_parallel_config_equal_jax():
         configs.get_config("nope")
 
 
-@pytest.mark.parametrize("name", ["qwen3-1.7b", "gemma-7b", "qwen2.5-14b"])
+@pytest.mark.parametrize("name", ["qwen3-1.7b", "gemma-7b", "qwen2.5-14b", "seamless-m4t-large-v2"])
 def test_param_count_and_paths_equal_jax(name):
     """Full-width shapes from the meta device against the JAX package's
     abstract params: same paths, same shapes, same count."""
@@ -92,7 +92,7 @@ def test_reduced_init_layout_equals_jax(name):
     assert {p: (tuple(x.shape), str(x.dtype).removeprefix("torch.")) for p, x in tree_paths(got).items()} == want
 
 
-@pytest.mark.parametrize("name", ["mixtral-8x7b", "jamba-v0.1-52b", "seamless-m4t-large-v2"])
+@pytest.mark.parametrize("name", ["mixtral-8x7b", "jamba-v0.1-52b"])
 def test_unported_families_raise(name):
     cfg = configs.get_config(name).reduced()
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -23,7 +23,7 @@ from repro_torch.models import model as M
 from repro_torch.serve import cache_view as C
 from repro_torch.utils.pytree import axes_paths
 
-PORTED = sorted(n for n, c in configs.REGISTRY.items() if c.family in ("dense", "ssm"))
+PORTED = sorted(n for n, c in configs.REGISTRY.items() if c.family in ("dense", "ssm", "encdec"))
 PC = configs.ParallelConfig
 
 
@@ -51,12 +51,13 @@ def test_reduced_serve_specs_equal_jax(name):
     """Reduced configs run in float32, so the serving specs (params in the
     dtype the port serves with, plus the cache) equal the JAX package's."""
     port, ref = _both(name)
+    cross = 8 if port.family == "encdec" else 0  # an enc-dec state's encoder length
     for batch, max_seq in [(2, 16), (4, 32)]:
-        assert _tuples(C.cache_tensor_specs(port, batch, max_seq, "float32")) == _tuples(
-            JC.cache_tensor_specs(ref, batch, max_seq, cache_dtype="float32")
+        assert _tuples(C.cache_tensor_specs(port, batch, max_seq, "float32", cross_len=cross)) == _tuples(
+            JC.cache_tensor_specs(ref, batch, max_seq, cache_dtype="float32", cross_len=cross)
         )
-        assert _tuples(C.serve_state_specs(port, batch, max_seq, "float32")) == _tuples(
-            JC.serve_state_specs(ref, batch, max_seq, cache_dtype="float32")
+        assert _tuples(C.serve_state_specs(port, batch, max_seq, "float32", cross_len=cross)) == _tuples(
+            JC.serve_state_specs(ref, batch, max_seq, cache_dtype="float32", cross_len=cross)
         )
 
 
@@ -76,7 +77,11 @@ def test_full_width_serve_specs_hold_the_served_dtypes():
 
 
 def test_unported_cache_families_raise():
+    """The MoE MLP is not ported: its serving state has no params to
+    specify. An enc-dec state without its encoder length is refused."""
     with pytest.raises(NotImplementedError, match="queue 1 item 10"):
+        C.serve_state_specs(configs.get_config("mixtral-8x7b").reduced(), 2, 16)
+    with pytest.raises(ValueError, match="cross_len"):
         C.cache_tensor_specs(configs.get_config("seamless-m4t-large-v2").reduced(), 2, 16)
 
 

@@ -496,8 +496,7 @@ def test_training_on_the_card_is_refused_without_a_tensor(monkeypatch):
     """An SSM model trains on the card: the train world, the grad function
     and the launcher's check take mamba2 before any tensor is built (the
     world's kernel warm-up stubbed here: there is no card), while the MoE
-    MLP and enc-dec models are refused before any tensor too, naming
-    ROADMAP queue 1 item 10."""
+    MLP is refused before any tensor too, naming ROADMAP queue 1 item 10."""
     from repro_torch.configs.base import ParallelConfig
     from repro_torch.core import shadow
     from repro_torch.core.shadow import build_train_world
@@ -511,7 +510,7 @@ def test_training_on_the_card_is_refused_without_a_tensor(monkeypatch):
     make_grad_fn(cfg)
     T.check_ported(cfg)
     T.check_ported(get_config("qwen3-1.7b"))
-    for arch in ("mixtral-8x7b", "seamless-m4t-large-v2"):
+    for arch in ("mixtral-8x7b",):
         other = get_config(arch)
         with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 10"):
             T.check_ported(other)

@@ -30,7 +30,7 @@ from repro_torch.reshard.engine import DEFAULT_STAGING_BYTES
 
 NAMES = sorted(configs.REGISTRY)
 # the families whose parameters the port can count (it builds their shapes)
-COUNTED = [n for n in NAMES if configs.get_config(n).family in ("dense", "ssm")]
+COUNTED = [n for n in NAMES if configs.get_config(n).family in ("dense", "ssm", "encdec")]
 WORLDS = range(1, 17)
 BATCH, SEQ = 32, 1024
 
