@@ -175,7 +175,7 @@ non-zero without one. Phases, each printing one line or more:
    card's machine ``torch.profiler`` loses more of a trace's device
    records the later the trace comes in a run, and run after phase 15
    this phase left the traces of phases 16 and 22 with none.
-   Phases 24-31 run before it.
+   Phases 24-36 run before it.
 24. the SSD backward kernel (``csrc/ssd_scan_bwd.cu``) against the plain
    backward ``ref.ssd_intra_chunk_bwd_ref`` (TF32 off): the JAX kernel
    tests' shapes, reduced mamba2's chunk 8 and state 16, the training shape
@@ -234,6 +234,42 @@ non-zero without one. Phases, each printing one line or more:
    launches a step, all on the tensor cores, the commits' bytes, the peak
    memory, the step time and one step under the profiler, and the params
    after the lossless commit bitwise those of a control run never resized.
+32. small-input agreement: reduced mixtral-8x7b (MoE, window 64, a
+   prompt of two windows) served on the card and on the CPU;
+33. mixtral-8x7b at full width (d_model 4096, 32 q / 8 kv heads of 128, 8
+   experts top-2 at d_ff 14336, window 4096, vocab 32000) and 8 of its 32
+   layers (11.87 B params, 23.74 GB in bf16, drawn part by part in bf16):
+   ``serve_once``, batch 8, prompt 512, 32 greedy tokens; one flash launch
+   a layer, all on the tensor cores, the first layer's q/k/v held against
+   the plain version forward and backward; prefill_s, decode tokens/s, the
+   peak memory, the pairs capacity drops in a prefill and a
+   ``torch.profiler`` window; then one request of 8192 tokens (two
+   windows: the flash kernel masks by the window) and 32 tokens decoded
+   through the ring cache, which wraps, teacher-forced, their logits
+   against the full forward's (capacity factor num_experts / k there:
+   capacity is counted per call): in bf16 each layer's expert choices of
+   the two paths compared, the logits held at the positions where none
+   differs, and the prefill's first flash launch (8192 tokens, the window
+   in effect, the tensor cores) against the plain version forward and
+   backward; in f32 compute held at every position. The routing lines
+   give each expert's share of a layer's choices, the busiest row's load
+   against capacity and the router inputs' likeness by position quarter;
+34. elastic serving of mixtral at the same 8 layers, as phase 8 across
+   expert-parallel degrees: dp2tp2 -> dp2tp2ep2 -> dp1tp2ep4 -> dp1tp4,
+   every commit moving the expert matrices' slices; launches, migrated
+   bytes, the staging bound and the tokens checked as there;
+35. mixtral trained at full width and 1 layer (1.71 B params; fp32 params,
+   bf16 compute, AdamW, remat per layer, the MoE aux loss in the loss),
+   batch 4 x 1024: the first step's f32 gradients through the kernels
+   against the plain attention's, the share of (token, choice) pairs that
+   capacity 1.25 drops and the loads behind it; dp2tp2 -> dp2tp2ep2 streamed with int8 moments ->
+   dp1tp2ep4 stop-copy, lossless; the launches, the commits' bytes, the
+   peak, the step time and one step under the profiler, and the params
+   after the lossless commit bitwise those of a control run never resized;
+36. jamba-v0.1-52b at full width and one period, 8 of its 32 layers (1
+   attention, 7 SSD, 4 MoE MLPs of 16 experts top-2 and 4 dense; 13.27 B
+   params): served as mixtral in 33, the first attention and the first SSD
+   layer held against their plain versions.
 The second-to-last line is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.
 
@@ -779,7 +815,9 @@ EMBED = (151936, 2048)  # qwen3-1.7b's embedding table
 CACHE_ROW = (28, 8 * 544 * 8 * 128)  # a stacked cache leaf, 8 slots x 544 positions, flattened
 OVERLAP_STARTS = [[3, 17, 5, 5, 29], [30, 1, 12, 9, 2]]  # unaligned, overlapping, repeated
 ELASTIC = dict(n_slots=8, prompt_len=512, max_seq=544, gen=32, frames_len=512)  # frames: seamless's
-ELASTIC_TRACE = [(8.0, (1, 2)), (16.0, (1, 4)), (24.0, (2, 2))]  # (time, (dp, tp)); starts on dp2tp2
+# (time, target): every elastic serving run starts on dp2tp2
+ELASTIC_TRACE = [(8.0, ParallelConfig(dp=1, tp=2)), (16.0, ParallelConfig(dp=1, tp=4)),
+                 (24.0, ParallelConfig(dp=2, tp=2))]
 
 
 def rand_rows(shape, dtype, seed):
@@ -969,9 +1007,14 @@ def phase_table_forms() -> None:
     log("rows", "pack_rows call by size class of its starts (rows of 64 bf16, median of 50): " + ", ".join(costs))
 
 
+def _short(p: ParallelConfig) -> str:
+    return f"dp{p.dp}tp{p.tp}" + (f"ep{p.ep}" if p.ep > 1 else "")
+
+
 def elastic_session(cfg, prompts, trace, frames=None):
-    """``prompts`` served on dp2tp2 through ``trace``; ``frames``, one
-    array a prompt, feed an enc-dec model's encoder."""
+    """``prompts`` served on dp2tp2 through ``trace`` ((time, target)
+    pairs); ``frames``, one array a prompt, feed an enc-dec model's
+    encoder."""
     frames = frames if frames is not None else [None] * len(prompts)
     ctrl = LiveServeController(cfg, ParallelConfig(dp=2, tp=2), ELASTIC["n_slots"], ELASTIC["prompt_len"],
                                ELASTIC["max_seq"], cache_dtype=torch.bfloat16, frames_len=ELASTIC["frames_len"],
@@ -979,26 +1022,24 @@ def elastic_session(cfg, prompts, trace, frames=None):
     sess = ServeSession(ctrl, step_time_s=1.0)
     for p, f in zip(prompts, frames):
         sess.submit(p, ELASTIC["gen"], frames=f)
-    events = [ResizeEvent(time_s=t, target=ParallelConfig(dp=dp, tp=tp)) for t, (dp, tp) in trace]
-    results, metrics = sess.run(events)
+    results, metrics = sess.run([ResizeEvent(time_s=t, target=target) for t, target in trace])
     records = list(ctrl.records)
     ctrl.shutdown()
     return results, metrics, records
 
 
-def phase_elastic(arch: str = "qwen3-1.7b") -> dict:
-    """``arch`` (qwen3-1.7b, mamba2-2.7b or seamless-m4t-large-v2) at full
-    width serves 8 requests (512-token prompts, 32 greedy tokens; seamless
-    with 512 frames each) on dp2tp2 and resizes three times
-    mid-generation; params and the live cache (KV, or the SSD and conv
-    states, and seamless's cross-attention KV) move through the planner,
-    the engine and the row kernels. A wrapper around
+def elastic_run(cfg, trace) -> dict:
+    """``cfg`` at full width serves 8 requests (512-token prompts, 32 greedy
+    tokens; an enc-dec model with 512 frames each) on dp2tp2 through
+    ``trace``, then the same requests uninterrupted. A wrapper around
     ``live_reshard_planned`` counts each commit's launches, checks every
     migrated tensor against its source byte for byte and the staging bound.
-    Tokens must equal an uninterrupted run."""
-    cfg = get_config(arch)
+    Checks the commits' count, the tokens against the uninterrupted run's
+    and the path's launches of the row kernels; logs the state and each
+    commit, and returns the records, the commits and the path's launches."""
+    import gc
+
     encdec = cfg.family == "encdec"
-    mixer = "ssd_intra_chunk" if cfg.family == "ssm" else "flash_attention"
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size, ELASTIC["prompt_len"]) for _ in range(ELASTIC["n_slots"])]
     frames = None
@@ -1030,32 +1071,40 @@ def phase_elastic(arch: str = "qwen3-1.7b") -> dict:
             "check_s": time.perf_counter() - t0, "stats": stats, "peak_gb": peak / 1e9,
             "cross": {t.tensor for t in plan.tasks if t.collection == "cross"},
             "cross_moved": {t.tensor for t in plan.tasks if t.collection == "cross" and t.kind != "resident"},
+            "moved": {t.tensor for t in plan.tasks if t.kind != "resident"},
         })
         return dst, stats
 
+    gc.collect()
+    torch.cuda.empty_cache()
     serve_controller.live_reshard_planned, ops.relayout_rows = checked, relayout_recorded
     try:
         fa.launches = ssd_k.launches = 0  # the elastic path's counts start here ...
         for k in rp.launches:
             rp.launches[k] = 0
-        results, metrics, records = elastic_session(cfg, prompts, ELASTIC_TRACE, frames)
+        results, metrics, records = elastic_session(cfg, prompts, trace, frames)
         # ... and are read here
         launches = {"flash_attention": fa.launches, "ssd_intra_chunk": ssd_k.launches, **rp.launches}
     finally:
         serve_controller.live_reshard_planned, ops.relayout_rows = orig_reshard, orig_relayout
+    gc.collect()
+    torch.cuda.empty_cache()
     plain, _, _ = elastic_session(cfg, prompts, [], frames)
+    gc.collect()
+    torch.cuda.empty_cache()
     specs = serve_controller.serve_state_specs(cfg, ELASTIC["n_slots"], ELASTIC["max_seq"], torch.bfloat16,
                                                cross_len=ELASTIC["frames_len"] if encdec else 0)
     state_gb = sum(s.nbytes for s in specs) / 1e9
     by_coll = {c: sum(s.nbytes for s in specs if s.collection == c) / 1e9 for c in ("params", "cache", "cross")}
-    log("elastic", f"{cfg.name} full width (serving state {state_gb:.4f} GB: params {by_coll['params']:.4f}, "
-                   f"cache {by_coll['cache']:.4f}, cross KV {by_coll['cross']:.4f}), "
+    log("elastic", f"{cfg.name} full width, {cfg.num_layers} layers (serving state {state_gb:.4f} GB: params "
+                   f"{by_coll['params']:.4f}, cache {by_coll['cache']:.4f}, cross KV {by_coll['cross']:.4f}), "
                    f"{ELASTIC['n_slots']} requests x prompt {ELASTIC['prompt_len']}"
                    + (f" with {ELASTIC['frames_len']} frames each" if encdec else "") + ", "
-                   f"{ELASTIC['gen']} greedy tokens, dp2tp2 -> " + " -> ".join(f"dp{d}tp{t}" for _, (d, t) in ELASTIC_TRACE)
+                   f"{ELASTIC['gen']} greedy tokens, dp2tp2 -> " + " -> ".join(_short(t) for _, t in trace)
                    + f": {metrics.commits} commits, {metrics.tokens_emitted} tokens, dropped {metrics.dropped}, "
                      f"wall {metrics.wall_s:.3f}s; main-path launches {launches}")
-    assert metrics.commits == 3 and len(records) == 3 == len(commits), (metrics.commits, len(records))
+    assert metrics.commits == len(trace) and len(records) == len(trace) == len(commits), (
+        metrics.commits, len(records))
     for i, (rec, c) in enumerate(zip(records, commits)):
         pause_s = rec.pause_s - c["check_s"]  # the smoke's own equality check is not the system's pause
         plane_s = pause_s - rec.plan_s
@@ -1067,6 +1116,25 @@ def phase_elastic(arch: str = "qwen3-1.7b") -> dict:
                        f"{rec.skipped_bytes / 1e9:.4f} GB"
                        + (f", cross KV moved {sorted(c['cross_moved'])}" if encdec else ""))
         assert rec.cut_step > 0, rec.cut_step
+    assert all(launches[k] == sum(c["launched"][k] for c in commits) for k in ROW_KERNELS)
+    assert results == plain, "the resized run's tokens differ from the uninterrupted run's"
+    assert all(0 <= t < cfg.vocab_size for toks in results.values() for t in toks)
+    assert all(len(toks) == ELASTIC["gen"] for toks in results.values()) and len(results) == ELASTIC["n_slots"]
+    log("elastic", "tokens equal the uninterrupted dp2tp2 run; every migrated tensor equals its source")
+    return {"records": records, "commits": commits, "launches": launches}
+
+
+def phase_elastic(arch: str = "qwen3-1.7b") -> dict:
+    """``arch`` (qwen3-1.7b, mamba2-2.7b or seamless-m4t-large-v2) at full
+    width served through ``elastic_run`` on ``ELASTIC_TRACE``: three resizes
+    mid-generation; params and the live cache (KV, or the SSD and conv
+    states, and seamless's cross-attention KV) move through the planner,
+    the engine and the row kernels."""
+    cfg = get_config(arch)
+    encdec = cfg.family == "encdec"
+    mixer = "ssd_intra_chunk" if cfg.family == "ssm" else "flash_attention"
+    run = elastic_run(cfg, ELASTIC_TRACE)
+    records, commits, launches = run["records"], run["commits"], run["launches"]
     first, second, third = commits
     assert not any(first["launched"].values()) and records[0].executed_bytes == 0, first["launched"]
     assert second["launched"]["relayout_rows"] == 0 and not second["relayout"]
@@ -1085,11 +1153,6 @@ def phase_elastic(arch: str = "qwen3-1.7b") -> dict:
     layers = cfg.num_layers + cfg.encoder_layers  # flash layers (and SSD layers) of a prefill
     assert launches[mixer] == layers, launches  # one wave, one prefill
     assert launches["flash_attention"] + launches["ssd_intra_chunk"] == layers, launches
-    assert all(launches[k] == sum(c["launched"][k] for c in commits) for k in ROW_KERNELS)
-    assert results == plain, "the resized run's tokens differ from the uninterrupted run's"
-    assert all(0 <= t < cfg.vocab_size for toks in results.values() for t in toks)
-    assert all(len(toks) == ELASTIC["gen"] for toks in results.values()) and len(results) == ELASTIC["n_slots"]
-    log("elastic", "tokens equal the uninterrupted dp2tp2 run; every migrated tensor equals its source")
     return launches
 
 
@@ -1962,13 +2025,14 @@ def log_step_profile(phase: str, what: str, prof: dict, share_of: str = "") -> N
         log(phase, f"  step: {ms:8.3f} ms  {kname[:110]}")
 
 
-def check_train_launches(launches: dict, steps: int, arch: str = TRAIN["arch"], phase: str = "train") -> None:
+def check_train_launches(launches: dict, steps: int, arch=TRAIN["arch"], phase: str = "train") -> None:
     """Every kernel of the training path ran on it: the forward twice an
     attention layer a step (remat reruns it; an enc-dec model's encoder
     layers count), the backward once, the quant kernels in the streamed
-    commit, the row kernels in it too. qwen3 and seamless compute in bf16
-    at head dim 128 and 64, so every flash launch is on the tensor cores."""
-    cfg = get_config(arch)
+    commit, the row kernels in it too. qwen3, seamless and mixtral compute
+    in bf16 at head dim 128 and 64, so every flash launch is on the tensor
+    cores. ``arch`` is a name or a config."""
+    cfg = get_config(arch) if isinstance(arch, str) else arch
     layers = cfg.num_layers + cfg.encoder_layers
     for name in ("flash_attention", "flash_attention_bwd", "pack_rows", "scatter_rows",
                  "pack_quant_rows", "dequant_scatter_rows"):
@@ -3709,6 +3773,449 @@ def phase_train_encdec() -> dict:
     return launches
 
 
+# the MoE slice: full width, the depth cut to fit one 80 GB card. mixtral
+# serves 8 of its 32 layers (11.87 B params, 23.74 GB in bf16) and trains 1
+# (1.71 B params: 20.56 GB of fp32 params and moments, 6.85 GB of
+# gradients); jamba serves one period, 8 of its 32 layers
+MIXTRAL = "mixtral-8x7b"
+JAMBA = "jamba-v0.1-52b"
+MOE_SERVE_LAYERS = 8
+MIXTRAL_TRAIN_LAYERS = 1
+# one request past mixtral's window of 4096: a prompt of two windows (the
+# ring-aligned prefill the reference's cache takes) and 32 tokens decoded
+# teacher-forced, their logits against the full forward's
+WINDOW_CHECK = dict(prompt_len=8192, gen=32)
+# the flash kernel's prefill and the ring cache's decode against the
+# kernel's full forward through 8 layers: max |diff| over max |logit| of the
+# full forward at those positions. In f32 compute at every position; in
+# bf16 at the positions where every layer chose the same experts on both
+# paths (where a choice differs, the position's logits move a long way)
+WINDOW_TOL = 1e-3
+WINDOW_BF16_TOL = 5e-2
+MIXTRAL_ELASTIC_TRACE = [(8.0, ParallelConfig(dp=2, tp=2, ep=2)), (16.0, ParallelConfig(dp=1, tp=2, ep=4)),
+                         (24.0, ParallelConfig(dp=1, tp=4))]
+MIXTRAL_TRAIN = dict(batch=4, seq=1024, before=3, after=3, stream_k=1)
+# the first step's f32 gradients through the kernels against the plain
+# attention's: per leaf, max |g - g_plain| / max |g_plain|
+MIXTRAL_GRAD_TOL = 1e-5
+
+
+def moe_cut(arch: str, layers: int):
+    return dataclasses.replace(get_config(arch), num_layers=layers)
+
+
+class _routed:
+    """Counts the (token, choice) pairs each ``moe.routing`` call routes
+    (``routed``) and the pairs capacity drops (``dropped``), while it is
+    entered, summed on the card and read at the exit (no sync in between).
+    Keeps each call's expert choices (``choices``, (b, s, k)), its capacity
+    and, per token, the cosine of its router input to its batch row's mean
+    input (``likeness``, (b, s)), for :func:`log_routing`."""
+
+    def __enter__(self):
+        from repro_torch.models import moe as moe_mod
+
+        self.mod, self.orig, self.kept = moe_mod, moe_mod.routing, []
+        self.choices, self.capacity, self.likeness, self.routed = [], [], [], 0
+
+        def counted(params, cfg, x):
+            out = self.orig(params, cfg, x)
+            self.kept.append(out[3].sum())
+            self.routed += out[3].numel()
+            self.choices.append(out[1])
+            self.capacity.append(out[4])
+            xf = x.detach().float()
+            self.likeness.append(torch.nn.functional.cosine_similarity(xf, xf.mean(1, keepdim=True), dim=-1))
+            return out
+
+        moe_mod.routing = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.routing = self.orig
+        self.dropped = self.routed - sum(int(k) for k in self.kept)
+
+
+def log_routing(phase: str, routed: _routed, calls: dict, e: int) -> None:
+    """For each routing call ``calls`` names (``{label: index}``): each
+    expert's share of the choices, the busiest (row, expert) pair's load
+    against capacity, and by quarter of the positions the busiest expert's
+    share and the router inputs' mean cosine to their row's mean."""
+    for label, i in calls.items():
+        idx, cap, like = routed.choices[i], routed.capacity[i], routed.likeness[i]
+        b, s, k = idx.shape
+        shares = torch.bincount(idx.flatten(), minlength=e).float() / idx.numel()
+        per_row = torch.stack([torch.bincount(r.flatten(), minlength=e) for r in idx])
+        quarters = [slice(q * s // 4, (q + 1) * s // 4) for q in range(4)]
+        top = [(torch.bincount(idx[:, q].flatten(), minlength=e).max() / idx[:, q].numel()).item() for q in quarters]
+        cos = [like[:, q].mean().item() for q in quarters]
+        log(phase, f"routing, {label}: each expert's share of the {idx.numel()} choices "
+                   f"{' '.join(f'{100 * x:.1f}' for x in shares.tolist())} %; the busiest expert of a row takes "
+                   f"{int(per_row.max())} pairs against capacity {cap} ({b} rows x {s} tokens x top-{k}); by quarter "
+                   f"of the positions the busiest expert's share {'/'.join(f'{100 * x:.1f}' for x in top)} % and the "
+                   f"router inputs' mean cosine to their row's mean {'/'.join(f'{x:.3f}' for x in cos)}")
+
+
+def phase_serve_moe(arch: str, layers: int = MOE_SERVE_LAYERS) -> dict:
+    """``arch`` (mixtral-8x7b or jamba-v0.1-52b) at full width and ``layers``
+    layers through ``serve_once``, batch 8, prompt 512, 32 greedy tokens;
+    the params drawn part by part in bf16. Holds the first attention layer's
+    q/k/v (and the first SSD layer's inputs) of the prefill against the
+    plain versions. Returns the path's launches."""
+    import gc
+
+    from repro_torch.models.transformer import block_program, n_periods
+
+    cfg = moe_cut(arch, layers)
+    prog = block_program(cfg)
+    attn_layers = sum(m == "attn" for m, _ in prog) * n_periods(cfg)
+    ssd_layers = cfg.num_layers - attn_layers
+    moe_layers = sum(mlp == "moe" for _, mlp in prog) * n_periods(cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    captured, orig_fa, orig_ssd = {}, ops.flash_attention, ssd_k.ssd_intra_chunk
+
+    def capture_fa(q, k, v, **kw):
+        if "flash" not in captured:
+            captured["flash"] = (q.clone(), k.clone(), v.clone(), kw)
+        return orig_fa(q, k, v, **kw)
+
+    def capture_ssd(x, dt, cum, B, C, chunk):
+        if "ssd" not in captured:
+            captured["ssd"] = (x.clone(), dt.clone(), cum.clone(), B.clone(), C.clone(), chunk)
+        return orig_ssd(x, dt, cum, B, C, chunk)
+
+    ops.flash_attention, ssd_k.ssd_intra_chunk = capture_fa, capture_ssd
+    try:
+        _zero_counts()  # the main path's counts start here ...
+        out = serve_once(cfg, device="cuda", seed=0, **SERVE)
+        launches = {"flash_attention": fa.launches, "flash_attention_tc": fa.tc_launches,
+                    "ssd_intra_chunk": ssd_k.launches}  # ... and are read here
+    finally:
+        ops.flash_attention, ssd_k.ssd_intra_chunk = orig_fa, orig_ssd
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    toks = out["tokens"]
+    tok_s = SERVE["batch"] * SERVE["gen"] / out["decode_s"]
+    n_params = M.analytic_param_count(cfg)
+    log("serve-moe", f"{cfg.name} full width, {cfg.num_layers} of {get_config(arch).num_layers} layers ({attn_layers} "
+                     f"attention, {ssd_layers} SSD; {moe_layers} MoE MLPs of {cfg.num_experts} experts top-"
+                     f"{cfg.experts_per_token} at d_ff {cfg.d_ff}; d_model {cfg.d_model}, vocab {cfg.vocab_size}; "
+                     f"{n_params} params, {2 * n_params / 1e9:.2f} GB in bf16), batch {SERVE['batch']} x prompt "
+                     f"{SERVE['prompt_len']}, {SERVE['gen']} greedy tokens: prefill_s {out['prefill_s']:.4f}, decode_s "
+                     f"{out['decode_s']:.4f} ({tok_s:.1f} tok/s), peak memory {peak_gb:.2f} GB, launches {launches}")
+    assert launches["flash_attention"] == attn_layers and launches["ssd_intra_chunk"] == ssd_layers, launches
+    assert fa.route(getattr(torch, cfg.dtype), cfg.resolved_head_dim) == "tensor_cores"
+    assert launches["flash_attention_tc"] == launches["flash_attention"], launches
+    assert toks.shape == (SERVE["batch"], SERVE["gen"] + 1), toks.shape
+    assert toks.min() >= 0 and toks.max() < cfg.vocab_size
+    q, k, v, kw = captured.pop("flash")
+    err = kernel_vs_plain(q, k, v, **kw)
+    case = (*q.shape[:2], k.shape[1], q.shape[2], k.shape[2], q.shape[3], kw["causal"], kw["window"])
+    rel = bwd_vs_plain(case, q.dtype, seed=0, qkv=(q, k, v), scale=kw["scale"])
+    log("serve-moe", f"first attention layer's prefill {tuple(q.shape)} {str(q.dtype)[6:]} window {kw['window']}: "
+                     f"kernel vs plain max_abs_err {err:.3e} (tol {TOL[q.dtype]:g}); backward max |error| / max "
+                     f"|plain| {rel:.3e} (tol {BWD_TOL[q.dtype]:g})")
+    assert err <= TOL[q.dtype] and rel <= BWD_TOL[q.dtype]
+    if ssd_layers:
+        args = captured.pop("ssd")
+        ssd_err = ssd_kernel_vs_plain(*args)
+        log("serve-moe", f"first SSD layer's block x {tuple(args[0].shape)} {str(args[0].dtype)[6:]}: kernel vs "
+                         f"plain max |error| / max |plain| {ssd_err:.3e} (tol {SSD_TOL:g})")
+        assert ssd_err <= SSD_TOL
+    del captured, q, k, v
+
+    # the logits themselves: finite, of the expected shape, the first tokens;
+    # then where the prefill's and a decode step's device time goes
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda", served_dtype=cfg.dtype)
+    with torch.inference_mode(), _routed() as routed:
+        logits, cache, _ = M.prefill(cfg, params, demo_batch(cfg, SERVE["batch"], SERVE["prompt_len"]),
+                                     max_seq=SERVE["prompt_len"] + 4)
+    assert logits.shape == (SERVE["batch"], 1, cfg.vocab_size)
+    assert torch.isfinite(logits.float()).all(), "full-width logits not finite"
+    assert (logits[:, -1].argmax(-1).cpu().numpy() == toks[:, 0]).all()
+    log("serve-moe", f"full-width prefill logits {tuple(logits.shape)} finite; first tokens match; capacity factor "
+                     f"{cfg.moe_capacity_factor:g} dropped {routed.dropped} of {routed.routed} (token, choice) pairs "
+                     f"in the prefill ({100 * routed.dropped / routed.routed:.2f}%)")
+    last = len(routed.choices) - 1
+    log_routing("serve-moe", routed, {"the prefill's MoE layer 1": 0, f"its MoE layer {last + 1}": last},
+                cfg.num_experts)
+    del routed
+    phase_profile(cfg, params, logits, cache)
+    del params, logits, cache
+    if arch == MIXTRAL:
+        phase_window(cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _window_logits(cfg, params, toks, s: int, n: int):
+    """The full forward's logits at positions ``s..s+n-1`` and the same
+    positions decoded teacher-forced through the ring cache after a prefill
+    of ``s`` tokens; the flash launches' (length, window), the prefill's
+    first flash launch's inputs, the routing calls (:class:`_routed`), the
+    prefill's seconds and the ring's slots."""
+    calls, first, orig = [], {}, ops.flash_attention
+
+    def seen(q, k, v, **kw):
+        calls.append((q.shape[1], kw["window"]))
+        if q.shape[1] == s and not first:
+            first.update(qkv=(q.clone(), k.clone(), v.clone()), kw=kw)
+        return orig(q, k, v, **kw)
+
+    cache_dtype = getattr(torch, cfg.dtype)
+    ops.flash_attention = seen
+    try:
+        with torch.inference_mode(), _routed() as routed:
+            full, _ = M.forward(cfg, params, {"tokens": toks})
+            want = full[0, s:].float()
+            del full
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, cache, _ = M.prefill(cfg, params, {"tokens": toks[:, :s]}, cache_dtype=cache_dtype, max_seq=s + n)
+            torch.cuda.synchronize()
+            prefill_s = time.perf_counter() - t0
+            ring = cache["pos0"]["k"].shape[2]
+            got = []
+            for i in range(n):
+                logits, cache = M.decode_step(cfg, params, cache, toks[:, s + i : s + i + 1], s + i)
+                got.append(logits[0, 0].float())
+    finally:
+        ops.flash_attention = orig
+    return want, torch.stack(got), calls, first, routed, prefill_s, ring
+
+
+def routing_flips(routed: _routed, s: int, n: int) -> tuple[list, list, torch.Tensor]:
+    """The routing calls of :func:`_window_logits` (the full forward's
+    layers, the prefill's, then each decode step's) compared layer by layer:
+    per layer, the prompt tokens whose set of experts differs between the
+    prefill and the full forward, and the decode positions whose set differs
+    from the full forward's; and per decode position, whether any layer's
+    set differs there."""
+    layers = len(routed.choices) // (n + 2)
+    assert len(routed.choices) == layers * (n + 2), len(routed.choices)
+    full, pre, dec = routed.choices[:layers], routed.choices[layers:2 * layers], routed.choices[2 * layers:]
+
+    def differ(a, b):
+        return (a.sort(-1).values != b.sort(-1).values).any(-1)
+
+    prompt = [int(differ(full[j][:, :s], pre[j]).sum()) for j in range(layers)]
+    by_layer = [torch.stack([differ(full[j][0, s + i], dec[i * layers + j][0, 0]) for i in range(n)])
+                for j in range(layers)]
+    return prompt, [int(f.sum()) for f in by_layer], torch.stack(by_layer).any(0)
+
+
+def phase_window(cfg) -> None:
+    """One mixtral request past its window at full width: the prefill of
+    ``WINDOW_CHECK["prompt_len"]`` tokens (the flash kernel masking by the
+    window of 4096), then 32 tokens through the ring cache, which wraps,
+    teacher-forced; their logits against the full forward's at the same
+    positions. The capacity factor is num_experts / k here, a capacity of
+    every token: capacity is counted per call, so below it a prefill and
+    decode steps do not compute what one full forward does. In bf16 (the
+    served params) the prefill's first flash launch is held against the
+    plain version forward and backward, each layer's expert choices of the
+    two paths are compared, and the logits are held to ``WINDOW_BF16_TOL``
+    at the decode positions where no layer chose other experts (a flipped
+    choice moves a position's logits a long way: logged). In f32 compute
+    (f32 params, the flash kernel's CUDA-core route, TF32 off) every
+    position's logits are held to ``WINDOW_TOL``."""
+    import gc
+
+    cfg = dataclasses.replace(cfg, moe_capacity_factor=cfg.num_experts / cfg.experts_per_token)
+    s, n = WINDOW_CHECK["prompt_len"], WINDOW_CHECK["gen"]
+    assert s % cfg.sliding_window == 0 and s > cfg.sliding_window
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    toks = torch.randint(0, cfg.vocab_size, (1, s + n), generator=gen, device="cuda")
+    for dtype in ("bfloat16", "float32"):
+        run_cfg = dataclasses.replace(cfg, dtype=dtype)
+        gc.collect()
+        torch.cuda.empty_cache()
+        params = M.init_params(run_cfg, torch.Generator(device="cuda").manual_seed(0), "cuda", served_dtype=dtype)
+        want, got, calls, first, routed, prefill_s, ring = _window_logits(run_cfg, params, toks, s, n)
+        del params
+        prompt_flips, decode_flips, flipped = routing_flips(routed, s, n)
+        del routed
+        scale = want.abs().max()
+        err = ((got - want).abs().max() / scale).item()
+        clean = ~flipped
+        clean_err = ((got[clean] - want[clean]).abs().max() / scale).item() if clean.any() else float("nan")
+        flipped_err = ((got[flipped] - want[flipped]).abs().max() / scale).item() if flipped.any() else 0.0
+        agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
+        log("window", f"{cfg.name} {cfg.num_layers} layers, {dtype} compute, one request: prompt {s} (the flash "
+                      f"kernel at window {cfg.sliding_window}: {len(calls)} launches, "
+                      f"{sum(w == cfg.sliding_window and q > w for q, w in calls)} of them longer than the window), "
+                      f"prefill_s {prefill_s:.4f}, ring cache of {ring} slots, {n} decode steps teacher-forced at "
+                      f"positions {s}..{s + n - 1} (the ring wrapped {n} slots) against the full forward over "
+                      f"{s + n} tokens: max |diff| / max |logit| {err:.3e} over all {n} positions, greedy tokens "
+                      f"equal at {100 * agree:.1f}% of them")
+        log("window", f"  {dtype}: layer by layer, the prompt tokens whose experts differ between the prefill and "
+                      f"the full forward {prompt_flips}, the decode positions whose experts differ from the full "
+                      f"forward's {decode_flips}; {int(flipped.sum())} of {n} decode positions with a choice that "
+                      f"differs in some layer (max |diff| / max |logit| {flipped_err:.3e} there), {int(clean.sum())} "
+                      f"with none ({clean_err:.3e} there, tol {WINDOW_BF16_TOL:g} in bf16)")
+        assert ring == cfg.sliding_window and torch.isfinite(got).all()
+        assert all(w == cfg.sliding_window for _, w in calls) and max(q for q, _ in calls) > cfg.sliding_window
+        if dtype == "float32":
+            assert err <= WINDOW_TOL, "the ring cache's decode disagrees with the full forward"
+            continue
+        assert clean.sum() >= n // 2, "most decode positions chose other experts than the full forward"
+        assert clean_err <= WINDOW_BF16_TOL, "the ring cache's decode disagrees with the full forward"
+        del want, got
+        gc.collect()
+        torch.cuda.empty_cache()
+        (q, k, v), kw = first["qkv"], first["kw"]
+        assert kw["window"] == cfg.sliding_window and q.shape[1] == s
+        assert fa.route(q.dtype, q.shape[-1]) == "tensor_cores"
+        ferr = kernel_vs_plain(q, k, v, **kw)
+        case = (*q.shape[:2], k.shape[1], q.shape[2], k.shape[2], q.shape[3], kw["causal"], kw["window"])
+        rel = bwd_vs_plain(case, q.dtype, seed=0, qkv=(q, k, v), scale=kw["scale"])
+        log("window", f"  the prefill's first flash launch {tuple(q.shape)} {dtype} window {kw['window']} (tensor "
+                      f"cores): kernel vs plain max_abs_err {ferr:.3e} (tol {TOL[q.dtype]:g}); backward max |error| / "
+                      f"max |plain| {rel:.3e} (tol {BWD_TOL[q.dtype]:g})")
+        assert ferr <= TOL[q.dtype] and rel <= BWD_TOL[q.dtype]
+        del q, k, v, first
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_elastic_mixtral() -> dict:
+    """mixtral at full width and 8 layers through ``elastic_run``, resized
+    mid-generation across expert-parallel degrees: dp2tp2 -> dp2tp2ep2 ->
+    dp1tp2ep4 -> dp1tp4. Every commit changes ep, so every one moves the
+    expert matrices' slices."""
+    cfg = moe_cut(MIXTRAL, MOE_SERVE_LAYERS)
+    run = elastic_run(cfg, MIXTRAL_ELASTIC_TRACE)
+    records, commits, launches = run["records"], run["commits"], run["launches"]
+    experts = {f"params/blocks/pos0/mlp/{n}" for n in ("wi_gate", "wi_up", "wo")}
+    for rec, c in zip(records, commits):
+        assert rec.executed_bytes > 0 and experts <= c["moved"], (rec.dst, sorted(c["moved"])[:8])
+        assert c["launched"]["pack_rows"] == c["launched"]["scatter_rows"] > 0, c["launched"]
+    assert launches["flash_attention"] == cfg.num_layers and launches["ssd_intra_chunk"] == 0, launches
+    log("elastic", f"{cfg.name}: every commit moved the expert matrices ({', '.join(sorted(experts))}); peak memory "
+                   f"of the commits {max(c['peak_gb'] for c in commits):.2f} GB")
+    return launches
+
+
+def phase_train_mixtral() -> dict:
+    """mixtral at full width and 1 layer trained and live-resized across
+    expert-parallel degrees (see the module docstring, 35). Returns the
+    launches of the path."""
+    import gc
+
+    from repro_torch.core import controller as C
+    from repro_torch.core.controller import LiveRController
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.distribution.step import make_grad_fn
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.reshard import WirePolicy
+    from repro_torch.utils.pytree import tree_paths
+
+    cfg = moe_cut(MIXTRAL, MIXTRAL_TRAIN_LAYERS)
+    B, S = MIXTRAL_TRAIN["batch"], MIXTRAL_TRAIN["seq"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the run's first step (its init and tokens) in f32 compute: the kernels
+    # against the plain attention; and the pairs capacity drops in it
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params = M.init_params(cfg32, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    batch = {"tokens": torch.from_numpy(SyntheticLM(cfg.vocab_size, S, B, 0).global_batch_at(0)).to("cuda", torch.long)}
+    with _routed() as routed:
+        errs, launched = _grads_vs_plain_attention(make_grad_fn(cfg32), params, batch)
+    del params, batch
+    worst = max(errs, key=lambda p: errs[p][0])
+    log("train-moe", f"the run's first step's gradients in f32 compute, the flash kernels (CUDA-core route: f32) "
+                     f"against the plain attention on the card: {len(errs)} leaves, max |g - g_plain| / max |g_plain| "
+                     f"at most {errs[worst][0]:.3e} (tol {MIXTRAL_GRAD_TOL:g}; {worst}), ||g - g_plain|| / "
+                     f"||g_plain|| at most {max(e[1] for e in errs.values()):.3e}; flash launches {launched[0]} "
+                     f"forward / {launched[1]} backward")
+    log("train-moe", f"capacity factor {cfg.moe_capacity_factor:g} (capacity "
+                     f"{max(1, int(cfg.moe_capacity_factor * cfg.experts_per_token * S / cfg.num_experts))} pairs an "
+                     f"expert a row of {S} tokens) dropped {routed.dropped} of {routed.routed} (token, choice) pairs, "
+                     f"{100 * routed.dropped / routed.routed:.2f}%, over the two steps' routings (forward, remat and "
+                     f"plain)")
+    log_routing("train-moe", routed, {"the first step's forward": 0}, cfg.num_experts)
+    del routed
+    assert launched == (2 * cfg.num_layers, cfg.num_layers), launched
+    assert errs[worst][0] <= MIXTRAL_GRAD_TOL, "the kernels' f32 gradients disagree with the plain attention's"
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    opt = AdamWConfig(learning_rate=1e-4, warmup_steps=2, total_steps=1000)
+    kw = dict(seq_len=S, global_batch=B, device="cuda", stream_k=MIXTRAL_TRAIN["stream_k"])
+    first_dst, second_dst = ParallelConfig(dp=2, tp=2, ep=2), ParallelConfig(dp=1, tp=2, ep=4)
+    commits: list[dict] = []
+    orig_rebuild = C.rebuild_state
+    torch.cuda.reset_peak_memory_stats()
+    C.rebuild_state = cut_checker(commits, lambda: ctrl, orig_rebuild)
+    try:
+        ctrl = LiveRController(cfg, ParallelConfig(dp=2, tp=2), opt, overlap="stream", wire_policy=WirePolicy(), **kw)
+        _zero_counts()  # the training path's counts start here ...
+        t_run = time.perf_counter()
+        losses = ctrl.train_steps(MIXTRAL_TRAIN["before"])
+        ctrl.request_resize(first_dst)
+        while not ctrl.records:
+            losses += ctrl.train_steps(1)
+            assert len(losses) < 200, "the streamed resize never committed"
+        ctrl.wire_policy = None  # the second resize is lossless
+        ctrl.request_resize(second_dst, overlap="stop_copy")
+        while len(ctrl.records) < 2:
+            losses += ctrl.train_steps(1)
+            assert len(losses) < 400, "the stop-copy resize never committed"
+        snapshot = {p: x.clone() for p, x in tree_paths(ctrl.params).items()}
+        at_commit = ctrl.step
+        losses += ctrl.train_steps(MIXTRAL_TRAIN["after"])
+        run_s = time.perf_counter() - t_run
+        launches = _all_counts()  # ... and are read here
+    finally:
+        C.rebuild_state = orig_rebuild
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log("train-moe", f"{cfg.name} full width, {cfg.num_layers} of 32 layers ({M.analytic_param_count(cfg)} params, "
+                     f"fp32, {cfg.dtype} compute, AdamW, remat per layer, the MoE aux loss in the loss), batch {B} x "
+                     f"{S}, dp2tp2 -> {_short(first_dst)} (stream, int8 moments) -> {_short(second_dst)} (stop-copy, "
+                     f"lossless): {len(losses)} steps in {run_s:.1f}s, losses {[round(x, 4) for x in losses]}, peak "
+                     f"memory {peak_gb:.2f} GB, launches {launches}")
+    assert all(np.isfinite(losses)), "a loss is not finite"
+    assert [r.dst for r in ctrl.records] == [first_dst.describe(), second_dst.describe()], [r.dst for r in ctrl.records]
+    for i, (rec, c) in enumerate(zip(ctrl.records, commits)):
+        pause_s = rec.total_pause_s - c["check_s"]  # the smoke's own check is not the system's pause
+        log("train-moe", f"commit {i + 1} {rec.mode} {rec.src} -> {rec.dst} at step {c['step']}: pause_s "
+                         f"{pause_s:.4f}, prepare_s {rec.prepare_s:.4f}, wire {rec.wire_bytes / 1e9:.4f} GB, "
+                         f"logical {rec.logical_bytes / 1e9:.4f} GB, executed {rec.executed_bytes / 1e9:.4f} GB, "
+                         f"dirty layers {rec.dirty_layers}/{rec.layers_total}, {len(c['quantized'])} tensors "
+                         f"quantized, {len(c['adopted'])} adopted")
+        assert rec.generic_cells == 0 and rec.executed_bytes > 0
+    first, second = commits
+    assert ctrl.records[0].wire_bytes < ctrl.records[0].logical_bytes
+    assert any("/mlp/wi_gate" in n for n in first["quantized"]), first["quantized"]
+    assert all(n.split("/")[0] in ("mu", "nu") for n in first["quantized"])
+    assert not second["quantized"] and ctrl.records[1].wire_bytes == ctrl.records[1].logical_bytes
+    check_train_launches(launches, len(losses), cfg, phase="train-moe")
+    with_commit = {first["step"], second["step"] - 1}  # as in phase_train
+    plain_steps = [t for i, t in enumerate(ctrl.iteration_times) if i not in with_commit]
+    step_s = statistics.median(plain_steps)
+    log("train-moe", f"step time on the card (host clock, steps without a commit): median {step_s:.4f} s over "
+                     f"{len(plain_steps)} steps, {B * S / step_s:.0f} tokens/s")
+    log_step_profile("train-moe", f"one step on {_short(second_dst)}",
+                     profile_step(ctrl.world, ctrl.params, ctrl.opt_state, ctrl._batch(), _flash_class))
+    del ctrl
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    control, c_losses = int8_control(cfg, opt, kw, first, at_commit)
+    unequal = [p for p, x in tree_paths(control.params).items() if not torch.equal(x, snapshot[p])]
+    log("train-moe", f"params after the lossless commit (step {at_commit}) against the control run never resized: "
+                     f"{len(snapshot) - len(unequal)} of {len(snapshot)} tensors bitwise equal; losses to there equal "
+                     f"{c_losses == losses[:at_commit]}")
+    assert not unequal, f"resized params differ from the control run's: {unequal[:4]}"
+    assert c_losses == losses[:at_commit], "the resized run's losses differ from the control run's"
+    del control, snapshot
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -3759,6 +4266,11 @@ def main() -> int:
     record["max_abs_err"] = record["max_err"] = max(record["max_abs_err"], seamless_err)
     elastic_seamless_launches = phase_elastic(SEAMLESS)
     train_seamless_launches = phase_train_encdec()
+    phase_small_agreement(get_config(MIXTRAL).reduced(), prompt_len=128)  # two windows of 64
+    serve_mixtral_launches = phase_serve_moe(MIXTRAL)
+    elastic_mixtral_launches = phase_elastic_mixtral()
+    train_mixtral_launches = phase_train_mixtral()
+    serve_jamba_launches = phase_serve_moe(JAMBA)
     schedule_launches = phase_schedule(train_peak_gb)  # last: see the module docstring, 23
     # each record's launches: its counts on the main paths, each counted
     # from zero just before its run and read just after. No path runs
@@ -3769,7 +4281,9 @@ def main() -> int:
              "serve_mamba2": {"ssd_intra_chunk": ssm_launches}, "elastic_mamba2": ssm_elastic_launches,
              "train_mamba2": train_ssm_launches, "elastic_train_mamba2": elastic_train_ssm_launches,
              "serve_seamless": {"flash_attention": seamless_launches}, "elastic_seamless": elastic_seamless_launches,
-             "train_seamless": train_seamless_launches}
+             "train_seamless": train_seamless_launches, "serve_mixtral": serve_mixtral_launches,
+             "elastic_mixtral": elastic_mixtral_launches, "train_mixtral": train_mixtral_launches,
+             "serve_jamba": serve_jamba_launches}
     records = [record, *rows, bwd, *quants, ssd, rms, ssd_bwd]
     for rec in records:
         rec["launches_by_path"] = {p: counts.get(rec["name"], 0) for p, counts in paths.items()}

@@ -245,7 +245,6 @@ def build_train_world(
     the step, its grad and update halves, and on the card the kernel
     libraries and cuBLAS warmed in this thread."""
     from repro_torch.distribution.step import make_grad_fn, make_train_step
-    from repro_torch.models.transformer import check_ported
 
     if parallel.pp != 1:
         raise NotImplementedError(
@@ -255,7 +254,6 @@ def build_train_world(
     if len(devices) != parallel.world_size:
         raise ValueError(f"{len(devices)} devices for a world of {parallel.world_size} ranks")
     device = world_device(devices)
-    check_ported(cfg)  # the MoE MLP raises NotImplementedError
     timings: dict = {}
     t0 = time.perf_counter()
     if device.type == "cuda":

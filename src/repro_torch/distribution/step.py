@@ -30,7 +30,6 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import model as M
-from repro_torch.models import transformer as T
 from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
 from repro_torch.utils.pytree import tree_from_paths, tree_paths
 
@@ -69,11 +68,8 @@ def make_grad_fn(cfg: ModelConfig, microbatches: int = 1, remat: str = "full"):
     divided by their number, and so is the loss (the JAX package's
     "explicit" accumulation).
 
-    Raises ``NotImplementedError`` for a model the port cannot run
-    (``transformer.check_ported``: the MoE MLP, ROADMAP queue 1 item 10).
-    On the card an SSM mixer's gradient goes through the SSD backward
+    The loss carries the MoE aux loss of a model with MoE layers. On the card an SSM mixer's gradient goes through the SSD backward
     kernel; an enc-dec model's batch carries ``frames``."""
-    T.check_ported(cfg)
 
     def grads_of(paths: dict, batch: dict):
         leaves = _autograd_leaves(paths)

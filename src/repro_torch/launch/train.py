@@ -29,8 +29,9 @@ count; the ``[done]`` line prints the card's peak. A live resize, which
 holds the target world's state beside it, does not fit one 80 GB card at
 that depth). An enc-dec model (``--arch seamless-m4t-large-v2``) trains on
 the seeded frames of ``data.SyntheticFrames``: the JAX launcher's zero
-frames make the encoder's gradients overflow at full depth. The MoE MLP
-raises ``NotImplementedError`` (ROADMAP queue 1 item 10).
+frames make the encoder's gradients overflow at full depth. A MoE model
+(``--arch mixtral-8x7b``) trains with its aux loss in the loss, and a
+resize may change the expert-parallel degree (``--resize 5:dp2,tp2,ep2``).
 """
 
 from __future__ import annotations
@@ -91,13 +92,11 @@ def main() -> None:
     from repro_torch.configs.base import ParallelConfig
     from repro_torch.core.controller import LiveRController
     from repro_torch.data import SyntheticFrames
-    from repro_torch.models.transformer import check_ported
     from repro_torch.optim import AdamWConfig
 
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    check_ported(cfg)  # the MoE MLP raises NotImplementedError
     parallel = ParallelConfig(dp=args.dp, pp=args.pp, tp=args.tp)
     opt = AdamWConfig(learning_rate=args.lr, warmup_steps=max(args.steps // 10, 1), total_steps=args.steps)
     print(f"[train] {cfg.name} {parallel.describe()} seq={args.seq} batch={args.batch} "

@@ -16,7 +16,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.transformer import block_program, check_ported, n_periods
+from repro_torch.models.transformer import block_program, n_periods
 
 
 def cache_capacity(cfg: ModelConfig, max_seq: int) -> int:
@@ -27,7 +27,6 @@ def cache_capacity(cfg: ModelConfig, max_seq: int) -> int:
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=torch.bfloat16, device="cuda"):
     """Zero cache tree."""
-    check_ported(cfg)
     np_ = n_periods(cfg)
     shape = (np_, batch, cache_capacity(cfg, max_seq), cfg.num_kv_heads, cfg.resolved_head_dim)
     cache = {}
@@ -72,7 +71,6 @@ def cache_from_prefill(cfg: ModelConfig, collected: dict, cache_dtype=torch.bflo
     decode horizon) exceeds the prompt length the cache is padded to
     ``cache_capacity(cfg, max_seq)`` so subsequent decode steps have slots.
     """
-    check_ported(cfg)
     out = {}
     for j, (mixer, _) in enumerate(block_program(cfg)):
         if mixer != "attn":

@@ -34,12 +34,13 @@ def _normal(gen, shape, dtype, device) -> torch.Tensor:
 
 
 def _dense_init(gen, shape, dtype, device, lead=(), in_axis=0):
+    # scaled in place: the bits of ``draw * scale``, one draw's memory
     fan_in = shape[in_axis]
-    return _normal(gen, (*lead, *shape), dtype, device) * (1.0 / fan_in**0.5)
+    return _normal(gen, (*lead, *shape), dtype, device).mul_(1.0 / fan_in**0.5)
 
 
 def _embed_init(gen, shape, dtype, device, lead=()):
-    return _normal(gen, (*lead, *shape), dtype, device) * 0.02
+    return _normal(gen, (*lead, *shape), dtype, device).mul_(0.02)
 
 
 # ---------------------------------------------------------------------------

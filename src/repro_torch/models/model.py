@@ -1,10 +1,9 @@
 """Public model API: init / forward / loss / prefill / decode.
 
 The counterpart of ``repro/models/model.py`` for decoder-only models with
-attention or SSM (Mamba-2) mixers and dense or no MLPs, and for enc-dec
-models (an encoder over precomputed frame embeddings, the audio frontend's
-stub, and a decoder with cross attention); the MoE family raises
-``NotImplementedError`` naming its ROADMAP item.
+attention or SSM (Mamba-2) mixers and dense, MoE or no MLPs, and for
+enc-dec models (an encoder over precomputed frame embeddings, the audio
+frontend's stub, and a decoder with cross attention).
 """
 
 from __future__ import annotations
@@ -18,7 +17,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import kvcache
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
-from repro_torch.utils.pytree import tree_map_with_path, tree_paths
+from repro_torch.utils.pytree import axes_paths, tree_map_with_path, tree_paths
 
 # leaves read in fp32 whatever the activation dtype: norm scales, and the
 # SSM mixer's decay, bias, skip, conv and gated-norm parameters
@@ -49,25 +48,32 @@ def resolve_device(device) -> torch.device:
 # ---------------------------------------------------------------------------
 
 
-def init_params(cfg: ModelConfig, generator: torch.Generator | None = None, device="cuda") -> dict:
+def init_params(
+    cfg: ModelConfig, generator: torch.Generator | None = None, device="cuda", served_dtype=None
+) -> dict:
     """Parameters in ``cfg.param_dtype``, drawn from one seeded generator on
     ``device`` (seed 0 when none is given) with the JAX package's
-    distributions and paths. ``device="meta"`` gives shapes only."""
+    distributions and paths. ``device="meta"`` gives shapes only.
+
+    ``served_dtype``, given, returns the bits of ``cast_params(init_params(
+    ...), served_dtype)`` but casts each part of a block, and each MoE
+    expert matrix, as soon as it is drawn: the peak is the served tree plus
+    one float32 part, not the whole float32 tree beside it."""
     dev = resolve_device(device)
     if generator is None and dev.type != "meta":
         generator = torch.Generator(device=dev).manual_seed(0)
-    T.check_ported(cfg)
     pdt = _dtype(cfg.param_dtype)
-    params = {"embed": L.embed_init(generator, cfg, pdt, dev)}
+    cast = (lambda tree: cast_params(tree, served_dtype)) if served_dtype is not None else (lambda tree: tree)
+    params = {"embed": cast(L.embed_init(generator, cfg, pdt, dev))}
     if cfg.family == "encdec":
         params["encoder"] = {
-            "blocks": T.stack_init(generator, _encoder_cfg(cfg), pdt, dev),
-            "final_norm": L.rmsnorm_init(cfg.d_model, pdt, dev),
+            "blocks": T.stack_init(generator, _encoder_cfg(cfg), pdt, dev, cast),
+            "final_norm": cast(L.rmsnorm_init(cfg.d_model, pdt, dev)),
         }
-    params["blocks"] = T.stack_init(generator, cfg, pdt, dev, cross=cfg.family == "encdec")
-    params["final_norm"] = L.rmsnorm_init(cfg.d_model, pdt, dev)
+    params["blocks"] = T.stack_init(generator, cfg, pdt, dev, cast, cross=cfg.family == "encdec")
+    params["final_norm"] = cast(L.rmsnorm_init(cfg.d_model, pdt, dev))
     if not cfg.tie_embeddings:
-        params["lm_head"] = L.lm_head_init(generator, cfg, pdt, dev)
+        params["lm_head"] = cast(L.lm_head_init(generator, cfg, pdt, dev))
     return params
 
 
@@ -105,10 +111,17 @@ def param_shapes(cfg: ModelConfig) -> dict[str, tuple[int, ...]]:
 
 
 def analytic_param_count(cfg: ModelConfig, active_only: bool = False) -> int:
-    """Parameter count of the built model. The ported families have no
-    experts, so every parameter is active and ``active_only`` changes
-    nothing."""
-    return sum(math.prod(shape) for shape in param_shapes(cfg).values())
+    """Parameter count of the built model. ``active_only`` counts a leaf
+    with an ``"expert"`` axis at ``experts_per_token / num_experts`` of its
+    size (floored per leaf, as the JAX package counts it)."""
+    axes = axes_paths(param_logical_axes(cfg))
+    total = 0
+    for path, shape in param_shapes(cfg).items():
+        n = math.prod(shape)
+        if active_only and cfg.num_experts > 0 and "expert" in axes[path]:
+            n = n * cfg.experts_per_token // cfg.num_experts
+        total += n
+    return total
 
 
 def cast_params(params: dict, dtype) -> dict:
@@ -154,7 +167,6 @@ def forward(cfg: ModelConfig, params: dict, batch: dict, remat: str = "full"):
     kernel, on the CPU the plain version under autograd. The SSM mixer's
     scan goes through ``ops.ssd_scan``: on the card the intra-chunk kernel
     and its backward kernel, on the CPU the plain version under autograd."""
-    T.check_ported(cfg)
     adt = _dtype(cfg.dtype)
     tokens = batch["tokens"]
     b, s = tokens.shape
@@ -202,7 +214,6 @@ def prefill(cfg: ModelConfig, params: dict, batch: dict, cache_dtype=torch.bfloa
     as the serving specs hold it (the JAX package returns it in
     ``cfg.dtype``), else None.
     """
-    T.check_ported(cfg)
     adt = _dtype(cfg.dtype)
     tokens = batch["tokens"]
     b, s = tokens.shape

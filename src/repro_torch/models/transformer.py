@@ -5,10 +5,11 @@ As in the JAX package, layers are grouped into *periods* and each position
 of a period keeps its parameters stacked over ``n_periods`` on a leading
 axis (``blocks/pos0/mixer/wq`` is ``(n_periods, d, h*hd)``). The JAX
 ``lax.scan`` over periods becomes a loop over the stacked index. The port
-runs attention and SSM (Mamba-2) mixers with a dense MLP or none
-(mamba2-2.7b at full width has ``d_ff = 0``), and an enc-dec decoder's
-blocks with cross attention (``cross=True``: ``ln_x`` and ``cross`` after
-the mixer); all train on the card and on the CPU. The MoE MLP raises.
+runs attention and SSM (Mamba-2) mixers, each followed by a dense MLP, the
+MoE MLP (``models/moe.py``: mixtral, llama4-scout, jamba's every second
+layer) or none (mamba2-2.7b at full width has ``d_ff = 0``), and an enc-dec
+decoder's blocks with cross attention (``cross=True``: ``ln_x`` and
+``cross`` after the mixer); all train on the card and on the CPU.
 """
 
 from __future__ import annotations
@@ -20,12 +21,9 @@ import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import MLP_AXES, RMSNORM_AXES, mlp_apply, mlp_init, rmsnorm_apply, rmsnorm_init
-
-_NOT_PORTED = {
-    "moe": "the MoE MLP (ROADMAP queue 1 item 10)",
-}
 
 
 # ---------------------------------------------------------------------------
@@ -62,14 +60,6 @@ def n_periods(cfg: ModelConfig) -> int:
     return cfg.num_layers // len(block_program(cfg))
 
 
-def check_ported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for a block kind this slice lacks."""
-    for mixer, mlp in block_program(cfg):
-        for kind in (mixer, mlp):
-            if kind in _NOT_PORTED:
-                raise NotImplementedError(f"{cfg.name}: {_NOT_PORTED[kind]} is not ported yet")
-
-
 def _period(tree: dict, i: int) -> dict:
     """The parameters (or cache) of period ``i``: views, no copies."""
     return {k: _period(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
@@ -80,28 +70,33 @@ def _period(tree: dict, i: int) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def _block_init(gen, cfg: ModelConfig, mixer: str, mlp: str, dtype, device, lead, cross: bool) -> dict:
-    params = {"ln1": rmsnorm_init(cfg.d_model, dtype, device, lead)}
+def _block_init(gen, cfg: ModelConfig, mixer: str, mlp: str, dtype, device, lead, cross: bool, cast) -> dict:
+    """One block position's params; ``cast`` maps each part (and each MoE
+    expert matrix) to the served dtypes as soon as it is drawn."""
+    params = {"ln1": cast(rmsnorm_init(cfg.d_model, dtype, device, lead))}
     if mixer == "attn":
-        params["mixer"] = attn.attn_init(gen, cfg, dtype, device, lead)
+        params["mixer"] = cast(attn.attn_init(gen, cfg, dtype, device, lead))
     else:
-        params["mixer"] = ssm_mod.ssm_init(gen, cfg, dtype, device, lead)
+        params["mixer"] = cast(ssm_mod.ssm_init(gen, cfg, dtype, device, lead))
     if cross:
-        params["ln_x"] = rmsnorm_init(cfg.d_model, dtype, device, lead)
-        params["cross"] = attn.attn_init(gen, cfg, dtype, device, lead, cross=True)
+        params["ln_x"] = cast(rmsnorm_init(cfg.d_model, dtype, device, lead))
+        params["cross"] = cast(attn.attn_init(gen, cfg, dtype, device, lead, cross=True))
     if mlp != "none":
-        params["ln2"] = rmsnorm_init(cfg.d_model, dtype, device, lead)
-        params["mlp"] = mlp_init(gen, cfg, dtype, device, lead)
+        params["ln2"] = cast(rmsnorm_init(cfg.d_model, dtype, device, lead))
+        if mlp == "moe":
+            params["mlp"] = moe_mod.moe_init(gen, cfg, dtype, device, lead, cast=cast)
+        else:
+            params["mlp"] = cast(mlp_init(gen, cfg, dtype, device, lead))
     return params
 
 
-def stack_init(gen, cfg: ModelConfig, dtype, device, cross: bool = False) -> dict:
+def stack_init(gen, cfg: ModelConfig, dtype, device, cast, cross: bool = False) -> dict:
     """The stack's params; ``cross=True`` gives each block cross attention
-    (an enc-dec decoder)."""
-    check_ported(cfg)
+    (an enc-dec decoder). ``cast`` maps ``{name: leaf}`` trees to the
+    served dtypes as they are drawn, or returns them (``model.init_params``)."""
     lead = (n_periods(cfg),)
     return {
-        f"pos{j}": _block_init(gen, cfg, mixer, mlp, dtype, device, lead, cross)
+        f"pos{j}": _block_init(gen, cfg, mixer, mlp, dtype, device, lead, cross, cast)
         for j, (mixer, mlp) in enumerate(block_program(cfg))
     }
 
@@ -109,18 +104,18 @@ def stack_init(gen, cfg: ModelConfig, dtype, device, cross: bool = False) -> dic
 def stack_axes(cfg: ModelConfig, cross: bool = False) -> dict:
     """Logical axes of :func:`stack_init`'s params: each block's axes with
     the stacked ``"layers"`` axis in front."""
-    check_ported(cfg)
+
+    def stacked(axes: dict) -> dict:
+        return {name: stacked(ax) if isinstance(ax, dict) else ("layers",) + ax for name, ax in axes.items()}
+
     out = {}
     for j, (mixer, mlp) in enumerate(block_program(cfg)):
         block = {"ln1": RMSNORM_AXES, "mixer": attn.attn_axes(cfg) if mixer == "attn" else ssm_mod.SSM_AXES}
         if cross:
             block.update(ln_x=RMSNORM_AXES, cross=attn.attn_axes(cfg, cross=True))
         if mlp != "none":
-            block.update(ln2=RMSNORM_AXES, mlp=MLP_AXES)
-        out[f"pos{j}"] = {
-            part: {name: ("layers",) + ax for name, ax in axes.items()}
-            for part, axes in block.items()
-        }
+            block.update(ln2=RMSNORM_AXES, mlp=moe_mod.moe_axes(cfg) if mlp == "moe" else MLP_AXES)
+        out[f"pos{j}"] = stacked(block)
     return out
 
 
@@ -130,6 +125,8 @@ def stack_axes(cfg: ModelConfig, cross: bool = False) -> dict:
 
 
 def _period_forward(period: dict, cfg: ModelConfig, prog, x, positions, causal: bool, enc_out=None):
+    """One period's blocks: returns (x, the period's MoE aux loss)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for j, (mixer, mlp) in enumerate(prog):
         bp = period[f"pos{j}"]
         h = rmsnorm_apply(bp["ln1"], x)
@@ -138,10 +135,12 @@ def _period_forward(period: dict, cfg: ModelConfig, prog, x, positions, causal: 
         else:
             x = x + ssm_mod.ssm_forward(bp["mixer"], cfg, h)
         x = _cross(bp, cfg, x, enc_out)
+        if mlp == "moe":
+            aux = aux + moe_mod.moe_aux_loss(bp["mlp"], cfg, rmsnorm_apply(bp["ln2"], x))
         x = _mlp(bp, cfg, mlp, x)
         # the JAX package re-anchors the residual's sharding here
         # (shard_hints.constrain); one process has nothing to anchor
-    return x
+    return x, aux
 
 
 def stack_forward(
@@ -153,28 +152,29 @@ def stack_forward(
     enc_out: torch.Tensor | None = None,
     remat: str = "full",
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence forward over the stack; returns (x, moe aux loss),
-    the aux loss a float32 zero (no MoE layer is ported). ``enc_out`` is
-    the encoder's output, which blocks with cross attention attend to.
+    """Full-sequence forward over the stack; returns (x, the MoE aux loss
+    summed over the layers, float32). ``enc_out`` is the encoder's output,
+    which blocks with cross attention attend to.
 
     ``remat="full"`` recomputes each period in the backward pass, as the
     JAX package's ``jax.checkpoint`` over the scanned period body does:
     ``torch.utils.checkpoint`` without reentrancy keeps only each period's
     input. ``remat="none"`` keeps every activation; the JAX package's
     ``"dots"`` policy has no counterpart here and raises."""
-    check_ported(cfg)
     if remat not in ("full", "none"):
         raise NotImplementedError(f"remat={remat!r}: only 'full' and 'none' are ported")
     prog = block_program(cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(n_periods(cfg)):
         period = _period(params, i)
         if remat == "full" and torch.is_grad_enabled():
-            x = torch.utils.checkpoint.checkpoint(
+            x, a = torch.utils.checkpoint.checkpoint(
                 _period_forward, period, cfg, prog, x, positions, causal, enc_out, use_reentrant=False
             )
         else:
-            x = _period_forward(period, cfg, prog, x, positions, causal, enc_out)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+            x, a = _period_forward(period, cfg, prog, x, positions, causal, enc_out)
+        aux = aux + a
+    return x, aux
 
 
 
@@ -189,7 +189,8 @@ def _cross(bp: dict, cfg: ModelConfig, x: torch.Tensor, kv_src) -> torch.Tensor:
 def _mlp(bp: dict, cfg: ModelConfig, mlp: str, x: torch.Tensor) -> torch.Tensor:
     if mlp == "none":
         return x
-    return x + mlp_apply(bp["mlp"], rmsnorm_apply(bp["ln2"], x), cfg.act)
+    h = rmsnorm_apply(bp["ln2"], x)
+    return x + (moe_mod.moe_apply(bp["mlp"], cfg, h) if mlp == "moe" else mlp_apply(bp["mlp"], h, cfg.act))
 
 
 def stack_prefill(params: dict, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor, enc_out=None):
@@ -202,7 +203,6 @@ def stack_prefill(params: dict, cfg: ModelConfig, x: torch.Tensor, positions: to
     state ``{"ssd", "conv"}`` for an SSM one. For sliding-window attention
     the caller crops it to the ring (kvcache.cache_from_prefill).
     """
-    check_ported(cfg)
     prog = block_program(cfg)
     per_pos: dict[str, dict[str, list]] = {f"pos{j}": {} for j in range(len(prog))}
     for i in range(n_periods(cfg)):
@@ -231,7 +231,6 @@ def stack_decode(params: dict, cfg: ModelConfig, x: torch.Tensor, cache: dict, p
     ``attention.attn_decode``; an SSM position's new state is copied into
     its cache leaves) and returned. ``cross_kv`` is the stacked
     cross-attention ``{"k", "v"}`` of each position (enc-dec)."""
-    check_ported(cfg)
     prog = block_program(cfg)
     for i in range(n_periods(cfg)):
         period = _period(params, i)

@@ -135,8 +135,10 @@ class LiveServeController:
         self.active.gen_id = self.gen_id
         # params live on the controller; the seeded init is one generator
         # over the full tensors, so it does not depend on the topology
-        if params is None:
-            params = M.init_params(cfg, torch.Generator(device=self.device).manual_seed(seed), self.device)
+        if params is None:  # drawn part by part in the served dtypes
+            params = M.init_params(
+                cfg, torch.Generator(device=self.device).manual_seed(seed), self.device, served_dtype=cfg.dtype
+            )
         self.params = M.cast_params(_to(params, self.active.device), cfg.dtype)
 
     # -- world acquisition ---------------------------------------------

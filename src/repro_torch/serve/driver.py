@@ -1,8 +1,8 @@
 """Prefill/decode serving driver: a prompt batch -> prefill -> greedy (or
 sampled) autoregressive decode, on one device. The counterpart of
-``repro/serve/driver.py``. It serves the attention (qwen3), SSM (mamba2)
-and enc-dec (seamless) families; the elastic serving path is
-``serve/loop.py``.
+``repro/serve/driver.py``. It serves every family: attention (qwen3),
+MoE (mixtral), SSM (mamba2), hybrid (jamba) and enc-dec (seamless); the
+elastic serving path is ``serve/loop.py``.
 """
 
 from __future__ import annotations
@@ -51,16 +51,16 @@ def serve_once(
     """Prefill a prompt batch and decode ``gen`` tokens per request
     (``frames_len`` encoder positions for an enc-dec model).
 
-    Parameters come from the port's own init (seed ``seed``) and are cast
-    to ``cfg.dtype`` once (``model.cast_params``). Returns ``{"tokens":
+    Parameters come from the port's own init (seed ``seed``), each part
+    cast to ``cfg.dtype`` as it is drawn (``init_params(served_dtype=)``:
+    the bits of ``model.cast_params`` of the float32 tree). Returns ``{"tokens":
     (batch, gen+1) np.ndarray, "prefill_s": float, "decode_s": float}``:
     the first column is the token argmaxed from the prefill logits, the
     rest are decode-loop emissions.
     """
     dev = M.resolve_device(device)
     horizon = prompt_len + gen
-    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(seed), dev)
-    params = M.cast_params(params, cfg.dtype)
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(seed), dev, served_dtype=cfg.dtype)
     inputs = demo_batch(cfg, batch, prompt_len, dev, frames_len=frames_len)
     sampler = torch.Generator(device=dev).manual_seed(7)
 

@@ -30,8 +30,9 @@ torch.set_num_threads(2)
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "src" / "repro_torch"
 ENV = {**os.environ, "PYTHONPATH": str(REPO / "src")}
-# the families the port runs: dense decoders, mamba2 (ssm) and seamless (encdec)
-PORTED = sorted(n for n, c in configs.REGISTRY.items() if c.family in ("dense", "ssm", "encdec"))
+# every family runs on the port: dense decoders, MoE (mixtral, llama4-scout),
+# mamba2 (ssm), jamba (hybrid) and seamless (encdec)
+PORTED = sorted(configs.REGISTRY)
 
 
 # ---------------------------------------------------------------------------
@@ -94,11 +95,30 @@ def test_reduced_init_layout_equals_jax(name):
 
 @pytest.mark.parametrize("name", ["mixtral-8x7b", "jamba-v0.1-52b"])
 def test_unported_families_raise(name):
+    """The two families that raised before the MoE MLP was ported now
+    build: their reduced params are drawn, and the served draw (each part
+    cast as it is drawn) is the bits of the float32 draw cast after."""
     cfg = configs.get_config(name).reduced()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        M.init_params(cfg, device="meta")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        cfg.param_count()
+    blocks = M.init_params(cfg, device="meta")["blocks"].values()
+    moe = [bp["mlp"] for bp in blocks if "router" in bp.get("mlp", {})]
+    assert moe and all(mlp["wi_gate"].shape[1] == cfg.num_experts for mlp in moe)
+    assert cfg.param_count() == jax_configs.get_config(name).reduced().param_count()
+    full = M.cast_params(M.init_params(cfg, torch.Generator().manual_seed(5), "cpu"), torch.bfloat16)
+    served = M.init_params(cfg, torch.Generator().manual_seed(5), "cpu", served_dtype=torch.bfloat16)
+    want = tree_paths(full)
+    assert sorted(tree_paths(served)) == sorted(want)
+    for path, x in tree_paths(served).items():
+        assert x.dtype == want[path].dtype and torch.equal(x, want[path]), path
+
+
+@pytest.mark.parametrize("name", sorted(jax_configs.REGISTRY))
+def test_full_size_param_counts_equal_jax(name):
+    """``param_count`` and ``active_param_count`` at full size (shapes on
+    the meta device) against the JAX package's ``analytic_param_count``."""
+    port, ref = configs.get_config(name), jax_configs.get_config(name)
+    assert port.param_count() == JM.analytic_param_count(ref)
+    assert port.active_param_count() == JM.analytic_param_count(ref, active_only=True)
+    assert (port.active_param_count() < port.param_count()) == (port.num_experts > 0)
 
 
 # ---------------------------------------------------------------------------

@@ -23,7 +23,7 @@ from repro_torch.models import model as M
 from repro_torch.serve import cache_view as C
 from repro_torch.utils.pytree import axes_paths
 
-PORTED = sorted(n for n, c in configs.REGISTRY.items() if c.family in ("dense", "ssm", "encdec"))
+PORTED = sorted(configs.REGISTRY)  # every family, the MoE ones included
 PC = configs.ParallelConfig
 
 
@@ -77,10 +77,15 @@ def test_full_width_serve_specs_hold_the_served_dtypes():
 
 
 def test_unported_cache_families_raise():
-    """The MoE MLP is not ported: its serving state has no params to
-    specify. An enc-dec state without its encoder length is refused."""
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        C.serve_state_specs(configs.get_config("mixtral-8x7b").reduced(), 2, 16)
+    """The MoE MLP's serving state, refused before it was ported, is
+    specified: mixtral's expert matrices carry the ``ep`` role on their
+    expert axis, as the JAX package's do. An enc-dec state without its
+    encoder length is refused."""
+    port, ref = _both("mixtral-8x7b")
+    ours = C.serve_state_specs(port, 2, 16)
+    assert _tuples(ours) == _tuples(JC.serve_state_specs(ref, 2, 16))
+    experts = [s for s in ours if s.name.rsplit("/", 1)[-1] in ("wi_gate", "wi_up", "wo") and "/mlp/" in s.name]
+    assert experts and all(s.roles[:2] == ("pp", "ep") for s in experts)
     with pytest.raises(ValueError, match="cross_len"):
         C.cache_tensor_specs(configs.get_config("seamless-m4t-large-v2").reduced(), 2, 16)
 

@@ -36,7 +36,6 @@ from repro_torch.kernels import rmsnorm as rms_k
 from repro_torch.kernels import ssd_scan as ssd_k
 from repro_torch.models import model as M
 from repro_torch.models import ssm
-from repro_torch.models import transformer as T
 from repro_torch.models.convert import params_from_jax
 from repro_torch.utils.pytree import tree_paths
 
@@ -493,10 +492,11 @@ def test_bf16_prefill_reads_the_fp32_leaves_as_the_uncast_params_do(mamba):
 
 
 def test_training_on_the_card_is_refused_without_a_tensor(monkeypatch):
-    """An SSM model trains on the card: the train world, the grad function
-    and the launcher's check take mamba2 before any tensor is built (the
-    world's kernel warm-up stubbed here: there is no card), while the MoE
-    MLP is refused before any tensor too, naming ROADMAP queue 1 item 10."""
+    """An SSM model trains on the card: the train world and the grad
+    function take mamba2 before any tensor is built (the world's kernel
+    warm-up stubbed here: there is no card). The MoE MLP, which this once
+    refused, is taken too: mixtral's world warms the flash and reshard
+    libraries, jamba's the SSD ones beside them."""
     from repro_torch.configs.base import ParallelConfig
     from repro_torch.core import shadow
     from repro_torch.core.shadow import build_train_world
@@ -508,15 +508,11 @@ def test_training_on_the_card_is_refused_without_a_tensor(monkeypatch):
     world = build_train_world(cfg, ParallelConfig(dp=1, tp=1), AdamWConfig(), 4, 64, devices=["cuda"])
     assert world.grad_fn is not None and "ssd_scan_bwd" in warmed[0]
     make_grad_fn(cfg)
-    T.check_ported(cfg)
-    T.check_ported(get_config("qwen3-1.7b"))
-    for arch in ("mixtral-8x7b",):
+    for arch in ("mixtral-8x7b", "jamba-v0.1-52b"):
         other = get_config(arch)
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 10"):
-            T.check_ported(other)
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 10"):
-            make_grad_fn(other)
-        for device in ("cuda", "cpu"):
-            with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 10"):
-                build_train_world(other, ParallelConfig(dp=1, tp=1), AdamWConfig(), 4, 64, devices=[device])
-    assert len(warmed) == 1
+        make_grad_fn(other)
+        world = build_train_world(other, ParallelConfig(dp=1, tp=2, ep=2), AdamWConfig(), 4, 64, devices=["cuda"] * 4)
+        assert world.grad_fn is not None and world.parallel.ep == 2
+        assert ("ssd_scan_bwd" in warmed[-1]) == (arch == "jamba-v0.1-52b") and "flash_attention" in warmed[-1]
+        build_train_world(other, ParallelConfig(dp=1, tp=1), AdamWConfig(), 4, 64, devices=["cpu"])
+    assert len(warmed) == 3

@@ -29,8 +29,9 @@ from repro_torch.reshard import autotune as TA
 from repro_torch.reshard.engine import DEFAULT_STAGING_BYTES
 
 NAMES = sorted(configs.REGISTRY)
-# the families whose parameters the port can count (it builds their shapes)
-COUNTED = [n for n in NAMES if configs.get_config(n).family in ("dense", "ssm", "encdec")]
+# the families whose parameters the port counts (it builds their shapes): all
+COUNTED = NAMES
+MOE = [n for n in NAMES if configs.get_config(n).num_experts > 0]
 WORLDS = range(1, 17)
 BATCH, SEQ = 32, 1024
 
@@ -106,11 +107,17 @@ def test_transition_aware_search_equals_jax(same_constants):
                 _par(p) for p in JT.likely_next_targets(jcfg, jcur, 8, 16, 128, transition_weight=1e-9)]
 
 
-@pytest.mark.parametrize("name", sorted(set(NAMES) - set(COUNTED)))
-def test_unported_families_refuse_an_estimate(name):
-    cfg = configs.get_config(name)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TT.estimate_step_time(cfg, configs.ParallelConfig(), BATCH, SEQ)
+@pytest.mark.parametrize("name", MOE)
+def test_unported_families_refuse_an_estimate(name, same_constants):
+    """The MoE families, refused before their MLP was ported, are priced:
+    the compute term from the active parameters, the state from all of
+    them, as the JAX search prices them, on worlds with an ``ep`` factor
+    too."""
+    cfg, jcfg = configs.get_config(name), jax_configs.get_config(name)
+    assert TMOD.analytic_param_count(cfg, active_only=True) < TMOD.analytic_param_count(cfg)
+    for dims in [(1, 1, 1, 1), (2, 1, 2, 2), (1, 1, 2, 4)]:
+        got = TT.estimate_step_time(cfg, configs.ParallelConfig(*dims), BATCH, SEQ)
+        assert got == JT.estimate_step_time(jcfg, jax_configs.ParallelConfig(*dims), BATCH, SEQ)
 
 
 def test_lifecycle_phase_targets_under_the_h100_constants():
@@ -163,9 +170,8 @@ def test_transition_aware_search_prefers_nearby_layouts():
 
 
 def test_best_target_integration_shape():
-    """A dense model in place of the JAX test's mixtral-8x7b, whose experts
-    the port cannot count yet."""
-    t = TT.best_target(configs.get_config("qwen2.5-14b"), world=64, global_batch=256, seq_len=4096)
+    """The JAX test's case: mixtral-8x7b on 64 ranks."""
+    t = TT.best_target(configs.get_config("mixtral-8x7b"), world=64, global_batch=256, seq_len=4096)
     assert t.world_size == 64
 
 

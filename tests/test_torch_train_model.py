@@ -152,7 +152,18 @@ def test_remat_recomputes_the_same_grads(reduced):
 
 
 def test_model_training_path_refuses_unported_families():
+    """The families this refused before the MoE MLP was ported now train:
+    a finite loss whose aux term is the MoE layers' (Switch-style, e times
+    a dot of shares: near 1 a layer when balanced), and a gradient for the
+    router and every expert matrix."""
     for name in ("jamba-v0.1-52b", "mixtral-8x7b"):
         cfg = get_config(name).reduced()
-        with pytest.raises(NotImplementedError, match="not ported"):
-            M.loss_fn(cfg, {}, {"tokens": torch.zeros(1, 4, dtype=torch.long)})
+        params = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+        tokens = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 16))).long()
+        loss, metrics, grads = make_grad_fn(cfg)(params, {"tokens": tokens})
+        moe_layers = sum(cfg.is_moe_layer(i) for i in range(cfg.num_layers))
+        assert torch.isfinite(loss) and 0.5 * moe_layers < float(metrics["moe_aux"]) < 2.0 * moe_layers
+        torch.testing.assert_close(loss, metrics["nll"] + 0.01 * metrics["moe_aux"], rtol=0, atol=0)
+        for path, g in tree_paths(grads).items():
+            if "/mlp/" in path and path.rsplit("/", 1)[-1] in ("router", "wi_gate", "wi_up", "wo"):
+                assert torch.isfinite(g).all() and g.abs().max() > 0, path
