@@ -171,11 +171,13 @@ non-zero without one. Phases, each printing one line or more:
    decision held to ``choose_mode`` of the estimate it was made on; prints
    each event's estimated and measured Prepare and pause, ``met_deadline``,
    the goodput, the pause seconds, the speculative builds and the launches
-   of the path; fails on a peak above 1.05x 13's. It runs last: on the
-   card's machine ``torch.profiler`` loses more of a trace's device
-   records the later the trace comes in a run, and run after phase 15
-   this phase left the traces of phases 16 and 22 with none.
-   Phases 24-36 run before it.
+   of the path; fails on a peak above 1.05x 13's. It runs after every
+   phase that takes a profiler trace: on the card's machine
+   ``torch.profiler`` loses more of a trace's device records the later the
+   trace comes in a run, and run after phase 15 this phase left the traces
+   of phases 16 and 22 with none. Phases 24-36 run before it, 37-38
+   (which take no trace) after it, but 37's mixtral part inside 33, and
+   39 right after 13.
 24. the SSD backward kernel (``csrc/ssd_scan_bwd.cu``) against the plain
    backward ``ref.ssd_intra_chunk_bwd_ref`` (TF32 off): the JAX kernel
    tests' shapes, reduced mamba2's chunk 8 and state 16, the training shape
@@ -270,6 +272,44 @@ non-zero without one. Phases, each printing one line or more:
    attention, 7 SSD, 4 MoE MLPs of 16 experts top-2 and 4 dense; 13.27 B
    params): served as mixtral in 33, the first attention and the first SSD
    layer held against their plain versions.
+37. chunked prefill (``models.model.prefill_chunked``), run after 23:
+   qwen3-1.7b and mamba2-2.7b at full width, batch 8 x 512 in chunks of
+   128 (bf16 serving weights), their last logits against whole prefill's
+   and 32 greedy tokens of whole prefill fed through the chunked cache
+   (the argmax flips listed); the flash launches of the first chunk and of
+   the last (512 keys) against the plain version, mamba2's first SSD
+   layer's block (its scan continues from the carried state) against the
+   plain version; each path's prefill_s (the median of 3 timed runs, and
+   when the host's call returned) and peak memory chunked and whole, its
+   launches, and qwen3's K/V slice copies timed. Mixtral at 8
+   layers (phase 33's weights, run inside it): one request of 8192 tokens
+   in chunks of 2048 through the ring of 4096 slots (window 4096: the
+   third and fourth chunks attend 6144 keys, the pre-write ring in
+   absolute order and the chunk): each chunk's first-layer attention
+   output (no routing before it) against the whole prompt's, the last
+   logits against the same chunked function with the plain attention
+   (capacity is counted per call, so whole prefill drops other pairs),
+   failing if any layer's experts for the last token differ there, and the
+   first wrapped chunk's flash launch against the plain version;
+38. pipeline-parallel training at full width and depth: qwen3-1.7b as in
+   13; the first step on pp2tp2 (2 microbatches, ``scan_loss`` with no
+   aux term) against dp2tp2 with the same microbatches, in f32 compute at 4 layers
+   (held) and in bf16 at 28 (printed); then 3 steps on pp2tp2 -> a
+   streamed resize with int8 moments to dp2tp2 -> a lossless stop-copy to
+   pp4tp1 -> 2 steps. Per commit its pause, Prepare, executed against
+   planned bytes, the row and quant launches and the peak; each world's
+   step time side by side; the flash launches (2 a layer a microbatch
+   forward, 1 backward); the params after the run bitwise those of a
+   control that runs the same worlds' steps at the same steps and carries
+   the state by plain tensor copies;
+39. int8 error-feedback gradient compression at full width: qwen3-1.7b
+   as in 13 (28 layers), run right after 13 (it takes no trace; at the
+   end of the script the caching allocator's fragments left its ~71 GB
+   peak no room), under ``compression="int8_ef"``, 3 steps on
+   dp2tp2, a stop-copy to dp1tp4, 2 steps; the ``ef`` buffers pass
+   through the commit as they are (the same storage), and their digests
+   at the commit's step and after the run equal a control's never
+   resized, as do the losses; the step time and the peak.
 The second-to-last line is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.
 
@@ -1008,7 +1048,7 @@ def phase_table_forms() -> None:
 
 
 def _short(p: ParallelConfig) -> str:
-    return f"dp{p.dp}tp{p.tp}" + (f"ep{p.ep}" if p.ep > 1 else "")
+    return f"dp{p.dp}" + (f"pp{p.pp}" if p.pp > 1 else "") + f"tp{p.tp}" + (f"ep{p.ep}" if p.ep > 1 else "")
 
 
 def elastic_session(cfg, prompts, trace, frames=None):
@@ -3856,12 +3896,14 @@ def log_routing(phase: str, routed: _routed, calls: dict, e: int) -> None:
                    f"router inputs' mean cosine to their row's mean {'/'.join(f'{x:.3f}' for x in cos)}")
 
 
-def phase_serve_moe(arch: str, layers: int = MOE_SERVE_LAYERS) -> dict:
+def phase_serve_moe(arch: str, layers: int = MOE_SERVE_LAYERS) -> tuple[dict, dict]:
     """``arch`` (mixtral-8x7b or jamba-v0.1-52b) at full width and ``layers``
     layers through ``serve_once``, batch 8, prompt 512, 32 greedy tokens;
     the params drawn part by part in bf16. Holds the first attention layer's
     q/k/v (and the first SSD layer's inputs) of the prefill against the
-    plain versions. Returns the path's launches."""
+    plain versions. Mixtral's weights then serve its chunked prefill (phase
+    37). Returns the path's launches and the chunked path's (empty for
+    jamba)."""
     import gc
 
     from repro_torch.models.transformer import block_program, n_periods
@@ -3942,12 +3984,14 @@ def phase_serve_moe(arch: str, layers: int = MOE_SERVE_LAYERS) -> dict:
                 cfg.num_experts)
     del routed
     phase_profile(cfg, params, logits, cache)
-    del params, logits, cache
+    del logits, cache
+    chunked = phase_chunked_prefill(arch, params) if arch == MIXTRAL else {}
+    del params
     if arch == MIXTRAL:
         phase_window(cfg)
     gc.collect()
     torch.cuda.empty_cache()
-    return launches
+    return launches, chunked
 
 
 def _window_logits(cfg, params, toks, s: int, n: int):
@@ -4216,6 +4260,634 @@ def phase_train_mixtral() -> dict:
     return launches
 
 
+# chunked prefill (phase 37): qwen3 and mamba2 at full width, batch 8 x
+# 512 in chunks of 128, then 32 greedy tokens; mixtral at 8 layers, one
+# request of 8192 tokens in chunks of 2048 through its ring of 4096
+CHUNKED = dict(batch=8, prompt_len=512, chunk=128, gen=32)
+CHUNKED_MOE = dict(prompt_len=8192, chunk=2048)
+# bf16 logits of the chunked path against whole prefill's (or, for
+# mixtral, the chunked path's with the plain attention): max |diff| / max
+# |logit|, the window check's bound
+CHUNKED_TOL = 5e-2
+# timed runs of each prefill after its warm-up: their median is printed
+CHUNKED_REPS = 3
+
+
+def _chunked_run(cfg, params, toks, chunk: int):
+    """``prefill_chunked`` of ``toks`` on the card, timed to a sync:
+    (last logits, cache, seconds, the host's seconds until the call
+    returned, peak GB, launches, the flash launches' (queries, keys,
+    window), the first launch's inputs by chunk)."""
+    calls, firsts, orig_fa, orig_ssd = [], {}, ops.flash_attention, ssd_k.ssd_intra_chunk
+
+    def seen_fa(q, k, v, **kw):
+        calls.append((q.shape[1], k.shape[1], kw["window"]))
+        if ("flash", k.shape[1]) not in firsts:  # copied on first sight only
+            firsts[("flash", k.shape[1])] = (q.clone(), k.clone(), v.clone(), kw)
+        return orig_fa(q, k, v, **kw)
+
+    def seen_ssd(x, dt, cum, B, C, c):
+        if ("ssd", "first") not in firsts:
+            firsts[("ssd", "first")] = (x.clone(), dt.clone(), cum.clone(), B.clone(), C.clone(), c)
+        return orig_ssd(x, dt, cum, B, C, c)
+
+    ops.flash_attention, ssd_k.ssd_intra_chunk = seen_fa, seen_ssd
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        _zero_counts()  # the chunked path's counts start here ...
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            logits, cache = M.prefill_chunked(cfg, params, {"tokens": toks}, chunk, max_seq=toks.shape[1] + CHUNKED["gen"],
+                                              cache_dtype=getattr(torch, cfg.dtype))
+        issued = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {"flash_attention": fa.launches, "flash_attention_tc": fa.tc_launches,
+                    "ssd_intra_chunk": ssd_k.launches}  # ... and are read here
+    finally:
+        ops.flash_attention, ssd_k.ssd_intra_chunk = orig_fa, orig_ssd
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    return logits, cache, seconds, issued, peak, launches, calls, firsts
+
+
+def _whole_run(cfg, params, toks):
+    """Whole prefill of ``toks``, timed to a sync: (last logits, cache,
+    seconds, the host's seconds until the call returned, peak GB above
+    the params)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        logits, cache, _ = M.prefill(cfg, params, {"tokens": toks}, cache_dtype=getattr(torch, cfg.dtype),
+                                     max_seq=toks.shape[1] + CHUNKED["gen"])
+    issued = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return logits, cache, time.perf_counter() - t0, issued, (torch.cuda.max_memory_allocated() - base) / 1e9
+
+
+def _secs(runs: list) -> str:
+    """The median [min, max] of the timed runs' seconds, and the median of
+    the host's seconds until each call returned."""
+    s = [t for t, _ in runs]
+    return (f"{statistics.median(s):.4f} [{min(s):.4f}, {max(s):.4f}] (the host's call returned at "
+            f"{statistics.median([i for _, i in runs]):.4f})")
+
+
+def _teacher_forced(cfg, params, cache, first: torch.Tensor, forced: torch.Tensor, s: int):
+    """Decode ``forced`` (b, n) from ``cache`` after a prompt of ``s``
+    tokens, ``first`` (b, 1) the first input: the logits of each step."""
+    out, cur = [], first
+    with torch.inference_mode():
+        for i in range(forced.shape[1]):
+            logits, cache = M.decode_step(cfg, params, cache, cur, s + i)
+            out.append(logits[:, 0].float())
+            cur = forced[:, i : i + 1]
+    return torch.stack(out, dim=1)
+
+
+def phase_chunked_prefill(arch: str, params=None) -> dict:
+    """Chunked prefill on the card (see the module docstring, 37): qwen3 or
+    mamba2 at full width against whole prefill, or mixtral at 8 layers
+    (``params``: phase 33's) against the same chunked function with the
+    plain attention. Returns the chunked path's launches."""
+    import gc
+
+    from repro_torch.models.kvcache import cache_capacity
+
+    moe = arch == MIXTRAL
+    cfg = moe_cut(arch, MOE_SERVE_LAYERS) if moe else get_config(arch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    if params is None:
+        params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda", served_dtype=cfg.dtype)
+    b, s, chunk = (1, CHUNKED_MOE["prompt_len"], CHUNKED_MOE["chunk"]) if moe else \
+        (CHUNKED["batch"], CHUNKED["prompt_len"], CHUNKED["chunk"])
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    toks = torch.randint(0, cfg.vocab_size, (b, s), generator=gen, device="cuda")
+    # a warm-up of each path (its shapes' first cuBLAS and allocator calls),
+    # then the timed runs
+    for warm in (_chunked_run(cfg, params, toks, chunk), _whole_run(cfg, params, toks)):
+        del warm
+    chunked_t, whole_t = [], []
+    for _ in range(CHUNKED_REPS):
+        logits = cache = None  # the previous run's, freed first
+        logits, cache, sec, issued, chunked_gb, launches, calls, firsts = _chunked_run(cfg, params, toks, chunk)
+        chunked_t.append((sec, issued))
+    for _ in range(CHUNKED_REPS):
+        whole = wcache = None
+        whole, wcache, sec, issued, whole_gb = _whole_run(cfg, params, toks)
+        whole_t.append((sec, issued))
+    chunked_s = statistics.median([t for t, _ in chunked_t])
+    attn_layers = len(calls) // (s // chunk)
+    ssd_layers = launches["ssd_intra_chunk"] // (s // chunk)
+    assert torch.isfinite(logits.float()).all() and logits.shape == (b, 1, cfg.vocab_size)
+    assert launches["flash_attention"] == attn_layers * (s // chunk) and launches["flash_attention_tc"] == \
+        launches["flash_attention"], launches
+    assert attn_layers + ssd_layers == cfg.num_layers, (attn_layers, ssd_layers)
+    keys = sorted({(t, w) for _, t, w in calls})
+    tag = "chunked-" + ("mixtral" if moe else cfg.name.split("-")[0])
+    # every flash launch of the path's first chunk and, through the ring,
+    # of its first wrapped chunk, held against the plain version
+    for key in sorted(k for k in firsts if k[0] == "flash"):
+        q, k, v, kw = firsts[key]
+        if key[1] not in (chunk, max(t for t, _ in keys)):
+            continue
+        assert fa.route(q.dtype, q.shape[-1]) == "tensor_cores"
+        err = kernel_vs_plain(q, k, v, **kw)
+        log(tag, f"flash launch q {tuple(q.shape)} against {k.shape[1]} keys, window {kw['window']}, "
+                 f"{str(q.dtype)[6:]} on the tensor cores: kernel vs plain max_abs_err {err:.3e} "
+                 f"(tol {TOL[q.dtype]:g})")
+        assert err <= TOL[q.dtype]
+    if ("ssd", "first") in firsts:
+        args = firsts[("ssd", "first")]
+        ssd_err = ssd_kernel_vs_plain(*args)
+        log(tag, f"first SSD layer's block x {tuple(args[0].shape)} {str(args[0].dtype)[6:]}: kernel vs plain "
+                 f"max |error| / max |plain| {ssd_err:.3e} (tol {SSD_TOL:g})")
+        assert ssd_err <= SSD_TOL
+    del firsts
+    if moe:
+        from repro_torch.models import attention as attn_mod
+        from repro_torch.models import layers as L
+        from repro_torch.models import transformer as T
+
+        # the first layer's attention output of every chunk, untimed: no
+        # routing comes before it, so through the ring it must equal the
+        # whole prompt's first-layer attention at the same positions
+        layer0, orig_chunk = {}, attn_mod.attn_chunk
+
+        def chunk0(p, c, x, ck, cv, pos0):
+            out = orig_chunk(p, c, x, ck, cv, pos0)
+            if pos0 not in layer0:  # a chunk's first call is the first layer's
+                layer0[pos0] = out[0].clone()
+            return out
+
+        # the same chunked function with the plain attention (capacity is
+        # counted per call, so whole prefill routes other pairs at 1.25)
+        attn_mod.attn_chunk = chunk0
+        try:
+            with _routed() as routed_k:
+                logits, cache, *_ = _chunked_run(cfg, params, toks, chunk)
+        finally:
+            attn_mod.attn_chunk = orig_chunk
+        del cache
+        bp = T._period(params["blocks"], 0)["pos0"]
+        with torch.inference_mode():
+            h0 = L.rmsnorm_apply(bp["ln1"], L.embed_apply(params["embed"], toks, getattr(torch, cfg.dtype)))
+            want0 = attn_mod.attn_forward(bp["mixer"], cfg, h0, torch.arange(s, dtype=torch.int32, device="cuda")
+                                          .expand(b, s)).float()
+        got0 = torch.cat([layer0[p0] for p0 in sorted(layer0)], dim=1).float()
+        err0 = ((got0 - want0).abs().max() / want0.abs().max()).item()
+        wrapped = [p0 for p0 in sorted(layer0) if p0 + chunk > cfg.sliding_window]
+        err0_wrapped = ((got0[:, wrapped[0]:] - want0[:, wrapped[0]:]).abs().max() / want0.abs().max()).item()
+        del h0, want0, got0, layer0
+        orig = ops.flash_attention
+        ops.flash_attention = flash_attention_ref
+        try:
+            with _routed() as routed_p:
+                plain, pcache, plain_s, _, plain_gb, *_ = _chunked_run(cfg, params, toks, chunk)
+        finally:
+            ops.flash_attention = orig
+        del pcache
+        flips = [int((a[:, -1].sort(-1).values != p[:, -1].sort(-1).values).any()) for a, p in
+                 zip(routed_k.choices, routed_p.choices)]
+        err = ((logits.float() - plain.float()).abs().max() / plain.float().abs().max()).item()
+        whole_err = ((logits.float() - whole.float()).abs().max() / whole.float().abs().max()).item()
+        flipped = [i for i, f in enumerate(flips) if f]
+        del wcache
+        log(tag, f"{cfg.name} {cfg.num_layers} layers, one request of {s} tokens in chunks of {chunk} (ring of "
+                 f"{cache_capacity(cfg, s + CHUNKED['gen'])} slots, window {cfg.sliding_window}; flash (keys, "
+                 f"window) {keys}): "
+                 f"prefill_s over {CHUNKED_REPS} runs chunked {_secs(chunked_t)} / whole {_secs(whole_t)} (plain "
+                 f"attention chunked {plain_s:.4f}), "
+                 f"peak above the params chunked {chunked_gb:.2f} / whole {whole_gb:.2f} GB (plain {plain_gb:.2f}); "
+                 f"last logits against the plain attention's: max |diff| / max |logit| {err:.3e} (tol "
+                 f"{CHUNKED_TOL:g}); the last token's experts differ in layers {flipped}; against whole prefill "
+                 f"{whole_err:.3e} (capacity per call); launches {launches}")
+        log(tag, f"the first layer's attention output of each chunk against the whole prompt's first-layer "
+                 f"attention (no routing before it): max |diff| / max |out| {err0:.3e} over all {s} positions, "
+                 f"{err0_wrapped:.3e} over the chunks at positions {wrapped} that wrap the ring (tol "
+                 f"{CHUNKED_TOL:g})")
+        assert max(t for t, _ in keys) == cfg.sliding_window + chunk and all(w == cfg.sliding_window for _, w in keys)
+        assert err0 <= CHUNKED_TOL, "the ring's first-layer attention disagrees with the whole prompt's"
+        assert not flipped, "the last token chose other experts than with the plain attention"
+        assert err <= CHUNKED_TOL, "the chunked path disagrees with its plain attention"
+        del logits, plain, whole
+        gc.collect()
+        torch.cuda.empty_cache()
+        return launches
+    err = ((logits.float() - whole.float()).abs().max() / whole.float().abs().max()).item()
+    # greedy tokens after whole prefill, then the chunked cache fed the same
+    # tokens: where its argmax differs, a bf16 flip
+    n = CHUNKED["gen"]
+    first = whole[:, -1].argmax(-1, keepdim=True)
+    greedy = [first]
+    with torch.inference_mode():
+        cur = first
+        for i in range(n):
+            lg, wcache = M.decode_step(cfg, params, wcache, cur, s + i)
+            cur = lg[:, -1].argmax(-1, keepdim=True)
+            greedy.append(cur)
+    greedy = torch.cat(greedy, dim=1)
+    del wcache
+    got = _teacher_forced(cfg, params, cache, logits[:, -1].argmax(-1, keepdim=True), greedy[:, 1:], s)
+    picked = torch.cat([logits[:, -1].argmax(-1, keepdim=True), got.argmax(-1)[:, :-1]], dim=1)
+    flips = [(r, int(c)) for r, c in (picked != greedy[:, :n]).nonzero().tolist()]
+    del cache
+    log(tag, f"{cfg.name} full width ({cfg.num_layers} layers), batch {b} x prompt {s} in chunks of {chunk}: "
+             f"prefill_s over {CHUNKED_REPS} runs chunked {_secs(chunked_t)} / whole {_secs(whole_t)}, peak above "
+             f"the params chunked "
+             f"{chunked_gb:.2f} / whole {whole_gb:.2f} GB, launches {launches} (flash keys "
+             f"{sorted(t for t, _ in keys)}); "
+             f"last logits against whole prefill's: max |diff| / max |logit| {err:.3e} (tol {CHUNKED_TOL:g}); "
+             f"{n} greedy tokens teacher-forced through the chunked cache: {len(flips)} of {b * n} argmax flips "
+             f"(row, step) {flips[:12]}")
+    assert err <= CHUNKED_TOL, "chunked prefill disagrees with whole prefill"
+    assert torch.isfinite(got).all()
+    assert len(flips) <= b * n // 4, "most greedy tokens differ after chunked prefill"
+    if ssd_layers == 0:
+        # the price of the cache slice's copy for the kernel (b > 1: a
+        # slice of the slots is not contiguous), at each chunk's key length
+        k0 = torch.zeros((b, s + n, cfg.num_kv_heads, cfg.resolved_head_dim), dtype=getattr(torch, cfg.dtype),
+                         device="cuda")
+        copy_ms = [median_ms(lambda t=t: k0[:, :t].contiguous()) for t in range(chunk, s + 1, chunk)]
+        log(tag, f"the K (and V) slice copies a layer a chunk: {[round(x, 4) for x in copy_ms]} ms at "
+                 f"{list(range(chunk, s + 1, chunk))} keys; {2 * cfg.num_layers * sum(copy_ms):.3f} ms a prefill "
+                 f"of the chunked path's {1e3 * chunked_s:.3f}")
+        del k0
+    del logits, whole, got, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+# pipeline training (phase 38): qwen3-1.7b as in TRAIN (28 layers, fp32
+# params, bf16 compute, batch 4 x 1024); the first-step check at 4 layers
+# in f32 compute
+PIPELINE = dict(before=3, between=2, after=2, stream_k=8, check_layers=4)
+PP2TP2, DP2TP2, PP4TP1 = ParallelConfig(pp=2, tp=2), ParallelConfig(dp=2, tp=2), ParallelConfig(pp=4)
+# the pipelined first step's f32 gradients against the dense step's with
+# the same microbatches: per leaf, max |g - g_dense| / max |g_dense| (the
+# same sums in another order)
+PIPELINE_GRAD_TOL = 1e-5
+ROW_QUANT = ("pack_rows", "scatter_rows", "relayout_rows", "pack_quant_rows", "dequant_scatter_rows")
+
+
+def _grad_gap(a: dict, b: dict) -> tuple[float, str]:
+    """The largest max |a - b| / max |b| over the leaves, and its leaf."""
+    gaps = {p: ((x - b[p]).abs().max() / b[p].abs().max()).item() for p, x in a.items()}
+    worst = max(gaps, key=gaps.get)
+    return gaps[worst], worst
+
+
+def row_cut_checker(commits: list, controller, rebuild):
+    """A ``rebuild_state`` that holds every row (dim 0) of the state a
+    commit delivered against the cut it was moved from, before any update:
+    params byte for byte; under the controller's quantizing wire policy a
+    moment's row either exact (a cell resident on a destination rank, which
+    on one card can be the last writer of the global row) or the plain
+    int8 round trip of the cut's row. Appends ``{"step", "quantized_rows":
+    {name: row mask}, "check_s"}`` a commit."""
+    from repro_torch.utils.pytree import tree_paths
+
+    def checked_rebuild(named, params_like, opt_like, extras):
+        t0 = time.perf_counter()
+        ctrl = controller()
+        policy = ctrl.wire_policy
+        old = {f"params/{p}": x for p, x in tree_paths(params_like).items()}
+        for coll in ("mu", "nu"):
+            old.update({f"{coll}/{p}": x for p, x in tree_paths(opt_like[coll]).items()})
+        rows = {}
+        for name, new in named.items():
+            fmt = policy.format_for(name.split("/")[0]) if policy is not None else "none"
+            if new is old[name]:
+                continue
+            a, b = _bytes(new).reshape(new.shape[0], -1), _bytes(old[name]).reshape(new.shape[0], -1)
+            exact = (a == b).all(1)
+            if fmt == "none":
+                assert exact.all(), f"{name}: the commit did not deliver the cut's bytes"
+                continue
+            q = _bytes(_round_trip_rows(old[name], fmt)).reshape(new.shape[0], -1)
+            quantized = (a == q).all(1) & ~exact
+            assert (exact | quantized).all(), f"{name}: a row is neither the cut's bytes nor their {fmt} round trip"
+            if quantized.any():
+                rows[name] = quantized.cpu()
+        torch.cuda.synchronize()
+        commits.append({"step": ctrl.step, "quantized_rows": rows, "check_s": time.perf_counter() - t0})
+        return rebuild(named, params_like, opt_like, extras)
+
+    return checked_rebuild
+
+
+def phase_pipeline_first_step() -> None:
+    """The pipelined first step (pp2tp2, 2 microbatches) against the dense
+    dp2tp2 step with the same microbatches, from the run's init and first
+    batch: in f32 compute (TF32 off) at ``check_layers`` layers within
+    ``PIPELINE_GRAD_TOL``; at 28 layers in bf16 compute the gap printed."""
+    import gc
+
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.distribution.pipeline import make_pipeline_grad_fn
+    from repro_torch.distribution.step import make_grad_fn
+    from repro_torch.utils.pytree import tree_paths
+
+    full = get_config(TRAIN["arch"])
+    batch = {"tokens": torch.from_numpy(SyntheticLM(full.vocab_size, TRAIN["seq"], TRAIN["batch"], 0)
+                                        .global_batch_at(0)).to("cuda", torch.long)}
+    for cfg in (dataclasses.replace(full, num_layers=PIPELINE["check_layers"], dtype="float32"), full):
+        gc.collect()
+        torch.cuda.empty_cache()
+        params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+        loss, _, grads = make_pipeline_grad_fn(cfg, PP2TP2, 2)(params, batch)
+        grads = tree_paths(grads)
+        dloss, _, dense = make_grad_fn(cfg, 2)(params, batch)
+        gap, leaf = _grad_gap(grads, tree_paths(dense))
+        rel = abs(float(loss) - float(dloss)) / abs(float(dloss))
+        log("train-pp", f"first step, {cfg.num_layers} layers, {cfg.dtype} compute: pp2tp2 (2 microbatches, the "
+                        f"pipeline) against dp2tp2 (2 microbatches, explicit accumulation): loss {float(loss):.6f} / "
+                        f"{float(dloss):.6f} (relative {rel:.3e}), gradients max |g - g_dense| / max |g_dense| "
+                        f"{gap:.3e} at {leaf}" + (f" (tol {PIPELINE_GRAD_TOL:g})" if cfg.dtype == "float32" else ""))
+        assert all(torch.isfinite(g).all() for g in grads.values())
+        del grads, dense
+        if cfg.dtype == "float32":
+            assert gap <= PIPELINE_GRAD_TOL and rel <= PIPELINE_GRAD_TOL, "the pipelined step disagrees"
+        else:
+            # where a pp world's gradients cost more on one card: the
+            # microbatches or the schedule. Each function once to warm,
+            # then three calls timed to a sync
+            fns = {"dense 1 microbatch": make_grad_fn(cfg), "dense 2": make_grad_fn(cfg, 2),
+                   "pp2 2 (scan_loss)": make_pipeline_grad_fn(cfg, PP2TP2, 2)}
+            grad_s = {}
+            for label, fn in fns.items():
+                times = []
+                for _ in range(4):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    out = fn(params, batch)
+                    torch.cuda.synchronize()
+                    times.append(time.perf_counter() - t0)
+                    del out
+                grad_s[label] = times[1:]
+            log("train-pp", "the gradients alone, 28 layers, bf16 compute (host clock, three calls after a warm-up, "
+                            "median [min, max]): " + ", ".join(f"{k} {statistics.median(v):.4f} s [{min(v):.4f}, "
+                                                               f"{max(v):.4f}]" for k, v in grad_s.items()))
+        del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _world_control(cfg, opt, plan, roundtrip=None) -> tuple[dict, list]:
+    """The control of a resized run: for each ``(steps, parallel)`` of
+    ``plan`` the world's step (``build_train_world``) run ``steps`` times on
+    the controller's data, the state handed on by plain tensor copies; the
+    moment rows ``roundtrip = (step, {name: row mask})`` names
+    round-tripped through the plain int8 wire after ``step`` steps.
+    Returns (params, losses)."""
+    import gc
+
+    from repro_torch.core.shadow import build_train_world
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.distribution.step import init_train_state
+    from repro_torch.utils.pytree import tree_from_paths, tree_paths
+
+    params, opt_state = init_train_state(cfg, 0, "none", "cuda")
+    data = SyntheticLM(cfg.vocab_size, TRAIN["seq"], TRAIN["batch"], 0)
+    losses: list[float] = []
+    for steps, parallel in plan:
+        world = build_train_world(cfg, parallel, opt, TRAIN["batch"], TRAIN["seq"],
+                                  devices=["cuda"] * parallel.world_size)
+        params = tree_from_paths({p: x.clone() for p, x in tree_paths(params).items()})
+        opt_state = tree_from_paths({p: x.clone() for p, x in tree_paths(opt_state).items()})
+        gc.collect()
+        for _ in range(steps):
+            if roundtrip is not None and len(losses) == roundtrip[0]:
+                with torch.no_grad():
+                    for coll in ("mu", "nu"):
+                        for p, x in tree_paths(opt_state[coll]).items():
+                            mask = roundtrip[1].get(f"{coll}/{p}")
+                            if mask is not None:
+                                x[mask.to(x.device)] = _round_trip_rows(x, "int8")[mask.to(x.device)]
+            batch = {"tokens": torch.from_numpy(data.global_batch_at(len(losses))).to("cuda", torch.long)}
+            params, opt_state, m = world.step_fn(params, opt_state, batch)
+            losses.append(float(m["loss"]))
+        del world
+    return params, losses
+
+
+def phase_train_pipeline() -> dict:
+    """Pipeline-parallel training at full width and depth, resized out of
+    and into pp (see the module docstring, 38). Returns the path's
+    launches."""
+    import gc
+
+    from repro_torch.core import controller as C
+    from repro_torch.core.controller import LiveRController
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.reshard import WirePolicy
+    from repro_torch.utils.pytree import tree_paths
+
+    phase_pipeline_first_step()
+    cfg = get_config(TRAIN["arch"])
+    opt = AdamWConfig(learning_rate=1e-4, warmup_steps=2, total_steps=1000)
+    kw = dict(seq_len=TRAIN["seq"], global_batch=TRAIN["batch"], device="cuda", stream_k=PIPELINE["stream_k"])
+    commits: list[dict] = []
+    windows: list[dict] = []
+    orig_rebuild = C.rebuild_state
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    C.rebuild_state = row_cut_checker(commits, lambda: ctrl, orig_rebuild)
+    try:
+        ctrl = LiveRController(cfg, PP2TP2, opt, overlap="stream", wire_policy=WirePolicy(), **kw)
+        _zero_counts()  # the pipeline path's counts start here ...
+        launches: dict = {}
+        t_run = time.perf_counter()
+        losses = ctrl.train_steps(PIPELINE["before"])
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        for target, overlap in ((DP2TP2, "stream"), (PP4TP1, "stop_copy")):
+            if overlap == "stop_copy":
+                ctrl.wire_policy = None  # the second resize is lossless
+                losses += ctrl.train_steps(PIPELINE["between"])
+            before = dict(_all_counts())
+            torch.cuda.synchronize()
+            peak_gb = max(peak_gb, torch.cuda.max_memory_allocated() / 1e9)
+            torch.cuda.reset_peak_memory_stats()
+            ctrl.request_resize(target, overlap=overlap)
+            n = len(ctrl.records)
+            while len(ctrl.records) == n:
+                losses += ctrl.train_steps(1)
+                assert len(losses) < 200, f"the resize to {target.describe()} never committed"
+            after = _all_counts()
+            windows.append({"launched": {k: after[k] - before[k] for k in ROW_QUANT},
+                            "peak_gb": torch.cuda.max_memory_allocated() / 1e9})
+        losses += ctrl.train_steps(PIPELINE["after"])
+        run_s = time.perf_counter() - t_run
+        _take_counts(launches)  # ... and are read here
+    finally:
+        C.rebuild_state = orig_rebuild
+    peak_gb = max([peak_gb, torch.cuda.max_memory_allocated() / 1e9] + [w["peak_gb"] for w in windows])
+    log("train-pp", f"{cfg.name} full width and depth ({cfg.num_layers} layers, fp32 params, {cfg.dtype} compute), "
+                    f"batch {TRAIN['batch']} x {TRAIN['seq']}: pp2tp2 -> dp2tp2 (stream, int8 moments) -> pp4tp1 "
+                    f"(stop-copy, lossless): {len(losses)} steps in {run_s:.1f}s, losses "
+                    f"{[round(x, 4) for x in losses]}, launches {launches}")
+    assert all(np.isfinite(losses)), "a loss is not finite"
+    assert [r.dst for r in ctrl.records] == [DP2TP2.describe(), PP4TP1.describe()], [r.dst for r in ctrl.records]
+    for i, (rec, c, w) in enumerate(zip(ctrl.records, commits, windows)):
+        pause_s = rec.total_pause_s - c["check_s"]  # the smoke's own check is not the system's pause
+        log("train-pp", f"commit {i + 1} {rec.mode} {rec.src} -> {rec.dst} at step {c['step']}: pause_s "
+                        f"{pause_s:.4f}, prepare_s {rec.prepare_s:.4f}, executed {rec.executed_bytes / 1e9:.4f} GB "
+                        f"against the plan's {(rec.plan_network_bytes + rec.plan_local_bytes) / 1e9:.4f} GB (wire "
+                        f"{rec.wire_bytes / 1e9:.4f}, logical {rec.logical_bytes / 1e9:.4f}), dirty layers "
+                        f"{rec.dirty_layers}/{rec.layers_total}, rows the int8 wire delivered "
+                        f"{sum(int(m.sum()) for m in c['quantized_rows'].values())} of "
+                        f"{sum(m.numel() for m in c['quantized_rows'].values())} in {len(c['quantized_rows'])} "
+                        f"tensors (the rest resident, exact); row and quant launches {w['launched']}; peak memory "
+                        f"{w['peak_gb']:.2f} GB")
+        assert rec.generic_cells == 0 and rec.executed_bytes > 0
+        assert w["launched"]["pack_rows"] == w["launched"]["scatter_rows"] > 0, w["launched"]
+    first, second = commits
+    assert first["quantized_rows"] and all(n.split("/")[0] in ("mu", "nu") for n in first["quantized_rows"])
+    assert windows[0]["launched"]["pack_quant_rows"] == windows[0]["launched"]["dequant_scatter_rows"] > 0
+    assert not second["quantized_rows"] and windows[1]["launched"]["pack_quant_rows"] == 0
+    # each world's steps (host clock): those without a commit, the first
+    # step of the run left out
+    worlds = ([PP2TP2] * (first["step"] + 1) + [DP2TP2] * (second["step"] - first["step"] - 1)
+              + [PP4TP1] * (len(losses) - second["step"]))
+    # a pp world's step runs each layer once a microbatch (max(1, pp) of
+    # them), forward twice (remat) and backward once; every launch on the
+    # tensor cores
+    mbs = {PP2TP2: 2, DP2TP2: 1, PP4TP1: 4}
+    layer_passes = cfg.num_layers * sum(mbs[p] for p in worlds)
+    assert launches["flash_attention"] == 2 * layer_passes and launches["flash_attention_bwd"] == layer_passes, launches
+    assert launches["flash_attention_tc"] == launches["flash_attention"], launches
+    assert launches["flash_attention_bwd_tc"] == launches["flash_attention_bwd"], launches
+    commit_steps = {first["step"], second["step"] - 1}
+    step_s = {}
+    for p in (PP2TP2, DP2TP2, PP4TP1):
+        ts = [t for i, t in enumerate(ctrl.iteration_times) if worlds[i] == p and i and i not in commit_steps]
+        step_s[_short(p)] = (statistics.median(ts), len(ts))
+    log("train-pp", "step_s side by side (host clock, median, steps without a commit): "
+                    + ", ".join(f"{k} {v[0]:.4f} s over {v[1]} steps" for k, v in step_s.items())
+                    + f"; peak memory {peak_gb:.2f} GB")
+    final = {p: x.clone() for p, x in tree_paths(ctrl.params).items()}
+    del ctrl
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    plan = [(first["step"] + 1, PP2TP2), (second["step"] - first["step"] - 1, DP2TP2),
+            (len(losses) - second["step"], PP4TP1)]
+    params, c_losses = _world_control(cfg, opt, plan, roundtrip=(first["step"], first["quantized_rows"]))
+    unequal = [p for p, x in tree_paths(params).items() if not torch.equal(x, final[p])]
+    log("train-pp", f"params after the run against the control that takes the same worlds at the same steps "
+                    f"({', '.join(f'{n} on {_short(p)}' for n, p in plan)}) and carries the state by plain tensor "
+                    f"copies: {len(final) - len(unequal)} of {len(final)} tensors bitwise equal; losses equal "
+                    f"{c_losses == losses}")
+    assert not unequal, f"the resized run's params differ from the control's: {unequal[:4]}"
+    assert c_losses == losses, "the resized run's losses differ from the control's"
+    del params, final
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+# int8 error-feedback gradient compression (phase 39): qwen3-1.7b as in
+# TRAIN, 3 steps on dp2tp2, a stop-copy to dp1tp4, 2 more steps. The
+# state, the ef buffers, the gradients and the stop-copy's destination
+# tensors peak near 71 GB, so the phase runs right after phase 13, before
+# later phases leave the caching allocator fragmented
+INT8_EF = dict(before=3, after=2)
+
+
+def _ef_digests(ctrl) -> dict:
+    from repro_torch.utils.pytree import tree_paths
+
+    weights = torch.arange(1, DIGEST_CHUNK + 1, dtype=torch.int64, device=ctrl.device)
+    ef = tree_paths(ctrl.opt_state["ef"])
+    return dict(zip(ef, map(tuple, torch.stack([_digest(x, weights) for x in ef.values()]).tolist())))
+
+
+def phase_train_int8_ef() -> dict:
+    """Training under ``compression="int8_ef"`` at full width, resized by
+    stop-copy (see the module docstring, 39). Returns the path's
+    launches."""
+    import gc
+
+    from repro_torch.core import controller as C
+    from repro_torch.core.controller import LiveRController
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.utils.pytree import tree_paths
+
+    cfg = get_config(TRAIN["arch"])
+    opt = AdamWConfig(learning_rate=1e-4, warmup_steps=2, total_steps=1000)
+    kw = dict(seq_len=TRAIN["seq"], global_batch=TRAIN["batch"], device="cuda", compression="int8_ef")
+    at_cut: dict = {}
+    orig_rebuild = C.rebuild_state
+
+    def rebuild(named, params_like, opt_like, extras):
+        at_cut.update(step=ctrl.step, ptrs={p: x.data_ptr() for p, x in tree_paths(extras["ef"]).items()})
+        return orig_rebuild(named, params_like, opt_like, extras)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    C.rebuild_state = rebuild
+    try:
+        ctrl = LiveRController(cfg, DP2TP2, opt, **kw)
+        _zero_counts()  # the int8_ef path's counts start here ...
+        launches: dict = {}
+        t_run = time.perf_counter()
+        losses = ctrl.train_steps(INT8_EF["before"])
+        ctrl.request_resize(ParallelConfig(dp=1, tp=4))
+        while not ctrl.records:
+            losses += ctrl.train_steps(1)
+            assert len(losses) < 200, "the stop-copy resize never committed"
+        cut = _ef_digests(ctrl)
+        moved = {p: x.data_ptr() for p, x in tree_paths(ctrl.opt_state["ef"]).items()}
+        losses += ctrl.train_steps(INT8_EF["after"])
+        run_s = time.perf_counter() - t_run
+        _take_counts(launches)  # ... and are read here
+    finally:
+        C.rebuild_state = orig_rebuild
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    rec = ctrl.records[0]
+    ef_gb = sum(x.numel() * 4 for x in tree_paths(ctrl.opt_state["ef"]).values()) / 1e9
+    end = _ef_digests(ctrl)
+    log("train-ef", f"{cfg.name} full width and depth ({cfg.num_layers} layers), compression int8_ef (ef "
+                    f"{ef_gb:.2f} GB fp32), batch "
+                    f"{TRAIN['batch']} x {TRAIN['seq']}: dp2tp2 -> dp1tp4 (stop-copy) at step {at_cut['step']}: "
+                    f"{len(losses)} steps in {run_s:.1f}s, losses {[round(x, 4) for x in losses]}; commit pause_s "
+                    f"{rec.total_pause_s:.4f}, prepare_s {rec.prepare_s:.4f}, executed {rec.executed_bytes / 1e9:.4f} "
+                    f"GB; ef passed through the commit uncounted: {moved == at_cut['ptrs']}; peak memory "
+                    f"{peak_gb:.2f} GB; launches {launches}")
+    plain_steps = [t for i, t in enumerate(ctrl.iteration_times) if i and i != at_cut["step"] - 1]
+    log("train-ef", f"step time on the card (host clock, steps without a commit, the first left out): median "
+                    f"{statistics.median(plain_steps):.4f} s over {len(plain_steps)} steps")
+    assert all(np.isfinite(losses)), "a loss is not finite"
+    assert launches["flash_attention"] == 2 * cfg.num_layers * len(losses) == 2 * launches["flash_attention_bwd"]
+    assert launches["flash_attention_tc"] == launches["flash_attention"], launches
+    assert moved == at_cut["ptrs"], "the commit moved the error-feedback buffers"
+    assert any(d != (0, 0) for d in cut.values()), "the error-feedback buffers are zero"
+    del ctrl
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    control = LiveRController(cfg, DP2TP2, opt, **kw)
+    c_losses = control.train_steps(at_cut["step"])
+    c_cut = _ef_digests(control)
+    c_losses += control.train_steps(len(losses) - at_cut["step"])
+    c_end = _ef_digests(control)
+    log("train-ef", f"against a control never resized: ef digests at the commit's step equal {c_cut == cut}, after "
+                    f"the run equal {c_end == end}; losses equal {c_losses == losses}")
+    assert c_cut == cut and c_end == end, "the error-feedback buffers differ from the control's"
+    assert c_losses == losses, "the losses differ from the control's"
+    del control
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -4239,6 +4911,7 @@ def main() -> int:
     phase_start_types()
     train_launches, train_steps, train_peak_gb = phase_train()
     check_train_launches(train_launches, train_steps)
+    train_ef_launches = phase_train_int8_ef()  # no trace; see the module docstring, 39
     lifecycle_launches = phase_lifecycle(train_peak_gb)
     recovery_launches = phase_recovery(train_peak_gb)
     bwd = phase_bwd_times(train_launches["flash_attention_bwd"], bwd_err)
@@ -4267,11 +4940,15 @@ def main() -> int:
     elastic_seamless_launches = phase_elastic(SEAMLESS)
     train_seamless_launches = phase_train_encdec()
     phase_small_agreement(get_config(MIXTRAL).reduced(), prompt_len=128)  # two windows of 64
-    serve_mixtral_launches = phase_serve_moe(MIXTRAL)
+    serve_mixtral_launches, chunked_mixtral_launches = phase_serve_moe(MIXTRAL)
     elastic_mixtral_launches = phase_elastic_mixtral()
     train_mixtral_launches = phase_train_mixtral()
-    serve_jamba_launches = phase_serve_moe(JAMBA)
-    schedule_launches = phase_schedule(train_peak_gb)  # last: see the module docstring, 23
+    serve_jamba_launches, _ = phase_serve_moe(JAMBA)
+    schedule_launches = phase_schedule(train_peak_gb)  # see the module docstring, 23
+    # the phases after it take no profiler trace
+    chunked_qwen3_launches = phase_chunked_prefill("qwen3-1.7b")
+    chunked_mamba2_launches = phase_chunked_prefill("mamba2-2.7b")
+    train_pp_launches = phase_train_pipeline()
     # each record's launches: its counts on the main paths, each counted
     # from zero just before its run and read just after. No path runs
     # rmsnorm: as in the JAX package, the model's norms are plain and only
@@ -4283,7 +4960,9 @@ def main() -> int:
              "serve_seamless": {"flash_attention": seamless_launches}, "elastic_seamless": elastic_seamless_launches,
              "train_seamless": train_seamless_launches, "serve_mixtral": serve_mixtral_launches,
              "elastic_mixtral": elastic_mixtral_launches, "train_mixtral": train_mixtral_launches,
-             "serve_jamba": serve_jamba_launches}
+             "serve_jamba": serve_jamba_launches, "chunked_qwen3": chunked_qwen3_launches,
+             "chunked_mamba2": chunked_mamba2_launches, "chunked_mixtral": chunked_mixtral_launches,
+             "train_pipeline": train_pp_launches, "train_int8_ef": train_ef_launches}
     records = [record, *rows, bwd, *quants, ssd, rms, ssd_bwd]
     for rec in records:
         rec["launches_by_path"] = {p: counts.get(rec["name"], 0) for p, counts in paths.items()}

@@ -47,10 +47,18 @@ policy's topology search plans within (``elastic/endpoint.py``), and every
 entry must be ``device``. It defaults to ``DEFAULT_RANK_POOL`` = 8 ranks,
 where the JAX controller defaults to every device it sees. A world still
 maps each of its ranks to the one device whatever its size. The step
-count, the one piece of state outside the resource view, goes through the
+count and, under ``compression="int8_ef"``, the error-feedback residuals
+``opt_state["ef"]``, the state outside the resource view, go through the
 plan-less ``live_reshard`` at every commit and recovery, as in the JAX
-controller; on one card it is already on the new world's device and
-passes through.
+controller; on one card they are already on the new world's device and
+pass through, uncounted.
+
+Worlds with pipeline stages (``pp > 1``) train through
+``distribution/pipeline.py`` and resize into and out of pp by either
+transfer mode: the split-step commit computes the old world's gradients
+with its own (pipelined or dense) grads-only step. A resize to a pp world
+refuses at the request what the pipeline refuses (an enc-dec model,
+``compression="int8_ef"``).
 
 Fail-stop recovery (DESIGN.md §15), as in the JAX controller:
 ``fail_stop_recover`` recovers from the surviving peers in memory (the DP
@@ -102,8 +110,9 @@ from repro_torch.core.resource_view import build_tensor_specs
 from repro_torch.core.shadow import ShadowBuilder, WorldHandle, build_train_world, state_buffers, warm_device
 from repro_torch.core.world_pool import WorldPool
 from repro_torch.data import SyntheticFrames, SyntheticLM
+from repro_torch.distribution.step import init_opt_state, init_train_state
 from repro_torch.elastic.redundancy import ParityStore, balance_donors, heal_plan, survivors_for
-from repro_torch.optim import AdamWConfig, adamw_init
+from repro_torch.optim import AdamWConfig
 from repro_torch.reshard import OperatingPoint, OverlapSession
 from repro_torch.reshard.overlap import shares_storage
 from repro_torch.utils.pytree import tree_from_paths, tree_map_with_path, tree_paths
@@ -270,12 +279,10 @@ class LiveRController:
         world.gen_id = 0
         self.machine.active.payload = world
         if params is None:
-            from repro_torch.distribution.step import init_train_state
-
             self.params, self.opt_state = init_train_state(cfg, seed, compression, self.device)
         else:
             self.params = tree_map_with_path(lambda _, x: x.to(self.device, copy=True), params)
-            self.opt_state = adamw_init(self.params)
+            self.opt_state = init_opt_state(self.params, compression)
 
     # ------------------------------------------------------------------
     @property
@@ -405,6 +412,11 @@ class LiveRController:
     def _prepare(self, target, overlap, operating_point, reuse: Optional[dict]) -> int:
         if self._builder is not None:
             raise RuntimeError("a resize is already in flight; retarget_resize supersedes it")
+        if target.pp > 1:
+            # what a pp world refuses is refused here, not in the build thread
+            from repro_torch.distribution.pipeline import check_pipeline
+
+            check_pipeline(self.cfg, target, max(self.microbatches, target.pp), self.compression)
         if overlap is not None:
             if overlap not in ("stop_copy", "stream"):
                 raise ValueError(f"overlap={overlap!r}: want 'stop_copy' or 'stream'")
@@ -1264,8 +1276,8 @@ class LiveRController:
 
     @staticmethod
     def _move_extras(extras: dict, world: WorldHandle, staging_bytes: int):
-        """The state outside the resource view (the step count) onto
-        ``world``'s device by the plan-less path: (new extras, report)."""
+        """The state outside the resource view (the step count, the
+        ``int8_ef`` residuals) onto ``world``'s device by the plan-less path: (new extras, report)."""
         return live_reshard(extras, tree_map_with_path(lambda _, x: world.device, extras), staging_bytes=staging_bytes)
 
     def _reset_reconfig_state(self) -> None:

@@ -243,13 +243,21 @@ def build_train_world(
 ) -> WorldHandle:
     """Synchronous training-world construction (the shadow thread's body):
     the step, its grad and update halves, and on the card the kernel
-    libraries and cuBLAS warmed in this thread."""
+    libraries and cuBLAS warmed in this thread. A ``pp > 1`` world trains
+    through ``distribution/pipeline.py`` with ``max(microbatches, pp)``
+    microbatches, as the JAX package builds it; it refuses an enc-dec model
+    and ``compression="int8_ef"``."""
     from repro_torch.distribution.step import make_grad_fn, make_train_step
 
-    if parallel.pp != 1:
-        raise NotImplementedError(
-            f"{parallel.describe()}: pipeline stages are not ported yet (ROADMAP queue 1 item 5)"
-        )
+    if parallel.pp > 1:
+        from repro_torch.distribution.pipeline import make_pipeline_grad_fn, make_pipeline_train_step
+
+        mb = max(microbatches, parallel.pp)
+        step_fn = make_pipeline_train_step(cfg, parallel, opt_cfg, mb, compression)
+        grad_fn = make_pipeline_grad_fn(cfg, parallel, mb)
+    else:
+        step_fn = make_train_step(cfg, opt_cfg, microbatches, remat, compression)
+        grad_fn = make_grad_fn(cfg, microbatches, remat)
     devices = [torch.device(d) for d in devices]
     if len(devices) != parallel.world_size:
         raise ValueError(f"{len(devices)} devices for a world of {parallel.world_size} ranks")
@@ -262,10 +270,10 @@ def build_train_world(
     return WorldHandle(
         parallel=parallel,
         devices=devices,
-        step_fn=make_train_step(cfg, opt_cfg, microbatches, remat, compression),
+        step_fn=step_fn,
         timings=timings,
         update_fn=build_update_world_fn(cfg, parallel, opt_cfg, compression),
-        grad_fn=make_grad_fn(cfg, microbatches, remat),
+        grad_fn=grad_fn,
     )
 
 

@@ -1,5 +1,6 @@
 """Train-step builders: gradients (with microbatch accumulation), the
-optimizer update, and the two joined.
+optimizer update (with optional int8 error-feedback gradient
+compression), and the two joined.
 
 The counterpart of ``repro/distribution/step.py``, reduced to one device:
 ``make_*`` return plain functions over the world's tensors, and a world's
@@ -16,10 +17,12 @@ returns them. Before its first write it makes the current stream wait on
 reads of these tensors have retired (``reshard/executors.py::sync_staging``,
 the port's analogue of the JAX package's donation).
 
-Not ported: int8 gradient compression with error feedback
-(``compression="int8_ef"``, ROADMAP queue 1 item 5), pipeline stages and
-the sharded ``jit_*`` wrappers (process groups wait for multi-card worlds,
-queue 1 item 13).
+``compression="int8_ef"`` sends every gradient leaf through the int8
+round trip with error feedback before the update
+(``kernels/reshard_quant.py::compress_decompress_with_ef``); its residuals
+are ``opt_state["ef"]``, float32 zeros at init. Pipeline stages are
+``distribution/pipeline.py``. Not ported: the sharded ``jit_*`` wrappers
+(process groups wait for multi-card worlds, ROADMAP queue 1 item 13).
 """
 
 from __future__ import annotations
@@ -29,19 +32,20 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.reshard_quant import compress_decompress_with_ef
 from repro_torch.models import model as M
 from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
 from repro_torch.utils.pytree import tree_from_paths, tree_paths
 
-__all__ = ["init_train_state", "make_grad_fn", "make_train_step", "make_update_fn"]
+__all__ = ["init_opt_state", "init_train_state", "make_grad_fn", "make_train_step", "make_update_fn"]
+
+COMPRESSIONS = ("none", "int8_ef")
+GRAD_ACCUMS = ("explicit", "scan_loss")
 
 
-def _check_compression(compression: str) -> None:
-    if compression != "none":
-        raise NotImplementedError(
-            f"compression={compression!r}: int8 gradient compression with error feedback is not "
-            "ported yet (ROADMAP queue 1 item 5)"
-        )
+def _choice(name: str, value: str, allowed: tuple) -> None:
+    if value not in allowed:
+        raise ValueError(f"{name}={value!r}: want one of {allowed}")
 
 
 def _autograd_leaves(paths: dict) -> dict:
@@ -61,42 +65,70 @@ def _autograd_leaves(paths: dict) -> dict:
     return out
 
 
-def make_grad_fn(cfg: ModelConfig, microbatches: int = 1, remat: str = "full"):
+def value_and_grad(loss_of, paths: dict):
+    """``loss_of(tree) -> (loss, metrics)`` and its gradients with respect
+    to the leaves ``paths`` names, by one autograd pass over
+    :func:`_autograd_leaves`: (loss, metrics, grads by path), detached."""
+    leaves = _autograd_leaves(paths)
+    loss, metrics = loss_of(tree_from_paths(leaves))
+    flat = [t for v in leaves.values() for t in (v if isinstance(v, list) else [v])]
+    grads = list(torch.autograd.grad(loss, flat))
+    out, i = {}, 0
+    for path, v in leaves.items():
+        n = len(v) if isinstance(v, list) else 1
+        out[path] = torch.stack(grads[i : i + n]) if isinstance(v, list) else grads[i]
+        grads[i : i + n] = [None] * n  # let each period's gradient go once stacked
+        i += n
+    return loss.detach(), {k: v.detach() for k, v in metrics.items()}, out
+
+
+def _micro(batch: dict, microbatches: int) -> list[dict]:
+    """``batch`` cut into ``microbatches`` equal slices along dim 0."""
+    b = batch["tokens"].shape[0]
+    if b % microbatches:
+        raise ValueError(f"batch {b} is not a multiple of microbatches={microbatches}")
+    mb = b // microbatches
+    return [{k: v[i * mb : (i + 1) * mb] for k, v in batch.items()} for i in range(microbatches)]
+
+
+def make_grad_fn(
+    cfg: ModelConfig, microbatches: int = 1, remat: str = "full", grad_accum: str = "explicit", aux_weight: float = 0.01
+):
     """Returns ``grad_step(params, batch) -> (loss, metrics, grads)``: the
     forward/backward half of the step. With ``microbatches > 1`` the batch
-    is cut into equal slices along dim 0, the float32 gradients summed and
-    divided by their number, and so is the loss (the JAX package's
-    "explicit" accumulation).
+    is cut into equal slices along dim 0 and the loss is the mean of
+    theirs. ``grad_accum="explicit"`` (the default) takes each slice's
+    gradients apart, sums them in float32 and divides by their number;
+    ``"scan_loss"`` differentiates the mean of the slices' losses in one
+    autograd pass (no metrics), as the JAX package's scan does. The JAX
+    scan rematerialises each slice's loss in the backward pass; here every
+    slice's saved activations (each period's input under ``remat="full"``)
+    stay until that one pass.
 
-    The loss carries the MoE aux loss of a model with MoE layers. On the card an SSM mixer's gradient goes through the SSD backward
+    The loss carries ``aux_weight`` times the MoE aux loss of a model with
+    MoE layers (0 for a pipeline world's). On the card an SSM mixer's gradient goes through the SSD backward
     kernel; an enc-dec model's batch carries ``frames``."""
+    _choice("grad_accum", grad_accum, GRAD_ACCUMS)
 
     def grads_of(paths: dict, batch: dict):
-        leaves = _autograd_leaves(paths)
-        loss, metrics = M.loss_fn(cfg, tree_from_paths(leaves), batch, remat=remat)
-        flat = [t for v in leaves.values() for t in (v if isinstance(v, list) else [v])]
-        grads = list(torch.autograd.grad(loss, flat))
-        out, i = {}, 0
-        for path, v in leaves.items():
-            n = len(v) if isinstance(v, list) else 1
-            out[path] = torch.stack(grads[i : i + n]) if isinstance(v, list) else grads[i]
-            grads[i : i + n] = [None] * n  # let each period's gradient go once stacked
-            i += n
-        return loss.detach(), {k: v.detach() for k, v in metrics.items()}, out
+        return value_and_grad(lambda tree: M.loss_fn(cfg, tree, batch, remat, aux_weight), paths)
+
+    def scan_loss(tree: dict, micro: list[dict]):
+        total = sum(M.loss_fn(cfg, tree, m, remat, aux_weight)[0] for m in micro)
+        return total / len(micro), {}
 
     def grad_step(params: dict, batch: dict):
         paths = tree_paths(params)
         if microbatches <= 1:
             loss, metrics, grads = grads_of(paths, batch)
             return loss, metrics, tree_from_paths(grads)
-        b = batch["tokens"].shape[0]
-        if b % microbatches:
-            raise ValueError(f"batch {b} is not a multiple of microbatches={microbatches}")
-        mb = b // microbatches
+        micro = _micro(batch, microbatches)
+        if grad_accum == "scan_loss":
+            loss, _, grads = value_and_grad(lambda tree: scan_loss(tree, micro), paths)
+            return loss, {}, tree_from_paths(grads)
         g_sum, loss_sum = None, None
-        for i in range(microbatches):
-            micro = {k: v[i * mb : (i + 1) * mb] for k, v in batch.items()}
-            loss, _, grads = grads_of(paths, micro)
+        for m in micro:
+            loss, _, grads = grads_of(paths, m)
             if g_sum is None:
                 g_sum = {p: g.to(torch.float32) for p, g in grads.items()}
                 loss_sum = loss
@@ -112,12 +144,16 @@ def make_grad_fn(cfg: ModelConfig, microbatches: int = 1, remat: str = "full"):
 
 def make_update_fn(opt_cfg: AdamWConfig, compression: str = "none"):
     """Returns ``update(grads, opt_state, params, fence=None) -> (params,
-    opt_state, metrics)``: the optimizer half of the step, in place."""
-    _check_compression(compression)
+    opt_state, metrics)``: the optimizer half of the step, in place. Under
+    ``compression="int8_ef"`` the gradients first take the int8 round trip
+    with error feedback (``opt_state["ef"]``, updated in place)."""
+    _choice("compression", compression, COMPRESSIONS)
 
     def update(grads: dict, opt_state: dict, params: dict, fence: Optional[torch.cuda.Event] = None):
         if fence is not None:
             torch.cuda.current_stream().wait_event(fence)
+        if compression == "int8_ef":
+            grads, opt_state = compress_decompress_with_ef(grads, opt_state)
         return adamw_update(opt_cfg, grads, opt_state, params)
 
     return update
@@ -129,11 +165,13 @@ def make_train_step(
     microbatches: int = 1,
     remat: str = "full",
     compression: str = "none",
+    grad_accum: str = "explicit",
+    aux_weight: float = 0.01,
 ):
     """Returns ``train_step(params, opt_state, batch, fence=None) ->
     (params, opt_state, metrics)``, metrics with ``loss``, ``lr`` and
     ``grad_norm``; params and opt_state are updated in place."""
-    grad_step = make_grad_fn(cfg, microbatches, remat)
+    grad_step = make_grad_fn(cfg, microbatches, remat, grad_accum, aux_weight)
     update = make_update_fn(opt_cfg, compression)
 
     def train_step(params: dict, opt_state: dict, batch: dict, fence=None):
@@ -144,11 +182,23 @@ def make_train_step(
     return train_step
 
 
+def init_opt_state(params: dict, compression: str = "none") -> dict:
+    """Zero moments and count, and under ``compression="int8_ef"`` the
+    float32 zero residuals ``ef``, one a param leaf."""
+    _choice("compression", compression, COMPRESSIONS)
+    opt = adamw_init(params)
+    if compression == "int8_ef":
+        opt["ef"] = tree_from_paths(
+            {p: torch.zeros(x.shape, dtype=torch.float32, device=x.device) for p, x in tree_paths(params).items()}
+        )
+    return opt
+
+
 def init_train_state(cfg: ModelConfig, seed: int = 0, compression: str = "none", device="cuda"):
     """(params, opt_state) on ``device``: the port's seeded init (one
     generator over the full tensors, so it does not depend on a world's
-    layout) and zero moments."""
-    _check_compression(compression)
+    layout) and :func:`init_opt_state`."""
+    _choice("compression", compression, COMPRESSIONS)
     dev = M.resolve_device(device)
     params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(seed), dev)
-    return params, adamw_init(params)
+    return params, init_opt_state(params, compression)

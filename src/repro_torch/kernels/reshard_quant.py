@@ -45,6 +45,11 @@ that they give the reference's sequential result. Past
 through ``reshard_pack``'s pinned ring into the stream's device table
 ("starts_device", "device"), still in one launch. :data:`table_launches`
 counts its launches by form.
+
+Beside the bindings, the gradient compression of the train step
+(``compression="int8_ef"``): :func:`quantize_int8`, :func:`dequantize_int8`
+and :func:`compress_decompress_with_ef`, plain torch as in the JAX package,
+which computes them in jnp outside any kernel.
 """
 
 from __future__ import annotations
@@ -55,10 +60,11 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.ref import WIRE_QDTYPE, disjoint_blocks, row_starts
+from repro_torch.kernels.ref import QUANT_EPS, WIRE_QDTYPE, WIRE_QMAX, disjoint_blocks, row_starts
 from repro_torch.kernels.reshard_pack import (
     INT32_MAX, PARAM_SEGS, PARAM_STARTS, last_writer_segments, launch_entry, row_table, start_table, table_form,
 )
+from repro_torch.utils.pytree import tree_from_paths, tree_paths
 
 # Kernel launches in this process, by kernel; each is bumped once per
 # launch, nowhere else.
@@ -260,3 +266,52 @@ def _check_tiles(buf: torch.Tensor, scales: torch.Tensor, nb: int, block_rows: i
             f"dequant_scatter_rows: buffer {tuple(buf.shape)} / scales {tuple(scales.shape)} are not "
             f"{nb} tiles of {block_rows} rows of {C}"
         )
+
+
+# ---------------------------------------------------------------------------
+# Per-tensor int8 quantization with error feedback (gradient compression)
+# ---------------------------------------------------------------------------
+
+
+def quantize_int8(g: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 quantization of the whole tensor with one float32
+    scale, the wire's tile quantizer with the tensor as its one tile:
+    ``scale = max(absmax, eps) * float32(1/127)``, ``q = round(g / scale)``
+    (half to even), clipped to +-127. Returns (q int8, scale 0-d float32)."""
+    x = g.to(torch.float32)
+    qmax = WIRE_QMAX["int8"]
+    scale = torch.clamp_min(x.abs().amax(), QUANT_EPS) * float(np.float32(1.0 / qmax))
+    return torch.clamp(torch.round(x / scale), -qmax, qmax).to(torch.int8), scale
+
+
+def dequantize_int8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return q.to(torch.float32) * scale
+
+
+@torch.no_grad()
+def compress_decompress_with_ef(grads: dict, opt_state: dict) -> tuple[dict, dict]:
+    """The int8 round trip of every gradient leaf with error feedback: the
+    leaf plus its residual from the last step (``opt_state["ef"]``, float32
+    like the params' tree) is quantized, and the new residual, ``corrected
+    - dequantized``, is left in ``ef``. Returns (the dequantized float32
+    gradients, ``opt_state``), the bits of the JAX package's function.
+
+    In place, so that the round trip holds one leaf-sized temporary at a
+    time: ``ef`` becomes the corrected leaf and then the residual, and a
+    float32 gradient leaf takes the dequantized values (another dtype gets
+    a new tensor). The absmax comes from ``aminmax``, with no ``abs``
+    copy."""
+    ef = tree_paths(opt_state["ef"])
+    qmax = WIRE_QMAX["int8"]
+    out = {}
+    for path, g in tree_paths(grads).items():
+        corrected = ef[path].add_(g)
+        lo, hi = torch.aminmax(corrected)
+        scale = torch.clamp_min(torch.maximum(-lo, hi), QUANT_EPS) * float(np.float32(1.0 / qmax))
+        q = (corrected / scale).round_().clamp_(-qmax, qmax).to(torch.int8)
+        deq = g if g.dtype == torch.float32 else torch.empty(g.shape, dtype=torch.float32, device=g.device)
+        deq.copy_(q).mul_(scale)
+        del q
+        corrected.sub_(deq)
+        out[path] = deq
+    return tree_from_paths(out), opt_state

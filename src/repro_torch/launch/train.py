@@ -16,8 +16,11 @@ Runs on the GPU unless ``--device cpu`` is given; a CUDA request without a
 card exits with an error. The reshard wire is lossless here, as in the JAX
 launcher; the compressed wire is the controller's ``wire_policy``.
 
-Not ported, and refused with a message: pipeline stages (``--pp`` > 1) and
-int8 gradient compression (``--compression int8_ef``). An SSM model trains
+``--pp 2 --microbatches 4`` trains through pipeline stages (at least ``pp``
+microbatches are run) and ``--resize 5:dp1,pp2,tp2`` resizes into them;
+``--compression int8_ef`` sends the gradients through the int8 round trip
+with error feedback (not with ``--pp`` > 1, which refuses it, as does an
+enc-dec model). An SSM model trains
 on the card through the SSD forward and backward kernels, at full width
 for example
 
@@ -80,14 +83,6 @@ def main() -> None:
     ap.add_argument("--out", default=None, help="write run record JSON here")
     args = ap.parse_args()
 
-    unported = {
-        "--pp > 1 (pipeline stages, ROADMAP queue 1 item 5)": args.pp > 1,
-        "--compression int8_ef (gradient compression, ROADMAP queue 1 item 5)": args.compression != "none",
-    }
-    refused = [what for what, given in unported.items() if given]
-    if refused:
-        ap.error("not ported yet: " + "; ".join(refused))
-
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ParallelConfig
     from repro_torch.core.controller import LiveRController
@@ -100,15 +95,19 @@ def main() -> None:
     parallel = ParallelConfig(dp=args.dp, pp=args.pp, tp=args.tp)
     opt = AdamWConfig(learning_rate=args.lr, warmup_steps=max(args.steps // 10, 1), total_steps=args.steps)
     print(f"[train] {cfg.name} {parallel.describe()} seq={args.seq} batch={args.batch} "
-          f"steps={args.steps} device={args.device}", flush=True)
+          f"steps={args.steps} compression={args.compression} device={args.device}", flush=True)
     data = None
     if cfg.family == "encdec":
         data = SyntheticFrames(cfg.vocab_size, args.seq, args.batch, cfg.d_model)
-    ctrl = LiveRController(
-        cfg, parallel, opt, seq_len=args.seq, global_batch=args.batch, data=data, device=args.device,
-        ckpt_dir=args.ckpt_dir, ckpt_interval=args.ckpt_interval,
-        microbatches=args.microbatches, overlap=args.overlap, stream_k=args.stream_k,
-    )
+    try:
+        ctrl = LiveRController(
+            cfg, parallel, opt, seq_len=args.seq, global_batch=args.batch, data=data, device=args.device,
+            ckpt_dir=args.ckpt_dir, ckpt_interval=args.ckpt_interval,
+            microbatches=args.microbatches, compression=args.compression, overlap=args.overlap,
+            stream_k=args.stream_k,
+        )
+    except ValueError as e:  # a world the pipeline refuses (enc-dec, int8_ef)
+        ap.error(str(e))
     resizes = sorted((int(s.split(":")[0]), parse_parallel(s.split(":")[1])) for s in args.resize)
     failstop = None
     if args.failstop:

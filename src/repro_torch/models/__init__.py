@@ -5,6 +5,7 @@ from repro_torch.models.model import (
     init_cache,
     init_params,
     prefill,
+    prefill_chunked,
 )
 
 __all__ = [
@@ -14,4 +15,5 @@ __all__ = [
     "init_cache",
     "init_params",
     "prefill",
+    "prefill_chunked",
 ]

@@ -5,7 +5,9 @@ package. Prefill routes the attention product through
 ``ops.flash_attention`` (the CUDA kernel on the card, the plain version on
 the CPU); ``use_kernel=False`` takes the written-out ``_sdpa`` instead.
 Cross attention (enc-dec) stays plain torch, ``_sdpa``, as the JAX package
-computes it in jnp outside any kernel. Chunked prefill is not ported yet.
+computes it in jnp outside any kernel. Chunked prefill (:func:`attn_chunk`)
+attends a chunk's queries through the same kernel, right-aligned against
+the cached keys.
 """
 
 from __future__ import annotations
@@ -155,6 +157,57 @@ def cross_attn_kv(params: dict, cfg: ModelConfig, enc_out: torch.Tensor):
     k = (enc_out @ params["wk"].to(enc_out.dtype)).reshape(b, t, kh, hd)
     v = (enc_out @ params["wv"].to(enc_out.dtype)).reshape(b, t, kh, hd)
     return k, v
+
+
+def attn_chunk(
+    params: dict,
+    cfg: ModelConfig,
+    x: torch.Tensor,  # (b, C, d): a chunk of the prompt
+    cache_k: torch.Tensor,  # (b, T, kh, hd)
+    cache_v: torch.Tensor,
+    pos0: int,  # absolute position of the chunk's first token
+):
+    """Chunked-prefill attention: write the chunk's K/V into the cache (in
+    place) and attend its queries against everything cached so far.
+    Returns (out, cache_k, cache_v).
+
+    The keys are contiguous absolute positions ending at the chunk's last
+    token, so the queries are right-aligned at ``t - C`` and
+    ``ops.flash_attention``'s causal and window masks are the JAX
+    package's masks by absolute position. Without a ring they are the
+    cache's first ``pos0 + C`` slots after the write. A sliding-window
+    ring that the chunk would wrap (``T < pos0 + C``) would lose entries
+    the chunk's early queries still see, so its pre-write contents are
+    taken in absolute order (positions ``max(0, pos0 - T) .. pos0 - 1``),
+    the fresh chunk appended in the compute dtype, as the JAX package
+    appends it, and only then the write committed at ``pos0 % T``."""
+    b, C, _ = x.shape
+    h, hd = cfg.num_heads, cfg.resolved_head_dim
+    T = cache_k.shape[1]
+    positions = (pos0 + torch.arange(C, dtype=torch.int32, device=x.device)).expand(b, C)
+    q, k_new, v_new = _project_qkv(params, cfg, x, positions)
+    ring = bool(cfg.sliding_window) and T < pos0 + C
+    slot = pos0 % T if ring else pos0
+    if ring and not (C <= T and T % C == 0):
+        raise ValueError(f"a chunk of {C} through a ring of {T} slots needs C <= T and T % C == 0")
+    if slot + C > T:
+        raise ValueError(f"a chunk of {C} at slot {slot} leaves the cache's {T} slots")
+    if ring:
+        idx = torch.arange(pos0 - min(pos0, T), pos0, device=x.device) % T
+        k = torch.cat([cache_k.index_select(1, idx).to(q.dtype), k_new], dim=1)
+        v = torch.cat([cache_v.index_select(1, idx).to(q.dtype), v_new], dim=1)
+    cache_k[:, slot : slot + C] = k_new.to(cache_k.dtype)
+    cache_v[:, slot : slot + C] = v_new.to(cache_v.dtype)
+    if not ring:
+        # for b > 1 a slice of the slots is not contiguous: the kernel's
+        # input is a copy
+        k = cache_k[:, : pos0 + C].to(q.dtype)
+        v = cache_v[:, : pos0 + C].to(q.dtype)
+    out = ops.flash_attention(
+        q.contiguous(), k.contiguous(), v.contiguous(), causal=True, window=cfg.sliding_window, scale=hd**-0.5
+    )
+    out = out.reshape(b, C, h * hd)
+    return out @ params["wo"].to(x.dtype), cache_k, cache_v
 
 
 # ---------------------------------------------------------------------------

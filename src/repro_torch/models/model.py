@@ -181,16 +181,20 @@ def forward(cfg: ModelConfig, params: dict, batch: dict, remat: str = "full"):
     return logits, aux
 
 
-def loss_fn(cfg: ModelConfig, params: dict, batch: dict, remat: str = "full", aux_weight: float = 0.01):
-    """Next-token cross-entropy in float32 over ``logits[:, :-1]``, plus
-    ``aux_weight`` times the MoE aux loss. Returns (loss, {"nll", "moe_aux"})."""
-    logits, aux = forward(cfg, params, batch, remat=remat)
-    tokens = batch["tokens"]
+def next_token_nll(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """Mean next-token cross-entropy in float32 over ``logits[:, :-1]``."""
     logits = logits[:, :-1].to(torch.float32)
     targets = tokens[:, 1:].long()
     logz = torch.logsumexp(logits, dim=-1)
     tgt_logit = torch.take_along_dim(logits, targets[..., None], dim=-1)[..., 0]
-    nll = (logz - tgt_logit).mean()
+    return (logz - tgt_logit).mean()
+
+
+def loss_fn(cfg: ModelConfig, params: dict, batch: dict, remat: str = "full", aux_weight: float = 0.01):
+    """Next-token cross-entropy in float32 over ``logits[:, :-1]``, plus
+    ``aux_weight`` times the MoE aux loss. Returns (loss, {"nll", "moe_aux"})."""
+    logits, aux = forward(cfg, params, batch, remat=remat)
+    nll = next_token_nll(logits, batch["tokens"])
     loss = nll + aux_weight * aux
     return loss, {"nll": nll, "moe_aux": aux}
 
@@ -230,6 +234,33 @@ def prefill(cfg: ModelConfig, params: dict, batch: dict, cache_dtype=torch.bfloa
     logits = L.lm_head_apply(params.get("lm_head"), params["embed"], x)
     cache = kvcache.cache_from_prefill(cfg, collected, cache_dtype, max_seq=max_seq)
     return logits, cache, cross_kv
+
+
+def prefill_chunked(
+    cfg: ModelConfig, params: dict, batch: dict, chunk_len: int, max_seq: int = 0, cache_dtype=torch.bfloat16
+):
+    """Chunked prefill of a decoder-only model: the prompt ``chunk_len``
+    tokens at a time against the growing KV and SSD cache
+    (``transformer.stack_chunk``), which bounds the activations to
+    O(chunk x context) instead of whole prefill's O(s^2) scores. The
+    prompt length must be a multiple of ``chunk_len``; the cache is sized
+    for a horizon of ``max(max_seq, s)``, in ``cache_dtype`` (the port's
+    default, as :func:`prefill`; the JAX package defaults to float32).
+    Returns (last_logits (b,1,V), cache), the contract of :func:`prefill`
+    without the cross KV."""
+    if cfg.family == "encdec":
+        raise ValueError(f"{cfg.name}: chunked prefill is decoder-only (an enc-dec model has cross attention)")
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    if chunk_len <= 0 or s % chunk_len:
+        raise ValueError(f"prompt length {s} is not a multiple of chunk_len={chunk_len}")
+    adt = _dtype(cfg.dtype)
+    cache = kvcache.init_cache(cfg, b, max(max_seq, s), cache_dtype, tokens.device)
+    for pos0 in range(0, s, chunk_len):
+        x = L.embed_apply(params["embed"], tokens[:, pos0 : pos0 + chunk_len], adt)
+        x, cache = T.stack_chunk(params["blocks"], cfg, x, cache, pos0)
+    h = L.rmsnorm_apply(params["final_norm"], x[:, -1:])
+    return L.lm_head_apply(params.get("lm_head"), params["embed"], h), cache
 
 
 def _build_cross_kv(cfg: ModelConfig, params: dict, enc_out: torch.Tensor, dtype) -> dict:

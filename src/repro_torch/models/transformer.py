@@ -10,6 +10,8 @@ MoE MLP (``models/moe.py``: mixtral, llama4-scout, jamba's every second
 layer) or none (mamba2-2.7b at full width has ``d_ff = 0``), and an enc-dec
 decoder's blocks with cross attention (``cross=True``: ``ln_x`` and
 ``cross`` after the mixer); all train on the card and on the CPU.
+:func:`stack_chunk` runs one prompt chunk of a decoder-only model against
+the cache (chunked prefill).
 """
 
 from __future__ import annotations
@@ -224,6 +226,31 @@ def stack_prefill(params: dict, cfg: ModelConfig, x: torch.Tensor, positions: to
         pos: {name: torch.stack(leaves) for name, leaves in by_leaf.items()} for pos, by_leaf in per_pos.items()
     }
     return x, collected
+
+
+def stack_chunk(params: dict, cfg: ModelConfig, x: torch.Tensor, cache: dict, pos0: int):
+    """One prompt chunk (b, C, d) at absolute position ``pos0`` through the
+    stack of a decoder-only model, against ``cache``, which is updated in
+    place and returned: an attention position writes the chunk's K/V and
+    attends to the cache (``attention.attn_chunk``), an SSM position runs
+    the scan from its carried state and stores the state after the chunk.
+    Activations are O(C x context) instead of whole prefill's O(s^2)."""
+    prog = block_program(cfg)
+    for i in range(n_periods(cfg)):
+        period = _period(params, i)
+        period_cache = _period(cache, i)
+        for j, (mixer, mlp) in enumerate(prog):
+            bp = period[f"pos{j}"]
+            c = period_cache[f"pos{j}"]
+            h = rmsnorm_apply(bp["ln1"], x)
+            if mixer == "attn":
+                out, _, _ = attn.attn_chunk(bp["mixer"], cfg, h, c["k"], c["v"], pos0)
+            else:
+                out, state = ssm_mod.ssm_forward(bp["mixer"], cfg, h, return_state=True, init_state=c)
+                c["ssd"].copy_(state["ssd"])
+                c["conv"].copy_(state["conv"])
+            x = _mlp(bp, cfg, mlp, x + out)
+    return x, cache
 
 
 def stack_decode(params: dict, cfg: ModelConfig, x: torch.Tensor, cache: dict, pos: int, cross_kv=None):

@@ -3,7 +3,10 @@ package's: ``SyntheticLM`` (a copy) gives the same tokens; ``cosine_lr``,
 ``global_norm`` and the clip give the same float32 values; one train step
 of reduced qwen3-1.7b (and one with ``microbatches=2``) from the JAX
 package's weights leaves the same params, ``mu``, ``nu`` and ``count`` as
-``repro.distribution.step.make_train_step``. The copies of the generation
+``repro.distribution.step.make_train_step``; so do two steps under
+``compression="int8_ef"`` (whose int8 round trip with error feedback is
+bitwise the JAX function's, ties at k + 0.5 included), and the
+``scan_loss`` accumulation gives the JAX package's loss and gradients. The copies of the generation
 machine and the goodput ledger answer as their originals. Inputs come from
 numpy seeds; TF32 is off."""
 
@@ -19,7 +22,11 @@ from repro.configs import get_config as jax_get_config
 from repro.core import downtime as JD
 from repro.core import generations as JG
 from repro.data import SyntheticLM as JaxSyntheticLM
+from repro.distribution.step import make_grad_fn as jax_make_grad_fn
 from repro.distribution.step import make_train_step as jax_make_train_step
+from repro.kernels.reshard_quant import compress_decompress_with_ef as jax_compress_decompress_with_ef
+from repro.kernels.reshard_quant import dequantize_int8 as jax_dequantize_int8
+from repro.kernels.reshard_quant import quantize_int8 as jax_quantize_int8
 from repro.models import model as JM
 from repro.optim import AdamWConfig as JaxAdamWConfig
 from repro.optim import adamw_init as jax_adamw_init
@@ -31,7 +38,8 @@ from repro_torch.configs import get_config
 from repro_torch.core import downtime as D
 from repro_torch.core import generations as G
 from repro_torch.data import SyntheticLM
-from repro_torch.distribution.step import make_grad_fn, make_train_step, make_update_fn
+from repro_torch.distribution.step import init_opt_state, make_grad_fn, make_train_step, make_update_fn
+from repro_torch.kernels.reshard_quant import compress_decompress_with_ef, dequantize_int8, quantize_int8
 from repro_torch.models.convert import params_from_jax
 from repro_torch.optim import AdamWConfig, adamw_init, adamw_update, cosine_lr, global_norm, optimizer_logical_axes
 from repro_torch.utils.pytree import tree_from_paths, tree_paths
@@ -188,8 +196,125 @@ def test_microbatched_grads_are_the_mean_of_the_halves(reduced):
 
 
 def test_gradient_compression_is_not_ported():
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        make_update_fn(AdamWConfig(), compression="int8_ef")
+    """(Named when int8_ef was refused.) ``compression="int8_ef"`` now
+    updates: the gradients take the int8 round trip with error feedback
+    before AdamW, the residuals land in ``opt_state["ef"]`` in place, and
+    an unknown compression is refused."""
+    params = {"w": torch.ones(4, 3)}
+    opt = init_opt_state(params, "int8_ef")
+    ef = opt["ef"]["w"]
+    assert sorted(opt) == ["count", "ef", "mu", "nu"] and ef.dtype == torch.float32 and not ef.any()
+    grads = {"w": torch.linspace(-1, 1, 12).reshape(4, 3)}
+    params, opt, m = make_update_fn(AdamWConfig(warmup_steps=0), compression="int8_ef")(grads, opt, params)
+    assert opt["ef"]["w"] is ef and ef.any() and int(opt["count"]) == 1
+    deq, _ = compress_decompress_with_ef({"w": torch.linspace(-1, 1, 12).reshape(4, 3)},
+                                         {"ef": {"w": torch.zeros(4, 3)}})
+    torch.testing.assert_close(ef, torch.linspace(-1, 1, 12).reshape(4, 3) - deq["w"], rtol=0, atol=0)
+    with pytest.raises(ValueError, match="compression"):
+        make_update_fn(AdamWConfig(), compression="int4")
+
+
+def _ef_leaves(rng):
+    """Gradient leaves and residuals: random leaves of mixed dtypes, and
+    one whose absmax of 127 makes the scale exactly 1, so that its entries
+    at k + 0.5 are ties (rounded half to even)."""
+    ties = np.array([127.0, 2.5, -3.5, 0.5, -0.5, 1.5, 126.5, -126.5], np.float32)
+    grads = {"a": {"w": rng.normal(size=(16, 8)).astype(np.float32)}, "b": rng.normal(size=(33,)).astype(np.float32),
+             "t": ties}
+    ef = {"a": {"w": (1e-3 * rng.normal(size=(16, 8))).astype(np.float32)},
+          "b": (1e-3 * rng.normal(size=(33,))).astype(np.float32), "t": np.zeros_like(ties)}
+    return grads, ef
+
+
+def test_compress_decompress_with_ef_is_bitwise_jax():
+    rng = np.random.default_rng(5)
+    grads, ef = _ef_leaves(rng)
+    t = lambda tree: tree_from_paths({p: torch.from_numpy(x.copy()) for p, x in tree_paths(tree).items()})  # noqa: E731
+    jg, jo = jax_compress_decompress_with_ef(grads, {"ef": ef})
+    g, o = compress_decompress_with_ef(t(grads), {"ef": t(ef)})
+    q, scale = quantize_int8(torch.from_numpy(grads["t"]))
+    assert float(scale) == 1.0 and q.tolist() == [127, 2, -4, 0, 0, 2, 126, -126]  # half to even
+    jq, jscale = jax_quantize_int8(jnp.asarray(grads["t"]))
+    assert np.array_equal(q.numpy(), np.asarray(jq)) and float(jscale) == float(scale)
+    for coll, got, want in (("grads", g, jg), ("ef", o["ef"], jo["ef"])):
+        for path, x in jax_tree_paths(want).items():
+            y = tree_paths(got)[path]
+            assert y.dtype == torch.float32
+            assert np.array_equal(y.numpy().view(np.uint32), np.asarray(x).view(np.uint32)), (coll, path)
+    torch.testing.assert_close(dequantize_int8(q, scale), torch.from_numpy(np.array(jax_dequantize_int8(jq, jscale))),
+                               rtol=0, atol=0)
+
+
+def test_two_int8_ef_train_steps_equal_jax(reduced):
+    """Two steps under ``compression="int8_ef"``. The JAX package's train
+    step loses ``ef`` in its update (``adamw_update`` rebuilds the state
+    from mu, nu and count), so its second step would raise; the JAX side
+    here is its step's own parts, the gradients, ``compress_decompress_with_ef``
+    and ``adamw_update``, with ``ef`` carried to the next step, and its
+    first step is the JAX ``make_train_step``'s."""
+    jcfg, cfg, jparams, flat, tokens = reduced
+    kw = dict(learning_rate=1e-3, warmup_steps=1, total_steps=10)
+    params = params_from_jax(flat, cfg, "cpu")
+    opt = init_opt_state(params, "int8_ef")
+    step = make_train_step(cfg, AdamWConfig(**kw), compression="int8_ef")
+    jgrad = jax_make_grad_fn(jcfg)
+
+    @jax.jit
+    def jstep(p, o, batch):
+        loss, _, g = jgrad(p, batch)
+        g, o = jax_compress_decompress_with_ef(g, o)
+        p, new, m = jax_adamw_update(JaxAdamWConfig(**kw), g, o, p)
+        return p, {**new, "ef": o["ef"]}, {"loss": loss, **m}
+
+    jo = jax_adamw_init(jparams)
+    jo["ef"] = jax.tree_util.tree_map(lambda p: jnp.zeros(p.shape, jnp.float32), jparams)
+    whole = jax.jit(jax_make_train_step(jcfg, JaxAdamWConfig(**kw), compression="int8_ef"))
+    wp, wo, _ = whole(jparams, jo, {"tokens": jnp.asarray(tokens)})
+    assert "ef" not in wo
+    jp = jparams
+    for i in range(2):
+        batch = np.roll(tokens, i, axis=0)
+        params, opt, m = step(params, opt, {"tokens": torch.from_numpy(batch).long()})
+        jp, jo, jm = jstep(jp, jo, {"tokens": jnp.asarray(batch)})
+        np.testing.assert_allclose(float(m["loss"]), float(jm["loss"]), rtol=LOSS_TOL)
+        if i == 0:
+            for path, x in jax_tree_paths(wp).items():
+                assert np.array_equal(np.asarray(x), np.asarray(jax_tree_paths(jp)[path])), path
+    for path, x in jax_tree_paths({"params": jp, "mu": jo["mu"], "nu": jo["nu"], "ef": jo["ef"]}).items():
+        coll, rest = path.split("/", 1)
+        got = tree_paths(params if coll == "params" else opt[coll])[rest].numpy()
+        want = np.asarray(x)
+        diff = np.abs(got - want)
+        if coll == "params":
+            assert diff.max() <= 2 * kw["learning_rate"], (path, diff.max())
+            assert (diff > STEP_TOL).mean() <= STRAY_SHARE, (path, (diff > STEP_TOL).mean())
+        elif coll == "ef":
+            # a residual is at most half a quantum (max|g| / 254), so the
+            # gradients' ~1e-6 relative differences are ~3e-4 of it; where
+            # they put an entry across a rounding boundary it moves by one
+            # quantum: every entry within 2 max|ef|, all but a few in 10^4
+            # to 1e-2 of it
+            assert diff.max() <= 2 * np.abs(want).max(), path
+            assert (diff > 1e-2 * np.abs(want).max()).mean() <= STRAY_SHARE, path
+        else:
+            assert (diff > 1e-4 * np.abs(want).max() + 1e-12).mean() <= STRAY_SHARE, path
+
+
+def test_scan_loss_equals_jax(reduced):
+    jcfg, cfg, jparams, flat, tokens = reduced
+    params = params_from_jax(flat, cfg, "cpu")
+    loss, metrics, grads = make_grad_fn(cfg, microbatches=2, grad_accum="scan_loss")(
+        params, {"tokens": torch.from_numpy(tokens).long()}
+    )
+    jloss, _, jgrads = jax.jit(jax_make_grad_fn(jcfg, 2, grad_accum="scan_loss"))(jparams, {"tokens": jnp.asarray(tokens)})
+    assert metrics == {}
+    np.testing.assert_allclose(float(loss), float(jloss), rtol=LOSS_TOL)
+    for path, x in jax_tree_paths(jgrads).items():
+        want = np.asarray(x)
+        np.testing.assert_allclose(tree_paths(grads)[path].numpy(), want, rtol=0, atol=2e-5 * np.abs(want).max(),
+                                   err_msg=path)
+    with pytest.raises(ValueError, match="grad_accum"):
+        make_grad_fn(cfg, 2, grad_accum="scan")
 
 
 # ---------------------------------------------------------------------------

@@ -398,9 +398,11 @@ def test_cancel_and_the_unported_verbs():
     ctrl.checkpoint_now()
     rec = ctrl.fail_stop_recover(configs.ParallelConfig(dp=1, tp=2))
     assert (rec.mode, ctrl.step, ctrl.world.parallel) == ("peer_recover", 3, configs.ParallelConfig(dp=1, tp=2))
-    with pytest.raises(NotImplementedError, match="item 5"):
-        ctrl.request_resize(configs.ParallelConfig(pp=2, tp=2))
-        ctrl.wait_shadow_ready(60)
+    # pipeline stages are ported: a resize into pp commits
+    ctrl.request_resize(configs.ParallelConfig(pp=2, tp=2))
+    ctrl.wait_shadow_ready(60)
+    ctrl.train_steps(2)
+    assert ctrl.world.parallel == configs.ParallelConfig(pp=2, tp=2) and ctrl.records[-1].executed_bytes > 0
     if not torch.cuda.is_available():  # the entry point runs on the card unless asked not to
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             LiveRController(configs.get_config("qwen3-1.7b").reduced(), configs.ParallelConfig(), AdamWConfig(), 8, 2)
@@ -431,9 +433,20 @@ def test_train_cli_resizes_on_cpu(tmp_path):
 
 @pytest.mark.parametrize("flags,why", [(("--pp", "2"), "pipeline stages"),
                                        (("--compression", "int8_ef"), "gradient compression")])
-def test_train_cli_refuses_what_is_not_ported(flags, why):
-    res = _train_cli("--device", "cpu", *flags)
-    assert res.returncode != 0 and why in res.stderr and "[train]" not in res.stdout
+def test_train_cli_refuses_what_is_not_ported(flags, why, tmp_path):
+    """(Named when both were refused.) The launcher now trains with
+    pipeline stages, resized into a deeper pipeline, and with int8 gradient
+    compression, on the CPU."""
+    out = tmp_path / "run.json"
+    pipeline = flags[0] == "--pp"
+    resize, dst = ("3:dp1,pp4,tp1", "dp1xpp4xtp1") if pipeline else ("3:dp1,tp4", "dp1xpp1xtp4")
+    res = _train_cli("--device", "cpu", "--steps", "6", *flags, "--resize", resize, "--out", str(out))
+    assert res.returncode == 0, (why, res.stderr)
+    assert "[switch]" in res.stdout and "reconfigs=1" in res.stdout
+    assert pipeline or "compression=int8_ef" in res.stdout
+    rec = json.loads(out.read_text())
+    assert len(rec["losses"]) == 6 and all(np.isfinite(rec["losses"]))
+    assert [r["dst"] for r in rec["reconfigs"]] == [dst]
 
 
 def test_train_cli_refuses_cuda_without_a_card():
