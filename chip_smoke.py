@@ -271,7 +271,12 @@ non-zero without one. Phases, each printing one line or more:
 36. jamba-v0.1-52b at full width and one period, 8 of its 32 layers (1
    attention, 7 SSD, 4 MoE MLPs of 16 experts top-2 and 4 dense; 13.27 B
    params): served as mixtral in 33, the first attention and the first SSD
-   layer held against their plain versions.
+   layer held against their plain versions; then llama4-scout-17b-a16e the
+   same way at full width and 8 of its 48 layers (16 experts top-1 and a
+   shared expert at d_ff 8192, d_model 5120, 40 q / 8 kv heads of 128,
+   vocab 202048; 19.69 B params, 39.37 GB in bf16). Each served world's
+   tensors (params, prompts) equal, leaf by leaf, the dry run's per-chip
+   argument bytes on a one-card mesh.
 37. chunked prefill (``models.model.prefill_chunked``), run after 23:
    qwen3-1.7b and mamba2-2.7b at full width, batch 8 x 512 in chunks of
    128 (bf16 serving weights), their last logits against whole prefill's
@@ -310,6 +315,26 @@ non-zero without one. Phases, each printing one line or more:
    through the commit as they are (the same storage), and their digests
    at the commit's step and after the run equal a control's never
    resized, as do the losses; the step time and the peak.
+40. the dry run (``launch/dryrun.py``: the step executed once on the meta
+   device under ``roofline/counting.py``) of qwen3-1.7b's own worlds on a
+   one-card mesh, run right after 39: training at 4 x 1024 (fp32 params,
+   bf16 compute, remat) and prefill at 8 x 512 (bf16 weights). Each world's
+   tensors (phase 13's controller's, phase 5's served weights and prompts,
+   and the same worlds rebuilt here) equal the predicted argument bytes
+   leaf by leaf (asserted); the flash launches a step counted on meta equal
+   those on the card; the predicted peak (arguments and the step's own live
+   bytes) against ``max_memory_allocated`` over 4 steps (prefills) of the
+   rebuilt world and against phase 13's peak, ratios printed; the compute
+   and memory terms against the measured step and prefill seconds (no
+   limit on times). Then the sweep of qwen3-1.7b's cells on both
+   production meshes, in-process, one line a cell (arguments a chip and
+   whether they fit in 80 GB, the terms, the bottleneck);
+41. the torch examples, run last, each a subprocess on the card with a time
+   limit, the three at once: ``examples/quickstart_torch.py`` (reduced qwen3, 40 steps, exits
+   non-zero unless the loss drops by more than 0.5 nats),
+   ``examples/reshard_demo_torch.py`` (the Fig. 5 and mixed 3D plans
+   through the live path, bit-exact) and ``examples/fleet_train_torch.py``
+   (the live job on the card's rank pool; every event committed).
 The second-to-last line is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.
 
@@ -333,7 +358,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.configs.base import ParallelConfig  # noqa: E402
+from repro_torch.configs.base import ParallelConfig, ShapeConfig  # noqa: E402
 from repro_torch.core.events import ResizeEvent  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
@@ -342,8 +367,10 @@ from repro_torch.kernels import reshard_pack as rp  # noqa: E402
 from repro_torch.kernels import reshard_quant as rq  # noqa: E402
 from repro_torch.kernels import rmsnorm as rms_k  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd_k  # noqa: E402
+from repro_torch.kernels import work  # noqa: E402
 from repro_torch.kernels.ref import flash_attention_ref  # noqa: E402
 from repro_torch.launch.mesh import HBM_BW as HBM_BYTES_PER_S  # noqa: E402
+from repro_torch.launch.mesh import MeshSpec  # noqa: E402
 from repro_torch.launch.mesh import PEAK_FLOPS_BF16 as BF16_FLOP_PER_S  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.serve import controller as serve_controller  # noqa: E402
@@ -415,16 +442,6 @@ def kernel_vs_plain(q, k, v, route=None, **kw) -> float:
     assert out.dtype == q.dtype and out.shape == q.shape
     assert torch.isfinite(out.float()).all(), "kernel output not finite"
     return (out.float() - want.float()).abs().max().item()
-
-
-def attended_pairs(s: int, t: int, causal: bool, window: int) -> int:
-    """(query, key) pairs the mask lets through for these sizes."""
-    qpos = torch.arange(s)[:, None] + (t - s)
-    kpos = torch.arange(t)[None, :]
-    mask = kpos <= qpos if causal else torch.ones(s, t, dtype=torch.bool)
-    if window > 0:
-        mask &= kpos > qpos - window
-    return int(mask.sum())
 
 
 def median_ms(fn, reps: int = 30, warmup: int = 5) -> float:
@@ -597,6 +614,11 @@ def phase_serve() -> tuple[int, float]:
     assert (logits[:, -1].argmax(-1).cpu().numpy() == toks[:, 0]).all()
     log("serve", f"full-width prefill logits {tuple(logits.shape)} finite; first tokens match; "
                  f"second run identical")
+    # the serving world's own tensors (the bits serve_once draws), for the
+    # dry run's prediction (phase 40)
+    CARD_WORLDS["prefill"] = {"leaves": leaf_bytes(params=params, batch=demo_batch(cfg, SERVE["batch"],
+                                                                                       SERVE["prompt_len"])),
+                              "prefill_s": out["prefill_s"], "peak_gb": peak_gb}
     phase_profile(cfg, params, logits, cache)
     del params, logits, cache
     torch.cuda.empty_cache()
@@ -789,8 +811,8 @@ def _fwd_times(shape) -> dict:
     # work around each call: ours, and every kernel of the library call
     on_device_ms = device_ms(lambda: fa.flash_attention_cuda(q, k, v, **kw), "fa_fwd_tc")
     library_device_ms = device_ms(library, "", per_call=True)
-    nbytes = sum(x.numel() * x.element_size() for x in (q, k, v, q))  # q, k, v in; o out
-    flops = 4 * d * b * h * attended_pairs(s, t, causal, window)  # QK^T and PV
+    # QK^T and PV over the attended pairs; q, k, v in, o out
+    flops, nbytes = work.flash_fwd_bound(b, s, t, h, kh, d, causal, window, q.element_size())
     bytes_ms, flops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOP_PER_S * 1e3
     bound_ms = max(bytes_ms, flops_ms)
     tflops = flops / kernel_ms / 1e9
@@ -1940,6 +1962,8 @@ def phase_train() -> tuple[dict, int, float]:
     C.rebuild_state = cut_checker(commits, lambda: ctrl, orig_rebuild)
     try:
         ctrl = LiveRController(cfg, ParallelConfig(dp=2, tp=2), opt, overlap="stream", wire_policy=WirePolicy(), **kw)
+        # the world's own tensors, for the dry run's prediction (phase 40)
+        CARD_WORLDS["train"] = {"leaves": leaf_bytes(params=ctrl.params, opt=ctrl.opt_state, batch=ctrl._batch())}
         _zero_counts()  # the training path's counts start here ...
         t_run = time.perf_counter()
         losses = ctrl.train_steps(TRAIN["before"])
@@ -2031,6 +2055,7 @@ def phase_train() -> tuple[dict, int, float]:
     log("train", f"step time on the card (host clock, steps without a commit; pre-copy rounds included): "
                  f"median {statistics.median(plain_steps):.4f} s over {len(plain_steps)} steps, "
                  f"{TRAIN['batch'] * TRAIN['seq'] / statistics.median(plain_steps):.0f} tokens/s")
+    CARD_WORLDS["train"].update(step_s=statistics.median(plain_steps), peak_gb=peak_gb)
     del ctrl
     torch.cuda.empty_cache()
 
@@ -2740,8 +2765,7 @@ def _bwd_times(shape) -> dict:
     library_device_ms = device_ms(library, "", per_call=True)
     # the least work: S again, dP, dV, dK, dQ (5 products of 2d FLOPs per
     # attended pair); q, k, v, o, dout and lse read, dq, dk, dv written
-    flops = 10 * d * b * h * attended_pairs(s, t, causal, window)
-    nbytes = sum(x.numel() * x.element_size() for x in (q, k, v, out, dout, lse, q, k, v))
+    flops, nbytes = work.flash_bwd_bound(b, s, t, h, kh, d, causal, window, q.element_size())
     bytes_ms, flops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOP_PER_S * 1e3
     bound_ms = max(bytes_ms, flops_ms)
     tflops = flops / kernel_ms / 1e9  # the 5 products' FLOPs: the kernel does 7
@@ -3089,19 +3113,10 @@ def phase_serve_ssm() -> tuple[int, float]:
 
 
 def ssd_tensor_core_flops(case, x_dtype) -> int:
-    """The TF32 tensor-core FLOPs the SSD kernel issues (mma.sync m16n8k8, 2048
-    FLOPs each): C.B^T once a block in 3 products (4 x 8 tiles, 16 k-steps);
-    a head's y = M.x over the k-steps at or below the diagonal (20 of the 32
-    k-step rows of its 4 m-tiles, 8 n-tiles) and S = x^T.(w o B) (4 x 16
-    tiles, 8 k-steps), each in 3 products, or 2 for a bf16 x (exact in TF32).
-    A block takes a group of heads, as many groups as one wave of two blocks
-    an SM holds (csrc/ssd_scan.cu)."""
-    b, s, h, p, n, chunk = case
-    bcs = b * (s // chunk)
-    groups = min(h, max(1, 2 * torch.cuda.get_device_properties(0).multi_processor_count // bcs))
-    groups = -(-h // -(-h // groups))
-    per_head = (20 * 8 + 4 * 16 * 8) * (2 if x_dtype == torch.bfloat16 else 3)
-    return 2048 * (bcs * groups * 4 * 8 * 16 * 3 + bcs * h * per_head)
+    """The TF32 tensor-core FLOPs the SSD kernel issues on this card
+    (``work.ssd_tensor_core_flops`` at its SM count)."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return work.ssd_tensor_core_flops(*case, x_dtype == torch.bfloat16, sms=sms)
 
 
 def phase_ssd_times(launches: int, err: float) -> dict:
@@ -3115,13 +3130,11 @@ def phase_ssd_times(launches: int, err: float) -> dict:
     kernel_ms = median_ms(lambda: ssd_k.ssd_intra_chunk_cuda(x, dt, cum, B, C, chunk))
     on_device_ms = device_ms(lambda: ssd_k.ssd_intra_chunk_cuda(x, dt, cum, B, C, chunk), "ssd_intra_chunk")
     plain_ms = median_ms(lambda: R.ssd_intra_chunk_ref(x, dt, cum, B, C, chunk))
-    nc = s // chunk
-    # each input read once, each output written once
-    nbytes = sum(t.numel() * t.element_size() for t in (x, dt, cum, B, C)) + 4 * (b * s * h * p + b * nc * h * p * n)
-    # the least f32 work: C.B^T and M.x over the causal half of each chunk
-    # (C.B^T once per batch row and chunk), and the chunk state over all of it
-    pairs = chunk * (chunk + 1) // 2
-    flops = b * nc * (2 * n * pairs + h * (2 * p * pairs + 2 * chunk * p * n))
+    # each input read once, each output written once; the least f32 work:
+    # C.B^T and M.x over the causal half of each chunk (C.B^T once per batch
+    # row and chunk), and the chunk state over all of it
+    nbytes = work.ssd_fwd_bytes(*SSD_SERVE_SHAPE, x.element_size())
+    flops = work.ssd_fwd_flops(*SSD_SERVE_SHAPE)
     tc_flops = ssd_tensor_core_flops(SSD_SERVE_SHAPE, x.dtype)
     bytes_ms, flops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOP_PER_S * 1e3
     tc_ms = tc_flops / TF32_FLOP_PER_S * 1e3
@@ -3167,7 +3180,7 @@ def phase_rms_times(err: float, rounds: int = 5) -> dict:
         on_device_ms = device_ms(kernel, "rmsnorm", per_call=lambda: rms_k.launches)
         two_reads_ms = device_ms(lambda: _rms_two_reads(x, sc), "rmsnorm", per_call=True)
         library_device_ms = device_ms(library, "", per_call=True)
-        nbytes = 2 * x.numel() * x.element_size() + sc.numel() * sc.element_size()
+        nbytes = work.rmsnorm_bytes(rows, d, x.element_size(), sc.element_size())
         bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
         name = str(dtype)[6:]
         body = "registers" if rms_k.body(d, x.element_size(), True) else "two_reads"
@@ -3363,36 +3376,15 @@ def phase_ssd_bwd_cases() -> float:
 
 
 def ssd_bwd_flops(case) -> int:
-    """The least f32 work of the backward: C.B^T over the causal half of a
-    chunk once a (batch row, chunk); a head's G = dy.x^T and M^T.dy over the
-    causal half, dS.B_s and dS^T.x_s over every step; D.B and D^T.C over the
-    causal half once a (batch row, chunk), D summed over the heads first
-    (linear in D, C and B the same for every head), as csrc/ssd_scan_bwd.cu
-    forms them (2 FLOPs a multiply-add)."""
-    b, s, h, p, n, chunk = case
-    pairs = chunk * (chunk + 1) // 2
-    return b * (s // chunk) * (2 * n * pairs + 4 * n * pairs + h * (4 * p * pairs + 4 * chunk * p * n))
+    """The least f32 work of the SSD backward (``work.ssd_bwd_flops``)."""
+    return work.ssd_bwd_flops(*case)
 
 
 def ssd_bwd_tensor_core_flops(case, x_dtype) -> int:
-    """The TF32 tensor-core FLOPs the SSD backward issues (mma.sync m16n8k8,
-    2048 FLOPs each), on the 16 x 16 blocks at or below the diagonal where
-    an operand is causal: once a block, C.B^T (10 blocks of 2 n-tiles, 16
-    k-steps) and D^T.C and D.B of D summed over its heads (20 m-tile k-steps
-    of 16 n-tiles each), 3 products each; a head's G = dy.x^T (10 blocks of
-    2 n-tiles, 8 k-steps) and x.dS (4 x 16 tiles, 8 k-steps), 3 products
-    each or 2 for a bf16 x (exact in TF32), B.dS^T (4 x 8 tiles, 16
-    k-steps) and M^T.dy (20 m-tile k-steps of 8 n-tiles), 3 products each.
-    A block takes a group of heads, as many groups as one wave of one block
-    an SM holds (csrc/ssd_scan_bwd.cu)."""
-    b, s, h, p, n, chunk = case
-    bcs = b * (s // chunk)
-    groups = min(h, max(1, torch.cuda.get_device_properties(0).multi_processor_count // bcs))
-    groups = -(-h // -(-h // groups))
-    x_passes = 2 if x_dtype == torch.bfloat16 else 3
-    per_block = (10 * 2 * 16 + 2 * 20 * 16) * 3
-    per_head = (10 * 2 * 8 + 4 * 16 * 8) * x_passes + (4 * 8 * 16 + 20 * 8) * 3
-    return 2048 * (bcs * groups * per_block + bcs * h * per_head)
+    """The TF32 tensor-core FLOPs the SSD backward issues on this card
+    (``work.ssd_bwd_tensor_core_flops`` at its SM count)."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return work.ssd_bwd_tensor_core_flops(*case, x_dtype == torch.bfloat16, sms=sms)
 
 
 def phase_ssd_bwd_times(launches: int, err: float) -> dict:
@@ -3412,9 +3404,8 @@ def phase_ssd_bwd_times(launches: int, err: float) -> dict:
     y, S = R.ssd_intra_chunk_ref(*ins, chunk)
     autograd_ms = median_ms(lambda: torch.autograd.grad((y, S), ins, (dy, dS), retain_graph=True))
     del y, S, ins
-    outs = kernel()
     # each input read once, each output written once
-    nbytes = sum(t.numel() * t.element_size() for t in (x, dt, cum, B, C, dy, dS, *outs))
+    nbytes = work.ssd_bwd_bytes(*SSD_TRAIN_SHAPE, x.element_size())
     flops = ssd_bwd_flops(SSD_TRAIN_SHAPE)
     bytes_ms, flops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOP_PER_S * 1e3
     # the card's fastest f32-accurate products are on the tensor cores, three
@@ -3897,11 +3888,12 @@ def log_routing(phase: str, routed: _routed, calls: dict, e: int) -> None:
 
 
 def phase_serve_moe(arch: str, layers: int = MOE_SERVE_LAYERS) -> tuple[dict, dict]:
-    """``arch`` (mixtral-8x7b or jamba-v0.1-52b) at full width and ``layers``
-    layers through ``serve_once``, batch 8, prompt 512, 32 greedy tokens;
-    the params drawn part by part in bf16. Holds the first attention layer's
-    q/k/v (and the first SSD layer's inputs) of the prefill against the
-    plain versions. Mixtral's weights then serve its chunked prefill (phase
+    """``arch`` (mixtral-8x7b, jamba-v0.1-52b or llama4-scout-17b-a16e) at
+    full width and ``layers`` layers through ``serve_once``, batch 8, prompt
+    512, 32 greedy tokens; the params drawn part by part in bf16. Holds the
+    first attention layer's q/k/v (and the first SSD layer's inputs) of the
+    prefill against the plain versions, and the served world's tensors to
+    the dry run's one-card argument bytes, leaf by leaf. Mixtral's weights then serve its chunked prefill (phase
     37). Returns the path's launches and the chunked path's (empty for
     jamba)."""
     import gc
@@ -3970,6 +3962,9 @@ def phase_serve_moe(arch: str, layers: int = MOE_SERVE_LAYERS) -> tuple[dict, di
     # the logits themselves: finite, of the expected shape, the first tokens;
     # then where the prefill's and a decode step's device time goes
     params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda", served_dtype=cfg.dtype)
+    check_world_bytes("serve-moe", f"{cfg.name} served world ({cfg.num_layers} layers, bf16)",
+                      leaf_bytes(params=params, batch=demo_batch(cfg, SERVE["batch"], SERVE["prompt_len"])), cfg,
+                      CARD_PREFILL, {"served_dtype": cfg.dtype, "max_seq": SERVE["prompt_len"] + SERVE["gen"]})
     with torch.inference_mode(), _routed() as routed:
         logits, cache, _ = M.prefill(cfg, params, demo_batch(cfg, SERVE["batch"], SERVE["prompt_len"]),
                                      max_seq=SERVE["prompt_len"] + 4)
@@ -4888,6 +4883,195 @@ def phase_train_int8_ef() -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Slice 18: the dry run on the meta device held against the card's own
+# worlds; the torch examples on the card
+# ---------------------------------------------------------------------------
+
+LLAMA4 = "llama4-scout-17b-a16e"
+CARD_MESH = MeshSpec(("data", "model"), (1, 1))  # a one-card world's mesh
+CARD_TRAIN = ShapeConfig("card_train", TRAIN["seq"], TRAIN["batch"], "train")  # phase 13's world
+CARD_TRAIN_OPTS = {"microbatches": 1}
+CARD_PREFILL = ShapeConfig("card_prefill", SERVE["prompt_len"], SERVE["batch"], "prefill")  # phase 5's
+CARD_PREFILL_OPTS = {"served_dtype": "bfloat16", "max_seq": SERVE["prompt_len"] + SERVE["gen"]}
+DRYRUN_REPS = 4  # steps (prefills) run in each rebuilt world; the first is not timed
+EXAMPLES = [("quickstart_torch.py",), ("reshard_demo_torch.py",), ("fleet_train_torch.py",)]
+EXAMPLE_TIMEOUT_S = 300
+# the tensors of the worlds phases 5 and 13 built, by leaf, and their own
+# measured times and peaks; phase 40 reads them
+CARD_WORLDS: dict = {}
+
+
+def leaf_bytes(**trees) -> dict[str, int]:
+    """``{"<tree>/<leaf path>": bytes}`` of every tensor of the trees."""
+    from repro_torch.utils.pytree import tree_paths
+
+    return {f"{name}/{path}": x.numel() * x.element_size()
+            for name, tree in trees.items() for path, x in tree_paths(tree).items()}
+
+
+def check_world_bytes(phase: str, what: str, leaves: dict, cfg, shape, opts: dict) -> int:
+    """Hold a world's tensors, leaf by leaf, to the dry run's per-chip
+    argument bytes on a one-card mesh; returns their sum."""
+    from repro_torch.launch import dryrun
+
+    _, _, predicted, _ = dryrun.build_cell(cfg, shape, CARD_MESH, opts)
+    differ = sorted((p, predicted.get(p), leaves.get(p)) for p in set(predicted) | set(leaves)
+                    if predicted.get(p) != leaves.get(p))
+    log(phase, f"{what}: the dry run's argument bytes {sum(predicted.values())} over {len(predicted)} leaves, "
+               f"the world's tensors {sum(leaves.values())} over {len(leaves)} leaves; equal leaf by leaf: "
+               f"{not differ}")
+    assert not differ, differ[:10]
+    return sum(predicted.values())
+
+
+def _timed_reps(fn) -> tuple[float, float]:
+    """(median seconds of ``fn`` over the reps after the first, the peak
+    memory in bytes over all of them)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(DRYRUN_REPS):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times[1:]), torch.cuda.max_memory_allocated()
+
+
+def _log_prediction(what: str, pred: dict, args: int, peak: int, seconds: float, phase_numbers: str) -> None:
+    predicted_peak = args + pred["memory_analysis"]["temp_size_in_bytes"]
+    log("dryrun", f"{what}: predicted peak {predicted_peak / 1e9:.3f} GB (arguments {args / 1e9:.3f} + the step's own "
+                  f"{pred['memory_analysis']['temp_size_in_bytes'] / 1e9:.3f}) against max_memory_allocated "
+                  f"{peak / 1e9:.3f} GB, ratio {predicted_peak / peak:.3f}; compute term {pred['compute_s']:.4f} s "
+                  f"({pred['hlo_flops'] / 1e12:.2f} TFLOP), memory term {pred['memory_s']:.4f} s "
+                  f"({pred['hlo_bytes'] / 1e9:.1f} GB), bottleneck {pred['bottleneck']}, against the measured "
+                  f"{seconds:.4f} s (terms / measured {max(pred['compute_s'], pred['memory_s']) / seconds:.3f}); "
+                  f"{phase_numbers}; counted in {pred['counts']['seconds']:.2f} s over {pred['counts']['ops']} ops")
+
+
+def phase_dryrun_card() -> dict:
+    """The dry run of qwen3-1.7b's own worlds on a one-card mesh (see the
+    module docstring, 40): the argument bytes against the worlds' tensors,
+    the peak and the roofline terms against the measured ones; then the
+    sweep of qwen3-1.7b's cells on both production meshes."""
+    import gc
+
+    from repro_torch.configs import SHAPES
+    from repro_torch.distribution.step import init_train_state, make_train_step
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import HBM_BYTES
+    from repro_torch.optim import AdamWConfig
+
+    t_phase = time.perf_counter()
+    cfg = get_config("qwen3-1.7b")
+    out = {}
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the training world: phase 13's controller's tensors, then the same world
+    # rebuilt here and stepped alone
+    pred = dryrun.dry_run(cfg, CARD_TRAIN, CARD_MESH, CARD_TRAIN_OPTS)
+    train = CARD_WORLDS["train"]
+    args = check_world_bytes("dryrun", "train world (phase 13's controller at its start)", train["leaves"], cfg,
+                             CARD_TRAIN, CARD_TRAIN_OPTS)
+    assert args == pred["memory_analysis"]["argument_size_in_bytes"]
+    params, opt_state = init_train_state(cfg, seed=0, device="cuda")
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (TRAIN["batch"], TRAIN["seq"]), device="cuda")}
+    check_world_bytes("dryrun", "train world rebuilt here", leaf_bytes(params=params, opt=opt_state, batch=batch),
+                      cfg, CARD_TRAIN, CARD_TRAIN_OPTS)
+    step = make_train_step(cfg, AdamWConfig(learning_rate=1e-4, warmup_steps=2, total_steps=1000))
+    _zero_counts()
+    step_s, peak = _timed_reps(lambda: step(params, opt_state, batch))
+    launched = {"flash_attention": fa.launches // DRYRUN_REPS, "flash_attention_bwd": fa.bwd_launches // DRYRUN_REPS}
+    counted = {k: v["launches"] for k, v in pred["counts"]["kernels"].items()}
+    log("dryrun", f"train world: kernel launches a step counted on meta {counted}, on the card {launched}")
+    assert counted == launched, (counted, launched)
+    _log_prediction(f"train world {TRAIN['batch']} x {TRAIN['seq']}", pred, args, peak, step_s,
+                    f"phase 13's own: peak {train['peak_gb']:.2f} GB (predicted / it "
+                    f"{(args + pred['memory_analysis']['temp_size_in_bytes']) / 1e9 / train['peak_gb']:.3f}), "
+                    f"median step {train['step_s']:.4f} s")
+    out["train"] = dict(args=args, peak=peak, step_s=step_s, pred=pred)
+    del params, opt_state, batch, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the serving world: phase 5's tensors, then rebuilt and prefilled alone
+    pred = dryrun.dry_run(cfg, CARD_PREFILL, CARD_MESH, CARD_PREFILL_OPTS)
+    serve = CARD_WORLDS["prefill"]
+    args = check_world_bytes("dryrun", "prefill world (phase 5's served weights and prompts)", serve["leaves"], cfg,
+                             CARD_PREFILL, CARD_PREFILL_OPTS)
+    assert args == pred["memory_analysis"]["argument_size_in_bytes"]
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda", served_dtype=cfg.dtype)
+    batch = demo_batch(cfg, SERVE["batch"], SERVE["prompt_len"])
+    check_world_bytes("dryrun", "prefill world rebuilt here", leaf_bytes(params=params, batch=batch), cfg,
+                      CARD_PREFILL, CARD_PREFILL_OPTS)
+
+    def prefill():
+        with torch.inference_mode():
+            M.prefill(cfg, params, batch, max_seq=CARD_PREFILL_OPTS["max_seq"])
+
+    _zero_counts()
+    prefill_s, peak = _timed_reps(prefill)
+    assert pred["counts"]["kernels"]["flash_attention"]["launches"] == fa.launches // DRYRUN_REPS == cfg.num_layers
+    _log_prediction(f"prefill world {SERVE['batch']} x {SERVE['prompt_len']}", pred, args, peak, prefill_s,
+                    f"phase 5's own: prefill_s {serve['prefill_s']:.4f} (its first prefill), serve_once peak "
+                    f"{serve['peak_gb']:.2f} GB")
+    out["prefill"] = dict(args=args, peak=peak, prefill_s=prefill_s, pred=pred)
+    del params, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the sweep of qwen3-1.7b's cells on both production meshes, in-process
+    for multi_pod in (False, True):
+        for shape_name in SHAPES:
+            r = dryrun._run_cell(cfg.name, shape_name, multi_pod)
+            assert r["status"] in ("ok", "skipped"), r
+            if r["status"] == "skipped":
+                log("dryrun", f"sweep {cfg.name} x {shape_name} ({r['mesh']}): skipped, {r['reason']}")
+                continue
+            arg = r["memory_analysis"]["argument_size_in_bytes"]
+            log("dryrun", f"sweep {cfg.name} x {shape_name} ({r['mesh']}, {r['chips']} H100s): arguments "
+                          f"{arg / 1e9:.3f} GB a chip ({'fit' if arg <= HBM_BYTES else 'do not fit'} in 80 GB), "
+                          f"{r['hlo_flops'] / 1e15:.3f} PFLOP and {r['hlo_bytes'] / 1e12:.3f} TB in all, compute "
+                          f"{r['compute_s']:.5f} s, memory {r['memory_s']:.5f} s, bottleneck {r['bottleneck']} (no "
+                          f"collective term), useful FLOPs {r['useful_flops_ratio']:.3f}; {r['total_s']:.1f} s")
+    log("dryrun", f"phase {time.perf_counter() - t_phase:.1f}s")
+    return out
+
+
+def phase_examples() -> None:
+    """The three torch examples (quickstart, reshard demo, fleet), each a
+    subprocess on the card with a time limit, the three at once (they are
+    small; the fleet example's live job waits on its trace's clock); a
+    non-zero exit fails."""
+    import gc
+    import os
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    root = Path(__file__).resolve().parent
+    t0 = time.perf_counter()
+    procs = [(script, subprocess.Popen([sys.executable, str(root / "examples" / script), *args], cwd=root,
+                                       env=dict(os.environ), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                       text=True))
+             for script, *args in EXAMPLES]
+    failed = []
+    for script, proc in procs:
+        try:
+            out, err = proc.communicate(timeout=max(1.0, EXAMPLE_TIMEOUT_S - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, err = proc.communicate()
+            err += f"\n{script}: killed at the {EXAMPLE_TIMEOUT_S} s limit"
+        lines = out.strip().splitlines()
+        log("examples", f"{script} on the card: exit {proc.returncode} by {time.perf_counter() - t0:.1f}s; "
+                        + " | ".join(x.strip() for x in lines[-3:]))
+        if proc.returncode != 0:
+            failed.append((script, err[-3000:]))
+    assert not failed, failed
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -4912,6 +5096,7 @@ def main() -> int:
     train_launches, train_steps, train_peak_gb = phase_train()
     check_train_launches(train_launches, train_steps)
     train_ef_launches = phase_train_int8_ef()  # no trace; see the module docstring, 39
+    phase_dryrun_card()  # see the module docstring, 40
     lifecycle_launches = phase_lifecycle(train_peak_gb)
     recovery_launches = phase_recovery(train_peak_gb)
     bwd = phase_bwd_times(train_launches["flash_attention_bwd"], bwd_err)
@@ -4944,11 +5129,13 @@ def main() -> int:
     elastic_mixtral_launches = phase_elastic_mixtral()
     train_mixtral_launches = phase_train_mixtral()
     serve_jamba_launches, _ = phase_serve_moe(JAMBA)
+    serve_llama4_launches, _ = phase_serve_moe(LLAMA4)
     schedule_launches = phase_schedule(train_peak_gb)  # see the module docstring, 23
     # the phases after it take no profiler trace
     chunked_qwen3_launches = phase_chunked_prefill("qwen3-1.7b")
     chunked_mamba2_launches = phase_chunked_prefill("mamba2-2.7b")
     train_pp_launches = phase_train_pipeline()
+    phase_examples()  # see the module docstring, 41
     # each record's launches: its counts on the main paths, each counted
     # from zero just before its run and read just after. No path runs
     # rmsnorm: as in the JAX package, the model's norms are plain and only
@@ -4960,7 +5147,8 @@ def main() -> int:
              "serve_seamless": {"flash_attention": seamless_launches}, "elastic_seamless": elastic_seamless_launches,
              "train_seamless": train_seamless_launches, "serve_mixtral": serve_mixtral_launches,
              "elastic_mixtral": elastic_mixtral_launches, "train_mixtral": train_mixtral_launches,
-             "serve_jamba": serve_jamba_launches, "chunked_qwen3": chunked_qwen3_launches,
+             "serve_jamba": serve_jamba_launches, "serve_llama4": serve_llama4_launches,
+             "chunked_qwen3": chunked_qwen3_launches,
              "chunked_mamba2": chunked_mamba2_launches, "chunked_mixtral": chunked_mixtral_launches,
              "train_pipeline": train_pp_launches, "train_int8_ef": train_ef_launches}
     records = [record, *rows, bwd, *quants, ssd, rms, ssd_bwd]

@@ -2,13 +2,15 @@
 
 Dispatch is by the tensors' device and nothing else: CUDA tensors go to the
 hand-written kernel, which runs or raises; CPU tensors go to the plain
-version in ``ref.py``. Mixed devices raise. There is no fallback from a
-failed kernel and no switch in the environment. Unlike the JAX package's
-``ops``, nothing here falls back for shapes: the TPU tiling gates (``C``
-a multiple of 128, block-aligned starts) are not the card's, and its
-kernels take any shape (the SSD kernel's chunk, head and state limits
-are the model's sizes; the ragged sequence is padded here, as in the JAX
-package).
+version in ``ref.py``; meta tensors go to the kernel's meta route in
+``meta.py`` (shapes and the kernel's recorded work, for the dry run) where
+the op has one, and raise where it has none. Mixed devices raise. There is
+no fallback from a failed kernel and no switch in the environment. Unlike
+the JAX package's ``ops``, nothing here falls back for shapes: the TPU
+tiling gates (``C`` a multiple of 128, block-aligned starts) are not the
+card's, and its kernels take any shape (the SSD kernel's chunk, head and
+state limits are the model's sizes; the ragged sequence is padded here,
+as in the JAX package).
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import meta as _meta
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import reshard_pack as _rp
 from repro_torch.kernels import reshard_quant as _rq
@@ -31,24 +34,28 @@ def _device_of(*tensors: torch.Tensor) -> torch.device:
     return devices.pop()
 
 
-def _dispatch(name: str, cuda_fn, ref_fn, tensors, *args):
+def _dispatch(name: str, cuda_fn, ref_fn, tensors, *args, meta_fn=None):
     device = _device_of(*tensors)
     if device.type == "cuda":
         return cuda_fn(*tensors, *args)
     if device.type == "cpu":
         return ref_fn(*tensors, *args)
+    if device.type == "meta" and meta_fn is not None:
+        return meta_fn(*tensors, *args)
     raise ValueError(f"{name}: no path for device {device}")
 
 
 def flash_attention(q, k, v, *, causal=True, window=0, scale=None):
     """Differentiable attention: on the card the kernel's autograd Function
     (forward kernel, backward kernel), on the CPU the plain version under
-    plain autograd."""
+    plain autograd, on meta the kernels' meta route."""
     device = _device_of(q, k, v)
     if device.type == "cuda":
         return _fa.flash_attention(q, k, v, causal=causal, window=window, scale=scale)
     if device.type == "cpu":
         return _ref.flash_attention_ref(q, k, v, causal=causal, window=window, scale=scale)
+    if device.type == "meta":
+        return _meta.flash_attention(q, k, v, causal=causal, window=window, scale=scale)
     raise ValueError(f"flash_attention: no path for device {device}")
 
 
@@ -61,7 +68,7 @@ def decode_attention(q, k, v, mask, scale):
 def rmsnorm(x, scale, eps: float = 1e-6):
     """Row RMSNorm over the last axis (no model code calls it, as in the
     JAX package: the model's norms are plain)."""
-    return _dispatch("rmsnorm", _rms.rmsnorm_cuda, _ref.rmsnorm_ref, (x, scale), eps)
+    return _dispatch("rmsnorm", _rms.rmsnorm_cuda, _ref.rmsnorm_ref, (x, scale), eps, meta_fn=_meta.rmsnorm)
 
 
 # ---------------------------------------------------------------------------
@@ -110,6 +117,10 @@ def _ssd_scan_cuda(x, dt, A, B, C, chunk, init_state):
     return ssd_scan_chunked(x, dt, A, B, C, chunk, init_state, _ssd.ssd_intra_chunk)
 
 
+def _ssd_scan_meta(x, dt, A, B, C, chunk, init_state):
+    return ssd_scan_chunked(x, dt, A, B, C, chunk, init_state, _meta.ssd_intra_chunk)
+
+
 def _ssd_scan_cpu(x, dt, A, B, C, chunk, init_state):
     s = x.shape[1]
     pad = (-s) % chunk
@@ -129,8 +140,11 @@ def ssd_scan(x, dt, A, B, C, chunk: int, init_state=None):
     autograd node (forward and backward kernels, ``kernels/ssd_scan.py``);
     the rest is plain torch under autograd. On the CPU: the
     plain scan whole, on the padded sequence, as the JAX package's ``ops``
-    runs its reference."""
-    return _dispatch("ssd_scan", _ssd_scan_cuda, _ssd_scan_cpu, (x, dt, A, B, C), chunk, init_state)
+    runs its reference. On meta: the same glue around the block's meta
+    route."""
+    return _dispatch(
+        "ssd_scan", _ssd_scan_cuda, _ssd_scan_cpu, (x, dt, A, B, C), chunk, init_state, meta_fn=_ssd_scan_meta
+    )
 
 
 # ---------------------------------------------------------------------------

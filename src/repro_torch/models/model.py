@@ -208,6 +208,12 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=torch.bfloat16,
     return kvcache.init_cache(cfg, batch, max_seq, dtype, resolve_device(device))
 
 
+def abstract_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=torch.bfloat16) -> dict:
+    """The cache tree on the meta device: shapes and dtypes, no storage
+    (the counterpart of the JAX package's ``eval_shape`` cache)."""
+    return kvcache.init_cache(cfg, batch, max_seq, dtype, "meta")
+
+
 def prefill(cfg: ModelConfig, params: dict, batch: dict, cache_dtype=torch.bfloat16, max_seq: int = 0):
     """Process the prompt; returns (last_logits (b,1,V), cache, cross_kv).
 
@@ -290,3 +296,39 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict, tokens: torch.Tenso
     x = L.rmsnorm_apply(params["final_norm"], x)
     logits = L.lm_head_apply(params.get("lm_head"), params["embed"], x)
     return logits, cache
+
+
+# ---------------------------------------------------------------------------
+# Input specs (dry-run stand-ins on the meta device, no storage)
+# ---------------------------------------------------------------------------
+
+CROSS_LEN_CAP = 4096  # the encoder positions a decode cell's cross KV holds, as in the JAX package
+TOKEN_DTYPE = torch.long  # the port's token batches (demo_batch, the controller's batches)
+
+
+def input_specs(cfg: ModelConfig, shape) -> dict:
+    """Meta stand-ins for every model input of a dry-run cell
+    (``configs.SHAPES``): the counterpart of the JAX package's
+    ``input_specs``.
+
+    train/prefill: the token batch (+ ``frames`` for an enc-dec model).
+    decode: a one-token batch, the position and the cache at ``seq_len``
+    capacity, and for an enc-dec model the cross KV over ``min(seq_len,
+    4096)`` encoder positions. Tokens are in :data:`TOKEN_DTYPE`, what
+    the port's batches carry (the JAX package's are int32); ``pos`` is a
+    host int, as ``decode_step`` takes it (the JAX package's a scalar
+    int32 array)."""
+    b, s = shape.global_batch, shape.seq_len
+    if shape.kind in ("train", "prefill"):
+        specs = {"tokens": torch.empty((b, s), dtype=TOKEN_DTYPE, device="meta")}
+        if cfg.family == "encdec":
+            specs["frames"] = torch.empty((b, s, cfg.d_model), dtype=_dtype(cfg.dtype), device="meta")
+        return specs
+    specs = {
+        "tokens": torch.empty((b, 1), dtype=TOKEN_DTYPE, device="meta"),
+        "pos": s - 1,
+        "cache": abstract_cache(cfg, b, s),
+    }
+    if cfg.family == "encdec":
+        specs["cross_kv"] = kvcache.init_cross_kv(cfg, b, min(s, CROSS_LEN_CAP), device="meta")
+    return specs

@@ -19,7 +19,8 @@ slot.
 
 The dispatch is by index, not by the JAX package's one-hot ``(b, s, e, c)``
 dispatch and combine tensors: each kept pair's token row is gathered into
-an ``(e, b, c, d)`` buffer (empty slots read a zero row), the three expert
+an ``(e, b, c, d)`` buffer (empty slots read a zero row; the slot table is
+written without a boolean-mask index, so nothing waits for the host), the three expert
 products run as batched matrix products over ``e``, and each token gathers
 back its ``k`` expert outputs and sums them weighted by its gates, cast to
 the activation dtype. The same pairs are dropped and the same products are
@@ -102,8 +103,12 @@ def moe_apply(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     # a buffer slot's source row: its token's, or the zero row b*s
     rows = torch.arange(b * s, device=x.device).reshape(b, s, 1).expand(b, s, k)
     flat = (gate_idx * b + torch.arange(b, device=x.device).reshape(b, 1, 1)) * c + slot  # (e, b, c) order
-    src = torch.full((e * b * c,), b * s, dtype=torch.long, device=x.device)
-    src[flat[keep]] = rows[keep]
+    # kept pairs have distinct slots; a dropped pair writes the extra last
+    # slot, which is cut off: no boolean-mask index, so no host sync on
+    # the card and a form the meta device runs
+    src = torch.full((e * b * c + 1,), b * s, dtype=torch.long, device=x.device)
+    src[torch.where(keep, flat, e * b * c).reshape(-1)] = rows.reshape(-1)
+    src = src[: e * b * c]
     x_rows = torch.cat([x.reshape(b * s, d), x.new_zeros(1, d)])
     xin = x_rows[src].reshape(e, b * c, d)
     gate = _act(cfg.act, torch.bmm(xin, params["wi_gate"].to(x.dtype)))

@@ -12,7 +12,12 @@ the terms from a compiled dry run: HLO_FLOPs and HLO_bytes from XLA's
 ``cost_analysis()``, the collective bytes parsed from its optimized HLO
 text. The port compiles no HLO, so :func:`collective_bytes_from_hlo` stays
 what it is, a parser of XLA's HLO text, kept so that the same text gives
-the same bytes in both packages. The analytic curves at the end
+the same bytes in both packages. The port's dry run (``launch/dryrun.py``)
+fills HLO_FLOPs and HLO_bytes from one execution on the meta device
+(``roofline/counting.py``); it has no per-rank step to count collectives
+from yet, so it leaves ``collective_bytes`` and ``per_collective`` None:
+the collective term is then None, and the bottleneck and the roofline
+fraction are taken over the two counted terms. The analytic curves at the end
 (``analytic_step_time``, ``analytic_throughput``, ``marginal_throughput``)
 read a ``sim.cluster.ClusterModel``, not these constants.
 """
@@ -100,8 +105,8 @@ class RooflineReport:
     chips: int
     hlo_flops: float
     hlo_bytes: float
-    collective_bytes: int
-    per_collective: dict = field(default_factory=dict)
+    collective_bytes: int | None  # None: not counted
+    per_collective: dict | None = field(default_factory=dict)
     model_flops: float = 0.0
 
     @property
@@ -113,17 +118,20 @@ class RooflineReport:
         return self.hlo_bytes / (self.chips * HBM_BW)
 
     @property
-    def collective_s(self) -> float:
+    def collective_s(self) -> float | None:
         # global wire bytes over aggregate link bandwidth (assignment form)
+        if self.collective_bytes is None:
+            return None
         return self.collective_bytes / (self.chips * ICI_BW)
+
+    def _terms(self) -> dict:
+        """The counted terms by name (the collective one where counted)."""
+        terms = {"compute": self.compute_s, "memory": self.memory_s, "collective": self.collective_s}
+        return {k: v for k, v in terms.items() if v is not None}
 
     @property
     def bottleneck(self) -> str:
-        terms = {
-            "compute": self.compute_s,
-            "memory": self.memory_s,
-            "collective": self.collective_s,
-        }
+        terms = self._terms()
         return max(terms, key=terms.get)
 
     @property
@@ -135,7 +143,7 @@ class RooflineReport:
         """Fraction of peak the dominant term allows, for *useful* FLOPs:
         model_flops_time / max(term)s."""
         ideal = self.model_flops / (self.chips * PEAK_FLOPS_BF16)
-        worst = max(self.compute_s, self.memory_s, self.collective_s)
+        worst = max(self._terms().values())
         return ideal / worst if worst else 0.0
 
     def to_dict(self) -> dict:

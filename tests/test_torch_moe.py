@@ -171,3 +171,57 @@ def test_init_axes_and_the_served_cast():
         full = MOE.moe_init(torch.Generator().manual_seed(0), cfg, torch.float32, "cpu", (2,))
         for path, x in tree_paths(served).items():
             assert x.dtype == torch.bfloat16 and torch.equal(x, tree_paths(full)[path].to(torch.bfloat16)), path
+
+
+def _boolean_mask_dispatch(params, cfg, x) -> torch.Tensor:
+    """The slot table as the port wrote it before its dispatch dropped the
+    boolean-mask index: ``src[flat[keep]] = rows[keep]``."""
+    b, s, _ = x.shape
+    e, k = cfg.num_experts, cfg.experts_per_token
+    _, gate_idx, slot, keep, c = MOE.routing(params, cfg, x)
+    rows = torch.arange(b * s).reshape(b, s, 1).expand(b, s, k)
+    flat = (gate_idx * b + torch.arange(b).reshape(b, 1, 1)) * c + slot
+    src = torch.full((e * b * c,), b * s, dtype=torch.long)
+    src[flat[keep]] = rows[keep]
+    return src
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("case,factor,s", CASES, ids=[c[0] for c in CASES])
+def test_dispatch_without_a_boolean_index_is_the_same_table(arch, case, factor, s):
+    """The dispatch writes every pair at ``where(keep, slot, e*b*c)`` into
+    a table one slot longer and cuts the last: the kept pairs' slots are
+    distinct, so the gathered rows, and so ``moe_apply``'s bits, are those
+    of the boolean-mask form (whose values against the JAX package
+    ``test_moe_apply_and_aux_equal_jax`` holds)."""
+    _, cfg, _, flat = _setup(arch, case, factor)
+    x = torch.from_numpy(np.random.default_rng(s).standard_normal((3, s, cfg.d_model)).astype(np.float32))
+    params = _torch_params(flat)
+    want = _boolean_mask_dispatch(params, cfg, x)
+    seen = []
+    orig = torch.Tensor.__getitem__
+
+    def spy(self, idx):
+        if isinstance(idx, torch.Tensor) and self.dim() == 2 and idx.dtype == torch.long and not seen:
+            seen.append(idx.clone())
+        return orig(self, idx)
+
+    torch.Tensor.__getitem__ = spy
+    try:
+        MOE.moe_apply(params, cfg, x)
+    finally:
+        torch.Tensor.__getitem__ = orig
+    assert torch.equal(seen[0], want)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_moe_apply_runs_on_meta(arch):
+    """Shapes only, at full width: nothing on the path needs a value (no
+    boolean-mask index, whose size depends on the data)."""
+    cfg = get_config(arch)
+    params = MOE.moe_init(None, cfg, torch.bfloat16, "meta")
+    x = torch.empty((2, 64, cfg.d_model), dtype=torch.bfloat16, device="meta", requires_grad=True)
+    y = MOE.moe_apply(params, cfg, x)
+    assert y.shape == x.shape and y.device.type == "meta"
+    (gx,) = torch.autograd.grad(y, x, torch.empty_like(y))
+    assert gx.shape == x.shape

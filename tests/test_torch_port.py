@@ -235,18 +235,25 @@ CONTROL_PLANE = [
 ]
 # SSM training's timing copy and the calibration
 TIMING_AND_CALIBRATION = ["utils/timing", "sim/calibrate"]
+# the dry run on the meta device, the sharding rules it reads, the kernels'
+# meta routes and work formulas, and the counting mode
+DRYRUN = ["launch/dryrun", "distribution/sharding", "kernels/meta", "kernels/work", "roofline/counting"]
+# the port's examples
+EXAMPLES = ["quickstart_torch", "reshard_demo_torch", "fleet_train_torch", "elastic_train_torch", "serve_decode_torch"]
 
 
 def test_port_sources_do_not_import_jax_or_repro():
-    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    examples = [REPO / "examples" / f"{m}.py" for m in EXAMPLES]
+    assert all(f.exists() for f in examples)
+    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"] + examples
     assert len(files) > 20
-    assert {PORT / f"{m}.py" for m in RESHARD_AND_ELASTIC_SERVE + TRAINING + SSM + LIFECYCLE + CONTROL_PLANE + TIMING_AND_CALIBRATION} <= set(files)
+    assert {PORT / f"{m}.py" for m in RESHARD_AND_ELASTIC_SERVE + TRAINING + SSM + LIFECYCLE + CONTROL_PLANE + TIMING_AND_CALIBRATION + DRYRUN} <= set(files)
     offenders = [f"{f}: {m.group(0).strip()}" for f in files for m in _FORBIDDEN_IMPORT.finditer(f.read_text())]
     assert offenders == []
 
 
 def test_importing_the_port_loads_no_jax():
-    wanted = [f"repro_torch.{m.replace('/', '.')}" for m in RESHARD_AND_ELASTIC_SERVE + TRAINING + SSM + LIFECYCLE + CONTROL_PLANE + TIMING_AND_CALIBRATION]
+    wanted = [f"repro_torch.{m.replace('/', '.')}" for m in RESHARD_AND_ELASTIC_SERVE + TRAINING + SSM + LIFECYCLE + CONTROL_PLANE + TIMING_AND_CALIBRATION + DRYRUN]
     code = f"""
 import importlib, pkgutil, sys
 sys.path.insert(0, {str(REPO)!r})
