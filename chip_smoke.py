@@ -334,7 +334,47 @@ non-zero without one. Phases, each printing one line or more:
    non-zero unless the loss drops by more than 0.5 nats),
    ``examples/reshard_demo_torch.py`` (the Fig. 5 and mixed 3D plans
    through the live path, bit-exact) and ``examples/fleet_train_torch.py``
-   (the live job on the card's rank pool; every event committed).
+   (the live job on the card's rank pool; every event committed);
+42. per-rank training worlds (``core/rank_controller.py``), run right
+   after phase 3, while this process holds the least of the card: 4 rank
+   processes on the one card under gloo (their messages through pinned
+   host memory; their allocators in expandable segments), qwen3-1.7b at
+   full width (d_model 2048, 16/8 heads of 128, d_ff 6144, vocab 151936)
+   cut to 8 of its 28 layers, fp32 params, batch 4 x 1024, TF32 off. Rank 0
+   first computes, alone, the one-process world's first step in f32 and in
+   bf16 compute, and the bf16 step's twin that sums the batch's rows in two
+   halves; then every rank computes the first step on its shards in both.
+   Assembled on rank 0, the f32 gradients are held to 1e-4 of each leaf's
+   largest entry (the limit phase 31 holds its first step's f32 gradients
+   to against the plain attention); the bf16 ones may stand at most 2x as
+   far from the f32 step as the one-process bf16 ones stand (their gap from
+   the one-process bf16 step and the twin's are printed), and the bf16
+   step's launches (flash on the tensor cores) are the path
+   "rank_train_bf16". Then, in f32 compute (see ``_rank_cfg``), dp2tp2
+   trains 3 steps, is resized live to dp1tp4 (streamed, stream_k 4, a
+   split-step commit, the moments on the int8 wire) while training goes
+   on, trains 2 steps, is resized back to dp2tp2 by stop-copy (lossless)
+   and trains 2. At each commit every tensor of the cut is assembled on
+   rank 0's host from the old world's shards and from the new world's and
+   held: params (and the lossless commit's moments) bit for bit, the int8
+   commit's moments within their tiles' rounding. Rank 0 then runs a
+   one-process dp2tp2 control never resized, which takes the moments the
+   int8 commit delivered at the same step (as phase 13's control takes the
+   int8 round trip), and a witness: from the control's state at that
+   commit, the same world summing the rows in two halves, a sound run that
+   differs only in summation order. Each cut's params and the final params
+   are held against the control's: within 1e-2 (the JAX package's
+   RESHAPE_PARITY_TOL) where the delivered moments kept Adam's |mu| <=
+   sqrt(nu), and where they broke it (the wire rounded a nu to 0 beside a
+   nonzero mu; there Adam divides by ~eps) within 1e-2 or 4x what the
+   witness parts from the control there, the larger. The launches of flash
+   forward and backward and of the five row and quant kernels are counted
+   in the rank processes and summed into the kernels line as the path
+   "rank_train", each nonzero; a rank that fails fails the phase. Prints
+   step times beside the control's, the mock warm-up's seconds beside the
+   first real step's, each commit's pause and Prepare and the bytes and
+   seconds the host staging carried, and the peak memory per rank and on
+   the card.
 The second-to-last line is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.
 
@@ -4530,9 +4570,14 @@ PIPELINE_GRAD_TOL = 1e-5
 ROW_QUANT = ("pack_rows", "scatter_rows", "relayout_rows", "pack_quant_rows", "dequant_scatter_rows")
 
 
-def _grad_gap(a: dict, b: dict) -> tuple[float, str]:
-    """The largest max |a - b| / max |b| over the leaves, and its leaf."""
-    gaps = {p: ((x - b[p]).abs().max() / b[p].abs().max()).item() for p, x in a.items()}
+def _grad_gap(a: dict, b: dict, dev=None) -> tuple[float, str]:
+    """The largest max |a - b| / max |b| over the leaves, and its leaf;
+    each pair of leaves moved to ``dev`` first where it is given."""
+    gaps = {}
+    for p, x in a.items():
+        y = b[p] if dev is None else b[p].to(dev)
+        x = x if dev is None else x.to(dev)
+        gaps[p] = ((x - y).abs().max() / y.abs().max()).item()
     worst = max(gaps, key=gaps.get)
     return gaps[worst], worst
 
@@ -5072,6 +5117,441 @@ def phase_examples() -> None:
     assert not failed, failed
 
 
+# phase 42: per-rank worlds on the one card (see the module docstring)
+RANK_TRAIN = dict(layers=8, nproc=4, batch=4, seq=1024, before=3, between=2, after=2, stream_k=4, device="cuda")
+# the first step's f32 gradients against the one-process world's: the limit
+# phase 31 holds a deep model's first step to against the plain attention
+# (at 8 layers of full width the summation orders of tp's partial products
+# part the two by 1.15e-5 of a leaf's largest entry, past phase 35's 1e-5
+# at one layer)
+RANK_GRAD_TOL = SEAMLESS_GRAD_TOL
+# the first step in bf16 compute: the per-rank gradients may stand at most
+# this many times as far from the f32 one-process gradients as the
+# one-process bf16 gradients stand from them
+RANK_BF16_FACTOR = 2.0
+# the JAX package's RESHAPE_PARITY_TOL (tests/conftest.py)
+RANK_PARITY_TOL = 1e-2
+# where the int8 commit's moments broke Adam's |mu| <= sqrt(nu), the
+# resized run's params may part from the control's by at most this many
+# times what a summation order alone parts two sound runs by there
+RANK_MASKED_FACTOR = 2.0
+RANK_KERNELS = ("flash_attention", "flash_attention_bwd", "pack_rows", "scatter_rows", "relayout_rows",
+                "pack_quant_rows", "dequant_scatter_rows")
+
+
+# the resized run trains in f32 compute: in bf16 Adam multiplies the
+# gradients' rounding gap where the int8 wire zeroed a nu entry (0.54 in
+# the params after 12 steps on an H100 80GB HBM3 at 700 W); the bf16
+# per-rank step is held on the first step
+def _rank_cfg(dtype: str = "float32"):
+    return dataclasses.replace(get_config(TRAIN["arch"]), num_layers=RANK_TRAIN["layers"], dtype=dtype)
+
+
+def _card_used_gb() -> float:
+    if RANK_TRAIN["device"] != "cuda":
+        return 0.0
+    free, total = torch.cuda.mem_get_info()
+    return (total - free) / 1e9
+
+
+def _rank_data():
+    from repro_torch.data import SyntheticLM
+
+    return SyntheticLM(_rank_cfg().vocab_size, RANK_TRAIN["seq"], RANK_TRAIN["batch"], 0)
+
+
+def _rank_references() -> dict:
+    """Rank 0 alone, before the world: the one-process first step's loss
+    and gradients on the host, in f32 and in bf16 compute, and the bf16
+    step's gaps from the f32 one and from a sound twin that sums the
+    batch's rows in two halves (microbatches 2: only the order differs)."""
+    from repro_torch.distribution.step import make_grad_fn
+    from repro_torch.utils.pytree import tree_paths
+
+    dev = RANK_TRAIN["device"]
+    params = M.init_params(_rank_cfg(), torch.Generator(device=dev).manual_seed(0), dev)
+    batch = {"tokens": torch.from_numpy(_rank_data().global_batch_at(0)).to(dev, torch.long)}
+    out = {}
+    for dtype, mb in (("float32", 1), ("bfloat16", 1), ("bf16_halves", 2)):
+        loss, _, grads = make_grad_fn(_rank_cfg("float32" if dtype == "float32" else "bfloat16"), mb)(params, batch)
+        out[dtype] = (float(loss), {f"params/{p}": g.cpu() for p, g in tree_paths(grads).items()})
+        del grads
+    out["bf16_vs_f32"] = _grad_gap(out["bfloat16"][1], out["float32"][1], dev)
+    out["bf16_order"] = _grad_gap(out.pop("bf16_halves")[1], out["bfloat16"][1], dev)
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def _split_gaps(got: dict, want: dict, mask: dict, dev) -> dict:
+    """``got`` against ``want`` (tensors by name): the largest |diff| where
+    ``mask`` is false ("kept") and where it is true ("masked"), each with
+    its leaf, the entries past 1e-2, and how many of those lie in the mask."""
+    out = {"kept": (0.0, ""), "masked": (0.0, ""), "past": 0, "past_in_mask": 0}
+    for n, w in want.items():
+        d = (got[n].to(dev) - w.to(dev)).abs()
+        m = mask[n].to(dev)
+        far = d > 1e-2
+        out["past"] += int(far.sum())
+        out["past_in_mask"] += int((far & m).sum())
+        out["kept"] = max(out["kept"], (d.masked_fill(m, 0).max().item(), n))
+        out["masked"] = max(out["masked"], (d.masked_fill(~m, 0).max().item(), n))
+        del d, m, far
+    return out
+
+
+def _rank_controls(opt, steps: int, cuts: list, final: dict, dev) -> dict:
+    """Rank 0 alone, after the resized run. The control: the one-process
+    dp2tp2 world never resized, ``steps`` steps; at each commit's step
+    (``cuts``) it takes the moments the int8 commit delivered in place of
+    its own (the same wire round trip at the same step, as phase 13's
+    control takes it). The witness: from the control's state at the int8
+    commit, the same world with the batch's rows summed in two halves
+    (microbatches 2), a sound run that differs from the control only in
+    summation order. The mask: the entries where the delivered moments
+    broke Adam's |mu| <= sqrt(nu) (the wire rounds a small nu to 0 beside a
+    nonzero mu; there Adam divides by ~eps). Each comparison is split by
+    the mask (``_split_gaps``)."""
+    from repro_torch.core.controller import LiveRController
+    from repro_torch.utils.pytree import tree_from_paths, tree_paths
+
+    moments = next(c["moments"] for c in cuts if c["moments"])
+    mask = {f"params/{n[3:]}": (x.abs() > moments[f"nu/{n[3:]}"].sqrt()).to(dev)
+            for n, x in moments.items() if n.startswith("mu/")}
+    par = ParallelConfig(dp=2, tp=2)
+    named = lambda c: {f"params/{p}": x for p, x in tree_paths(c.params).items()}  # noqa: E731
+    ctrl = LiveRController(_rank_cfg(), par, opt, RANK_TRAIN["seq"], RANK_TRAIN["batch"], device=dev)
+    losses, snap, later, res = [], None, {}, {"run_at_cut": {}, "witness_at_cut": {}}
+    for cut in cuts:
+        losses += ctrl.train_steps(cut["step"] - ctrl.step)
+        for coll in ("mu", "nu"):
+            for p, x in tree_paths(ctrl.opt_state[coll]).items():
+                if f"{coll}/{p}" in cut["moments"]:
+                    x.copy_(cut["moments"][f"{coll}/{p}"])
+        if cut["params"]:
+            res["run_at_cut"][cut["step"]] = _split_gaps(cut["params"], named(ctrl), mask, dev)
+        if snap is None and cut["moments"]:
+            snap = (ctrl.step, {p: x.cpu() for p, x in tree_paths(ctrl.params).items()},
+                    {c: {p: x.cpu() for p, x in tree_paths(ctrl.opt_state[c]).items()} for c in ("mu", "nu")},
+                    ctrl.opt_state["count"].clone())
+        elif snap is not None:
+            later[cut["step"]] = {n: x.clone() for n, x in named(ctrl).items()}
+    losses += ctrl.train_steps(steps - ctrl.step)
+    res.update(control_losses=losses, control_step_s=statistics.median(ctrl.iteration_times[1:]),
+               run_final=_split_gaps(final, named(ctrl), mask, dev))
+    want_final = {n: x.clone() for n, x in named(ctrl).items()}
+    del ctrl
+    torch.cuda.empty_cache()
+
+    step0, params, opt_state, count = snap
+    twin = LiveRController(_rank_cfg(), par, opt, RANK_TRAIN["seq"], RANK_TRAIN["batch"], device=dev,
+                           microbatches=2, params=tree_from_paths(params))
+    for c in ("mu", "nu"):
+        for p, x in tree_paths(twin.opt_state[c]).items():
+            x.copy_(opt_state[c][p])
+    twin.opt_state["count"].copy_(count)
+    twin.step = step0
+    for step, want in later.items():
+        twin.train_steps(step - twin.step)
+        res["witness_at_cut"][step] = _split_gaps(named(twin), want, mask, dev)
+    twin.train_steps(steps - twin.step)
+    res["witness_final"] = _split_gaps(named(twin), want_final, mask, dev)
+    res["masked_entries"] = sum(int(m.sum()) for m in mask.values())
+    del twin, later, want_final, mask
+    torch.cuda.empty_cache()
+    return res
+
+
+def _cut_check(a: torch.Tensor, b: torch.Tensor, dev, quant: bool) -> tuple:
+    """Rank 0's check of one tensor of a commit's cut, the old world's
+    ``a`` against the new world's ``b`` (both whole on the host), on the
+    card in slices of 2**26 entries: (bitwise equal, max |a|, max |b - a|,
+    entries of ``a`` nonzero and of them zero in ``b``); the last three
+    only where ``quant``."""
+    equal, amax, err, nonzero, zeroed = True, 0.0, 0.0, 0, 0
+    fa, fb = a.reshape(-1), b.reshape(-1)
+    for lo in range(0, fa.numel(), 1 << 26):
+        x, y = fa[lo:lo + (1 << 26)].to(dev), fb[lo:lo + (1 << 26)].to(dev)
+        if quant:
+            amax = max(amax, x.abs().max().item())
+            err = max(err, (y - x).abs().max().item())
+            nonzero += int((x != 0).sum())
+            zeroed += int(((y == 0) & (x != 0)).sum())
+        else:
+            equal = equal and torch.equal(x.view(torch.uint8), y.view(torch.uint8))
+    return equal, amax, err, nonzero, zeroed
+
+
+def _rank_train_program(rank: int) -> dict:
+    """One rank process of phase 42 (see the module docstring)."""
+    import gc
+
+    import torch.distributed as dist
+
+    from repro_torch.core.rank_controller import RankController, gather_each
+    from repro_torch.core.resource_view import build_tensor_specs
+    from repro_torch.distribution.groups import RankPool, make_world_groups
+    from repro_torch.distribution.step import make_grad_fn, shard_params
+    from repro_torch.launch.ranks import rank_device
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.reshard import WirePolicy
+    from repro_torch.utils.pytree import tree_paths
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    R_ = RANK_TRAIN
+    dev = rank_device(R_["device"], rank)
+    opt = AdamWConfig(learning_rate=1e-4, warmup_steps=2, total_steps=1000)
+    dp2tp2, dp1tp4 = ParallelConfig(dp=2, tp=2), ParallelConfig(dp=1, tp=4)
+    pool = RankPool()
+    out: dict = {"rank": rank}
+    t0 = time.perf_counter()
+    refs = _rank_references() if rank == 0 else None
+    dist.barrier()
+    out["refs_s"] = time.perf_counter() - t0
+    pspecs = build_tensor_specs(_rank_cfg(), include_optimizer=False)
+
+    # the first step on the shards against the one-process world's, in f32
+    # and in bf16 compute (the bf16 one's launches counted)
+    g = make_world_groups(pool, [dp2tp2])[dp2tp2]
+    params = M.init_params(_rank_cfg(), torch.Generator(device=dev).manual_seed(0), dev)
+    shards = shard_params(_rank_cfg(), params, dp2tp2, rank)
+    del params
+    tokens = torch.from_numpy(_rank_data().shard_at(0, g.dp_rank, g.dp)).to(dev, torch.long)
+    for dtype in ("float32", "bfloat16"):
+        _zero_counts()
+        loss, _, grads = make_grad_fn(_rank_cfg(dtype), groups=g)(shards, {"tokens": tokens})
+        loss = float(loss)
+        if dtype == "bfloat16":
+            out["bf16_launches"] = _all_counts()
+        named = {f"params/{p}": x for p, x in tree_paths(grads).items()}
+        whole = {spec.name: w for spec, w in gather_each(pool, named, dp2tp2, pspecs, "cpu") if w is not None}
+        del grads, named
+        if rank == 0:
+            f32_loss, f32 = refs["float32"]
+            gap = _grad_gap(whole, f32, dev)
+            if dtype == "float32":
+                rel = abs(loss - f32_loss) / abs(f32_loss)
+                out["first"] = (loss, f32_loss, rel, *gap)
+                assert gap[0] <= RANK_GRAD_TOL and rel <= RANK_GRAD_TOL, out["first"]
+            else:
+                one_loss, one = refs["bfloat16"]
+                out["first_bf16"] = dict(loss=loss, one_loss=one_loss, f32_loss=f32_loss, vs_f32=gap,
+                                         vs_one=_grad_gap(whole, one, dev), one_vs_f32=refs["bf16_vs_f32"],
+                                         order=refs["bf16_order"])
+                assert math.isfinite(loss) and gap[0] <= RANK_BF16_FACTOR * refs["bf16_vs_f32"][0], out["first_bf16"]
+        del whole
+    del shards, refs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    checks: list = []
+    cuts: list = []  # rank 0: each commit's step, the moments an int8 commit delivered, its params
+
+    class Checked(RankController):
+        """Holds each commit's cut: every tensor assembled on rank 0's host
+        from the old world's shards and from the new world's, before any
+        update."""
+
+        def _install(self, named, extras, world):
+            t_check = time.perf_counter()
+            host0 = self.pool.staging.bytes
+            src, quant = self._named(), self.wire_policy is not None
+            old_par, new_par = self.world.parallel, world.parallel
+            worst_q, exact, nu_zeroed = 0.0, 0, [0, 0]
+            cut = {"step": self.step, "moments": {}, "params": {}}
+            src_iter = gather_each(self.pool, src, old_par, self._specs, "cpu")
+            dst_iter = gather_each(self.pool, named, new_par, self._specs, "cpu")
+            for (spec, a), (_, b) in zip(src_iter, dst_iter):
+                if a is None:
+                    continue
+                q = quant and spec.collection in ("mu", "nu")
+                equal, amax, err, nonzero, zeroed = _cut_check(a, b, dev, q)
+                if q:
+                    tol = amax / 254 * 1.0001
+                    worst_q = max(worst_q, err / max(tol, 1e-30))
+                    assert err <= tol, spec.name
+                    cut["moments"][spec.name] = b
+                    if spec.collection == "nu":
+                        nu_zeroed[0] += zeroed
+                        nu_zeroed[1] += nonzero
+                else:
+                    assert equal, f"{spec.name}: not the cut's bytes"
+                    exact += 1
+                    if spec.collection == "params":
+                        cut["params"][spec.name] = b
+                del a, b
+            if self.pool.rank == 0:
+                cuts.append(cut)
+            checks.append({"check_s": time.perf_counter() - t_check, "exact": exact, "quant_worst": worst_q,
+                           "card_gb": _card_used_gb(), "host_bytes": self.pool.staging.bytes - host0,
+                           "nu_zeroed": nu_zeroed, "step": cut["step"]})
+            return super()._install(named, extras, world)
+
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    ctrl = Checked(_rank_cfg(), dp2tp2, opt, R_["seq"], R_["batch"], pool, worlds=[dp1tp4], device=dev,
+                   overlap="stream", stream_k=R_["stream_k"], wire_policy=WirePolicy())
+    out["mock_s"] = ctrl.world.timings.get("mock_s")
+    out["aten_ops"] = ctrl.world.timings.get("aten_ops")
+    _zero_counts()
+    card = [_card_used_gb()]
+    host = []
+
+    def run(n):
+        losses = []
+        for _ in range(n):
+            h0 = (pool.staging.bytes, pool.staging.seconds)
+            losses += ctrl.train_steps(1)
+            host.append((pool.staging.bytes - h0[0], pool.staging.seconds - h0[1], len(ctrl.records)))
+            card.append(_card_used_gb())
+        return losses
+
+    losses = run(R_["before"])
+    ctrl.request_resize(dp1tp4)
+    during = 0
+    while not ctrl.records:
+        losses += run(1)
+        during += 1
+        assert during < 100, "the streamed resize never committed"
+    losses += run(R_["between"])
+    ctrl.wire_policy = None  # the way back is lossless
+    ctrl.request_resize(dp2tp2, overlap="stop_copy")
+    while len(ctrl.records) < 2:
+        losses += run(1)
+        assert len(losses) < 200, "the stop-copy resize never committed"
+    losses += run(R_["after"])
+    out["launches"] = _all_counts()
+    out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9 if dev.type == "cuda" else 0.0
+    final = {spec.name: w for spec, w in gather_each(pool, ctrl._named(), ctrl.world.parallel, pspecs, "cpu")
+             if w is not None}
+    out.update(losses=losses, during=during, checks=checks, host=host,
+               card_gb=max(card + [c["card_gb"] for c in checks]),
+               step_times=ctrl.iteration_times, records=[dataclasses.asdict(r) for r in ctrl.records],
+               commits=[dataclasses.asdict(c) for c in ctrl.rank_commits], world=ctrl.world.parallel.describe())
+    del ctrl
+    gc.collect()
+    torch.cuda.empty_cache()
+    if rank == 0:  # the others wait at the barrier, holding no state
+        out.update(_rank_controls(opt, len(losses), cuts, final, dev))
+    dist.barrier()
+    return out
+
+
+def _gap_text(g: dict) -> str:
+    return (f"where kept max |diff| {g['kept'][0]:.3e} at {g['kept'][1]}, where broken {g['masked'][0]:.3e} at "
+            f"{g['masked'][1]}; {g['past']} entries past 1e-2, {g['past_in_mask']} of them where broken")
+
+
+def phase_rank_train() -> tuple[dict, dict]:
+    """Per-rank training worlds (see the module docstring, 42). Returns the
+    ranks' summed launches on the path: the resized run's, and the bf16
+    first step's."""
+    import gc
+    import os
+
+    from repro_torch.launch.ranks import run_ranks
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    # the rank processes' allocators map memory in expandable segments:
+    # four caches of freed blocks on one card would hold ~10 GB between them
+    conf = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        ranks = run_ranks(_rank_train_program, RANK_TRAIN["nproc"], device=RANK_TRAIN["device"], threads=2,
+                          timeout=600)
+    finally:
+        if conf is None:
+            del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = conf
+    wall = time.perf_counter() - t0
+    r0 = ranks[0]
+    cfg = _rank_cfg()
+    log("rank-train", f"{cfg.name} full width, {cfg.num_layers} of 28 layers, {RANK_TRAIN['nproc']} rank processes "
+                      f"on one card under gloo, batch {RANK_TRAIN['batch']} x {RANK_TRAIN['seq']}: {wall:.1f}s in all, "
+                      f"rank 0's references alone {r0['refs_s']:.1f}s")
+    loss, want, rel, gap, leaf = r0["first"]
+    log("rank-train", f"first step (f32), dp2tp2 ranks against the one-process world: loss {loss:.6f} / {want:.6f} "
+                      f"(relative {rel:.3e}), gradients max |g - g_1| / max |g_1| {gap:.3e} at {leaf} (tol "
+                      f"{RANK_GRAD_TOL:g})")
+    b = r0["first_bf16"]
+    log("rank-train", f"first step (bf16 compute): loss per-rank {b['loss']:.6f}, one process {b['one_loss']:.6f}, "
+                      f"f32 {b['f32_loss']:.6f}; gradients, max |g - g_ref| / max |g_ref|: per-rank against the "
+                      f"one-process bf16 {b['vs_one'][0]:.3e} at {b['vs_one'][1]}; the one-process bf16 against its "
+                      f"twin summing the rows in two halves {b['order'][0]:.3e} at {b['order'][1]}; against the f32 "
+                      f"step: per-rank {b['vs_f32'][0]:.3e} at {b['vs_f32'][1]}, one-process {b['one_vs_f32'][0]:.3e} "
+                      f"at {b['one_vs_f32'][1]} (limit {RANK_BF16_FACTOR:g}x the latter)")
+    bf16 = {k: sum(r["bf16_launches"].get(k, 0) for r in ranks) for k in ranks[0]["bf16_launches"]}
+    log("rank-train", f"bf16 first step's flash launches summed over the ranks: forward {bf16['flash_attention']} "
+                      f"({bf16['flash_attention_tc']} tensor_cores), backward {bf16['flash_attention_bwd']} "
+                      f"({bf16['flash_attention_bwd_tc']} tensor_cores)")
+    assert bf16["flash_attention_tc"] > 0 and bf16["flash_attention_bwd_tc"] > 0, bf16
+    losses = r0["losses"]
+    assert all(np.isfinite(losses)), losses
+    assert all(r["losses"][: RANK_TRAIN["before"]] == losses[: RANK_TRAIN["before"]] for r in ranks), "ranks disagree"
+    log("rank-train", f"losses {[round(x, 4) for x in losses]}; the control's {[round(x, 4) for x in r0['control_losses']]}")
+    assert [r["dst"] for r in r0["records"]] == ["dp1xpp1xtp4", "dp2xpp1xtp2"], r0["records"]
+    for i, (rec, check) in enumerate(zip(r0["records"], r0["checks"])):
+        commit = [r["commits"][i] for r in ranks]
+        host_b = sum(c["host_bytes"] - r["checks"][i]["host_bytes"] for c, r in zip(commit, ranks))
+        host_s = max(c["host_seconds"] for c in commit)
+        check_s = check["check_s"]  # rank 0's, inside its pause
+        # the check runs inside the update of a split-step commit, inside the transfer of a stop-copy
+        split = rec["mode"] == "live_overlap"
+        log("rank-train", f"commit {i + 1} {rec['mode']} {rec['src']} -> {rec['dst']}: pause_s "
+                          f"{rec['total_pause_s'] - check_s:.4f} (the check's {check_s:.3f}s taken out), prepare_s "
+                          f"{rec['prepare_s']:.4f}, update_s {rec['update_s'] - (check_s if split else 0):.4f}, "
+                          f"transfer_s {rec['transfer_s'] - (0 if split else check_s):.4f}; "
+                          f"plan {rec['plan_network_bytes'] / 1e9:.4f} GB remote + {rec['plan_local_bytes'] / 1e9:.4f} "
+                          f"GB local, wire {rec['wire_bytes'] / 1e9:.4f} GB, logical {rec['logical_bytes'] / 1e9:.4f} "
+                          f"GB; host staging {host_b / 1e9:.4f} GB over the ranks (the check's taken out), "
+                          f"{host_s:.3f}s of copies at most a rank; "
+                          f"dirty layers {rec['dirty_layers']}/{rec['layers_total']}; cut (step {check['step']}) held: "
+                          f"{check['exact']} tensors bit for bit, int8 moments at {check['quant_worst']:.3f} of their "
+                          f"bound, nu entries the wire rounded to 0: {check['nu_zeroed'][0]} of "
+                          f"{check['nu_zeroed'][1]} nonzero")
+    plain = [t for i, t in enumerate(r0["step_times"]) if r0["host"][i][2] == (r0["host"][i - 1][2] if i else 0)]
+    step_host = [h for i, h in enumerate(r0["host"]) if h[2] == (r0["host"][i - 1][2] if i else 0)]
+    log("rank-train", f"step_s (host clock, steps without a commit, pre-copy rounds included): per-rank median "
+                      f"{statistics.median(plain):.4f} over {len(plain)} steps, first {r0['step_times'][0]:.4f}; "
+                      f"one-process dp2tp2 control median {r0['control_step_s']:.4f}; host staging a step on rank 0 "
+                      f"median {statistics.median(h[0] for h in step_host) / 1e9:.4f} GB in "
+                      f"{statistics.median(h[1] for h in step_host):.4f}s")
+    log("rank-train", f"mock warm-up of rank 0's dp2tp2 step on meta {r0['mock_s']:.3f}s ({r0['aten_ops']} aten ops) "
+                      f"against its first real step {r0['step_times'][0]:.3f}s")
+    log("rank-train", "peak memory per rank " + ", ".join(f"{r['peak_gb']:.2f}" for r in ranks)
+        + f" GB (torch allocator); card in use at most {max(r['card_gb'] for r in ranks):.2f} GB (sampled)")
+    log("rank-train", f"{r0['masked_entries']} param entries where the int8 commit's moments broke |mu| <= sqrt(nu) "
+                      f"(\"broken\"); the witness runs from the control's state at that commit with the rows summed "
+                      f"in two halves")
+    for step, run in r0["run_at_cut"].items():
+        wit = r0["witness_at_cut"].get(step)
+        limit = max(RANK_PARITY_TOL, RANK_MASKED_FACTOR * wit["masked"][0]) if wit else RANK_PARITY_TOL
+        log("rank-train", f"the cut at step {step} against the control: {_gap_text(run)}"
+            + (f"; the witness against the control: {_gap_text(wit)}" if wit else "")
+            + f" (limits {RANK_PARITY_TOL:g} kept, {limit:.3e} broken)")
+        assert run["kept"][0] < RANK_PARITY_TOL and run["masked"][0] <= limit, (step, run, wit)
+    run, wit = r0["run_final"], r0["witness_final"]
+    limit = max(RANK_PARITY_TOL, RANK_MASKED_FACTOR * wit["masked"][0])
+    log("rank-train", f"final params against the control never resized: {_gap_text(run)}; the witness against the "
+                      f"control: {_gap_text(wit)} (limits {RANK_PARITY_TOL:g} kept, RESHAPE_PARITY_TOL, and "
+                      f"{limit:.3e} broken, {RANK_MASKED_FACTOR:g}x the witness); steps during the streamed resize "
+                      f"{r0['during']}")
+    assert run["kept"][0] < RANK_PARITY_TOL, f"resized params diverge from the control: {run}"
+    assert run["masked"][0] <= limit, f"resized params part from the control past the witness: {run}, {wit}"
+    launches = {k: sum(r["launches"].get(k, 0) for r in ranks) for k in ranks[0]["launches"]}
+    for name in RANK_KERNELS:
+        assert launches[name] > 0, f"{name} was not launched on the per-rank path"
+    log("rank-train", "launches of the resized run summed over the ranks: "
+        + ", ".join(f"{k} {launches[k]}" for k in RANK_KERNELS))
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, bf16
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -5082,6 +5562,9 @@ def main() -> int:
     phase_card()
     phase_build()
     phase_kernel_cases()
+    # the per-rank worlds first, while the card holds the least of this
+    # process (see the module docstring, 42)
+    rank_train_launches, rank_bf16_launches = phase_rank_train()
     phase_small_agreement()
     launches, serve_err = phase_serve()
     record = phase_times(launches, serve_err)
@@ -5150,7 +5633,8 @@ def main() -> int:
              "serve_jamba": serve_jamba_launches, "serve_llama4": serve_llama4_launches,
              "chunked_qwen3": chunked_qwen3_launches,
              "chunked_mamba2": chunked_mamba2_launches, "chunked_mixtral": chunked_mixtral_launches,
-             "train_pipeline": train_pp_launches, "train_int8_ef": train_ef_launches}
+             "train_pipeline": train_pp_launches, "train_int8_ef": train_ef_launches,
+             "rank_train": rank_train_launches, "rank_train_bf16": rank_bf16_launches}
     records = [record, *rows, bwd, *quants, ssd, rms, ssd_bwd]
     for rec in records:
         rec["launches_by_path"] = {p: counts.get(rec["name"], 0) for p, counts in paths.items()}

@@ -278,11 +278,15 @@ class LiveRController:
         world = self._build_world(parallel)
         world.gen_id = 0
         self.machine.active.payload = world
+        self.params, self.opt_state = self._initial_state(params, seed)
+
+    def _initial_state(self, params: Optional[dict], seed: int) -> tuple[dict, dict]:
+        """(params, opt_state) of the first world: the seeded init, or a
+        copy of ``params`` on the device, and zero moments."""
         if params is None:
-            self.params, self.opt_state = init_train_state(cfg, seed, compression, self.device)
-        else:
-            self.params = tree_map_with_path(lambda _, x: x.to(self.device, copy=True), params)
-            self.opt_state = init_opt_state(self.params, compression)
+            return init_train_state(self.cfg, seed, self.compression, self.device)
+        params = tree_map_with_path(lambda _, x: x.to(self.device, copy=True), params)
+        return params, init_opt_state(params, self.compression)
 
     # ------------------------------------------------------------------
     @property
@@ -469,7 +473,7 @@ class LiveRController:
                     b.join()
                 handle.timings["orphan_wait_s"] = time.perf_counter() - t0
                 t0 = time.perf_counter()
-                handle.buffers = state_buffers(specs, plan, handle.device, reuse=reuse)
+                handle.buffers = self._dst_buffers(specs, plan, handle, reuse)
                 reuse = None  # what the plan did not take goes now
                 if handle.device.type == "cuda":
                     torch.cuda.current_stream(handle.device).synchronize()
@@ -486,6 +490,10 @@ class LiveRController:
         # knowable-now metadata for the stream-ahead prewarm (§15)
         self._inflight_target = target
         return gen.gen_id
+
+    def _dst_buffers(self, specs, plan, handle: WorldHandle, reuse: Optional[dict]) -> dict:
+        """The destination tensors a Prepare allocates for ``handle``."""
+        return state_buffers(specs, plan, handle.device, reuse=reuse)
 
     def _abandon_builder(self) -> None:
         self._builder.abandon()
@@ -981,12 +989,14 @@ class LiveRController:
                 # with the dirty re-sync; the update on the new world) and
                 # commits the switch at its end
                 metrics = self._split_step_commit(batch)
-            else:
+            elif self.world.member:
                 fence = self._session.fence if self._session is not None else None
                 self.params, self.opt_state, metrics = self.world.step_fn(
                     self.params, self.opt_state, batch, fence
                 )
-            loss = float(metrics["loss"])  # waits for the step
+            else:  # a rank process outside the world idles through its step
+                metrics = {}
+            loss = float(metrics["loss"]) if "loss" in metrics else float("nan")  # waits for the step
             dt = time.perf_counter() - t0
             self.iteration_times.append(dt)
             self.ledger.record(t0, t0 + dt, "train", self.world.parallel.world_size)
@@ -1028,7 +1038,7 @@ class LiveRController:
         """Iteration boundary = the consistent cut (invariant I3)."""
         if self._spec_builders:
             self._harvest_spec_builders()
-        if self._builder is None or not self._builder.ready:
+        if self._builder is None or not self._agree_ready(self._builder.ready):
             return
         if self.machine.state == GenState.PREPARE:
             handle = self._builder.result()
@@ -1044,8 +1054,7 @@ class LiveRController:
         if self._session is None:
             self._start_overlap_session()
         t0 = time.perf_counter()
-        named, _ = named_state_leaves(self.params, self.opt_state)
-        self._session.stream_next(named, self.step)
+        self._session.stream_next(self._named_state()[0], self.step)
         dt = time.perf_counter() - t0
         self.ledger.record(t0, t0 + dt, "reshard_overlap", self.world.parallel.world_size)
         if self._session.done_precopy:
@@ -1113,6 +1122,7 @@ class LiveRController:
             stream_k=stream_k,
             wire_policy=self.wire_policy,
             dst_buffers=new_world.buffers,
+            executor=self._session_executor(new_world, staging_bytes),
         )
         new_world.buffers = {}  # the session's executor owns them now
         self._pending_rec = self._new_record(new_world, "live_overlap")
@@ -1121,8 +1131,7 @@ class LiveRController:
         if self._reuse is not None:
             carries, streamed_at = self._reuse
             self._reuse = None
-            named, _ = named_state_leaves(self.params, self.opt_state)
-            self._session.adopt(carries, streamed_at, named)
+            self._session.adopt(carries, streamed_at, self._named_state()[0])
         # the session's figure counts the plan's resident layers (never
         # streamed) plus any adopted above
         self._pending_rec.reused_layers = self._session.report.reused_layers
@@ -1148,16 +1157,15 @@ class LiveRController:
 
         # 2. the plan executed on the live tensors through the shared engine
         t0 = time.perf_counter()
-        named, extras = named_state_leaves(self.params, self.opt_state)
+        named, extras = self._named_state()
         _, staging_bytes = self._op_params()
-        moved, stats = live_reshard_planned(
-            self._session_specs, plan, named, self.world.devices, new_world.devices,
-            staging_bytes=staging_bytes, wire_policy=self.wire_policy,
-            dst_buffers=new_world.buffers,
+        moved, stats = self._reshard(
+            self._session_specs, plan, named, new_world, staging_bytes,
+            wire_policy=self.wire_policy, dst_buffers=new_world.buffers,
         )
         new_world.buffers = {}
         new_extras, rep_x = self._move_extras(extras, new_world, staging_bytes)
-        self.params, self.opt_state = rebuild_state(moved, self.params, self.opt_state, new_extras)
+        self.params, self.opt_state = self._install(moved, new_extras, new_world)
         rec.transfer_s = time.perf_counter() - t0
         rec.moved_bytes = stats.network_bytes + stats.local_bytes + rep_x.moved_bytes
         rec.skipped_bytes = stats.resident_bytes
@@ -1174,15 +1182,8 @@ class LiveRController:
         old = self.machine.commit_switch(gen_id)
         rec.switch_s = time.perf_counter() - t0
         rec.total_pause_s = time.perf_counter() - pause_start
-        self.ledger.record(
-            pause_start, pause_start + rec.total_pause_s, "pause",
-            max(self.world.parallel.world_size, new_world.parallel.world_size),
-        )
-        self.records.append(rec)
-        self._reset_reconfig_state()
         # 4. cleanup
-        self._retire_world(old)
-        self.machine.finish_cleanup()
+        self._close(rec, pause_start, new_world, old)
 
     # ------------------------------------------------------------------
     # Switch: overlapped. Grads on the old world hide the dirty re-sync;
@@ -1201,10 +1202,12 @@ class LiveRController:
         if self.device.type == "cuda":
             cut = torch.cuda.Event()
             cut.record(torch.cuda.current_stream(self.device))
-        loss, metrics, grads = self.world.grad_fn(self.params, batch)
+        loss = metrics = grads = None
+        if self.world.member:
+            loss, metrics, grads = self.world.grad_fn(self.params, batch)
         # overlapped with them on the card: re-sync every dirty layer from
         # this boundary's cut; drain=False only dispatches
-        named, extras = named_state_leaves(self.params, self.opt_state)
+        named, extras = self._named_state()
         session.resync(named, self.step, drain=False, after=cut)
         _, staging_bytes = self._op_params()
         new_extras, _ = self._move_extras(extras, new_world, staging_bytes)
@@ -1225,19 +1228,20 @@ class LiveRController:
             cfg_src=plan.cfg_src,
             cfg_dst=plan.cfg_dst,
         )
-        g_named = {f"params/{p}": g for p, g in tree_paths(grads).items()}
+        g_named = {f"params/{p}": g for p, g in tree_paths(grads).items()} if grads is not None else {}
         del grads
-        g_moved, g_stats = live_reshard_planned(
-            p_specs, p_plan, g_named, self.world.devices, new_world.devices,
-            staging_bytes=staging_bytes, wire_policy=self.wire_policy,
-        )
+        g_moved, g_stats = self._reshard(p_specs, p_plan, g_named, new_world, staging_bytes,
+                                         wire_policy=self.wire_policy)
         del g_named
         grads_new = tree_from_paths({name[len("params/"):]: g for name, g in g_moved.items()})
         rec.transfer_s = time.perf_counter() - t0
 
         t0 = time.perf_counter()
-        params_new, opt_new = rebuild_state(session.results(), self.params, self.opt_state, new_extras)
-        self.params, self.opt_state, om = new_world.update_fn(grads_new, opt_new, params_new)
+        params_new, opt_new = self._install(session.results(), new_extras, new_world)
+        om: dict = {}
+        if new_world.member:
+            params_new, opt_new, om = new_world.update_fn(grads_new, opt_new, params_new)
+        self.params, self.opt_state = params_new, opt_new
         self._sync()
         rec.update_s = time.perf_counter() - t0
 
@@ -1264,6 +1268,13 @@ class LiveRController:
         rec.logical_bytes = rep.logical_bytes + g_stats.logical_bytes
         rec.moved_bytes = rep.total_bytes + g_stats.network_bytes + g_stats.local_bytes
         rec.executed_bytes = session.stats.executed_bytes + g_stats.executed_bytes
+        self._close(rec, pause_start, new_world, old)
+        out = {} if loss is None else {"loss": loss, **metrics}
+        return {**out, **om}
+
+    def _close(self, rec: ReconfigRecord, pause_start: float, new_world: WorldHandle, old) -> None:
+        """After a commit's pointer swap: the pause on the ledger, the
+        record, and the old world retired."""
         self.ledger.record(
             pause_start, pause_start + rec.total_pause_s, "pause",
             max(self.world.parallel.world_size, new_world.parallel.world_size),
@@ -1272,7 +1283,37 @@ class LiveRController:
         self._reset_reconfig_state()
         self._retire_world(old)
         self.machine.finish_cleanup()
-        return {"loss": loss, **metrics, **om}
+
+    # ------------------------------------------------------------------
+    # What a per-rank world (core/rank_controller.py) does its own way
+    # ------------------------------------------------------------------
+    def _agree_ready(self, ready: bool) -> bool:
+        """Whether the shadow world counts as ready at this boundary."""
+        return ready
+
+    def _named_state(self) -> tuple[dict, dict]:
+        """(the state's leaves by tensor name, the extras outside the
+        resource view)."""
+        return named_state_leaves(self.params, self.opt_state)
+
+    def _session_executor(self, new_world: WorldHandle, staging_bytes: int):
+        """The executor of an overlap session; None: the session's own
+        ``LiveExecutor``."""
+        return None
+
+    def _reshard(self, specs, plan: TransferPlan, named: dict, new_world: WorldHandle, staging_bytes: int,
+                 wire_policy=None, dst_buffers: Optional[dict] = None) -> tuple[dict, Any]:
+        """Execute ``plan`` on ``named`` into ``new_world``: (the moved
+        tensors by name, the engine's stats)."""
+        return live_reshard_planned(
+            specs, plan, named, self.world.devices, new_world.devices,
+            staging_bytes=staging_bytes, wire_policy=wire_policy, dst_buffers=dst_buffers,
+        )
+
+    def _install(self, moved: dict, extras: dict, new_world: WorldHandle) -> tuple[dict, dict]:
+        """(params, opt_state) on ``new_world`` from the moved tensors and
+        the moved extras."""
+        return rebuild_state(moved, self.params, self.opt_state, extras)
 
     @staticmethod
     def _move_extras(extras: dict, world: WorldHandle, staging_bytes: int):

@@ -17,6 +17,11 @@ streaming layer a leaf, run by the same engine and executor, so a leaf
 larger than the staging budget is chunked by the shared chunker. The port's
 counterpart of a leaf's sharding is its device: on one card every leaf is
 already there and passes through untouched (the JAX delta no-op).
+
+:func:`rank_reshard_planned` is :func:`live_reshard_planned` for one
+process of a per-rank world: the same plan, engine and stats, through a
+:class:`~repro_torch.reshard.executors.RankExecutor` over this rank's
+shards and the rank pool's point-to-point call.
 """
 
 from __future__ import annotations
@@ -32,7 +37,7 @@ from repro_torch.configs.base import ModelConfig, ParallelConfig
 from repro_torch.core.intersection import TransferPlan, TransferTask, plan_transfer
 from repro_torch.core.resource_view import TensorSpec, build_tensor_specs, dtype_name
 from repro_torch.reshard.engine import DEFAULT_STAGING_BYTES, ReshardEngine, StreamStats
-from repro_torch.reshard.executors import LiveExecutor
+from repro_torch.reshard.executors import LiveExecutor, RankExecutor
 from repro_torch.utils.pytree import tree_from_paths, tree_paths
 
 __all__ = [
@@ -42,6 +47,7 @@ __all__ = [
     "live_reshard_planned",
     "named_state_leaves",
     "plan_state_transfer",
+    "rank_reshard_planned",
     "rebuild_state",
 ]
 
@@ -246,3 +252,31 @@ def live_reshard_planned(
     executor.block_until_ready()
     stats.drain_seconds += time.perf_counter() - t1
     return executor.results(), stats
+
+
+def rank_reshard_planned(
+    specs: list[TensorSpec],
+    plan: TransferPlan,
+    shards: dict[str, torch.Tensor],
+    rank: int,
+    transport,
+    device,
+    staging_bytes: int = DEFAULT_STAGING_BYTES,
+    layers: Optional[list[int]] = None,
+    wire_policy=None,
+    dst_buffers: Optional[dict[str, torch.Tensor]] = None,
+) -> tuple[dict[str, torch.Tensor], StreamStats, RankExecutor]:
+    """Execute an intersection plan on this rank's ``shards`` (by tensor
+    name; empty outside the source world): every rank of the pool calls it
+    with the same plan. Returns (this rank's destination shards by name,
+    the engine's stats, the executor with its per-rank counters); the
+    shards are complete when it returns."""
+    executor = RankExecutor(
+        {s.name: s for s in specs}, shards, rank, plan.cfg_dst, transport, device, staging_bytes,
+        wire_policy=wire_policy, dst_buffers=dst_buffers,
+    )
+    stats = ReshardEngine(plan, executor, staging_bytes=staging_bytes, wire_policy=wire_policy).run(layers)
+    t1 = time.perf_counter()
+    executor.block_until_ready()
+    stats.drain_seconds += time.perf_counter() - t1
+    return executor.results(), stats, executor

@@ -13,8 +13,12 @@ called by the controller's Prepare once the plan is known).
 The JAX package's Prepare lowers and compiles the world's step ahead of
 time against abstract inputs, with mock process groups standing in for the
 communicators (``core/mock_groups.py``). Eager PyTorch compiles nothing
-ahead and a one-card world has no communicators, so neither has a
-counterpart here.
+ahead; a one-process world has no communicators, and its Prepare builds the
+functions only. A per-rank world (:func:`build_rank_world`, one process a
+rank over ``distribution/groups.py``) runs the rank's own step once on the
+meta device under the mock process groups (``core/mock_groups.py``), and
+plans and allocates only this rank's destination views
+(:func:`rank_state_buffers`).
 """
 
 from __future__ import annotations
@@ -30,14 +34,14 @@ from repro_torch.configs.base import ModelConfig, ParallelConfig
 
 
 def world_device(devices) -> torch.device:
-    """The one device a world's ranks map to. Its state is held as global
-    tensors there; placing ranks on several cards waits for the multi-card
-    slice."""
+    """The one device a one-process world's ranks map to: its state is held
+    as global tensors there. Ranks on several devices are a per-rank world,
+    one process a rank (:func:`build_rank_world`)."""
     distinct = {torch.device(d) for d in devices}
     if len(distinct) != 1:
         raise ValueError(
-            f"a world's ranks must all map to one device, got {sorted(map(str, distinct))} "
-            "(placing ranks on several cards is not ported yet)"
+            f"a one-process world's ranks must all map to one device, got {sorted(map(str, distinct))}; "
+            "place ranks on several devices with a per-rank world (core/rank_controller.py, one process a rank)"
         )
     return distinct.pop()
 
@@ -60,10 +64,23 @@ class WorldHandle:
     plan_bundle: Optional[tuple] = None
     buffers: dict = field(default_factory=dict)
     released: bool = False
+    # per-rank worlds: this process's rank, its device and the world's
+    # process groups (None in a one-process world)
+    rank: Optional[int] = None
+    rank_device: Optional[torch.device] = None
+    groups: Optional[object] = None
 
     @property
     def device(self) -> torch.device:
+        if self.rank_device is not None:
+            return self.rank_device
         return world_device(self.devices)
+
+    @property
+    def member(self) -> bool:
+        """This process holds a rank of the world (always, in a
+        one-process world)."""
+        return self.groups is None or self.groups.member
 
     def release(self) -> None:
         """Drop the world's functions and buffers. Idempotent; a released
@@ -300,3 +317,82 @@ def state_buffers(specs, plan, device: torch.device, reuse: Optional[dict] = Non
         else:
             out[s.name] = torch.zeros(s.shape, dtype=dtype, device=device)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Per-rank training worlds
+# ---------------------------------------------------------------------------
+
+
+def rank_meta_args(cfg: ModelConfig, parallel: ParallelConfig, rank: int, global_batch: int, seq_len: int) -> tuple:
+    """(params, opt_state, batch) of rank ``rank``'s step on the meta
+    device: its shards' shapes and its dp rows of the batch."""
+    from repro_torch.distribution.step import init_opt_state, shard_train_state
+    from repro_torch.models.model import abstract_params
+
+    params = abstract_params(cfg)
+    params, opt = shard_train_state(cfg, params, init_opt_state(params), parallel, rank)
+    return params, opt, abstract_batch(cfg, global_batch // parallel.dp, seq_len)
+
+
+def build_rank_world(
+    cfg: ModelConfig,
+    parallel: ParallelConfig,
+    opt_cfg,
+    global_batch: int,
+    seq_len: int,
+    groups,
+    device,
+    microbatches: int = 1,
+) -> WorldHandle:
+    """A per-rank training world seen from one process (the shadow
+    thread's body): ``groups`` is the world's ``RankGroups``, created at
+    start on every process. For a rank of the world: the step, its grad and
+    update halves over the rank's shards, the step run once on meta under
+    the mock process groups (``timings["mock_s"]``, ``["aten_ops"]``), and
+    on the card the kernel libraries and cuBLAS warmed in this thread. A
+    process outside the world gets a handle with no functions."""
+    from repro_torch.core.mock_groups import mock_warmup
+    from repro_torch.distribution.step import (
+        check_rank_model,
+        make_grad_fn,
+        make_train_step,
+        make_update_fn,
+        tp_sharded_paths,
+    )
+
+    check_rank_model(cfg, parallel)
+    device = torch.device(device)
+    handle = WorldHandle(parallel=parallel, devices=[device] * parallel.world_size, step_fn=None,
+                         rank=groups.rank, rank_device=device, groups=groups)
+    if not groups.member:
+        return handle
+    if global_batch % parallel.dp:
+        raise ValueError(f"global batch {global_batch} is not a multiple of dp={parallel.dp}")
+    handle.step_fn = make_train_step(cfg, opt_cfg, microbatches, groups=groups)
+    handle.grad_fn = make_grad_fn(cfg, microbatches, groups=groups)
+    handle.update_fn = make_update_fn(opt_cfg, groups=groups, sharded=tp_sharded_paths(cfg, parallel))
+    t0 = time.perf_counter()
+    res = mock_warmup(lambda g: make_train_step(cfg, opt_cfg, microbatches, groups=g), parallel, groups.rank,
+                      rank_meta_args(cfg, parallel, groups.rank, global_batch, seq_len))
+    handle.timings.update(mock_s=time.perf_counter() - t0, aten_ops=res.aten_ops,
+                          mock_collectives=len(res.collectives))
+    t0 = time.perf_counter()
+    if device.type == "cuda":
+        warm_device(device, getattr(torch, cfg.dtype), train_kernels(cfg))
+    handle.timings["warm_s"] = time.perf_counter() - t0
+    return handle
+
+
+def rank_state_buffers(specs, plan, parallel: ParallelConfig, rank: int, device: torch.device) -> dict[str, torch.Tensor]:
+    """Zeroed destination shards of rank ``rank`` of ``parallel`` (the
+    plan's destination) for every tensor the plan moves bytes into on this
+    rank; a tensor whose cells here are all resident is adopted at the
+    commit and gets none."""
+    from repro_torch.core.resource_view import view_of
+
+    moved = {t.tensor for t in plan.tasks if t.dst_rank == rank and t.kind != "resident"}
+    return {
+        s.name: torch.zeros(view_of(s, parallel, rank).shape(), dtype=getattr(torch, s.dtype), device=device)
+        for s in specs if s.name in moved
+    }

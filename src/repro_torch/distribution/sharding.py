@@ -22,8 +22,10 @@ prints a one-name tuple as the name; the JAX spec drops trailing ``None``
 entries, these keep one entry per dim).
 :func:`shard_shape` is a shard's shape under a spec. No device and no
 process group is involved: the dry run (``launch/dryrun.py``) reads these
-rules for its per-chip shapes. The port's one-card worlds do not read them
-yet; its multi-card worlds (ROADMAP queue 1 item 13) will.
+rules for its per-chip shapes. The port's worlds do not read them: a
+per-rank world holds the planner's views (``core/resource_view.py::
+shard_of``), the boxes its reshard plans move cells between, and a
+one-process world global tensors.
 """
 
 from __future__ import annotations

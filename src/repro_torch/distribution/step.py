@@ -21,8 +21,19 @@ the port's analogue of the JAX package's donation).
 round trip with error feedback before the update
 (``kernels/reshard_quant.py::compress_decompress_with_ef``); its residuals
 are ``opt_state["ef"]``, float32 zeros at init. Pipeline stages are
-``distribution/pipeline.py``. Not ported: the sharded ``jit_*`` wrappers
-(process groups wait for multi-card worlds, ROADMAP queue 1 item 13).
+``distribution/pipeline.py``.
+
+The per-rank step. With ``groups`` (a dp x tp world's
+``distribution/groups.py::RankGroups``, or ``core/mock_groups.py::
+MockGroups`` on the meta device) the same builders return one rank's step
+over its shards (:func:`shard_train_state`): the batch is the rank's dp
+rows (``data/pipeline.py::SyntheticLM.shard_at``), the loss runs the
+model's tp regions (``models/model.py::loss_fn(groups=)``), the gradients
+and the loss are averaged over dp, and the update runs AdamW on the shards
+in place with the clip's norm summed over tp
+(``optim/adamw.py::global_norm``). Refused there for now:
+``compression="int8_ef"``, pipeline stages, MoE, SSM and enc-dec models
+(``check_rank_model``).
 """
 
 from __future__ import annotations
@@ -37,7 +48,17 @@ from repro_torch.models import model as M
 from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
 from repro_torch.utils.pytree import tree_from_paths, tree_paths
 
-__all__ = ["init_opt_state", "init_train_state", "make_grad_fn", "make_train_step", "make_update_fn"]
+__all__ = [
+    "check_rank_model",
+    "init_opt_state",
+    "init_train_state",
+    "make_grad_fn",
+    "make_train_step",
+    "make_update_fn",
+    "shard_params",
+    "shard_train_state",
+    "tp_sharded_paths",
+]
 
 COMPRESSIONS = ("none", "int8_ef")
 GRAD_ACCUMS = ("explicit", "scan_loss")
@@ -91,8 +112,68 @@ def _micro(batch: dict, microbatches: int) -> list[dict]:
     return [{k: v[i * mb : (i + 1) * mb] for k, v in batch.items()} for i in range(microbatches)]
 
 
+def check_rank_model(cfg: ModelConfig, parallel) -> None:
+    """Refuse what a per-rank world does not run yet: pp or ep, a model
+    other than a decoder of attention and dense-MLP blocks, and a tp that
+    does not divide its heads, kv columns, widths and vocabulary (the
+    collectives take equal parts)."""
+    from repro_torch.distribution.groups import check_rank_world
+    from repro_torch.models.attention import local_heads
+    from repro_torch.models.transformer import block_program
+
+    check_rank_world(parallel)
+    if cfg.family == "encdec" or any(p != ("attn", "dense") for p in block_program(cfg)):
+        raise ValueError(f"{cfg.name}: per-rank worlds run decoders of attention and dense-MLP blocks only")
+    tp = parallel.tp
+    sizes = {"d_model": cfg.d_model, "d_ff": cfg.d_ff, "vocab_size": cfg.vocab_size,
+             "kv columns": cfg.num_kv_heads * cfg.resolved_head_dim}
+    bad = {k: v for k, v in sizes.items() if v % tp}
+    if bad:
+        raise ValueError(f"{cfg.name}: tp={tp} does not divide {bad}")
+    for r in range(tp):
+        local_heads(cfg, tp, r)
+
+
+def tp_sharded_paths(cfg: ModelConfig, parallel) -> frozenset:
+    """The param paths the planner splits over tp in ``parallel`` (none at
+    tp 1): the leaves whose squares the clip sums over tp."""
+    from repro_torch.core.resource_view import build_tensor_specs
+
+    if parallel.tp == 1:
+        return frozenset()
+    return frozenset(s.name[len("params/"):] for s in build_tensor_specs(cfg, include_optimizer=False)
+                     if "tp" in s.roles)
+
+
+def shard_params(cfg: ModelConfig, tree: dict, parallel, rank: int) -> dict:
+    """Rank ``rank``'s shards of a whole param tree, or of a moment tree
+    (``mu``, ``nu``: the planner lays them out as their params): each
+    leaf's ``core/resource_view.py::shard_of`` box."""
+    from repro_torch.core.resource_view import build_tensor_specs, shard_of
+
+    specs = {s.name[len("params/"):]: s for s in build_tensor_specs(cfg, include_optimizer=False)}
+    return tree_from_paths({p: shard_of(x, specs[p], parallel, rank) for p, x in tree_paths(tree).items()})
+
+
+def shard_train_state(cfg: ModelConfig, params: dict, opt_state: dict, parallel, rank: int) -> tuple[dict, dict]:
+    """Rank ``rank``'s (params, opt_state) of whole trees: each param,
+    ``mu`` and ``nu`` leaf's shard (:func:`shard_params`), the step count
+    copied."""
+    return shard_params(cfg, params, parallel, rank), {
+        "mu": shard_params(cfg, opt_state["mu"], parallel, rank),
+        "nu": shard_params(cfg, opt_state["nu"], parallel, rank),
+        "count": opt_state["count"].clone(),
+    }
+
+
+def _dp_mean(groups, t: torch.Tensor) -> torch.Tensor:
+    """``t`` averaged over the dp group."""
+    return t if groups.dp == 1 else groups.all_reduce(t, "dp") / groups.dp
+
+
 def make_grad_fn(
-    cfg: ModelConfig, microbatches: int = 1, remat: str = "full", grad_accum: str = "explicit", aux_weight: float = 0.01
+    cfg: ModelConfig, microbatches: int = 1, remat: str = "full", grad_accum: str = "explicit", aux_weight: float = 0.01,
+    groups=None,
 ):
     """Returns ``grad_step(params, batch) -> (loss, metrics, grads)``: the
     forward/backward half of the step. With ``microbatches > 1`` the batch
@@ -107,17 +188,31 @@ def make_grad_fn(
 
     The loss carries ``aux_weight`` times the MoE aux loss of a model with
     MoE layers (0 for a pipeline world's). On the card an SSM mixer's gradient goes through the SSD backward
-    kernel; an enc-dec model's batch carries ``frames``."""
+    kernel; an enc-dec model's batch carries ``frames``. ``groups``: one
+    rank's step over its shards and dp rows (the module docstring); the
+    loss and gradients returned are the dp means."""
     _choice("grad_accum", grad_accum, GRAD_ACCUMS)
+    if groups is not None:
+        check_rank_model(cfg, groups.parallel)
 
     def grads_of(paths: dict, batch: dict):
-        return value_and_grad(lambda tree: M.loss_fn(cfg, tree, batch, remat, aux_weight), paths)
+        return value_and_grad(lambda tree: M.loss_fn(cfg, tree, batch, remat, aux_weight, groups), paths)
 
     def scan_loss(tree: dict, micro: list[dict]):
-        total = sum(M.loss_fn(cfg, tree, m, remat, aux_weight)[0] for m in micro)
+        total = sum(M.loss_fn(cfg, tree, m, remat, aux_weight, groups)[0] for m in micro)
         return total / len(micro), {}
 
     def grad_step(params: dict, batch: dict):
+        loss, metrics, grads = local_step(params, batch)
+        if groups is None:
+            return loss, metrics, grads
+        for g in tree_paths(grads).values():
+            g.copy_(_dp_mean(groups, g))
+        if "nll" in metrics:
+            metrics = {**metrics, "nll": _dp_mean(groups, metrics["nll"])}
+        return _dp_mean(groups, loss), metrics, grads
+
+    def local_step(params: dict, batch: dict):
         paths = tree_paths(params)
         if microbatches <= 1:
             loss, metrics, grads = grads_of(paths, batch)
@@ -142,19 +237,23 @@ def make_grad_fn(
     return grad_step
 
 
-def make_update_fn(opt_cfg: AdamWConfig, compression: str = "none"):
+def make_update_fn(opt_cfg: AdamWConfig, compression: str = "none", groups=None, sharded=frozenset()):
     """Returns ``update(grads, opt_state, params, fence=None) -> (params,
     opt_state, metrics)``: the optimizer half of the step, in place. Under
     ``compression="int8_ef"`` the gradients first take the int8 round trip
-    with error feedback (``opt_state["ef"]``, updated in place)."""
+    with error feedback (``opt_state["ef"]``, updated in place). ``groups``
+    and ``sharded`` (:func:`tp_sharded_paths`): one rank's update over its
+    shards."""
     _choice("compression", compression, COMPRESSIONS)
+    if groups is not None and compression != "none":
+        raise ValueError(f"compression={compression!r} is not ported to per-rank worlds")
 
     def update(grads: dict, opt_state: dict, params: dict, fence: Optional[torch.cuda.Event] = None):
         if fence is not None:
             torch.cuda.current_stream().wait_event(fence)
         if compression == "int8_ef":
             grads, opt_state = compress_decompress_with_ef(grads, opt_state)
-        return adamw_update(opt_cfg, grads, opt_state, params)
+        return adamw_update(opt_cfg, grads, opt_state, params, groups, sharded)
 
     return update
 
@@ -167,12 +266,15 @@ def make_train_step(
     compression: str = "none",
     grad_accum: str = "explicit",
     aux_weight: float = 0.01,
+    groups=None,
 ):
     """Returns ``train_step(params, opt_state, batch, fence=None) ->
     (params, opt_state, metrics)``, metrics with ``loss``, ``lr`` and
-    ``grad_norm``; params and opt_state are updated in place."""
-    grad_step = make_grad_fn(cfg, microbatches, remat, grad_accum, aux_weight)
-    update = make_update_fn(opt_cfg, compression)
+    ``grad_norm``; params and opt_state are updated in place. ``groups``:
+    one rank's step (the module docstring)."""
+    grad_step = make_grad_fn(cfg, microbatches, remat, grad_accum, aux_weight, groups)
+    sharded = tp_sharded_paths(cfg, groups.parallel) if groups is not None else frozenset()
+    update = make_update_fn(opt_cfg, compression, groups, sharded)
 
     def train_step(params: dict, opt_state: dict, batch: dict, fence=None):
         loss, metrics, grads = grad_step(params, batch)

@@ -19,8 +19,9 @@ and reads:
 
 No device is touched: the step runs on meta tensors, so nothing
 initialises CUDA. Values with no honest counterpart yet are ``null`` and
-``not_counted`` says why (the collective bytes wait for a per-rank step,
-ROADMAP queue 1 item 13; there is no lowering or compile; execution counts
+``not_counted`` says why (the collective bytes wait for the per-rank step
+to run under ``core/mock_groups.py``'s mock groups here, ROADMAP queue 1
+item 13; there is no lowering or compile; execution counts
 every op, so the JAX three-probe fit is not needed).
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch mixtral-8x7b --shape train_4k
@@ -54,7 +55,7 @@ from repro_torch.roofline.counting import count
 from repro_torch.utils.pytree import tree_paths
 
 NOT_COUNTED = {
-    "collective_bytes": "the port has no partitioner and no per-rank step yet (ROADMAP queue 1 item 13); "
+    "collective_bytes": "the dry run does not run the per-rank step under the mock groups yet (ROADMAP queue 1 item 13); "
                         "the bottleneck is taken over the compute and memory terms",
     "per_collective": "as collective_bytes",
     "lower_s": "no lowering: the step executes on the meta device",

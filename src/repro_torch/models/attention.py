@@ -8,6 +8,17 @@ Cross attention (enc-dec) stays plain torch, ``_sdpa``, as the JAX package
 computes it in jnp outside any kernel. Chunked prefill (:func:`attn_chunk`)
 attends a chunk's queries through the same kernel, right-aligned against
 the cached keys.
+
+``attn_forward(..., groups=)`` runs the layer on one rank's shards of a
+per-rank world (:func:`_project_qkv_tp`): the planner splits ``wq`` on
+its heads, ``wk`` and ``wv`` on their kv heads and ``wo`` on its input,
+so the rank attends its own query heads through the same kernel and
+all-reduces ``wo``'s output over tp. Where the view cuts a kv head (tp
+does not divide the kv heads: at tp4 reduced qwen3's ``wk`` gives each
+rank half a head), the k and v projections are gathered over tp and the
+rank takes the kv heads its query heads read. ``q_norm`` and ``k_norm``
+are whole on every rank and normalise its own heads, so their gradients
+are all-reduced over tp.
 """
 
 from __future__ import annotations
@@ -15,6 +26,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distribution import tp as TP
 from repro_torch.kernels import ops
 from repro_torch.models.layers import _dense_init, apply_rope, head_rmsnorm_apply
 
@@ -85,6 +97,54 @@ def _project_qkv(params, cfg: ModelConfig, x, positions, rope: bool = True):
     return q, kk, v
 
 
+def local_heads(cfg: ModelConfig, tp: int, tp_rank: int) -> tuple[int, int, int, int]:
+    """(first query head, query heads, first kv head, kv heads) that tp
+    rank ``tp_rank`` of ``tp`` attends. Refuses a tp that does not divide
+    the query heads, or a split whose query heads do not read their kv
+    heads in equal groups (the kernel's GQA layout)."""
+    h, k = cfg.num_heads, cfg.num_kv_heads
+    if h % tp:
+        raise ValueError(f"{cfg.name}: tp={tp} does not divide {h} query heads")
+    hl, rep = h // tp, h // k
+    q0 = tp_rank * hl
+    kv0, kv1 = q0 // rep, (q0 + hl - 1) // rep + 1
+    kvl = kv1 - kv0
+    if hl % kvl or any((q0 + i) // rep - kv0 != i // (hl // kvl) for i in range(hl)):
+        raise ValueError(f"{cfg.name}: tp={tp} rank {tp_rank} splits the query heads of a kv head unevenly")
+    return q0, hl, kv0, kvl
+
+
+def _project_qkv_tp(params, cfg: ModelConfig, x, positions, groups):
+    """:func:`_project_qkv` on one rank's column shards of ``wq``, ``wk``,
+    ``wv`` (and the biases): q (b,s,hl,hd) of the rank's query heads, k and
+    v (b,s,kvl,hd) of the kv heads they read."""
+    k_all, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    b, s, _ = x.shape
+    _, hl, kv0, kvl = local_heads(cfg, groups.tp, groups.tp_rank)
+    q = x @ params["wq"].to(x.dtype)
+    kk = x @ params["wk"].to(x.dtype)
+    v = x @ params["wv"].to(x.dtype)
+    if cfg.qkv_bias and "bq" in params:
+        q = q + params["bq"].to(x.dtype)
+        kk = kk + params["bk"].to(x.dtype)
+        v = v + params["bv"].to(x.dtype)
+    if k_all % groups.tp:
+        # the view cut a kv head: gather the projections, take the heads
+        kk = TP.gather_from(kk, groups)[..., kv0 * hd : (kv0 + kvl) * hd]
+        v = TP.gather_from(v, groups)[..., kv0 * hd : (kv0 + kvl) * hd]
+    elif kk.shape[-1] != kvl * hd:
+        raise ValueError(f"wk shard of {kk.shape[-1]} columns is not the {kvl} kv heads rank {groups.tp_rank} reads")
+    q = q.reshape(b, s, hl, hd)
+    kk = kk.reshape(b, s, kvl, hd)
+    v = v.reshape(b, s, kvl, hd)
+    if cfg.qk_norm and "q_norm" in params:
+        q = head_rmsnorm_apply(TP.copy_to(params["q_norm"], groups), q)
+        kk = head_rmsnorm_apply(TP.copy_to(params["k_norm"], groups), kk)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    kk = apply_rope(kk, positions, cfg.rope_theta)
+    return q, kk, v
+
+
 def _sdpa(q, k, v, mask, scale):
     """Reference scaled-dot-product attention; q:(b,s,h,d) k/v:(b,t,kh,d)."""
     rep = q.shape[2] // k.shape[2]
@@ -113,11 +173,17 @@ def attn_forward(
     causal: bool = True,
     use_kernel: bool = True,
     return_kv: bool = False,
+    groups=None,
 ):
-    """Full-sequence attention (prefill)."""
+    """Full-sequence attention (prefill); ``groups`` runs it on one rank's
+    shards (the module docstring)."""
     b, s, _ = x.shape
     h, hd = cfg.num_heads, cfg.resolved_head_dim
-    q, k, v = _project_qkv(params, cfg, x, positions)
+    if groups is not None:
+        q, k, v = _project_qkv_tp(params, cfg, x, positions, groups)
+        h = q.shape[2]
+    else:
+        q, k, v = _project_qkv(params, cfg, x, positions)
     scale = hd**-0.5
     if use_kernel:
         out = ops.flash_attention(
@@ -132,6 +198,8 @@ def attn_forward(
         out = _sdpa(q, k, v, mask, scale)
     out = out.reshape(b, s, h * hd)
     out = out @ params["wo"].to(x.dtype)
+    if groups is not None:
+        out = TP.reduce_from(out, groups)
     if return_kv:
         return out, k, v
     return out

@@ -13,6 +13,13 @@ planner reads them (``core/resource_view.py``).
 Matrices are cast to the activation dtype at use (``.to(x.dtype)``, a no-op
 when the caller pre-cast them, see ``model.cast_params``); norm scales are
 always read in fp32, as in the JAX package.
+
+``groups`` (a world's ``distribution/groups.py::RankGroups`` or
+``core/mock_groups.py::MockGroups``) runs a layer on one rank's shards of
+a per-rank world: the norm gathers its scale, which the planner splits on
+``embed``, and the MLP's ``wo`` (split on its input) all-reduces its
+output over tp (``distribution/tp.py``). ``groups=None`` is the
+one-process path, unchanged.
 """
 
 from __future__ import annotations
@@ -21,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distribution import tp as TP
 
 # ---------------------------------------------------------------------------
 # init helpers
@@ -62,7 +70,9 @@ def _rms(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
     return (y * scale.float()).to(x.dtype)
 
 
-def rmsnorm_apply(params: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+def rmsnorm_apply(params: dict, x: torch.Tensor, eps: float = 1e-6, groups=None) -> torch.Tensor:
+    if groups is not None:
+        return _rms(x, TP.gather_from(params["scale"], groups), eps)
     return _rms(x, params["scale"], eps)
 
 
@@ -119,10 +129,11 @@ def _act(name: str, x: torch.Tensor) -> torch.Tensor:
     return F.silu(x)
 
 
-def mlp_apply(params: dict, x: torch.Tensor, act: str) -> torch.Tensor:
+def mlp_apply(params: dict, x: torch.Tensor, act: str, groups=None) -> torch.Tensor:
     gate = _act(act, x @ params["wi_gate"].to(x.dtype))
     up = x @ params["wi_up"].to(x.dtype)
-    return (gate * up) @ params["wo"].to(x.dtype)
+    out = (gate * up) @ params["wo"].to(x.dtype)
+    return out if groups is None else TP.reduce_from(out, groups)
 
 
 # ---------------------------------------------------------------------------

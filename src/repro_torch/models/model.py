@@ -190,9 +190,38 @@ def next_token_nll(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     return (logz - tgt_logit).mean()
 
 
-def loss_fn(cfg: ModelConfig, params: dict, batch: dict, remat: str = "full", aux_weight: float = 0.01):
+def _rank_loss(cfg: ModelConfig, params: dict, batch: dict, remat: str, groups):
+    """:func:`loss_fn` on one rank's shards of a per-rank world (a decoder
+    of attention and dense-MLP blocks): the vocab-parallel embedding, the
+    stack's tp regions, the final norm on the gathered scale and the
+    vocab-parallel cross-entropy over this rank's vocabulary rows of the
+    head (``distribution/tp.py``). The loss is this rank's dp rows' mean;
+    the full logits are never formed."""
+    from repro_torch.core.resource_view import split_bounds
+    from repro_torch.distribution import tp as TP
+
+    adt = _dtype(cfg.dtype)
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    positions = torch.arange(s, dtype=torch.int32, device=tokens.device).expand(b, s)
+    lo = split_bounds(cfg.vocab_size, groups.tp, groups.tp_rank)[0]
+    x = TP.embed(params["embed"]["tok"], tokens, lo, adt, groups)
+    x, aux = T.stack_forward(params["blocks"], cfg, x, positions, causal=True, remat=remat, groups=groups)
+    h = L.rmsnorm_apply(params["final_norm"], TP.copy_to(x, groups), groups=groups)[:, :-1]
+    w = params["embed"]["tok"].T if cfg.tie_embeddings else params["lm_head"]["w"]
+    nll = TP.nll((h @ w.to(h.dtype)).to(torch.float32), tokens[:, 1:].long(), lo, groups)
+    return nll, aux
+
+
+def loss_fn(cfg: ModelConfig, params: dict, batch: dict, remat: str = "full", aux_weight: float = 0.01,
+            groups=None):
     """Next-token cross-entropy in float32 over ``logits[:, :-1]``, plus
-    ``aux_weight`` times the MoE aux loss. Returns (loss, {"nll", "moe_aux"})."""
+    ``aux_weight`` times the MoE aux loss. Returns (loss, {"nll", "moe_aux"}).
+    ``groups`` (``distribution/groups.py``) computes it on one rank's shards
+    of a per-rank world (:func:`_rank_loss`)."""
+    if groups is not None:
+        nll, aux = _rank_loss(cfg, params, batch, remat, groups)
+        return nll + aux_weight * aux, {"nll": nll, "moe_aux": aux}
     logits, aux = forward(cfg, params, batch, remat=remat)
     nll = next_token_nll(logits, batch["tokens"])
     loss = nll + aux_weight * aux

@@ -11,7 +11,11 @@ layer) or none (mamba2-2.7b at full width has ``d_ff = 0``), and an enc-dec
 decoder's blocks with cross attention (``cross=True``: ``ln_x`` and
 ``cross`` after the mixer); all train on the card and on the CPU.
 :func:`stack_chunk` runs one prompt chunk of a decoder-only model against
-the cache (chunked prefill).
+the cache (chunked prefill). :func:`stack_forward` with ``groups`` runs
+one rank's shards of a per-rank dp x tp world: each sublayer's input
+enters the tp region (``distribution/tp.py::copy_to``) before its norm,
+and attention and the dense MLP leave it by an all-reduce; only
+attention mixers with dense MLPs take that path.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distribution import tp as TP
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
@@ -126,8 +131,24 @@ def stack_axes(cfg: ModelConfig, cross: bool = False) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def _period_forward(period: dict, cfg: ModelConfig, prog, x, positions, causal: bool, enc_out=None):
+def _period_forward_tp(period: dict, cfg: ModelConfig, prog, x, positions, causal: bool, groups):
+    """One period's attention and dense-MLP blocks on one rank's shards:
+    returns (x, a zero aux loss)."""
+    for j, (mixer, mlp) in enumerate(prog):
+        bp = period[f"pos{j}"]
+        if mixer != "attn" or mlp != "dense" or "cross" in bp:
+            raise ValueError(f"{cfg.name}: per-rank worlds run attention mixers with dense MLPs only")
+        h = rmsnorm_apply(bp["ln1"], TP.copy_to(x, groups), groups=groups)
+        x = x + attn.attn_forward(bp["mixer"], cfg, h, positions, causal=causal, groups=groups)
+        h = rmsnorm_apply(bp["ln2"], TP.copy_to(x, groups), groups=groups)
+        x = x + mlp_apply(bp["mlp"], h, cfg.act, groups=groups)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def _period_forward(period: dict, cfg: ModelConfig, prog, x, positions, causal: bool, enc_out=None, groups=None):
     """One period's blocks: returns (x, the period's MoE aux loss)."""
+    if groups is not None:
+        return _period_forward_tp(period, cfg, prog, x, positions, causal, groups)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for j, (mixer, mlp) in enumerate(prog):
         bp = period[f"pos{j}"]
@@ -153,6 +174,7 @@ def stack_forward(
     causal: bool = True,
     enc_out: torch.Tensor | None = None,
     remat: str = "full",
+    groups=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward over the stack; returns (x, the MoE aux loss
     summed over the layers, float32). ``enc_out`` is the encoder's output,
@@ -162,7 +184,8 @@ def stack_forward(
     JAX package's ``jax.checkpoint`` over the scanned period body does:
     ``torch.utils.checkpoint`` without reentrancy keeps only each period's
     input. ``remat="none"`` keeps every activation; the JAX package's
-    ``"dots"`` policy has no counterpart here and raises."""
+    ``"dots"`` policy has no counterpart here and raises. ``groups`` runs
+    one rank's shards (the module docstring)."""
     if remat not in ("full", "none"):
         raise NotImplementedError(f"remat={remat!r}: only 'full' and 'none' are ported")
     prog = block_program(cfg)
@@ -171,10 +194,10 @@ def stack_forward(
         period = _period(params, i)
         if remat == "full" and torch.is_grad_enabled():
             x, a = torch.utils.checkpoint.checkpoint(
-                _period_forward, period, cfg, prog, x, positions, causal, enc_out, use_reentrant=False
+                _period_forward, period, cfg, prog, x, positions, causal, enc_out, groups, use_reentrant=False
             )
         else:
-            x, a = _period_forward(period, cfg, prog, x, positions, causal, enc_out)
+            x, a = _period_forward(period, cfg, prog, x, positions, causal, enc_out, groups)
         aux = aux + a
     return x, aux
 

@@ -13,6 +13,12 @@ step (about 24 GB more at qwen3-1.7b's full width, on a card that holds two
 worlds during a resize). The schedule, the norm and the bias corrections are
 computed as 0-dim float32 tensors on the state's device, so no step waits
 for the host.
+
+On one rank of a per-rank world (``groups``, ``distribution/groups.py``)
+the update runs on the rank's shards in place, as it does on whole
+tensors; only the clip's norm is the world's: the squares of the leaves
+split over tp (``sharded``) are summed over the tp group and those whole
+on every rank counted once, so the clip scale is the one-process run's.
 """
 
 from __future__ import annotations
@@ -73,24 +79,35 @@ def cosine_lr(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
     return cfg.learning_rate * warm * scale
 
 
-def global_norm(tree: dict) -> torch.Tensor:
+def global_norm(tree: dict, groups=None, sharded=frozenset()) -> torch.Tensor:
     """sqrt of the float32 sum of squares over every leaf, summed leaf by
-    leaf in path order."""
-    leaves = list(tree_paths(tree).values())
-    sq = _f32(0.0, leaves[0].device)
-    for g in leaves:
-        sq = sq + torch.sum(torch.square(g.to(torch.float32)))
+    leaf in path order. With ``groups``, the leaves whose paths
+    ``sharded`` names are one rank's tp shards: their sum is all-reduced
+    over tp before the whole leaves' is added."""
+    paths = tree_paths(tree)
+    device = next(iter(paths.values())).device
+    sq, split = _f32(0.0, device), _f32(0.0, device)
+    for path, g in paths.items():
+        term = torch.sum(torch.square(g.to(torch.float32)))
+        if groups is not None and path in sharded:
+            split = split + term
+        else:
+            sq = sq + term
+    if groups is not None:
+        sq = groups.all_reduce(split, "tp") + sq
     return torch.sqrt(sq)
 
 
 @torch.no_grad()
-def adamw_update(cfg: AdamWConfig, grads: dict, opt_state: dict, params: dict):
+def adamw_update(cfg: AdamWConfig, grads: dict, opt_state: dict, params: dict, groups=None,
+                 sharded=frozenset()):
     """One AdamW step, in place. Returns (params, opt_state, metrics): the
-    same tensors that came in, updated."""
+    same tensors that came in, updated. ``groups`` and ``sharded`` as in
+    :func:`global_norm`."""
     count = opt_state["count"].add_(1)
     lr = cosine_lr(cfg, count)
 
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, groups, sharded)
     clip_scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
 
     countf = count.to(torch.float32)

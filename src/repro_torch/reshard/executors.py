@@ -61,19 +61,51 @@ stream, and :meth:`sync_staging` returns an event that the trainer's next
 in-place update waits on: the port's analogue of the JAX package's
 donation, which may not free a source before the round's reads retired.
 
-Placing a world's ranks on several cards, with a transport between them,
-waits for the multi-card slice.
+RankExecutor — the live path between per-rank worlds: each process holds
+its own shards (``core/resource_view.py::shard_of``) and posts the cells
+it sends and receives through the rank pool's batched point-to-point call
+(``distribution/groups.py::RankPool.exchange``).
+
+How a cell maps onto a shard. Every process walks the same plan in the
+same order (the engine calls ``apply`` for every chunk on every rank). A
+cell is a box of its source shard and of its destination shard; in each,
+its innermost partial dim ``k`` makes it runs of ``box[k] * inner``
+contiguous elements, which are blocks of rows of the shard viewed as
+``(numel / W, W)`` with ``W`` the largest width that divides the runs,
+their starts and the shard. So every cell goes through the row kernels,
+whatever its width, and its staged bytes are the cell in C order:
+
+  * ``src == dst`` on this rank, every cell of the view resident -> adopt:
+    the destination *is* the source shard, no copy;
+  * ``src == dst``, the same runs at the same offsets in both shards ->
+    ``relayout_rows`` (the two views cut to their common rows);
+  * ``src == dst`` otherwise -> ``pack_rows`` and ``scatter_rows`` on
+    this rank, no message;
+  * ``src`` this rank -> ``pack_rows`` (or, for a collection the wire
+    policy quantizes, ``pack_quant_rows``: one tile and one float32 scale
+    per dim-0 row of the cell, the engine's wire accounting; a cell whose
+    dim-0 rows are not contiguous in the shard is packed losslessly first)
+    and a send;
+  * ``dst`` this rank -> a receive into staging, then ``scatter_rows`` (or
+    ``dequant_scatter_rows``, through a staging tile where the rows are not
+    contiguous in the destination shard).
+
+A layer's messages go out in one batched call, in waves whose summed wire
+bytes stay under the staging budget; the wave boundaries follow the plan
+order, the same on every rank, so no rank waits on a message its peer
+posts in a later wave.
 """
 
 from __future__ import annotations
 
+import itertools
 import math
 from typing import Any, Optional
 
 import torch
 
 from repro_torch.core.intersection import TransferTask
-from repro_torch.core.resource_view import TensorSpec, dtype_name
+from repro_torch.core.resource_view import TensorSpec, dtype_name, view_of
 from repro_torch.core.shadow import world_device
 from repro_torch.kernels import ops
 from repro_torch.reshard.chunking import rows_per_budget
@@ -405,3 +437,260 @@ def _runs(sorted_rows: list[int]) -> list[tuple[int, int]]:
         else:
             runs.append((r, r + 1))
     return runs
+
+
+# ---------------------------------------------------------------------------
+# Per-rank backend
+# ---------------------------------------------------------------------------
+
+
+def cell_runs(shape: tuple, offset: tuple, box: tuple) -> tuple[list[int], int]:
+    """The element offsets of the contiguous runs of the box ``box`` at
+    ``offset`` in a contiguous tensor of ``shape``, in C order, and the
+    runs' length."""
+    n = len(shape)
+    partial = [d for d in range(n) if box[d] != shape[d]]
+    k = partial[-1] if partial else 0
+    inner = math.prod(shape[k + 1 :])
+    strides = [math.prod(shape[d + 1 :]) for d in range(n)]
+    base = offset[k] * inner
+    starts = [
+        base + sum(i * strides[d] for d, i in enumerate(idx))
+        for idx in itertools.product(*(range(offset[d], offset[d] + box[d]) for d in range(k)))
+    ]
+    return starts, box[k] * inner
+
+
+def _width(starts: list[int], run: int, numel: int) -> int:
+    w = math.gcd(run, numel)
+    for s in starts:
+        w = math.gcd(w, s)
+    return w
+
+
+def _rows_contiguous(shape: tuple, box: tuple) -> bool:
+    """The cell's dim-0 rows are whole rows of the shard."""
+    return tuple(box[1:]) == tuple(shape[1:])
+
+
+class RankExecutor:
+    """Execute plan cells between per-rank shards (the module docstring).
+
+    specs: {tensor name: TensorSpec}; src: this rank's source shards by
+    name ({} for a rank outside the source world); transport: the pool's
+    ``exchange(sends, recvs)``; dst_buffers: zeroed destination shards
+    allocated ahead (``core/shadow.py::rank_state_buffers``)."""
+
+    def __init__(
+        self,
+        specs: dict[str, TensorSpec],
+        src: dict[str, torch.Tensor],
+        rank: int,
+        cfg_dst,
+        transport,
+        device,
+        staging_bytes: int,
+        wire_policy=None,
+        dst_buffers: Optional[dict[str, torch.Tensor]] = None,
+    ):
+        self.specs = specs
+        self.src = src
+        self.rank = rank
+        self.cfg_dst = cfg_dst
+        self.transport = transport
+        self.device = torch.device(device)
+        self.staging_bytes = staging_bytes
+        self.wire_policy = wire_policy
+        self.dst_buffers = dict(dst_buffers or {})
+        self.dst: dict[str, torch.Tensor] = {}
+        self.executed_bytes = 0  # bytes this rank wrote into its destination shards
+        self.wire_bytes = 0  # bytes this rank put on the wire (payload and scales)
+        self.generic_cells = 0  # every cell takes the row kernels
+        self.sent_bytes: dict[int, int] = {}  # logical bytes sent, by destination rank
+        self.recv_bytes: dict[int, int] = {}  # logical bytes received, by source rank
+        self.peak_staged_bytes = 0
+        self._chunks: list[TransferTask] = []
+        self._resident_done: set[str] = set()
+        self._round_touched: set[str] = set()
+        self._home = torch.cuda.current_stream(self.device) if self.device.type == "cuda" else None
+
+    # -- round protocol (reshard/overlap.py) ------------------------------
+    def update_sources(self, src: dict[str, torch.Tensor]) -> None:
+        self.src = src
+        self._resident_done = set()
+
+    def reset_round(self) -> None:
+        self._resident_done = set()
+
+    def begin_round(self, after: Optional[torch.cuda.Event] = None) -> None:
+        self._round_touched = set()
+        if self._home is not None:
+            stream = torch.cuda.current_stream(self.device)
+            if after is not None:
+                stream.wait_event(after)
+            elif stream != self._home:
+                stream.wait_stream(self._home)
+
+    def round_touched(self) -> set[str]:
+        return set(self._round_touched)
+
+    def sync_staging(self) -> Optional[torch.cuda.Event]:
+        if self.device.type != "cuda":
+            return None
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(self.device))
+        return event
+
+    # -- engine protocol ------------------------------------------------
+    def begin_layer(self, layer: int) -> None:
+        self._chunks = []
+
+    def apply(self, chunk: TransferTask) -> None:
+        self._chunks.append(chunk)
+
+    def end_layer(self, layer: int) -> None:
+        wave, used = [], 0
+        for c in self._chunks:
+            if c.resident:
+                if c.dst_rank == self.rank:
+                    self._adopt(c.tensor)
+                continue
+            nbytes = wire_nbytes(self.wire_policy, c)
+            if wave and used + nbytes > self.staging_bytes:
+                self._run_wave(wave)
+                wave, used = [], 0
+            wave.append(c)
+            used += nbytes
+        if wave:
+            self._run_wave(wave)
+        self._chunks = []
+
+    def _adopt(self, name: str) -> None:
+        self._round_touched.add(name)
+        if name in self._resident_done:
+            return
+        self._resident_done.add(name)
+        self.dst[name] = self.src[name]
+
+    # -- geometry -------------------------------------------------------
+    def _dst_carry(self, name: str) -> torch.Tensor:
+        if name not in self.dst:
+            spec = self.specs[name]
+            shape = view_of(spec, self.cfg_dst, self.rank).shape()
+            dtype = getattr(torch, spec.dtype)
+            buf = self.dst_buffers.pop(name, None)
+            if buf is not None:
+                if tuple(buf.shape) != shape or buf.dtype != dtype or buf.device != self.device:
+                    raise ValueError(f"{name}: buffer {tuple(buf.shape)} {buf.dtype} does not match its view {shape}")
+                self.dst[name] = buf
+            else:
+                self.dst[name] = torch.zeros(shape, dtype=dtype, device=self.device)
+        return self.dst[name]
+
+    @staticmethod
+    def _rows(t: torch.Tensor, offset: tuple, box: tuple) -> tuple[torch.Tensor, list[int], int]:
+        """(the (numel/W, W) view of ``t``, block starts, block rows) of
+        the box."""
+        starts, run = cell_runs(tuple(t.shape), offset, box)
+        w = _width(starts, run, t.numel())
+        return t.view(-1, w), [s // w for s in starts], run // w
+
+    def _fmt(self, c: TransferTask) -> str:
+        return "none" if self.wire_policy is None else self.wire_policy.format_for(c.collection)
+
+    # -- movement -------------------------------------------------------
+    def _pack(self, c: TransferTask) -> list[torch.Tensor]:
+        src = self.src[c.tensor]
+        box = c.shape()
+        fmt = self._fmt(c)
+        if fmt == "none":
+            view, starts, br = self._rows(src, c.src_offset, box)
+            return [ops.pack_rows(view, starts, br)]
+        if _rows_contiguous(tuple(src.shape), box):
+            rows = list(range(c.src_offset[0], c.src_offset[0] + box[0]))
+            q, scales = ops.pack_quant_rows(src.view(src.shape[0], -1), rows, 1, fmt)
+        else:
+            view, starts, br = self._rows(src, c.src_offset, box)
+            flat = ops.pack_rows(view, starts, br)
+            q, scales = ops.pack_quant_rows(flat.view(box[0], -1), list(range(box[0])), 1, fmt)
+        return [q, scales]
+
+    def _recv_buffers(self, c: TransferTask) -> list[torch.Tensor]:
+        box = c.shape()
+        numel = math.prod(box)
+        dtype = getattr(torch, self.specs[c.tensor].dtype)
+        fmt = self._fmt(c)
+        if fmt == "none":
+            return [torch.empty(numel, dtype=dtype, device=self.device)]
+        from repro_torch.kernels.ref import WIRE_QDTYPE
+
+        return [torch.empty((box[0], numel // box[0]), dtype=WIRE_QDTYPE[fmt], device=self.device),
+                torch.empty((box[0], 1), dtype=torch.float32, device=self.device)]
+
+    def _unpack(self, c: TransferTask, bufs: list[torch.Tensor]) -> None:
+        dst = self._dst_carry(c.tensor)
+        box = c.shape()
+        if len(bufs) == 1:
+            view, starts, br = self._rows(dst, c.dst_offset, box)
+            ops.scatter_rows(view, bufs[0].view(-1, view.shape[1]), starts, br)
+            return
+        q, scales = bufs
+        if _rows_contiguous(tuple(dst.shape), box):
+            rows = list(range(c.dst_offset[0], c.dst_offset[0] + box[0]))
+            ops.dequant_scatter_rows(dst.view(dst.shape[0], -1), q, scales, rows, 1)
+            return
+        tile = torch.empty(q.shape, dtype=dst.dtype, device=self.device)
+        ops.dequant_scatter_rows(tile, q, scales, list(range(box[0])), 1)
+        view, starts, br = self._rows(dst, c.dst_offset, box)
+        ops.scatter_rows(view, tile.view(-1, view.shape[1]), starts, br)
+
+    def _local(self, c: TransferTask) -> None:
+        src, dst = self.src[c.tensor], self._dst_carry(c.tensor)
+        box = c.shape()
+        s_starts, s_run = cell_runs(tuple(src.shape), c.src_offset, box)
+        d_starts, d_run = cell_runs(tuple(dst.shape), c.dst_offset, box)
+        if s_starts == d_starts and s_run == d_run:
+            w = math.gcd(_width(s_starts, s_run, src.numel()), _width(d_starts, d_run, dst.numel()))
+            rows = min(src.numel(), dst.numel()) // w
+            ops.relayout_rows(dst.view(-1, w)[:rows], src.view(-1, w)[:rows], [s // w for s in s_starts], s_run // w)
+        else:
+            view, starts, br = self._rows(src, c.src_offset, box)
+            buf = ops.pack_rows(view, starts, br)
+            dview, dstarts, dbr = self._rows(dst, c.dst_offset, box)
+            ops.scatter_rows(dview, buf.view(-1, dview.shape[1]), dstarts, dbr)
+        self.executed_bytes += c.nbytes
+
+    def _run_wave(self, wave: list[TransferTask]) -> None:
+        sends, recvs, landing = [], [], []
+        staged = 0
+        for c in wave:
+            if c.src_rank == self.rank and c.dst_rank == self.rank:
+                self._round_touched.add(c.tensor)
+                self._local(c)
+            elif c.src_rank == self.rank:
+                bufs = self._pack(c)
+                sends += [(c.dst_rank, b) for b in bufs]
+                nbytes = sum(b.numel() * b.element_size() for b in bufs)
+                staged += nbytes
+                self.wire_bytes += nbytes
+                self.sent_bytes[c.dst_rank] = self.sent_bytes.get(c.dst_rank, 0) + c.nbytes
+            elif c.dst_rank == self.rank:
+                self._round_touched.add(c.tensor)
+                bufs = self._recv_buffers(c)
+                recvs += [(c.src_rank, b) for b in bufs]
+                landing.append((c, bufs))
+                staged += sum(b.numel() * b.element_size() for b in bufs)
+                self.recv_bytes[c.src_rank] = self.recv_bytes.get(c.src_rank, 0) + c.nbytes
+                self.executed_bytes += c.nbytes
+        self.peak_staged_bytes = max(self.peak_staged_bytes, staged)
+        self.transport.exchange(sends, recvs)
+        for c, bufs in landing:
+            self._unpack(c, bufs)
+
+    # -- results --------------------------------------------------------
+    def results(self) -> dict[str, torch.Tensor]:
+        return self.dst
+
+    def block_until_ready(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)

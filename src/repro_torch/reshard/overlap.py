@@ -96,7 +96,10 @@ class OverlapSession:
 
     ``src_devices`` / ``dst_devices`` are the two worlds' rank -> device
     lists; ``dst_buffers`` the destination tensors the shadow world
-    allocated ahead (optional)."""
+    allocated ahead (optional). ``executor``, given, replaces the
+    ``LiveExecutor`` the session would build (a per-rank world's
+    ``RankExecutor``, which holds its own buffers); its rounds run on the
+    caller's stream, since its transport waits on the host."""
 
     def __init__(
         self,
@@ -110,16 +113,17 @@ class OverlapSession:
         max_inflight_rounds: int = 2,
         wire_policy=None,
         dst_buffers: Optional[dict[str, torch.Tensor]] = None,
+        executor=None,
     ):
         self.spec_map = {s.name: s for s in specs}
         self.plan = plan
-        self.executor = LiveExecutor(
+        self.executor = executor or LiveExecutor(
             self.spec_map, src_leaves, src_devices, dst_devices, staging_bytes,
             wire_policy=wire_policy, dst_buffers=dst_buffers,
         )
         self.engine = ReshardEngine(plan, self.executor, staging_bytes, wire_policy=wire_policy)
         device = self.executor.device
-        self.stream = torch.cuda.Stream(device) if device.type == "cuda" else None
+        self.stream = torch.cuda.Stream(device) if device.type == "cuda" and executor is None else None
         self.stream_k = max(1, stream_k)
         self.max_inflight_rounds = max(1, max_inflight_rounds)
         # fully-resident layers never enter the pre-copy schedule: the

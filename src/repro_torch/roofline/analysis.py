@@ -14,8 +14,9 @@ text. The port compiles no HLO, so :func:`collective_bytes_from_hlo` stays
 what it is, a parser of XLA's HLO text, kept so that the same text gives
 the same bytes in both packages. The port's dry run (``launch/dryrun.py``)
 fills HLO_FLOPs and HLO_bytes from one execution on the meta device
-(``roofline/counting.py``); it has no per-rank step to count collectives
-from yet, so it leaves ``collective_bytes`` and ``per_collective`` None:
+(``roofline/counting.py``); it does not yet run the per-rank step under
+the mock groups (``core/mock_groups.py``), whose records would give the
+collectives, so it leaves ``collective_bytes`` and ``per_collective`` None:
 the collective term is then None, and the bottleneck and the roofline
 fraction are taken over the two counted terms. The analytic curves at the end
 (``analytic_step_time``, ``analytic_throughput``, ``marginal_throughput``)

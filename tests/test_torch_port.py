@@ -238,6 +238,9 @@ TIMING_AND_CALIBRATION = ["utils/timing", "sim/calibrate"]
 # the dry run on the meta device, the sharding rules it reads, the kernels'
 # meta routes and work formulas, and the counting mode
 DRYRUN = ["launch/dryrun", "distribution/sharding", "kernels/meta", "kernels/work", "roofline/counting"]
+# per-rank worlds: process groups, tensor-parallel regions, the mock
+# process groups, the rank controller and the rank launcher
+RANK_WORLDS = ["distribution/groups", "distribution/tp", "core/mock_groups", "core/rank_controller", "launch/ranks"]
 # the port's examples
 EXAMPLES = ["quickstart_torch", "reshard_demo_torch", "fleet_train_torch", "elastic_train_torch", "serve_decode_torch"]
 
@@ -247,13 +250,13 @@ def test_port_sources_do_not_import_jax_or_repro():
     assert all(f.exists() for f in examples)
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"] + examples
     assert len(files) > 20
-    assert {PORT / f"{m}.py" for m in RESHARD_AND_ELASTIC_SERVE + TRAINING + SSM + LIFECYCLE + CONTROL_PLANE + TIMING_AND_CALIBRATION + DRYRUN} <= set(files)
+    assert {PORT / f"{m}.py" for m in RESHARD_AND_ELASTIC_SERVE + TRAINING + SSM + LIFECYCLE + CONTROL_PLANE + TIMING_AND_CALIBRATION + DRYRUN + RANK_WORLDS} <= set(files)
     offenders = [f"{f}: {m.group(0).strip()}" for f in files for m in _FORBIDDEN_IMPORT.finditer(f.read_text())]
     assert offenders == []
 
 
 def test_importing_the_port_loads_no_jax():
-    wanted = [f"repro_torch.{m.replace('/', '.')}" for m in RESHARD_AND_ELASTIC_SERVE + TRAINING + SSM + LIFECYCLE + CONTROL_PLANE + TIMING_AND_CALIBRATION + DRYRUN]
+    wanted = [f"repro_torch.{m.replace('/', '.')}" for m in RESHARD_AND_ELASTIC_SERVE + TRAINING + SSM + LIFECYCLE + CONTROL_PLANE + TIMING_AND_CALIBRATION + DRYRUN + RANK_WORLDS]
     code = f"""
 import importlib, pkgutil, sys
 sys.path.insert(0, {str(REPO)!r})
