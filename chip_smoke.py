@@ -296,10 +296,11 @@ non-zero without one. Phases, each printing one line or more:
    (capacity is counted per call, so whole prefill drops other pairs),
    failing if any layer's experts for the last token differ there, and the
    first wrapped chunk's flash launch against the plain version;
-38. pipeline-parallel training at full width and depth: qwen3-1.7b as in
-   13; the first step on pp2tp2 (2 microbatches, ``scan_loss`` with no
-   aux term) against dp2tp2 with the same microbatches, in f32 compute at 4 layers
-   (held) and in bf16 at 28 (printed); then 3 steps on pp2tp2 -> a
+38. pipeline-parallel training at full width: qwen3-1.7b as in 13 cut
+   to 8 of its 28 layers (28 before phase 43 came, for the script's time);
+   the first step on pp2tp2 (2 microbatches, ``scan_loss`` with no aux
+   term) against dp2tp2 with the same microbatches, in f32 compute at 4
+   layers (held) and in bf16 at 8 (printed); then 3 steps on pp2tp2 -> a
    streamed resize with int8 moments to dp2tp2 -> a lossless stop-copy to
    pp4tp1 -> 2 steps. Per commit its pause, Prepare, executed against
    planned bytes, the row and quant launches and the peak; each world's
@@ -338,9 +339,10 @@ non-zero without one. Phases, each printing one line or more:
 42. per-rank training worlds (``core/rank_controller.py``), run right
    after phase 3, while this process holds the least of the card: 4 rank
    processes on the one card under gloo (their messages through pinned
-   host memory; their allocators in expandable segments), qwen3-1.7b at
+   host memory; their allocators in expandable segments; started once for
+   phases 42 and 43, which they run one after the other), qwen3-1.7b at
    full width (d_model 2048, 16/8 heads of 128, d_ff 6144, vocab 151936)
-   cut to 8 of its 28 layers, fp32 params, batch 4 x 1024, TF32 off. Rank 0
+   cut to 2 of its 28 layers, fp32 params, batch 4 x 1024, TF32 off. Rank 0
    first computes, alone, the one-process world's first step in f32 and in
    bf16 compute, and the bf16 step's twin that sums the batch's rows in two
    halves; then every rank computes the first step on its shards in both.
@@ -351,13 +353,15 @@ non-zero without one. Phases, each printing one line or more:
    the one-process bf16 step and the twin's are printed), and the bf16
    step's launches (flash on the tensor cores) are the path
    "rank_train_bf16". Then, in f32 compute (see ``_rank_cfg``), dp2tp2
-   trains 3 steps, is resized live to dp1tp4 (streamed, stream_k 4, a
-   split-step commit, the moments on the int8 wire) while training goes
-   on, trains 2 steps, is resized back to dp2tp2 by stop-copy (lossless)
-   and trains 2. At each commit every tensor of the cut is assembled on
-   rank 0's host from the old world's shards and from the new world's and
-   held: params (and the lossless commit's moments) bit for bit, the int8
-   commit's moments within their tiles' rounding. Rank 0 then runs a
+   trains 1 step, is resized live to dp1tp4 (streamed, every layer in one
+   pre-copy round, a split-step commit, the moments on the int8 wire)
+   while training goes on, trains 1 step, is resized back to dp2tp2 by
+   stop-copy (lossless) and trains 1. At each commit every tensor of the cut is held: params
+   (and the lossless commit's moments) bit for bit, by digests of the old
+   world's shards and of the new world's summed over the ranks (each word
+   weighted by its place in the whole tensor), the int8 commit's moments
+   assembled on rank 0's host from both worlds' shards, within their
+   tiles' rounding. Rank 0 then runs a
    one-process dp2tp2 control never resized, which takes the moments the
    int8 commit delivered at the same step (as phase 13's control takes the
    int8 round trip), and a witness: from the control's state at that
@@ -366,8 +370,16 @@ non-zero without one. Phases, each printing one line or more:
    are held against the control's: within 1e-2 (the JAX package's
    RESHAPE_PARITY_TOL) where the delivered moments kept Adam's |mu| <=
    sqrt(nu), and where they broke it (the wire rounded a nu to 0 beside a
-   nonzero mu; there Adam divides by ~eps) within 1e-2 or 4x what the
-   witness parts from the control there, the larger. The launches of flash
+   nonzero mu; there Adam divides by ~eps) within 1e-2 or 2x what the
+   witness parts from the control there, the larger. Each lossless
+   commit's destination world is held by its own steps, from the commit to
+   the next one or the end, where the bound held: the run's move there
+   less a control's, over the control's move (L2, the largest over leaves;
+   a world that skips its update reads 1), within 1e-2. After the int8
+   commit the broken entries part the control's path from the run's, so
+   that control is one seated on the run's whole state at the cut (its
+   moments assembled on rank 0 too); the int8 commit's own world is
+   printed beside the witness's. The launches of flash
    forward and backward and of the five row and quant kernels are counted
    in the rank processes and summed into the kernels line as the path
    "rank_train", each nonzero; a rank that fails fails the phase. Prints
@@ -375,6 +387,42 @@ non-zero without one. Phases, each printing one line or more:
    first real step's, each commit's pause and Prepare and the bytes and
    seconds the host staging carried, and the peak memory per rank and on
    the card.
+43. per-rank pipeline- and expert-parallel worlds, right after phase 42,
+   in the same setting (4 rank processes on the card under gloo, batch 4
+   x 1024, f32 compute, TF32 off), in two parts one after the other:
+   qwen3-1.7b at 4 of 28 layers on pp2tp2
+   with 4 microbatches (the GPipe stage ranks of
+   ``distribution/pipeline.py``), streamed (two layers a pre-copy round,
+   so that training steps between rounds dirty the layers copied before
+   and the commit re-syncs them; a split-step commit, the moments on the
+   int8 wire) to dp2tp2 (2 microbatches: its 2 rows a rank) and back by
+   stop-copy (lossless); mixtral-8x7b at full width and 1 of 32 layers
+   (1.713 B params) on ep2tp2 (``models/moe.py::moe_apply_rank``), streamed
+   (lossless) to tp4 and by stop-copy to ep4 (see ``_pp_ep_parts`` for the
+   order). In each part rank 0 first
+   computes, alone, the one-process world's first step (and records which
+   (token, choice) pairs capacity keeps); then every rank computes the
+   first step on its shards. Assembled on rank 0, the gradients are held
+   to 1e-4 of each leaf's largest entry and the loss to 1e-4 of its value,
+   and every route call keeps exactly the pairs one process keeps (every
+   rank the same). Then the resized run, each commit's cut held as phase
+   42 holds it (params and a lossless commit's moments bit for bit, the
+   int8 commit's moments within their tiles' rounding), each rank's
+   commits with their bytes by rank pair; rank 0 then runs the
+   one-process control never resized (qwen3's on pp2tp2 with 4
+   microbatches, taking the int8 commit's moments at its step, and phase
+   42's witness on dp2tp2; mixtral's on ep2tp2) and holds the losses and
+   each cut's and the final params to 1e-2 (where the int8 moments kept
+   |mu| <= sqrt(nu); where they broke it, to 1e-2 or 2x the witness), and
+   each commit's destination world by its steps as phase 42 holds them.
+   The launches of flash forward and backward and of the row and quant
+   kernels on both parts, summed over the ranks, are the path
+   "rank_pp_ep", each of qwen3's seven and mixtral's flash, pack and
+   scatter nonzero on its part. Prints step_s per rank beside the
+   control's, pause_s beside prepare_s for each commit, host-staged bytes
+   a step and a commit, bytes by rank pair, the mock warm-up's seconds
+   beside the first step's, and the peak memory per rank (each step's on
+   rank 0) and on the card.
 The second-to-last line is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.
 
@@ -458,7 +506,14 @@ SASS_LIBS = {"flash_attention_tc": "tensor_cores", "flash_attention_bwd_tc": "te
              "flash_attention": "cuda_cores", "flash_attention_bwd": "cuda_cores", "ssd_scan_bwd": "tensor_cores"}
 
 
+# host clock of each phase tag's last line: main() prints the time from one
+# tag's last line to the next's, in time order (a phase that prints only
+# when it ends is then counted whole)
+PHASE_ENDS: dict = {}
+
+
 def log(phase: str, msg: str) -> None:
+    PHASE_ENDS[phase] = time.perf_counter()
     print(f"[{phase}] {msg}", flush=True)
 
 
@@ -770,16 +825,23 @@ def _kernel_class(name: str) -> str:
 # drifts (a kernel can show before its own launch), so a trace waits
 # TRACE_PAD_S on the host before its first call and after its last. TRACES
 # counts the traces taken, those that were not whole, and the measurements
-# that had to use such a trace.
+# that had to use such a trace. Late in a run it also loses whole traces
+# (no device event at all; the first trace of each measurement in the
+# quant phase, and in one run all three of one): device_ms takes a lost
+# trace again, with the wait a side doubled, at most TRACE_LOST_TRIES
+# times a measurement, and where the trace after those is lost too it
+# times the calls with CUDA events instead (the host's launch gaps
+# included), says so and counts it ("lost", "events instead").
 TRACE_PAD_S = 0.1
 TRACE_TRIES = 3
-TRACES = {"taken": 0, "not whole": 0, "used not whole": 0}
+TRACE_LOST_TRIES = 4
+TRACES = {"taken": 0, "not whole": 0, "used not whole": 0, "lost": 0, "events instead": 0}
 SPIN_KERNEL = "spin_kernel"  # torch.cuda._sleep's
 
 
-def open_trace() -> None:
+def open_trace(pad: float = TRACE_PAD_S) -> None:
     """The start of every trace: the wait, then the spin kernel, finished."""
-    time.sleep(TRACE_PAD_S)
+    time.sleep(pad)
     torch.cuda._sleep(100)
     torch.cuda.synchronize()
 
@@ -1273,21 +1335,26 @@ def device_ms(fn, kernel, calls: int = 10, per_call=False) -> float:
     every name matched, with at least one matching event a call (a counted
     launch, where the count is read), and a kernel on the device for every
     launch the host made in it; the first whole trace of TRACE_TRIES is
-    used, else the one with the most matching events."""
+    used, else the one with the most matching events. A trace with no
+    device event at all is lost and taken again (TRACE_LOST_TRIES); where
+    the profiler saw nothing of the calls, CUDA events time them
+    (``_events_ms``)."""
     from torch.profiler import ProfilerActivity, profile
 
     names = (kernel,) if isinstance(kernel, str) else kernel
     fn()
     torch.cuda.synchronize()
     best = None
-    for _ in range(TRACE_TRIES):
+    tries = lost = 0
+    pad = TRACE_PAD_S
+    while tries < TRACE_TRIES:
         counted = per_call() if callable(per_call) else 0
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            open_trace()
+            open_trace(pad)
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-            time.sleep(TRACE_PAD_S)
+            time.sleep(pad)
         expected = calls
         if callable(per_call):
             counted = (per_call() - counted) / calls
@@ -1295,6 +1362,19 @@ def device_ms(fn, kernel, calls: int = 10, per_call=False) -> float:
             expected = round(counted * calls)
         by_kernel: dict[str, list[float]] = {}
         events = device_events(prof)
+        if not events:
+            TRACES["taken"] += 1
+            TRACES["lost"] += 1
+            lost += 1
+            if lost > TRACE_LOST_TRIES:
+                if best is None or best[0] == 0:
+                    return _events_ms(fn, names, calls, lost)
+                TRACES["used not whole"] += 1
+                break
+            pad *= 2
+            log("profile", f"a trace of {names} held no device event: taken again, {pad:g}s a side")
+            continue
+        tries += 1
         kernels = sum(not e.name.startswith(("Memset", "Memcpy")) for e in events)
         # the host's launches but the spin kernel's
         host_launches = sum(e.device_type != torch.autograd.DeviceType.CUDA
@@ -1325,6 +1405,24 @@ def device_ms(fn, kernel, calls: int = 10, per_call=False) -> float:
     if not callable(per_call):
         return sum(statistics.fmean(ts) * math.ceil(len(ts) / calls) for ts in by_kernel.values())
     return counted * sum(statistics.fmean(ts) for ts in by_kernel.values())
+
+
+def _events_ms(fn, names, calls: int, lost: int) -> float:
+    """device_ms where the profiler lost every trace: ``calls`` calls of
+    ``fn`` between two CUDA events, over the calls (the host's gaps between
+    launches included, so at least the kernels' time)."""
+    TRACES["events instead"] += 1
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / calls
+    log("profile", f"the profiler lost all {lost} traces of {names}: {ms:.4f} ms a call from CUDA events over "
+                   f"{calls} calls stands for the device time (host gaps included)")
+    return ms
 
 
 def _device_class(name: str) -> str:
@@ -2319,19 +2417,32 @@ RECOVERY = dict(control_steps=12, before=3, after=2, stream_k=10, ckpt_at=2, los
 DIGEST_CHUNK = 1 << 24  # 32-bit words a digest pass reads at once
 
 
-def _digest(x: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
-    """Two int64 sums of a tensor's 32-bit words on its device, plain and
-    position-weighted (wrapping): equal bytes give equal digests, and a
-    changed or moved word changes them."""
-    w = x.detach().reshape(-1).view(torch.int32)
-    s1 = torch.zeros((), dtype=torch.int64, device=x.device)
-    s2 = torch.zeros((), dtype=torch.int64, device=x.device)
-    for lo in range(0, w.numel(), DIGEST_CHUNK):
-        c = w[lo : lo + DIGEST_CHUNK].to(torch.int64)
-        total = c.sum()
-        s1 += total
-        s2 += (c * weights[: c.numel()]).sum() + lo * total
-    return torch.stack([s1, s2])
+def _shard_digest(x: torch.Tensor, spec=None, view=None) -> torch.Tensor:
+    """Two wrapping int64 sums of the 32-bit (16-bit) words of the shard
+    ``x``, the box ``view`` of the tensor ``spec`` (both default to ``x``
+    whole), on its device: plain, and weighted by 1 + each word's flat
+    index in the whole tensor. The shards of a world sum to the whole
+    tensor's digest, whatever its layout; equal bytes give equal digests,
+    and a changed or moved word changes them."""
+    shape = tuple(spec.shape) if spec is not None else tuple(x.shape)
+    bounds = view.bounds if view is not None else tuple((0, n) for n in shape)
+    word = torch.int32 if x.element_size() % 4 == 0 else torch.int16
+    per = x.element_size() // (4 if word == torch.int32 else 2)  # words an element
+    whole = [math.prod(shape[d + 1:]) for d in range(len(shape))]
+    local = [math.prod(x.shape[d + 1:]) for d in range(len(shape))]
+    words = x.detach().reshape(-1).view(word)
+    out = torch.zeros(2, dtype=torch.int64, device=x.device)
+    for lo in range(0, words.numel(), DIGEST_CHUNK):
+        c = words[lo:lo + DIGEST_CHUNK].to(torch.int64)
+        j = torch.arange(lo, lo + c.numel(), dtype=torch.int64, device=x.device)
+        if tuple(x.shape) == shape:
+            idx = j + 1
+        else:
+            e, idx = j // per, j % per + 1
+            for d, (lo_d, _) in enumerate(bounds):
+                idx += (e // local[d] % x.shape[d] + lo_d) * whole[d] * per
+        out += torch.stack([c.sum(), (c * idx).sum()])
+    return out
 
 
 def state_digest(ctrl) -> dict:
@@ -2340,9 +2451,8 @@ def state_digest(ctrl) -> dict:
     from repro_torch.core.reshard import named_state_leaves
 
     named, extras = named_state_leaves(ctrl.params, ctrl.opt_state)
-    weights = torch.arange(1, DIGEST_CHUNK + 1, dtype=torch.int64, device=ctrl.device)
     names = [*named, "count"]
-    sums = torch.stack([_digest(x, weights) for x in [*named.values(), extras["count"]]]).tolist()
+    sums = torch.stack([_shard_digest(x) for x in [*named.values(), extras["count"]]]).tolist()
     return dict(zip(names, map(tuple, sums)))
 
 
@@ -4558,10 +4668,11 @@ def phase_chunked_prefill(arch: str, params=None) -> dict:
     return launches
 
 
-# pipeline training (phase 38): qwen3-1.7b as in TRAIN (28 layers, fp32
-# params, bf16 compute, batch 4 x 1024); the first-step check at 4 layers
-# in f32 compute
-PIPELINE = dict(before=3, between=2, after=2, stream_k=8, check_layers=4)
+# pipeline training (phase 38): qwen3-1.7b as in TRAIN cut to 8 of its 28
+# layers (fp32 params, bf16 compute, batch 4 x 1024; 28 layers before phase
+# 43 came, for the script's time); the first-step check at 4 layers in f32
+# compute
+PIPELINE = dict(layers=8, before=3, between=2, after=2, stream_k=8, check_layers=4)
 PP2TP2, DP2TP2, PP4TP1 = ParallelConfig(pp=2, tp=2), ParallelConfig(dp=2, tp=2), ParallelConfig(pp=4)
 # the pipelined first step's f32 gradients against the dense step's with
 # the same microbatches: per leaf, max |g - g_dense| / max |g_dense| (the
@@ -4625,7 +4736,7 @@ def phase_pipeline_first_step() -> None:
     """The pipelined first step (pp2tp2, 2 microbatches) against the dense
     dp2tp2 step with the same microbatches, from the run's init and first
     batch: in f32 compute (TF32 off) at ``check_layers`` layers within
-    ``PIPELINE_GRAD_TOL``; at 28 layers in bf16 compute the gap printed."""
+    ``PIPELINE_GRAD_TOL``; at ``layers`` in bf16 compute the gap printed."""
     import gc
 
     from repro_torch.data.pipeline import SyntheticLM
@@ -4633,7 +4744,7 @@ def phase_pipeline_first_step() -> None:
     from repro_torch.distribution.step import make_grad_fn
     from repro_torch.utils.pytree import tree_paths
 
-    full = get_config(TRAIN["arch"])
+    full = dataclasses.replace(get_config(TRAIN["arch"]), num_layers=PIPELINE["layers"])
     batch = {"tokens": torch.from_numpy(SyntheticLM(full.vocab_size, TRAIN["seq"], TRAIN["batch"], 0)
                                         .global_batch_at(0)).to("cuda", torch.long)}
     for cfg in (dataclasses.replace(full, num_layers=PIPELINE["check_layers"], dtype="float32"), full):
@@ -4670,7 +4781,7 @@ def phase_pipeline_first_step() -> None:
                     times.append(time.perf_counter() - t0)
                     del out
                 grad_s[label] = times[1:]
-            log("train-pp", "the gradients alone, 28 layers, bf16 compute (host clock, three calls after a warm-up, "
+            log("train-pp", f"the gradients alone, {cfg.num_layers} layers, bf16 compute (host clock, three calls after a warm-up, "
                             "median [min, max]): " + ", ".join(f"{k} {statistics.median(v):.4f} s [{min(v):.4f}, "
                                                                f"{max(v):.4f}]" for k, v in grad_s.items()))
         del params
@@ -4717,9 +4828,8 @@ def _world_control(cfg, opt, plan, roundtrip=None) -> tuple[dict, list]:
 
 
 def phase_train_pipeline() -> dict:
-    """Pipeline-parallel training at full width and depth, resized out of
-    and into pp (see the module docstring, 38). Returns the path's
-    launches."""
+    """Pipeline-parallel training at full width, resized out of and into
+    pp (see the module docstring, 38). Returns the path's launches."""
     import gc
 
     from repro_torch.core import controller as C
@@ -4729,7 +4839,7 @@ def phase_train_pipeline() -> dict:
     from repro_torch.utils.pytree import tree_paths
 
     phase_pipeline_first_step()
-    cfg = get_config(TRAIN["arch"])
+    cfg = dataclasses.replace(get_config(TRAIN["arch"]), num_layers=PIPELINE["layers"])
     opt = AdamWConfig(learning_rate=1e-4, warmup_steps=2, total_steps=1000)
     kw = dict(seq_len=TRAIN["seq"], global_batch=TRAIN["batch"], device="cuda", stream_k=PIPELINE["stream_k"])
     commits: list[dict] = []
@@ -4768,7 +4878,7 @@ def phase_train_pipeline() -> dict:
     finally:
         C.rebuild_state = orig_rebuild
     peak_gb = max([peak_gb, torch.cuda.max_memory_allocated() / 1e9] + [w["peak_gb"] for w in windows])
-    log("train-pp", f"{cfg.name} full width and depth ({cfg.num_layers} layers, fp32 params, {cfg.dtype} compute), "
+    log("train-pp", f"{cfg.name} full width ({cfg.num_layers} layers, fp32 params, {cfg.dtype} compute), "
                     f"batch {TRAIN['batch']} x {TRAIN['seq']}: pp2tp2 -> dp2tp2 (stream, int8 moments) -> pp4tp1 "
                     f"(stop-copy, lossless): {len(losses)} steps in {run_s:.1f}s, losses "
                     f"{[round(x, 4) for x in losses]}, launches {launches}")
@@ -4843,9 +4953,8 @@ INT8_EF = dict(before=3, after=2)
 def _ef_digests(ctrl) -> dict:
     from repro_torch.utils.pytree import tree_paths
 
-    weights = torch.arange(1, DIGEST_CHUNK + 1, dtype=torch.int64, device=ctrl.device)
     ef = tree_paths(ctrl.opt_state["ef"])
-    return dict(zip(ef, map(tuple, torch.stack([_digest(x, weights) for x in ef.values()]).tolist())))
+    return dict(zip(ef, map(tuple, torch.stack([_shard_digest(x) for x in ef.values()]).tolist())))
 
 
 def phase_train_int8_ef() -> dict:
@@ -5118,7 +5227,10 @@ def phase_examples() -> None:
 
 
 # phase 42: per-rank worlds on the one card (see the module docstring)
-RANK_TRAIN = dict(layers=8, nproc=4, batch=4, seq=1024, before=3, between=2, after=2, stream_k=4, device="cuda")
+# 2 of qwen3's 28 layers, 1 + 1 + 1 steps besides the commits' and every
+# layer in one pre-copy round (8 layers, 3 + 2 + 2 steps and rounds of 4
+# before phase 43 came), to keep the script's time
+RANK_TRAIN = dict(layers=2, nproc=4, batch=4, seq=1024, before=1, between=1, after=1, stream_k=8, device="cuda")
 # the first step's f32 gradients against the one-process world's: the limit
 # phase 31 holds a deep model's first step to against the plain attention
 # (at 8 layers of full width the summation orders of tp's partial products
@@ -5135,6 +5247,10 @@ RANK_PARITY_TOL = 1e-2
 # resized run's params may part from the control's by at most this many
 # times what a summation order alone parts two sound runs by there
 RANK_MASKED_FACTOR = 2.0
+# a lossless commit's destination world, by its steps where the bound
+# held (``_step_gap``): the run's move less the control's, over the
+# control's move; a world that skips its update reads 1
+RANK_STEP_TOL = 1e-2
 RANK_KERNELS = ("flash_attention", "flash_attention_bwd", "pack_rows", "scatter_rows", "relayout_rows",
                 "pack_quant_rows", "dequant_scatter_rows")
 
@@ -5200,110 +5316,248 @@ def _split_gaps(got: dict, want: dict, mask: dict, dev) -> dict:
     return out
 
 
-def _rank_controls(opt, steps: int, cuts: list, final: dict, dev) -> dict:
+def _step_gap(a1: dict, a0: dict, c1: dict, c0: dict, mask: dict, dev) -> tuple:
+    """How far a run's params moved from where the control's moved over
+    the same steps, as a share of the control's move, where ``mask`` is
+    false: the largest over leaves of ||(a1 - a0) - (c1 - c0)|| / ||c1 -
+    c0|| (tensors by name, any device; on the card in slices of 2**26
+    entries), with its leaf. A world that skips its update reads 1."""
+    worst = (0.0, "")
+    for n in c1:
+        num = den = 0.0
+        flat = [t[n].reshape(-1) for t in (a1, a0, c1, c0)] + [mask[n].reshape(-1)]
+        for lo in range(0, flat[0].numel(), 1 << 26):
+            x1, x0, y1, y0, m = (t[lo:lo + (1 << 26)].to(dev) for t in flat)
+            dc = (y1 - y0).masked_fill_(m, 0)
+            num += float(torch.square((x1 - x0).masked_fill_(m, 0).sub_(dc)).sum(dtype=torch.float64))
+            den += float(torch.square(dc).sum(dtype=torch.float64))
+            del x1, x0, y1, y0, m, dc
+        worst = max(worst, (math.sqrt(num / den) if den else (0.0 if num == 0 else math.inf), n))
+    return worst
+
+
+def _rank_controls(opt, steps: int, cuts: list, final: dict, dev, cfg=None, par=ParallelConfig(dp=2, tp=2),
+                   microbatches: int = 1, twin_par=ParallelConfig(dp=2, tp=2)) -> dict:
     """Rank 0 alone, after the resized run. The control: the one-process
-    dp2tp2 world never resized, ``steps`` steps; at each commit's step
-    (``cuts``) it takes the moments the int8 commit delivered in place of
-    its own (the same wire round trip at the same step, as phase 13's
-    control takes it). The witness: from the control's state at the int8
-    commit, the same world with the batch's rows summed in two halves
-    (microbatches 2), a sound run that differs from the control only in
-    summation order. The mask: the entries where the delivered moments
-    broke Adam's |mu| <= sqrt(nu) (the wire rounds a small nu to 0 beside a
-    nonzero mu; there Adam divides by ~eps). Each comparison is split by
-    the mask (``_split_gaps``)."""
+    ``par`` world never resized (``microbatches``), ``steps`` steps; at
+    each commit's step (``cuts``) it takes the moments an int8 commit
+    delivered in place of its own (the same wire round trip at the same
+    step, as phase 13's control takes it). The witness: from the control's
+    state at the int8 commit, the one-process ``twin_par`` world with the
+    batch's rows summed in two halves (microbatches 2), a sound run that
+    differs from the control only in summation order. The mask: the entries
+    where the delivered moments broke Adam's |mu| <= sqrt(nu) (the wire
+    rounds a small nu to 0 beside a nonzero mu; there Adam divides by
+    ~eps); empty, and no witness, where no commit was int8. Each comparison
+    is split by the mask (``_split_gaps``). Each commit's destination world
+    is read by its steps, from the commit to the next one or the end, where
+    the mask is false (``_step_gap``, by the commit's step: the run's
+    against the control in ``run_steps``, the witness's in
+    ``witness_steps``). After an int8 commit the broken entries make the
+    control's path part from the run's; so a lossless commit after one
+    (a cut with ``seat``) gets its own control, seated on the run's whole
+    state at the cut, whose steps the run's are held to (``seated_steps``:
+    the same start, so only the world's steps differ)."""
     from repro_torch.core.controller import LiveRController
     from repro_torch.utils.pytree import tree_from_paths, tree_paths
 
-    moments = next(c["moments"] for c in cuts if c["moments"])
+    cfg = cfg or _rank_cfg()
+    moments = next((c["moments"] for c in cuts if c["moments"]), {})
     mask = {f"params/{n[3:]}": (x.abs() > moments[f"nu/{n[3:]}"].sqrt()).to(dev)
             for n, x in moments.items() if n.startswith("mu/")}
-    par = ParallelConfig(dp=2, tp=2)
     named = lambda c: {f"params/{p}": x for p, x in tree_paths(c.params).items()}  # noqa: E731
-    ctrl = LiveRController(_rank_cfg(), par, opt, RANK_TRAIN["seq"], RANK_TRAIN["batch"], device=dev)
-    losses, snap, later, res = [], None, {}, {"run_at_cut": {}, "witness_at_cut": {}}
+    ctrl = LiveRController(cfg, par, opt, RANK_TRAIN["seq"], RANK_TRAIN["batch"], device=dev,
+                           microbatches=microbatches)
+    if not mask:
+        mask = {n: torch.zeros(x.shape, dtype=torch.bool, device=dev) for n, x in named(ctrl).items()}
+    losses, snap, later = [], None, {}
+    res = {"run_at_cut": {}, "witness_at_cut": {}, "run_steps": {}, "witness_steps": {}, "seated_steps": {}}
+    prev = None  # the last cut's step, the run's params there and the control's
     for cut in cuts:
         losses += ctrl.train_steps(cut["step"] - ctrl.step)
         for coll in ("mu", "nu"):
             for p, x in tree_paths(ctrl.opt_state[coll]).items():
                 if f"{coll}/{p}" in cut["moments"]:
                     x.copy_(cut["moments"][f"{coll}/{p}"])
-        if cut["params"]:
-            res["run_at_cut"][cut["step"]] = _split_gaps(cut["params"], named(ctrl), mask, dev)
+        now = named(ctrl)
+        res["run_at_cut"][cut["step"]] = _split_gaps(cut["params"], now, mask, dev)
+        if prev is not None:
+            res["run_steps"][prev[0]] = _step_gap(cut["params"], prev[1], now, prev[2], mask, dev)
+        prev = (cut["step"], cut["params"], {n: x.clone() for n, x in now.items()})
         if snap is None and cut["moments"]:
             snap = (ctrl.step, {p: x.cpu() for p, x in tree_paths(ctrl.params).items()},
                     {c: {p: x.cpu() for p, x in tree_paths(ctrl.opt_state[c]).items()} for c in ("mu", "nu")},
                     ctrl.opt_state["count"].clone())
         elif snap is not None:
-            later[cut["step"]] = {n: x.clone() for n, x in named(ctrl).items()}
+            later[cut["step"]] = prev[2]
     losses += ctrl.train_steps(steps - ctrl.step)
-    res.update(control_losses=losses, control_step_s=statistics.median(ctrl.iteration_times[1:]),
-               run_final=_split_gaps(final, named(ctrl), mask, dev))
     want_final = {n: x.clone() for n, x in named(ctrl).items()}
-    del ctrl
+    res.update(control_losses=losses, control_step_s=statistics.median(ctrl.iteration_times[1:]),
+               run_final=_split_gaps(final, want_final, mask, dev))
+    if prev is not None:
+        res["run_steps"][prev[0]] = _step_gap(final, prev[1], want_final, prev[2], mask, dev)
+    del ctrl, prev
     torch.cuda.empty_cache()
 
+    for i, cut in enumerate(cuts):
+        if "seat" not in cut:
+            continue
+        end, want = (cuts[i + 1]["step"], cuts[i + 1]["params"]) if i + 1 < len(cuts) else (steps, final)
+        seated = LiveRController(cfg, par, opt, RANK_TRAIN["seq"], RANK_TRAIN["batch"], device=dev,
+                                 microbatches=microbatches,
+                                 params=tree_from_paths({n[len("params/"):]: x for n, x in cut["params"].items()}))
+        for c in ("mu", "nu"):
+            for p, x in tree_paths(seated.opt_state[c]).items():
+                x.copy_(cut["seat"][f"{c}/{p}"])
+        seated.opt_state["count"].fill_(cut["step"])  # one update a step
+        seated.step = cut["step"]
+        seated.train_steps(end - seated.step)
+        res["seated_steps"][cut["step"]] = _step_gap(want, cut["params"], named(seated), cut["params"], mask, dev)
+        del seated
+        torch.cuda.empty_cache()
+
+    res["masked_entries"] = sum(int(m.sum()) for m in mask.values())
+    if snap is None:
+        del mask, want_final
+        return res
     step0, params, opt_state, count = snap
-    twin = LiveRController(_rank_cfg(), par, opt, RANK_TRAIN["seq"], RANK_TRAIN["batch"], device=dev,
+    twin = LiveRController(cfg, twin_par, opt, RANK_TRAIN["seq"], RANK_TRAIN["batch"], device=dev,
                            microbatches=2, params=tree_from_paths(params))
     for c in ("mu", "nu"):
         for p, x in tree_paths(twin.opt_state[c]).items():
             x.copy_(opt_state[c][p])
     twin.opt_state["count"].copy_(count)
     twin.step = step0
-    for step, want in later.items():
+    start = {f"params/{p}": x for p, x in params.items()}
+    at = (step0, start, start)  # the witness's last cut: its step, the twin's params there and the control's
+    for step, want in [*later.items(), (steps, want_final)]:
         twin.train_steps(step - twin.step)
-        res["witness_at_cut"][step] = _split_gaps(named(twin), want, mask, dev)
-    twin.train_steps(steps - twin.step)
+        now = named(twin)
+        res["witness_steps"][at[0]] = _step_gap(now, at[1], want, at[2], mask, dev)
+        if step < steps:
+            res["witness_at_cut"][step] = _split_gaps(now, want, mask, dev)
+            at = (step, {n: x.clone() for n, x in now.items()}, want)
     res["witness_final"] = _split_gaps(named(twin), want_final, mask, dev)
-    res["masked_entries"] = sum(int(m.sum()) for m in mask.values())
-    del twin, later, want_final, mask
+    del twin, later, want_final, mask, at
     torch.cuda.empty_cache()
     return res
 
 
-def _cut_check(a: torch.Tensor, b: torch.Tensor, dev, quant: bool) -> tuple:
-    """Rank 0's check of one tensor of a commit's cut, the old world's
-    ``a`` against the new world's ``b`` (both whole on the host), on the
-    card in slices of 2**26 entries: (bitwise equal, max |a|, max |b - a|,
-    entries of ``a`` nonzero and of them zero in ``b``); the last three
-    only where ``quant``."""
-    equal, amax, err, nonzero, zeroed = True, 0.0, 0.0, 0, 0
+def _cut_check(a: torch.Tensor, b: torch.Tensor, dev) -> tuple:
+    """Rank 0's check of one rounded tensor of a commit's cut, the old
+    world's ``a`` against the new world's ``b`` (both whole on the host),
+    on the card in slices of 2**26 entries: (max |a|, max |b - a|, entries
+    of ``a`` nonzero and of them zero in ``b``)."""
+    amax, err, nonzero, zeroed = 0.0, 0.0, 0, 0
     fa, fb = a.reshape(-1), b.reshape(-1)
     for lo in range(0, fa.numel(), 1 << 26):
         x, y = fa[lo:lo + (1 << 26)].to(dev), fb[lo:lo + (1 << 26)].to(dev)
-        if quant:
-            amax = max(amax, x.abs().max().item())
-            err = max(err, (y - x).abs().max().item())
-            nonzero += int((x != 0).sum())
-            zeroed += int(((y == 0) & (x != 0)).sum())
-        else:
-            equal = equal and torch.equal(x.view(torch.uint8), y.view(torch.uint8))
-    return equal, amax, err, nonzero, zeroed
+        amax = max(amax, x.abs().max().item())
+        err = max(err, (y - x).abs().max().item())
+        nonzero += int((x != 0).sum())
+        zeroed += int(((y == 0) & (x != 0)).sum())
+    return amax, err, nonzero, zeroed
 
 
-def _rank_train_program(rank: int) -> dict:
-    """One rank process of phase 42 (see the module docstring)."""
+def _world_digests(named: dict, parallel, specs, rank: int, dev) -> list:
+    """Each tensor's :func:`_shard_digest` summed over ``parallel``'s ranks,
+    each distinct view counted once (its lowest rank's), on every rank of
+    the pool: one all-reduce."""
+    import torch.distributed as dist
+
+    from repro_torch.core.resource_view import view_of
+
+    out = torch.zeros((len(specs), 2), dtype=torch.int64, device=dev)
+    for i, spec in enumerate(specs):
+        view = view_of(spec, parallel, rank) if rank < parallel.world_size else None
+        if view is not None and rank == min(r for r in range(parallel.world_size)
+                                            if (v := view_of(spec, parallel, r)) is not None and v == view):
+            out[i] = _shard_digest(named[spec.name], spec, view)
+    out = out.cpu()
+    dist.all_reduce(out)
+    return [tuple(d) for d in out.tolist()]
+
+
+def _checked_controller(dev, checks: list, cuts: list):
+    """``RankController`` that holds each commit's cut, before any update:
+    every tensor the wire does not round bit for bit, the old world's
+    against the new world's (:func:`_world_digests`), and an int8 commit's
+    moments assembled on rank 0's host from both worlds' shards, within
+    their tiles' rounding. Appends to ``checks`` each commit's figures
+    and, on rank 0, to ``cuts`` its step, the moments an int8 commit
+    delivered, its params (assembled) and, for a lossless commit after an
+    int8 one, its moments (``seat``: with the params, the whole state a
+    control is seated on)."""
+    from repro_torch.core.rank_controller import RankController, gather_each
+
+    class Checked(RankController):
+        after_int8 = False  # an int8 commit came before (every rank knows)
+
+        def _install(self, named, extras, world):
+            t_check = time.perf_counter()
+            host0 = self.pool.staging.bytes
+            src, quant = self._named(), self.wire_policy is not None
+            old_par, new_par = self.world.parallel, world.parallel
+            moments = [s for s in self._specs if s.collection in ("mu", "nu")]
+            rounded = moments if quant else []
+            exact = [s for s in self._specs if s not in rounded]
+            old_d = _world_digests(src, old_par, exact, self.rank, dev)
+            new_d = _world_digests(named, new_par, exact, self.rank, dev)
+            unequal = [s.name for s, a, b in zip(exact, old_d, new_d) if a != b]
+            assert not unequal, f"not the cut's bytes: {unequal}"
+            worst_q, nu_zeroed = 0.0, [0, 0]
+            cut = {"step": self.step, "moments": {}, "params": {}}
+            params = [s for s in self._specs if s.collection == "params"]
+            for spec, b in gather_each(self.pool, named, new_par, params, "cpu"):
+                if b is not None:
+                    cut["params"][spec.name] = b
+            if self.after_int8 and not quant:
+                cut["seat"] = {spec.name: b for spec, b in gather_each(self.pool, named, new_par, moments, "cpu")
+                               if b is not None}
+            self.after_int8 = self.after_int8 or quant
+            src_iter = gather_each(self.pool, src, old_par, rounded, "cpu")
+            dst_iter = gather_each(self.pool, named, new_par, rounded, "cpu")
+            for (spec, a), (_, b) in zip(src_iter, dst_iter):
+                if a is None:
+                    continue
+                amax, err, nonzero, zeroed = _cut_check(a, b, dev)
+                tol = amax / 254 * 1.0001
+                worst_q = max(worst_q, err / max(tol, 1e-30))
+                assert err <= tol, spec.name
+                cut["moments"][spec.name] = b
+                if spec.collection == "nu":
+                    nu_zeroed[0] += zeroed
+                    nu_zeroed[1] += nonzero
+                del a, b
+            if self.pool.rank == 0:
+                cuts.append(cut)
+            checks.append({"check_s": time.perf_counter() - t_check, "exact": len(exact), "int8": quant, "quant_worst": worst_q,
+                           "card_gb": _card_used_gb(), "host_bytes": self.pool.staging.bytes - host0,
+                           "nu_zeroed": nu_zeroed, "step": cut["step"]})
+            return super()._install(named, extras, world)
+
+    return Checked
+
+
+def _rank_train_program(rank: int, pool) -> dict:
+    """Phase 42 on one rank process (see the module docstring)."""
     import gc
 
     import torch.distributed as dist
 
-    from repro_torch.core.rank_controller import RankController, gather_each
+    from repro_torch.core.rank_controller import gather_each
     from repro_torch.core.resource_view import build_tensor_specs
-    from repro_torch.distribution.groups import RankPool, make_world_groups
+    from repro_torch.distribution.groups import make_world_groups
     from repro_torch.distribution.step import make_grad_fn, shard_params
     from repro_torch.launch.ranks import rank_device
     from repro_torch.optim import AdamWConfig
     from repro_torch.reshard import WirePolicy
     from repro_torch.utils.pytree import tree_paths
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     R_ = RANK_TRAIN
     dev = rank_device(R_["device"], rank)
     opt = AdamWConfig(learning_rate=1e-4, warmup_steps=2, total_steps=1000)
     dp2tp2, dp1tp4 = ParallelConfig(dp=2, tp=2), ParallelConfig(dp=1, tp=4)
-    pool = RankPool()
     out: dict = {"rank": rank}
     t0 = time.perf_counter()
     refs = _rank_references() if rank == 0 else None
@@ -5348,45 +5602,7 @@ def _rank_train_program(rank: int) -> dict:
     checks: list = []
     cuts: list = []  # rank 0: each commit's step, the moments an int8 commit delivered, its params
 
-    class Checked(RankController):
-        """Holds each commit's cut: every tensor assembled on rank 0's host
-        from the old world's shards and from the new world's, before any
-        update."""
-
-        def _install(self, named, extras, world):
-            t_check = time.perf_counter()
-            host0 = self.pool.staging.bytes
-            src, quant = self._named(), self.wire_policy is not None
-            old_par, new_par = self.world.parallel, world.parallel
-            worst_q, exact, nu_zeroed = 0.0, 0, [0, 0]
-            cut = {"step": self.step, "moments": {}, "params": {}}
-            src_iter = gather_each(self.pool, src, old_par, self._specs, "cpu")
-            dst_iter = gather_each(self.pool, named, new_par, self._specs, "cpu")
-            for (spec, a), (_, b) in zip(src_iter, dst_iter):
-                if a is None:
-                    continue
-                q = quant and spec.collection in ("mu", "nu")
-                equal, amax, err, nonzero, zeroed = _cut_check(a, b, dev, q)
-                if q:
-                    tol = amax / 254 * 1.0001
-                    worst_q = max(worst_q, err / max(tol, 1e-30))
-                    assert err <= tol, spec.name
-                    cut["moments"][spec.name] = b
-                    if spec.collection == "nu":
-                        nu_zeroed[0] += zeroed
-                        nu_zeroed[1] += nonzero
-                else:
-                    assert equal, f"{spec.name}: not the cut's bytes"
-                    exact += 1
-                    if spec.collection == "params":
-                        cut["params"][spec.name] = b
-                del a, b
-            if self.pool.rank == 0:
-                cuts.append(cut)
-            checks.append({"check_s": time.perf_counter() - t_check, "exact": exact, "quant_worst": worst_q,
-                           "card_gb": _card_used_gb(), "host_bytes": self.pool.staging.bytes - host0,
-                           "nu_zeroed": nu_zeroed, "step": cut["step"]})
-            return super()._install(named, extras, world)
+    Checked = _checked_controller(dev, checks, cuts)
 
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
@@ -5396,7 +5612,7 @@ def _rank_train_program(rank: int) -> dict:
     out["aten_ops"] = ctrl.world.timings.get("aten_ops")
     _zero_counts()
     card = [_card_used_gb()]
-    host = []
+    host, peaks = [], []
 
     def run(n):
         losses = []
@@ -5405,6 +5621,7 @@ def _rank_train_program(rank: int) -> dict:
             losses += ctrl.train_steps(1)
             host.append((pool.staging.bytes - h0[0], pool.staging.seconds - h0[1], len(ctrl.records)))
             card.append(_card_used_gb())
+            peaks.append(_step_peak_gb(dev))
         return losses
 
     losses = run(R_["before"])
@@ -5422,7 +5639,7 @@ def _rank_train_program(rank: int) -> dict:
         assert len(losses) < 200, "the stop-copy resize never committed"
     losses += run(R_["after"])
     out["launches"] = _all_counts()
-    out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9 if dev.type == "cuda" else 0.0
+    out["peak_gb"], out["step_peaks"] = max(peaks), peaks
     final = {spec.name: w for spec, w in gather_each(pool, ctrl._named(), ctrl.world.parallel, pspecs, "cpu")
              if w is not None}
     out.update(losses=losses, during=during, checks=checks, host=host,
@@ -5438,15 +5655,57 @@ def _rank_train_program(rank: int) -> dict:
     return out
 
 
+def _step_peak_gb(dev) -> float:
+    """The allocator's peak on ``dev`` since the last call (GB); 0 off the
+    card."""
+    if dev.type != "cuda":
+        return 0.0
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    torch.cuda.reset_peak_memory_stats(dev)
+    return peak
+
+
+def _hold_steps(ph: str, r0: dict) -> None:
+    """Each commit's destination world by its steps (``_step_gap``), where
+    the int8 commit's moments kept the bound. A lossless commit is held
+    within RANK_STEP_TOL: against the control where no int8 commit came
+    before, else against its own control seated on the run's state at the
+    cut. An int8 commit's world is printed beside the witness's, and held
+    by the masked parity."""
+    steps = sorted(r0["run_steps"])
+    assert len(steps) == len(r0["records"]), (steps, r0["records"])
+    int8 = any(c["int8"] for c in r0["checks"])
+    for step, rec, check in zip(steps, r0["records"], r0["checks"]):
+        lossless = not check["int8"]
+        seated = r0["seated_steps"].get(step)
+        run, wit = r0["run_steps"][step], r0["witness_steps"].get(step)
+        text = (f"commit at step {step} into {rec['dst']}: its world's steps, ||(p - p_cut) - (c - c_cut)|| / "
+                f"||c - c_cut|| where the bound held, the largest over leaves (a world that skips its update reads "
+                f"1): against the control {run[0]:.3e} at {run[1]}"
+                + (f", the witness's {wit[0]:.3e} at {wit[1]}" if wit else "")
+                + (f"; against a control seated on the run's state at the cut {seated[0]:.3e} at {seated[1]}"
+                   if seated else ""))
+        held = seated or (run if not int8 else None)
+        log(ph, text + (f" (limit {RANK_STEP_TOL:g})" if lossless else " (the int8 commit: not held here)"))
+        if lossless:
+            assert held is not None and held[0] <= RANK_STEP_TOL, (step, run, seated)
+
+
+def _peaks_text(r0: dict) -> str:
+    """Rank 0's allocator peak a step of the resized run, commits marked."""
+    return ", ".join(f"{p:.2f}" + ("*" if h[2] != (r0["host"][i - 1][2] if i else 0) else "")
+                     for i, (p, h) in enumerate(zip(r0["step_peaks"], r0["host"])))
+
+
 def _gap_text(g: dict) -> str:
     return (f"where kept max |diff| {g['kept'][0]:.3e} at {g['kept'][1]}, where broken {g['masked'][0]:.3e} at "
             f"{g['masked'][1]}; {g['past']} entries past 1e-2, {g['past_in_mask']} of them where broken")
 
 
-def phase_rank_train() -> tuple[dict, dict]:
-    """Per-rank training worlds (see the module docstring, 42). Returns the
-    ranks' summed launches on the path: the resized run's, and the bf16
-    first step's."""
+def phase_rank_worlds() -> list[dict]:
+    """Starts the 4 rank processes once for phases 42 and 43 (see the
+    module docstring); each rank's results, logged and held by
+    ``phase_rank_train`` and ``phase_rank_pp_ep``."""
     import gc
     import os
 
@@ -5460,18 +5719,50 @@ def phase_rank_train() -> tuple[dict, dict]:
     conf = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
     os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
     try:
-        ranks = run_ranks(_rank_train_program, RANK_TRAIN["nproc"], device=RANK_TRAIN["device"], threads=2,
-                          timeout=600)
+        ranks = run_ranks(_rank_worlds_program, RANK_TRAIN["nproc"], device=RANK_TRAIN["device"], threads=2,
+                          timeout=900)
     finally:
         if conf is None:
             del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
         else:
             os.environ["PYTORCH_CUDA_ALLOC_CONF"] = conf
-    wall = time.perf_counter() - t0
+    t = ranks[0]["t"]
+    log("rank-worlds", f"{RANK_TRAIN['nproc']} rank processes on one card under gloo, started once for phases 42 and "
+                       f"43: {time.perf_counter() - t0:.1f}s in all, {min(r['t'][0] for r in ranks) - t0:.1f}-"
+                       f"{max(r['t'][0] for r in ranks) - t0:.1f}s to start them; on rank 0's clock phase 42 "
+                       f"{t[1] - t[0]:.1f}s, "
+                       + ", ".join(f"{p['name']} {b - a:.1f}s" for p, a, b in zip(_pp_ep_parts(), t[1:], t[2:])))
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ranks
+
+
+def _rank_worlds_program(rank: int) -> dict:
+    """One rank process: phase 42, then phase 43's parts, on one pool."""
+    from repro_torch.distribution.groups import RankPool
+    from repro_torch.launch.ranks import rank_device
+
+    t = [time.perf_counter()]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    pool = RankPool()
+    out = {"train": _rank_train_program(rank, pool), "parts": []}
+    t.append(time.perf_counter())
+    for part in _pp_ep_parts():
+        out["parts"].append(_pp_ep_part(pool, rank, rank_device(RANK_PP_EP["device"], rank), part))
+        t.append(time.perf_counter())
+    return {**out, "t": t}
+
+
+def phase_rank_train(ranks: list[dict]) -> tuple[dict, dict]:
+    """Per-rank training worlds (see the module docstring, 42), from the
+    ranks' results (``phase_rank_worlds``). Returns the ranks' summed
+    launches on the path: the resized run's, and the bf16 first step's."""
+    ranks = [r["train"] for r in ranks]
     r0 = ranks[0]
     cfg = _rank_cfg()
     log("rank-train", f"{cfg.name} full width, {cfg.num_layers} of 28 layers, {RANK_TRAIN['nproc']} rank processes "
-                      f"on one card under gloo, batch {RANK_TRAIN['batch']} x {RANK_TRAIN['seq']}: {wall:.1f}s in all, "
+                      f"on one card under gloo, batch {RANK_TRAIN['batch']} x {RANK_TRAIN['seq']}; "
                       f"rank 0's references alone {r0['refs_s']:.1f}s")
     loss, want, rel, gap, leaf = r0["first"]
     log("rank-train", f"first step (f32), dp2tp2 ranks against the one-process world: loss {loss:.6f} / {want:.6f} "
@@ -5523,7 +5814,8 @@ def phase_rank_train() -> tuple[dict, dict]:
     log("rank-train", f"mock warm-up of rank 0's dp2tp2 step on meta {r0['mock_s']:.3f}s ({r0['aten_ops']} aten ops) "
                       f"against its first real step {r0['step_times'][0]:.3f}s")
     log("rank-train", "peak memory per rank " + ", ".join(f"{r['peak_gb']:.2f}" for r in ranks)
-        + f" GB (torch allocator); card in use at most {max(r['card_gb'] for r in ranks):.2f} GB (sampled)")
+        + f" GB (torch allocator); card in use at most {max(r['card_gb'] for r in ranks):.2f} GB (sampled); rank 0's "
+          f"peak a step (GB, * a commit's) {_peaks_text(r0)}")
     log("rank-train", f"{r0['masked_entries']} param entries where the int8 commit's moments broke |mu| <= sqrt(nu) "
                       f"(\"broken\"); the witness runs from the control's state at that commit with the rows summed "
                       f"in two halves")
@@ -5542,14 +5834,296 @@ def phase_rank_train() -> tuple[dict, dict]:
                       f"{r0['during']}")
     assert run["kept"][0] < RANK_PARITY_TOL, f"resized params diverge from the control: {run}"
     assert run["masked"][0] <= limit, f"resized params part from the control past the witness: {run}, {wit}"
+    _hold_steps("rank-train", r0)
     launches = {k: sum(r["launches"].get(k, 0) for r in ranks) for k in ranks[0]["launches"]}
     for name in RANK_KERNELS:
         assert launches[name] > 0, f"{name} was not launched on the per-rank path"
     log("rank-train", "launches of the resized run summed over the ranks: "
         + ", ".join(f"{k} {launches[k]}" for k in RANK_KERNELS))
+    return launches, bf16
+
+
+# phase 43: per-rank pipeline- and expert-parallel worlds on the one card
+# (see the module docstring)
+# qwen3 at 4 of 28 layers and one step before, between and after the
+# commits, for the script's time; two layers a pre-copy round, so that
+# qwen3's 5 layers (4 blocks and the embedding's) stream over 3 rounds
+# with training steps between them and its commit re-syncs the dirty ones
+# (mixtral's 2 go in one)
+RANK_PP_EP = dict(nproc=4, qwen3_layers=4, before=1, between=1, after=1, stream_k=2, device="cuda")
+# the JAX package's MoE cut for training on one card (phase 35's)
+MIXTRAL_RANK_LAYERS = MIXTRAL_TRAIN_LAYERS
+PP_EP_KERNELS = {"qwen3": RANK_KERNELS,
+                 # both mixtral commits are lossless: no quant kernel on its path
+                 "mixtral": ("flash_attention", "flash_attention_bwd", "pack_rows", "scatter_rows")}
+
+
+def _pp_ep_parts() -> list[dict]:
+    """The phase's two parts: each config (f32 compute, as phase 42's
+    resized run), its first world, the two resizes, the microbatches, the
+    streamed commit's wire, and the one-process control's world and its
+    witness's (see ``_rank_controls``)."""
+    P = ParallelConfig
+    return [
+        dict(name="qwen3", cfg=dataclasses.replace(_rank_cfg(), num_layers=RANK_PP_EP["qwen3_layers"]),
+             src=P(pp=2, tp=2), first=P(dp=2, tp=2), second=P(pp=2, tp=2),
+             microbatches=4, int8=True, control=dict(par=P(pp=2, tp=2), microbatches=4, twin_par=P(dp=2, tp=2))),
+        # the split-step commit holds both worlds' state and gradients: into
+        # tp4 (20.6 GB of params and moments over the ranks) it fits the
+        # card; into ep4 (31.5 GB: the embedding and head whole on every
+        # rank) it ran out of memory, so ep4 is the stop-copy's target
+        dict(name="mixtral", cfg=dataclasses.replace(moe_cut(MIXTRAL, MIXTRAL_RANK_LAYERS), dtype="float32"),
+             src=P(ep=2, tp=2), first=P(tp=4), second=P(ep=4), microbatches=1, int8=False,
+             control=dict(par=P(ep=2, tp=2), microbatches=1)),
+    ]
+
+
+class _RouteKeeps:
+    """Records the keep mask of every ``moe.route`` call while entered (the
+    one-process ``routing`` and the per-rank ``moe_apply_rank`` both route
+    through it)."""
+
+    def __enter__(self):
+        from repro_torch.models import moe as moe_mod
+
+        self.mod, self.orig, self.keeps = moe_mod, moe_mod.route, []
+
+        def recorded(probs, cfg):
+            out = self.orig(probs, cfg)
+            self.keeps.append(out[3])
+            return out
+
+        moe_mod.route = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.route = self.orig
+
+
+def _pp_ep_part(pool, rank: int, dev, part: dict) -> dict:
+    """One part of phase 43 on one rank process (see the module
+    docstring)."""
+    import gc
+
+    import torch.distributed as dist
+
+    from repro_torch.core.rank_controller import gather_each
+    from repro_torch.core.resource_view import build_tensor_specs
+    from repro_torch.core.shadow import rank_step_fns
+    from repro_torch.data import SyntheticLM
+    from repro_torch.distribution.groups import make_world_groups
+    from repro_torch.distribution.pipeline import make_pipeline_grad_fn
+    from repro_torch.distribution.step import make_grad_fn, shard_params
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.reshard import WirePolicy
+    from repro_torch.utils.pytree import tree_paths
+
+    R_, cfg, src, mb = RANK_PP_EP, part["cfg"], part["src"], part["microbatches"]
+    opt = AdamWConfig(learning_rate=1e-4, warmup_steps=2, total_steps=1000)
+    data = SyntheticLM(cfg.vocab_size, RANK_TRAIN["seq"], RANK_TRAIN["batch"], 0)
+    pspecs = build_tensor_specs(cfg, include_optimizer=False)
+    out: dict = {}
+
+    # rank 0 alone: the one-process world's first step, and its routing
+    t0 = time.perf_counter()
+    refs = None
+    if rank == 0:
+        params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+        batch = {"tokens": torch.from_numpy(data.global_batch_at(0)).to(dev, torch.long)}
+        grad_fn = make_pipeline_grad_fn(cfg, src, mb) if src.pp > 1 else make_grad_fn(cfg, mb)
+        with _RouteKeeps() as routed:
+            loss, _, grads = grad_fn(params, batch)
+        refs = (float(loss), {f"params/{p}": g.cpu() for p, g in tree_paths(grads).items()}, routed.keeps)
+        del params, grads
+        torch.cuda.empty_cache()
+    dist.barrier()
+    out["refs_s"] = time.perf_counter() - t0
+
+    # the first step on the shards
+    g = make_world_groups(pool, [src])[src]
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    shards = shard_params(cfg, params, src, rank)
+    del params
+    tokens = torch.from_numpy(data.shard_at(0, g.dp_rank, g.dp)).to(dev, torch.long)
+    t0 = time.perf_counter()
+    with _RouteKeeps() as routed:
+        loss, _, grads = rank_step_fns(cfg, src, opt, mb, g)[1](shards, {"tokens": tokens})
+        loss = float(loss)
+    out["first_s"] = time.perf_counter() - t0
+    t_first = t0
+    out["keeps"] = [(int(k.sum()), k.numel()) for k in routed.keeps]
+    named = {f"params/{p}": x for p, x in tree_paths(grads).items()}
+    whole = {spec.name: w for spec, w in gather_each(pool, named, src, pspecs, "cpu") if w is not None}
+    if rank == 0:
+        one_loss, one, one_keeps = refs
+        gap = _grad_gap(whole, one, dev)
+        rel = abs(loss - one_loss) / abs(one_loss)
+        same = len(one_keeps) == len(routed.keeps) and all(
+            torch.equal(a, b) for a, b in zip(one_keeps, routed.keeps))
+        out["first"] = (loss, one_loss, rel, *gap, same)
+        assert gap[0] <= RANK_GRAD_TOL and rel <= RANK_GRAD_TOL and same, out["first"]
+    del shards, grads, named, whole, refs, routed
     gc.collect()
     torch.cuda.empty_cache()
-    return launches, bf16
+
+    # the resized run
+    t_run = time.perf_counter()
+    out["first_check_s"] = t_run - t_first
+    checks, cuts, card, host, peaks = [], [], [], [], []
+    Checked = _checked_controller(dev, checks, cuts)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    ctrl = Checked(cfg, src, opt, RANK_TRAIN["seq"], RANK_TRAIN["batch"], pool, worlds=[part["first"], part["second"]],
+                   device=dev, microbatches=mb, overlap="stream", stream_k=R_["stream_k"],
+                   wire_policy=WirePolicy() if part["int8"] else None)
+    out["mock_s"] = ctrl.world.timings.get("mock_s")
+    out["aten_ops"] = ctrl.world.timings.get("aten_ops")
+    _zero_counts()  # the path's counts start here ...
+    card.append(_card_used_gb())
+
+    def run(n):
+        losses = []
+        for _ in range(n):
+            h0 = (pool.staging.bytes, pool.staging.seconds)
+            losses += ctrl.train_steps(1)
+            host.append((pool.staging.bytes - h0[0], pool.staging.seconds - h0[1], len(ctrl.records)))
+            card.append(_card_used_gb())
+            peaks.append(_step_peak_gb(dev))
+        return losses
+
+    losses = run(R_["before"])
+    ctrl.request_resize(part["first"])
+    while not ctrl.records:
+        losses += run(1)
+        assert len(losses) < 100, "the streamed resize never committed"
+    losses += run(R_["between"])
+    ctrl.wire_policy = None  # the second commit is lossless
+    ctrl.request_resize(part["second"], overlap="stop_copy")
+    while len(ctrl.records) < 2:
+        losses += run(1)
+        assert len(losses) < 200, "the stop-copy resize never committed"
+    losses += run(R_["after"])
+    out["launches"] = _all_counts()  # ... and are read here
+    out["peak_gb"], out["step_peaks"] = max(peaks), peaks
+    final = {spec.name: w for spec, w in gather_each(pool, ctrl._named(), ctrl.world.parallel, pspecs, "cpu")
+             if w is not None}
+    out.update(losses=losses, checks=checks, host=host, card_gb=max(card + [c["card_gb"] for c in checks]),
+               step_times=ctrl.iteration_times, records=[dataclasses.asdict(r) for r in ctrl.records],
+               commits=[dataclasses.asdict(c) for c in ctrl.rank_commits], world=ctrl.world.parallel)
+    del ctrl
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_controls = time.perf_counter()
+    out["run_s"] = t_controls - t_run
+    if rank == 0:  # the others wait at the barrier, holding no state
+        out.update(_rank_controls(opt, len(losses), cuts, final, dev, cfg=cfg, **part["control"]))
+    del final
+    dist.barrier()
+    out["controls_s"] = time.perf_counter() - t_controls
+    return out
+
+
+def _steps_by_world(r: dict) -> dict:
+    """A rank's step times of the steps in which no commit landed, by the
+    world they ran on (0 the first, then one more each commit)."""
+    out: dict = {}
+    for i, t in enumerate(r["step_times"]):
+        world = r["host"][i][2]
+        if world == (r["host"][i - 1][2] if i else 0):
+            out.setdefault(world, []).append(t)
+    return out
+
+
+def phase_rank_pp_ep(ranks: list[dict]) -> dict:
+    """Per-rank pipeline- and expert-parallel worlds (see the module
+    docstring, 43), from the ranks' results (``phase_rank_worlds``).
+    Returns the ranks' summed launches on the two parts' paths."""
+    launches: dict = {}
+    for index, part in enumerate(_pp_ep_parts()):
+        rs = [r["parts"][index] for r in ranks]
+        name, cfg = part["name"], part["cfg"]
+        r0 = rs[0]
+        ph = f"rank-{name}"
+        log(ph, f"where rank 0's {ranks[0]['t'][index + 2] - ranks[0]['t'][index + 1]:.1f}s went (its host clock): "
+                f"one-process first step {r0['refs_s']:.1f}s, the ranks' first step with its check "
+                f"{r0['first_check_s']:.1f}s, the resized run {r0['run_s']:.1f}s (of it the cut checks "
+                f"{sum(c['check_s'] for c in r0['checks']):.1f}s), the one-process control {r0['controls_s']:.1f}s")
+        log(ph, f"{cfg.name} full width, {cfg.num_layers} layers, f32 compute, batch {RANK_TRAIN['batch']} x "
+                f"{RANK_TRAIN['seq']}, {part['microbatches']} microbatches, {RANK_PP_EP['nproc']} rank processes on "
+                f"one card under gloo: {_short(part['src'])} -> {_short(part['first'])} (stream, stream_k "
+                f"{RANK_PP_EP['stream_k']}, {'int8 moments' if part['int8'] else 'lossless'}) -> "
+                f"{_short(part['second'])} (stop-copy, lossless)")
+        loss, want, rel, gap, leaf, same = r0["first"]
+        log(ph, f"first step (f32) of the {_short(part['src'])} ranks against the one-process world: loss {loss:.6f} "
+                f"/ {want:.6f} (relative {rel:.3e}), gradients max |g - g_1| / max |g_1| {gap:.3e} at {leaf} (tol "
+                f"{RANK_GRAD_TOL:g}); route calls {len(r0['keeps'])}, kept pairs {[k for k, _ in r0['keeps']]} of "
+                f"{[n for _, n in r0['keeps']]}, every pair kept or dropped as one process: {same}")
+        assert all(r["keeps"] == r0["keeps"] for r in rs), "the ranks route different pairs"
+        losses = r0["losses"]
+        assert all(np.isfinite(losses)), losses
+        assert all(r["losses"][:RANK_PP_EP["before"]] == losses[:RANK_PP_EP["before"]] for r in rs), "ranks disagree"
+        control = r0["control_losses"]
+        loss_gap = max(abs(a - b) / abs(b) for a, b in zip(losses, control))
+        log(ph, f"losses {[round(x, 4) for x in losses]}; the one-process control's "
+                f"{[round(x, 4) for x in control]} (largest relative gap {loss_gap:.3e})")
+        assert loss_gap < RANK_PARITY_TOL, (losses, control)
+        assert [r["dst"] for r in r0["records"]] == [part["first"].describe(), part["second"].describe()]
+        for i, (rec, check) in enumerate(zip(r0["records"], r0["checks"])):
+            commit = [r["commits"][i] for r in rs]
+            host_b = sum(c["host_bytes"] - r["checks"][i]["host_bytes"] for c, r in zip(commit, rs))
+            pairs = {(k, int(d)): n for k, c in enumerate(commit) for d, n in c["sent_bytes"].items()}
+            check_s = check["check_s"]
+            split = rec["mode"] == "live_overlap"
+            log(ph, f"commit {i + 1} {rec['mode']} {rec['src']} -> {rec['dst']}: pause_s "
+                    f"{rec['total_pause_s'] - check_s:.4f} (the check's {check_s:.3f}s taken out), prepare_s "
+                    f"{rec['prepare_s']:.4f}; plan {rec['plan_network_bytes'] / 1e9:.4f} GB remote + "
+                    f"{rec['plan_local_bytes'] / 1e9:.4f} GB local, wire {rec['wire_bytes'] / 1e9:.4f} GB, logical "
+                    f"{rec['logical_bytes'] / 1e9:.4f} GB; host staging {host_b / 1e9:.4f} GB over the ranks (the "
+                    f"check's taken out), {max(c['host_seconds'] for c in commit):.3f}s of copies at most a rank; "
+                    f"dirty layers {rec['dirty_layers']}/{rec['layers_total']}; bytes sent by rank pair (GB) "
+                    + ", ".join(f"{a}->{b} {n / 1e9:.4f}" for (a, b), n in sorted(pairs.items()))
+                    + f"; cut (step {check['step']}) held: {check['exact']} tensors bit for bit, int8 moments at "
+                      f"{check['quant_worst']:.3f} of their bound{' (update_s included in the pause)' if split else ''}")
+            assert rec["generic_cells"] == 0 and rec["executed_bytes"] > 0, rec
+        streamed = r0["records"][0]
+        # qwen3's streamed commit copies over several rounds with steps
+        # between them: the layers copied before the commit are re-synced
+        assert streamed["dirty_layers"] > 0 or streamed["layers_total"] <= RANK_PP_EP["stream_k"], streamed
+        worlds = (part["src"], part["first"], part["second"])
+        by_world = [_steps_by_world(r) for r in rs]
+        step_host = [h for i, h in enumerate(r0["host"]) if h[2] == (r0["host"][i - 1][2] if i else 0)]
+        log(ph, "step_s (host clock, steps without a commit, pre-copy rounds included) median per rank: "
+                + "; ".join(f"on {_short(worlds[w])} " + ", ".join(f"{statistics.median(b[w]):.4f}" for b in by_world)
+                            for w in sorted(by_world[0]))
+                + f"; one-process {_short(part['control']['par'])} control median {r0['control_step_s']:.4f}; "
+                  f"host staging a step on rank 0 median {statistics.median(h[0] for h in step_host) / 1e9:.4f} "
+                  f"GB in {statistics.median(h[1] for h in step_host):.4f}s")
+        log(ph, f"mock warm-up of rank 0's {_short(part['src'])} step on meta {r0['mock_s']:.3f}s ({r0['aten_ops']} "
+                f"aten ops) against its first real step {r0['first_s']:.3f}s")
+        log(ph, "peak memory per rank " + ", ".join(f"{r['peak_gb']:.2f}" for r in rs)
+            + f" GB (torch allocator); card in use at most {max(r['card_gb'] for r in rs):.2f} GB (sampled); rank "
+              f"0's peak a step (GB, * a commit's) {_peaks_text(r0)}")
+        for step, run in r0["run_at_cut"].items():
+            wit = r0["witness_at_cut"].get(step)
+            limit = max(RANK_PARITY_TOL, RANK_MASKED_FACTOR * wit["masked"][0]) if wit else RANK_PARITY_TOL
+            log(ph, f"the cut at step {step} against the control: {_gap_text(run)}"
+                + (f"; the witness against the control: {_gap_text(wit)}" if wit else "")
+                + f" (limits {RANK_PARITY_TOL:g} kept, {limit:.3e} broken)")
+            assert run["kept"][0] < RANK_PARITY_TOL and run["masked"][0] <= limit, (step, run, wit)
+        run, wit = r0["run_final"], r0.get("witness_final")
+        limit = max(RANK_PARITY_TOL, RANK_MASKED_FACTOR * wit["masked"][0]) if wit else RANK_PARITY_TOL
+        log(ph, f"final params against the control never resized: {_gap_text(run)}"
+            + (f"; the witness against the control: {_gap_text(wit)}" if wit else "")
+            + f" (limits {RANK_PARITY_TOL:g} kept, {limit:.3e} broken; {r0['masked_entries']} entries broken)")
+        assert run["kept"][0] < RANK_PARITY_TOL and run["masked"][0] <= limit, (run, wit)
+        _hold_steps(ph, r0)
+        counts = {k: sum(r["launches"].get(k, 0) for r in rs) for k in rs[0]["launches"]}
+        for k in PP_EP_KERNELS[name]:
+            assert counts[k] > 0, f"{k} was not launched on the {name} path"
+        log(ph, "launches summed over the ranks: " + ", ".join(f"{k} {counts[k]}" for k in RANK_KERNELS))
+        for k, n in counts.items():
+            launches[k] = launches.get(k, 0) + n
+    return launches
 
 
 def main() -> int:
@@ -5564,7 +6138,10 @@ def main() -> int:
     phase_kernel_cases()
     # the per-rank worlds first, while the card holds the least of this
     # process (see the module docstring, 42)
-    rank_train_launches, rank_bf16_launches = phase_rank_train()
+    ranks = phase_rank_worlds()
+    rank_train_launches, rank_bf16_launches = phase_rank_train(ranks)
+    rank_pp_ep_launches = phase_rank_pp_ep(ranks)
+    del ranks
     phase_small_agreement()
     launches, serve_err = phase_serve()
     record = phase_times(launches, serve_err)
@@ -5634,7 +6211,8 @@ def main() -> int:
              "chunked_qwen3": chunked_qwen3_launches,
              "chunked_mamba2": chunked_mamba2_launches, "chunked_mixtral": chunked_mixtral_launches,
              "train_pipeline": train_pp_launches, "train_int8_ef": train_ef_launches,
-             "rank_train": rank_train_launches, "rank_train_bf16": rank_bf16_launches}
+             "rank_train": rank_train_launches, "rank_train_bf16": rank_bf16_launches,
+             "rank_pp_ep": rank_pp_ep_launches}
     records = [record, *rows, bwd, *quants, ssd, rms, ssd_bwd]
     for rec in records:
         rec["launches_by_path"] = {p: counts.get(rec["name"], 0) for p, counts in paths.items()}
@@ -5644,7 +6222,11 @@ def main() -> int:
         "flash_attention", "pack_rows", "scatter_rows", "relayout_rows", "unpack_rows", "flash_attention_bwd",
         "pack_quant_rows", "dequant_scatter_rows", "ssd_intra_chunk", "rmsnorm", "ssd_intra_chunk_bwd"]
     log("profile", f"device times from {TRACES['taken']} traces, of which {TRACES['not whole']} were not "
-                   f"whole; {TRACES['used not whole']} measurements used a trace that was not")
+                   f"whole and {TRACES['lost']} held no device event; {TRACES['used not whole']} measurements "
+                   f"used a trace that was not whole, {TRACES['events instead']} CUDA events instead")
+    ends = [("start", t0), *sorted(PHASE_ENDS.items(), key=lambda kv: kv[1])]
+    log("done", "seconds from the last line of one phase tag to the next's (tags that print in several phases "
+                "take the last): " + ", ".join(f"{tag} {t1 - t:.1f}" for (_, t), (tag, t1) in zip(ends, ends[1:])))
     log("done", f"{time.perf_counter() - t0:.1f}s")
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1216,11 +1216,20 @@ class LiveRController:
             torch.cuda.current_stream(self.device).synchronize()
         grad_tail_s = time.perf_counter() - t1  # residual wait past overlap
 
-        # ---- the commit pause: re-sync tail + grad reshard + update +
+        # ---- the commit pause: re-sync tail + install + grad reshard + update +
         # pointer swap ----
         pause_start = time.perf_counter()
         self.machine.begin_switch(gen_id)
         commit_drain_s = session.drain()
+        # the new world's state first: once it is installed nothing reads
+        # the old world's, which is let go before the gradients move (the
+        # two states and both gradient sets would otherwise share the card)
+        t0 = time.perf_counter()
+        params_new, opt_new = self._install(session.results(), new_extras, new_world)
+        install_s = time.perf_counter() - t0
+        session.executor.update_sources({})
+        named = extras = None
+        self.params = self.opt_state = None
         t0 = time.perf_counter()
         p_specs = [s for s in self._session_specs if s.collection == "params"]
         p_plan = TransferPlan(
@@ -1237,13 +1246,12 @@ class LiveRController:
         rec.transfer_s = time.perf_counter() - t0
 
         t0 = time.perf_counter()
-        params_new, opt_new = self._install(session.results(), new_extras, new_world)
         om: dict = {}
         if new_world.member:
             params_new, opt_new, om = new_world.update_fn(grads_new, opt_new, params_new)
         self.params, self.opt_state = params_new, opt_new
         self._sync()
-        rec.update_s = time.perf_counter() - t0
+        rec.update_s = install_s + time.perf_counter() - t0
 
         t0 = time.perf_counter()
         old = self.machine.commit_switch(gen_id)

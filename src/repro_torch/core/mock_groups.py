@@ -36,9 +36,11 @@ __all__ = ["MockGroups", "MockWarmupResult", "mock_warmup"]
 
 
 class MockGroups(Collectives):
-    """``RankGroups``' interface for rank ``rank`` of ``parallel``,
-    communicating nothing: all-reduce returns its input's copy, all-gather
-    and reduce-scatter fresh tensors of their outputs' shapes."""
+    """``RankGroups``' interface for rank ``rank`` of ``parallel`` (dp, pp,
+    ep and tp groups), communicating nothing: all-reduce returns its
+    input's copy, all-gather and reduce-scatter fresh tensors of their
+    outputs' shapes, a send goes nowhere and a receive returns a fresh
+    tensor of the shape asked for."""
 
     def __init__(self, parallel: ParallelConfig, rank: int):
         self._setup(parallel, rank)
@@ -55,6 +57,12 @@ class MockGroups(Collectives):
         shape = list(t.shape)
         shape[dim] //= self.size(group)
         return t.new_empty(shape)
+
+    def _send(self, t, group, peer):
+        pass
+
+    def _recv(self, out, group, peer):
+        return out
 
 
 @dataclass

@@ -3,14 +3,17 @@
 Every process of the rank pool (``distribution/groups.py::RankPool``, the
 processes ``launch/ranks.py`` spawns) runs a :class:`RankController` with
 the same arguments and calls the same verbs at the same steps. A world is a
-dp x tp ``ParallelConfig`` whose rank ``r`` is process ``r``: it holds its
-shards of every param, ``mu`` and ``nu`` leaf (``core/resource_view.py::
-shard_of``), trains on its dp rows through the per-rank step
-(``distribution/step.py``, collectives over the world's
-``RankGroups``), and a resize streams cells rank to rank through the
-``RankExecutor`` (``reshard/executors.py``). Processes outside the active
-world idle through its steps and take part in the boundaries and the
-transfers.
+dp x pp x ep x tp ``ParallelConfig`` whose rank ``r`` is process ``r``: it
+holds its shards of every param, ``mu`` and ``nu`` leaf it has a part of
+(``core/resource_view.py::shard_of``: its stage's periods, its experts,
+its tp columns; the embedding on stage 0, the final norm and the head on
+the last), trains on its dp rows through the per-rank step
+(``distribution/step.py``, or ``distribution/pipeline.py``'s stages;
+collectives over the world's ``RankGroups``), and a resize streams cells
+rank to rank through the ``RankExecutor`` (``reshard/executors.py``), to
+and from ranks that hold no part of a leaf as well. Processes outside the
+active world idle through its steps and take part in the boundaries and
+the transfers.
 
 The lifecycle is ``LiveRController``'s, through its per-rank hooks
 (``_agree_ready``, ``_named_state``, ``_session_executor``, ``_reshard``,
@@ -34,7 +37,7 @@ of a process joining a world is the pool's agreed (MAX) count.
 
 Not on per-rank worlds yet (they raise): the warm pool and prefetch,
 retarget and escalation, fail-stop recovery and checkpoints, the transfer
-prewarms, ``compression="int8_ef"``, pipeline and expert parallelism.
+prewarms, ``compression="int8_ef"``.
 """
 
 from __future__ import annotations
@@ -50,12 +53,12 @@ from repro_torch.core.controller import LiveRController
 from repro_torch.core.intersection import TransferPlan
 from repro_torch.core.reshard import DEFAULT_STAGING_BYTES, named_state_leaves, rank_reshard_planned
 from repro_torch.core.resource_view import assemble, build_tensor_specs, view_of
-from repro_torch.core.shadow import WorldHandle, build_rank_world, rank_state_buffers
+from repro_torch.core.shadow import WorldHandle, build_rank_world, rank_state_buffers, world_microbatches
 from repro_torch.data import SyntheticLM
 from repro_torch.distribution.groups import RankPool, make_world_groups
 from repro_torch.distribution.step import check_rank_model, init_opt_state, shard_params
 from repro_torch.optim import AdamWConfig
-from repro_torch.reshard.executors import RankExecutor
+from repro_torch.reshard.executors import RankExecutor, wire_rounded
 from repro_torch.utils.pytree import tree_from_paths, tree_map_with_path
 
 __all__ = ["RankCommit", "RankController", "gather_each"]
@@ -63,18 +66,22 @@ __all__ = ["RankCommit", "RankController", "gather_each"]
 
 def gather_each(pool: RankPool, named: dict[str, torch.Tensor], parallel: ParallelConfig, specs, device):
     """Yield ``(spec, whole tensor)`` for each spec in turn: the shards of
-    ``parallel``'s dp-0 ranks (``named``, this rank's, by tensor name)
-    assembled on rank 0's ``device``, ``None`` on the other ranks. One
-    tensor is whole at a time; every rank of the pool iterates it."""
-    holders = [r for r in range(parallel.world_size) if parallel.rank_coords(r)[0] == 0]
+    ``parallel``'s dp-0 ranks that hold a part of it (``named``, this
+    rank's, by tensor name) assembled on rank 0's ``device``, ``None`` on
+    the other ranks. One tensor is whole at a time; every rank of the pool
+    iterates it."""
+    dp0 = [r for r in range(parallel.world_size) if parallel.rank_coords(r)[0] == 0]
     for spec in specs:
+        holders = [r for r in dp0 if view_of(spec, parallel, r) is not None]
         if pool.rank == 0:
-            shards = {0: named[spec.name].to(device)}
-            recvs = []
-            for r in holders[1:]:
-                shards[r] = torch.empty(view_of(spec, parallel, r).shape(), dtype=getattr(torch, spec.dtype),
-                                        device=device)
-                recvs.append((r, shards[r]))
+            shards, recvs = {}, []
+            for r in holders:
+                if r == 0:
+                    shards[0] = named[spec.name].to(device)
+                else:
+                    shards[r] = torch.empty(view_of(spec, parallel, r).shape(), dtype=getattr(torch, spec.dtype),
+                                            device=device)
+                    recvs.append((r, shards[r]))
             pool.exchange([], recvs)
             yield spec, assemble(shards, spec, parallel)
         else:
@@ -100,7 +107,9 @@ class RankCommit:
 class RankController(LiveRController):
     """``LiveRController`` for process ``pool.rank`` of a per-rank world
     (the module docstring). ``worlds``: every ``ParallelConfig`` a resize
-    may target."""
+    may target. ``microbatches``: every world's, as
+    ``core/shadow.py::world_microbatches`` gives them (a pipeline world at
+    least its pp; any other at most its rows a rank, which they divide)."""
 
     def __init__(
         self,
@@ -124,6 +133,7 @@ class RankController(LiveRController):
     ):
         for p in (parallel, *worlds):
             check_rank_model(cfg, p)
+            world_microbatches(p, microbatches, global_batch)
         self.pool = pool
         self.rank = pool.rank
         self.groups = make_world_groups(pool, [parallel, *worlds])
@@ -181,6 +191,7 @@ class RankController(LiveRController):
     def request_resize(self, target: ParallelConfig, overlap: Optional[str] = None, operating_point=None) -> int:
         """Call on every rank at the same step."""
         check_rank_model(self.cfg, target)
+        world_microbatches(target, self.microbatches, self.global_batch)
         if target not in self.groups:
             raise ValueError(f"{target.describe()}: its groups were not created at start (name it in worlds=)")
         return super().request_resize(target, overlap, operating_point)
@@ -200,7 +211,9 @@ class RankController(LiveRController):
     def _session_executor(self, new_world: WorldHandle, staging_bytes: int) -> RankExecutor:
         return RankExecutor({s.name: s for s in self._session_specs}, {}, self.rank, self._session_plan.cfg_dst,
                             self.pool, self.device, staging_bytes, wire_policy=self.wire_policy,
-                            dst_buffers=new_world.buffers)
+                            dst_buffers=new_world.buffers,
+                            rounded=wire_rounded(self._session_plan, self._session_specs, self.rank,
+                                                 self.wire_policy))
 
     def _reshard(self, specs, plan: TransferPlan, named: dict, new_world: WorldHandle, staging_bytes: int,
                  wire_policy=None, dst_buffers: Optional[dict] = None):
@@ -218,7 +231,8 @@ class RankController(LiveRController):
         count = int(self.pool.agree(count, "max"))
         if not new_world.member:
             return None, None
-        paths = [s.name[len("params/"):] for s in self._specs if s.collection == "params"]
+        paths = [s.name[len("params/"):] for s in self._specs
+                 if s.collection == "params" and view_of(s, new_world.parallel, self.rank) is not None]
         params = tree_from_paths({p: moved[f"params/{p}"] for p in paths})
         opt_state = {coll: tree_from_paths({p: moved[f"{coll}/{p}"] for p in paths}) for coll in ("mu", "nu")}
         opt_state["count"] = torch.tensor(count, dtype=torch.int32, device=self.device)

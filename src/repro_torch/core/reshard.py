@@ -37,7 +37,7 @@ from repro_torch.configs.base import ModelConfig, ParallelConfig
 from repro_torch.core.intersection import TransferPlan, TransferTask, plan_transfer
 from repro_torch.core.resource_view import TensorSpec, build_tensor_specs, dtype_name
 from repro_torch.reshard.engine import DEFAULT_STAGING_BYTES, ReshardEngine, StreamStats
-from repro_torch.reshard.executors import LiveExecutor, RankExecutor
+from repro_torch.reshard.executors import LiveExecutor, RankExecutor, wire_rounded
 from repro_torch.utils.pytree import tree_from_paths, tree_paths
 
 __all__ = [
@@ -268,12 +268,15 @@ def rank_reshard_planned(
 ) -> tuple[dict[str, torch.Tensor], StreamStats, RankExecutor]:
     """Execute an intersection plan on this rank's ``shards`` (by tensor
     name; empty outside the source world): every rank of the pool calls it
-    with the same plan. Returns (this rank's destination shards by name,
+    with the same plan. Under a lossy ``wire_policy`` this rank's local
+    cells of a view whose replica crosses the wire take its rounding
+    (``reshard/executors.py::wire_rounded``; a view adopted in place is
+    the caller's to round). Returns (this rank's destination shards by name,
     the engine's stats, the executor with its per-rank counters); the
     shards are complete when it returns."""
     executor = RankExecutor(
         {s.name: s for s in specs}, shards, rank, plan.cfg_dst, transport, device, staging_bytes,
-        wire_policy=wire_policy, dst_buffers=dst_buffers,
+        wire_policy=wire_policy, dst_buffers=dst_buffers, rounded=wire_rounded(plan, specs, rank, wire_policy),
     )
     stats = ReshardEngine(plan, executor, staging_bytes=staging_bytes, wire_policy=wire_policy).run(layers)
     t1 = time.perf_counter()

@@ -147,32 +147,33 @@ def _box(view: View) -> tuple[slice, ...]:
     return tuple(slice(lo, hi) for lo, hi in view.bounds)
 
 
-def _refuse_pp_ep(cfg: ParallelConfig) -> None:
-    if cfg.pp > 1 or cfg.ep > 1:
-        raise ValueError(f"{cfg.describe()}: per-rank shards take dp and tp only (pp and ep are not ported yet)")
-
-
-def shard_of(tensor: torch.Tensor, spec: TensorSpec, cfg: ParallelConfig, rank: int) -> torch.Tensor:
+def shard_of(tensor: torch.Tensor, spec: TensorSpec, cfg: ParallelConfig, rank: int) -> Optional[torch.Tensor]:
     """Rank ``rank``'s shard of the whole ``tensor`` under ``cfg``: its
-    :func:`view_of` box, a contiguous tensor of its own storage. The
-    per-rank worlds hold exactly these boxes of every param, ``mu`` and
-    ``nu`` leaf (the specs of ``build_tensor_specs(..., zero_sharding=False)``),
-    the views the reshard plan moves cells between. Refuses pp and ep."""
-    _refuse_pp_ep(cfg)
+    :func:`view_of` box, a contiguous tensor of its own storage, or None
+    where the rank holds no part of it (a stage-scoped leaf on another
+    stage). The per-rank worlds hold exactly these boxes of every param,
+    ``mu`` and ``nu`` leaf (the specs of ``build_tensor_specs(...,
+    zero_sharding=False)``), the views the reshard plan moves cells
+    between: cut by pipeline stage, by expert over ep and by tp."""
     if tuple(tensor.shape) != spec.shape:
         raise ValueError(f"{spec.name}: tensor {tuple(tensor.shape)} is not its spec's {spec.shape}")
-    return tensor[_box(view_of(spec, cfg, rank))].clone(memory_format=torch.contiguous_format)
+    view = view_of(spec, cfg, rank)
+    if view is None:
+        return None
+    return tensor[_box(view)].clone(memory_format=torch.contiguous_format)
 
 
 def assemble(shards: dict[int, torch.Tensor], spec: TensorSpec, cfg: ParallelConfig) -> torch.Tensor:
     """The inverse of :func:`shard_of`: the whole tensor from shards by
-    rank, which must cover it (each replica group once at least)."""
-    _refuse_pp_ep(cfg)
+    rank, which must cover it (each replica group once at least). A rank
+    that holds no part of the tensor has no shard to give."""
     first = next(iter(shards.values()))
     out = torch.empty(spec.shape, dtype=first.dtype, device=first.device)
     boxes = set()
     for rank, shard in shards.items():
         view = view_of(spec, cfg, rank)
+        if view is None:
+            raise ValueError(f"{spec.name}: rank {rank} of {cfg.describe()} holds no part of it")
         out[_box(view)] = shard
         boxes.add(view.bounds)
     # a config's views are equal (replicas) or disjoint

@@ -335,6 +335,41 @@ def rank_meta_args(cfg: ModelConfig, parallel: ParallelConfig, rank: int, global
     return params, opt, abstract_batch(cfg, global_batch // parallel.dp, seq_len)
 
 
+def world_microbatches(parallel: ParallelConfig, microbatches: int, global_batch: int) -> int:
+    """The microbatches a per-rank world of ``parallel`` steps in: a world
+    with pipeline stages ``max(microbatches, pp)``, as a one-process world
+    takes them; any other ``min(microbatches, rows)`` over its
+    ``global_batch / dp`` rows a rank, which must be a multiple of them.
+    Refuses a world whose rows do not divide so."""
+    if global_batch % parallel.dp:
+        raise ValueError(f"global batch {global_batch} is not a multiple of dp={parallel.dp}")
+    if parallel.pp > 1:
+        return max(microbatches, parallel.pp)
+    rows = global_batch // parallel.dp
+    mb = min(microbatches, rows)
+    if rows % mb:
+        raise ValueError(f"{parallel.describe()}: {rows} rows a rank are not a multiple of microbatches={mb}")
+    return mb
+
+
+def rank_step_fns(cfg: ModelConfig, parallel: ParallelConfig, opt_cfg, microbatches: int, groups) -> tuple:
+    """(train step, grad half, update half) of rank ``groups.rank`` of
+    ``parallel``: through ``distribution/pipeline.py`` with ``max(
+    microbatches, pp)`` microbatches where the world has pipeline stages,
+    as a one-process world takes them, else ``distribution/step.py``."""
+    from repro_torch.distribution.step import make_grad_fn, make_train_step, make_update_fn, split_paths
+
+    update_fn = make_update_fn(opt_cfg, groups=groups, split=split_paths(cfg, parallel))
+    if parallel.pp > 1:
+        from repro_torch.distribution.pipeline import make_pipeline_grad_fn, make_pipeline_train_step
+
+        mb = max(microbatches, parallel.pp)
+        return (make_pipeline_train_step(cfg, parallel, opt_cfg, mb, groups=groups),
+                make_pipeline_grad_fn(cfg, parallel, mb, groups), update_fn)
+    return (make_train_step(cfg, opt_cfg, microbatches, groups=groups), make_grad_fn(cfg, microbatches, groups=groups),
+            update_fn)
+
+
 def build_rank_world(
     cfg: ModelConfig,
     parallel: ParallelConfig,
@@ -348,18 +383,14 @@ def build_rank_world(
     """A per-rank training world seen from one process (the shadow
     thread's body): ``groups`` is the world's ``RankGroups``, created at
     start on every process. For a rank of the world: the step, its grad and
-    update halves over the rank's shards, the step run once on meta under
-    the mock process groups (``timings["mock_s"]``, ``["aten_ops"]``), and
-    on the card the kernel libraries and cuBLAS warmed in this thread. A
-    process outside the world gets a handle with no functions."""
+    update halves over the rank's shards (:func:`rank_step_fns`, in
+    :func:`world_microbatches`), the step
+    run once on meta under the mock process groups (``timings["mock_s"]``,
+    ``["aten_ops"]``), and on the card the kernel libraries and cuBLAS
+    warmed in this thread. A process outside the world gets a handle with
+    no functions."""
     from repro_torch.core.mock_groups import mock_warmup
-    from repro_torch.distribution.step import (
-        check_rank_model,
-        make_grad_fn,
-        make_train_step,
-        make_update_fn,
-        tp_sharded_paths,
-    )
+    from repro_torch.distribution.step import check_rank_model
 
     check_rank_model(cfg, parallel)
     device = torch.device(device)
@@ -367,13 +398,10 @@ def build_rank_world(
                          rank=groups.rank, rank_device=device, groups=groups)
     if not groups.member:
         return handle
-    if global_batch % parallel.dp:
-        raise ValueError(f"global batch {global_batch} is not a multiple of dp={parallel.dp}")
-    handle.step_fn = make_train_step(cfg, opt_cfg, microbatches, groups=groups)
-    handle.grad_fn = make_grad_fn(cfg, microbatches, groups=groups)
-    handle.update_fn = make_update_fn(opt_cfg, groups=groups, sharded=tp_sharded_paths(cfg, parallel))
+    microbatches = world_microbatches(parallel, microbatches, global_batch)
+    handle.step_fn, handle.grad_fn, handle.update_fn = rank_step_fns(cfg, parallel, opt_cfg, microbatches, groups)
     t0 = time.perf_counter()
-    res = mock_warmup(lambda g: make_train_step(cfg, opt_cfg, microbatches, groups=g), parallel, groups.rank,
+    res = mock_warmup(lambda g: rank_step_fns(cfg, parallel, opt_cfg, microbatches, g)[0], parallel, groups.rank,
                       rank_meta_args(cfg, parallel, groups.rank, global_batch, seq_len))
     handle.timings.update(mock_s=time.perf_counter() - t0, aten_ops=res.aten_ops,
                           mock_collectives=len(res.collectives))

@@ -8,11 +8,13 @@ The processes of the rank pool share one default group
 point-to-point call the reshard executor posts its cells through
 (``reshard/executors.py::RankExecutor``), and the agreement the
 controller's step boundaries take (``core/rank_controller.py``).
-:class:`RankGroups` is one world seen from one process: its dp group and
-its tp group, its coordinates from ``ParallelConfig.rank_coords`` (the
+:class:`RankGroups` is one world seen from one process: its dp, pp, ep and
+tp groups (each the ranks that differ from this one in that coordinate
+only), its coordinates from ``ParallelConfig.rank_coords`` (the
 coordinates ``core/resource_view.py::view_of`` reads), and the
 collectives its step takes (``all_reduce`` sum or max, ``all_gather``,
-``reduce_scatter``).
+``reduce_scatter``, and the pipeline's point-to-point ``send`` and
+``recv`` to a peer of a group, by its index there).
 
 ``dist.new_group`` is collective over the default group, so every process
 creates every world's groups, in the same order, for each
@@ -29,9 +31,8 @@ the ranks' compute and shards stay on the card.
 
 Every collective over a group of one rank is the identity and records
 nothing; the others append ``(op, group, bytes)`` to ``collectives``
-(``bytes`` what this rank puts in), as ``core/mock_groups.py::MockGroups``
-does without communicating. Pipeline and expert parallelism are refused
-in per-rank worlds for now (``ValueError``).
+(``bytes`` what this rank puts in, or takes out of a ``recv``), as
+``core/mock_groups.py::MockGroups`` does without communicating.
 """
 
 from __future__ import annotations
@@ -50,18 +51,35 @@ __all__ = [
     "RankGroups",
     "RankPool",
     "check_rank_world",
+    "group_members",
     "make_world_groups",
 ]
 
 _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX, "min": dist.ReduceOp.MIN}
 
 
+GROUPS = ("dp", "pp", "ep", "tp")
+
+
 def check_rank_world(parallel: ParallelConfig) -> None:
-    """Per-rank worlds are dp x tp for now: refuse pp and ep."""
-    if parallel.pp > 1 or parallel.ep > 1:
-        raise ValueError(
-            f"{parallel.describe()}: per-rank worlds take dp and tp only (pp > 1 and ep > 1 are not ported yet)"
-        )
+    """A per-rank world has a degree of at least 1 on each of dp, pp, ep
+    and tp."""
+    bad = {g: getattr(parallel, g) for g in GROUPS if getattr(parallel, g) < 1}
+    if bad:
+        raise ValueError(f"{parallel.describe()}: degrees {bad} below 1")
+
+
+def group_members(parallel: ParallelConfig, group: str, rank: int) -> list[int]:
+    """The ranks of ``parallel`` in ``rank``'s ``group``: those whose
+    coordinates differ from its own in that group's only, in the order of
+    that coordinate."""
+    coords = list(parallel.rank_coords(rank))
+    axis = GROUPS.index(group)
+    out = []
+    for i in range(getattr(parallel, group)):
+        coords[axis] = i
+        out.append(parallel.coords_rank(*coords))
+    return out
 
 
 def _nbytes(t: torch.Tensor) -> int:
@@ -101,10 +119,11 @@ class HostStaging:
 
 class Collectives:
     """The collectives of one world as its step calls them, over groups
-    named ``"dp"`` and ``"tp"``; the subclass communicates (``_all_reduce``,
-    ``_all_gather``, ``_reduce_scatter``) or does not. Each returns a new
-    tensor (over a group of one rank, the input itself) and leaves its input
-    as it is."""
+    named ``"dp"``, ``"pp"``, ``"ep"`` and ``"tp"``; the subclass
+    communicates (``_all_reduce``, ``_all_gather``, ``_reduce_scatter``,
+    ``_send``, ``_recv``) or does not. Each collective returns a new tensor
+    (over a group of one rank, the input itself) and leaves its input as it
+    is."""
 
     parallel: ParallelConfig
     rank: int
@@ -114,13 +133,13 @@ class Collectives:
         self.parallel = parallel
         self.rank = rank
         self.member = 0 <= rank < parallel.world_size
-        self.dp, self.tp = parallel.dp, parallel.tp
-        coords = parallel.rank_coords(rank) if self.member else (-1, 0, 0, -1)
-        self.dp_rank, self.tp_rank = coords[0], coords[3]
+        self.dp, self.pp, self.ep, self.tp = parallel.dp, parallel.pp, parallel.ep, parallel.tp
+        coords = parallel.rank_coords(rank) if self.member else (-1, -1, -1, -1)
+        self.dp_rank, self.pp_rank, self.ep_rank, self.tp_rank = coords
         self.collectives: list[tuple[str, str, int]] = []
 
     def size(self, group: str) -> int:
-        return {"dp": self.dp, "tp": self.tp}[group]
+        return {"dp": self.dp, "pp": self.pp, "ep": self.ep, "tp": self.tp}[group]
 
     def _record(self, op: str, group: str, t: torch.Tensor) -> None:
         self.collectives.append((op, group, _nbytes(t)))
@@ -147,6 +166,20 @@ class Collectives:
             raise ValueError(f"reduce_scatter: dim {dim} of {tuple(t.shape)} is not a multiple of {self.size(group)}")
         self._record("reduce_scatter", group, t)
         return self._reduce_scatter(t.contiguous(), group, dim)
+
+    def send(self, t: torch.Tensor, group: str, peer: int) -> None:
+        """``t`` to the rank of index ``peer`` in this rank's ``group``;
+        returns once ``t`` may be overwritten. A pair of ranks matches its
+        sends and receives in the order both post them."""
+        self._record("send", group, t)
+        self._send(t.contiguous(), group, peer)
+
+    def recv(self, shape, dtype, device, group: str, peer: int) -> torch.Tensor:
+        """A new tensor of ``shape`` and ``dtype`` on ``device``: what the
+        rank of index ``peer`` in this rank's ``group`` sent."""
+        out = torch.empty(shape, dtype=dtype, device=device)
+        self._record("recv", group, out)
+        return self._recv(out, group, peer)
 
 
 class RankPool:
@@ -197,9 +230,9 @@ class RankPool:
 
 
 class RankGroups(Collectives):
-    """One world's dp and tp groups seen from process ``pool.rank``.
-    Construct it on every process of the pool, in the same order (see
-    :func:`make_world_groups`)."""
+    """One world's dp, pp, ep and tp groups seen from process
+    ``pool.rank``. Construct it on every process of the pool, in the same
+    order (see :func:`make_world_groups`)."""
 
     def __init__(self, parallel: ParallelConfig, pool: RankPool):
         self._setup(parallel, pool.rank)
@@ -207,17 +240,17 @@ class RankGroups(Collectives):
         if parallel.world_size > pool.size:
             raise ValueError(f"{parallel.describe()} needs {parallel.world_size} ranks, the pool has {pool.size}")
         self._groups: dict[str, object] = {}
-        layouts = {
-            "tp": [[parallel.coords_rank(d, 0, 0, t) for t in range(parallel.tp)] for d in range(parallel.dp)],
-            "dp": [[parallel.coords_rank(d, 0, 0, t) for d in range(parallel.dp)] for t in range(parallel.tp)],
-        }
-        for name in ("tp", "dp"):
-            if len(layouts[name][0]) == 1:
+        self._members: dict[str, list[int]] = {}
+        for name in ("tp", "ep", "pp", "dp"):
+            if getattr(parallel, name) == 1:
                 continue
-            for ranks in layouts[name]:
-                group = dist.new_group(ranks)  # collective over the default group
+            # each group once, listed from its first rank, in rank order
+            layouts = sorted({tuple(group_members(parallel, name, r)) for r in range(parallel.world_size)})
+            for ranks in layouts:
+                group = dist.new_group(list(ranks))  # collective over the default group
                 if self.rank in ranks:
                     self._groups[name] = group
+                    self._members[name] = list(ranks)
 
     def _run(self, fn, x: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
         """``fn(x, out)`` on host copies of CUDA tensors under gloo, on the
@@ -246,10 +279,24 @@ class RankGroups(Collectives):
         self._run(lambda x, o: dist.reduce_scatter(o, list(x.unbind(0)), group=self._groups[group]), stacked, out)
         return out
 
+    def _send(self, t, group, peer):
+        st = self.pool.staging
+        dist.send(st.to_host(t) if st.needed(t) else t, self._members[group][peer])
+
+    def _recv(self, out, group, peer):
+        st = self.pool.staging
+        if not st.needed(out):
+            dist.recv(out, self._members[group][peer])
+            return out
+        host = st.empty_host(out)
+        dist.recv(host, self._members[group][peer])
+        st.to_device(out, host)
+        return out
+
 
 def make_world_groups(pool: RankPool, worlds) -> dict[ParallelConfig, RankGroups]:
     """Every world's groups, created on every process of the pool in one
-    order (the worlds deduplicated and sorted by (dp, tp)): call it on all
+    order (the worlds deduplicated and sorted by (dp, pp, tp, ep)): call it on all
     ranks with the same worlds, once at start."""
     unique = sorted(set(worlds), key=lambda p: (p.dp, p.pp, p.tp, p.ep))
     for p in unique:

@@ -23,17 +23,18 @@ round trip with error feedback before the update
 are ``opt_state["ef"]``, float32 zeros at init. Pipeline stages are
 ``distribution/pipeline.py``.
 
-The per-rank step. With ``groups`` (a dp x tp world's
+The per-rank step. With ``groups`` (a world's
 ``distribution/groups.py::RankGroups``, or ``core/mock_groups.py::
 MockGroups`` on the meta device) the same builders return one rank's step
 over its shards (:func:`shard_train_state`): the batch is the rank's dp
 rows (``data/pipeline.py::SyntheticLM.shard_at``), the loss runs the
-model's tp regions (``models/model.py::loss_fn(groups=)``), the gradients
-and the loss are averaged over dp, and the update runs AdamW on the shards
-in place with the clip's norm summed over tp
-(``optim/adamw.py::global_norm``). Refused there for now:
-``compression="int8_ef"``, pipeline stages, MoE, SSM and enc-dec models
-(``check_rank_model``).
+model's tp and ep regions (``models/model.py::loss_fn(groups=)``), the
+gradients and the loss are averaged over dp, and the update runs AdamW on
+the shards in place with the clip's norm counting each element once
+(``optim/adamw.py::global_norm`` over :func:`split_paths`). A world with
+pipeline stages takes its step from ``distribution/pipeline.py``. Refused
+there for now: ``compression="int8_ef"``, SSM and enc-dec models, a shared
+expert, and tied embeddings across stages (``check_rank_model``).
 """
 
 from __future__ import annotations
@@ -52,12 +53,14 @@ __all__ = [
     "check_rank_model",
     "init_opt_state",
     "init_train_state",
+    "join_step",
     "make_grad_fn",
     "make_train_step",
     "make_update_fn",
+    "rank_grad_step",
     "shard_params",
     "shard_train_state",
-    "tp_sharded_paths",
+    "split_paths",
 ]
 
 COMPRESSIONS = ("none", "int8_ef")
@@ -113,46 +116,66 @@ def _micro(batch: dict, microbatches: int) -> list[dict]:
 
 
 def check_rank_model(cfg: ModelConfig, parallel) -> None:
-    """Refuse what a per-rank world does not run yet: pp or ep, a model
-    other than a decoder of attention and dense-MLP blocks, and a tp that
-    does not divide its heads, kv columns, widths and vocabulary (the
-    collectives take equal parts)."""
+    """Refuse what a per-rank world does not run yet: a model other than a
+    decoder of attention blocks with dense or MoE MLPs (no shared expert),
+    tied embeddings across pipeline stages, a pipeline its stages do not
+    divide, and a tp that does not divide its heads, kv columns, widths,
+    vocabulary and router columns, or an ep that does not divide its
+    experts (the collectives take equal parts)."""
     from repro_torch.distribution.groups import check_rank_world
     from repro_torch.models.attention import local_heads
     from repro_torch.models.transformer import block_program
 
     check_rank_world(parallel)
-    if cfg.family == "encdec" or any(p != ("attn", "dense") for p in block_program(cfg)):
-        raise ValueError(f"{cfg.name}: per-rank worlds run decoders of attention and dense-MLP blocks only")
+    if cfg.family == "encdec" or any(m != "attn" or f not in ("dense", "moe") for m, f in block_program(cfg)):
+        raise ValueError(f"{cfg.name}: per-rank worlds run decoders of attention blocks with dense or MoE MLPs only")
+    if cfg.moe_shared_expert:
+        raise ValueError(f"{cfg.name}: a shared expert is not ported to per-rank worlds")
+    if parallel.pp > 1:
+        from repro_torch.distribution.pipeline import check_pipeline
+
+        check_pipeline(cfg, parallel, parallel.pp)
+        if cfg.tie_embeddings:
+            raise ValueError(f"{cfg.name}: tied embeddings live on the first and the last stage at once")
     tp = parallel.tp
     sizes = {"d_model": cfg.d_model, "d_ff": cfg.d_ff, "vocab_size": cfg.vocab_size,
              "kv columns": cfg.num_kv_heads * cfg.resolved_head_dim}
+    if cfg.num_experts:
+        sizes["router columns"] = cfg.num_experts
     bad = {k: v for k, v in sizes.items() if v % tp}
     if bad:
         raise ValueError(f"{cfg.name}: tp={tp} does not divide {bad}")
+    if parallel.ep > 1 and cfg.num_experts % parallel.ep:
+        raise ValueError(f"{cfg.name}: ep={parallel.ep} does not divide {cfg.num_experts} experts")
     for r in range(tp):
         local_heads(cfg, tp, r)
 
 
-def tp_sharded_paths(cfg: ModelConfig, parallel) -> frozenset:
-    """The param paths the planner splits over tp in ``parallel`` (none at
-    tp 1): the leaves whose squares the clip sums over tp."""
+def split_paths(cfg: ModelConfig, parallel) -> dict:
+    """The param paths the planner cuts over ep or tp in ``parallel``, each
+    with the groups it is cut over (``("ep",)``, ``("tp",)`` or ``("ep",
+    "tp")``; degrees of 1 cut nothing): the leaves whose squares the clip
+    sums over those groups."""
     from repro_torch.core.resource_view import build_tensor_specs
 
-    if parallel.tp == 1:
-        return frozenset()
-    return frozenset(s.name[len("params/"):] for s in build_tensor_specs(cfg, include_optimizer=False)
-                     if "tp" in s.roles)
+    out = {}
+    for spec in build_tensor_specs(cfg, include_optimizer=False):
+        cut = tuple(g for g in ("ep", "tp") if g in spec.roles and getattr(parallel, g) > 1)
+        if cut:
+            out[spec.name[len("params/"):]] = cut
+    return out
 
 
 def shard_params(cfg: ModelConfig, tree: dict, parallel, rank: int) -> dict:
     """Rank ``rank``'s shards of a whole param tree, or of a moment tree
     (``mu``, ``nu``: the planner lays them out as their params): each
-    leaf's ``core/resource_view.py::shard_of`` box."""
+    leaf's ``core/resource_view.py::shard_of`` box; a leaf the rank holds
+    no part of (another stage's) is absent."""
     from repro_torch.core.resource_view import build_tensor_specs, shard_of
 
     specs = {s.name[len("params/"):]: s for s in build_tensor_specs(cfg, include_optimizer=False)}
-    return tree_from_paths({p: shard_of(x, specs[p], parallel, rank) for p, x in tree_paths(tree).items()})
+    shards = {p: shard_of(x, specs[p], parallel, rank) for p, x in tree_paths(tree).items()}
+    return tree_from_paths({p: x for p, x in shards.items() if x is not None})
 
 
 def shard_train_state(cfg: ModelConfig, params: dict, opt_state: dict, parallel, rank: int) -> tuple[dict, dict]:
@@ -169,6 +192,20 @@ def shard_train_state(cfg: ModelConfig, params: dict, opt_state: dict, parallel,
 def _dp_mean(groups, t: torch.Tensor) -> torch.Tensor:
     """``t`` averaged over the dp group."""
     return t if groups.dp == 1 else groups.all_reduce(t, "dp") / groups.dp
+
+
+def rank_grad_step(local_step, groups):
+    """``local_step(params, batch) -> (loss, metrics, grads)`` of one rank,
+    its loss, metrics and gradients averaged over dp (in place)."""
+
+    def grad_step(params: dict, batch: dict):
+        loss, metrics, grads = local_step(params, batch)
+        for g in tree_paths(grads).values():
+            g.copy_(_dp_mean(groups, g))
+        metrics = {k: _dp_mean(groups, v) for k, v in metrics.items()}
+        return _dp_mean(groups, loss), metrics, grads
+
+    return grad_step
 
 
 def make_grad_fn(
@@ -189,11 +226,15 @@ def make_grad_fn(
     The loss carries ``aux_weight`` times the MoE aux loss of a model with
     MoE layers (0 for a pipeline world's). On the card an SSM mixer's gradient goes through the SSD backward
     kernel; an enc-dec model's batch carries ``frames``. ``groups``: one
-    rank's step over its shards and dp rows (the module docstring); the
-    loss and gradients returned are the dp means."""
+    rank's step over its shards and dp rows (the module docstring) of a
+    world without pipeline stages; the loss and gradients returned are the
+    dp means."""
     _choice("grad_accum", grad_accum, GRAD_ACCUMS)
     if groups is not None:
         check_rank_model(cfg, groups.parallel)
+        if groups.pp > 1:
+            raise ValueError(f"{groups.parallel.describe()}: a world with pipeline stages steps through "
+                             "distribution/pipeline.py")
 
     def grads_of(paths: dict, batch: dict):
         return value_and_grad(lambda tree: M.loss_fn(cfg, tree, batch, remat, aux_weight, groups), paths)
@@ -201,16 +242,6 @@ def make_grad_fn(
     def scan_loss(tree: dict, micro: list[dict]):
         total = sum(M.loss_fn(cfg, tree, m, remat, aux_weight, groups)[0] for m in micro)
         return total / len(micro), {}
-
-    def grad_step(params: dict, batch: dict):
-        loss, metrics, grads = local_step(params, batch)
-        if groups is None:
-            return loss, metrics, grads
-        for g in tree_paths(grads).values():
-            g.copy_(_dp_mean(groups, g))
-        if "nll" in metrics:
-            metrics = {**metrics, "nll": _dp_mean(groups, metrics["nll"])}
-        return _dp_mean(groups, loss), metrics, grads
 
     def local_step(params: dict, batch: dict):
         paths = tree_paths(params)
@@ -234,15 +265,15 @@ def make_grad_fn(
         grads = {p: g / microbatches for p, g in g_sum.items()}
         return loss_sum / microbatches, {}, tree_from_paths(grads)
 
-    return grad_step
+    return local_step if groups is None else rank_grad_step(local_step, groups)
 
 
-def make_update_fn(opt_cfg: AdamWConfig, compression: str = "none", groups=None, sharded=frozenset()):
+def make_update_fn(opt_cfg: AdamWConfig, compression: str = "none", groups=None, split=None):
     """Returns ``update(grads, opt_state, params, fence=None) -> (params,
     opt_state, metrics)``: the optimizer half of the step, in place. Under
     ``compression="int8_ef"`` the gradients first take the int8 round trip
     with error feedback (``opt_state["ef"]``, updated in place). ``groups``
-    and ``sharded`` (:func:`tp_sharded_paths`): one rank's update over its
+    and ``split`` (:func:`split_paths`): one rank's update over its
     shards."""
     _choice("compression", compression, COMPRESSIONS)
     if groups is not None and compression != "none":
@@ -253,7 +284,7 @@ def make_update_fn(opt_cfg: AdamWConfig, compression: str = "none", groups=None,
             torch.cuda.current_stream().wait_event(fence)
         if compression == "int8_ef":
             grads, opt_state = compress_decompress_with_ef(grads, opt_state)
-        return adamw_update(opt_cfg, grads, opt_state, params, groups, sharded)
+        return adamw_update(opt_cfg, grads, opt_state, params, groups, split)
 
     return update
 
@@ -273,8 +304,13 @@ def make_train_step(
     ``grad_norm``; params and opt_state are updated in place. ``groups``:
     one rank's step (the module docstring)."""
     grad_step = make_grad_fn(cfg, microbatches, remat, grad_accum, aux_weight, groups)
-    sharded = tp_sharded_paths(cfg, groups.parallel) if groups is not None else frozenset()
-    update = make_update_fn(opt_cfg, compression, groups, sharded)
+    split = split_paths(cfg, groups.parallel) if groups is not None else None
+    return join_step(grad_step, make_update_fn(opt_cfg, compression, groups, split))
+
+
+def join_step(grad_step, update):
+    """``train_step(params, opt_state, batch, fence=None) -> (params,
+    opt_state, metrics)``: ``grad_step`` and then ``update``, in place."""
 
     def train_step(params: dict, opt_state: dict, batch: dict, fence=None):
         loss, metrics, grads = grad_step(params, batch)

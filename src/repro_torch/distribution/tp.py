@@ -1,6 +1,8 @@
 """Tensor-parallel regions of the per-rank step: the Megatron-style pairs
 of autograd functions over a world's tp group (``distribution/groups.py``
-or ``core/mock_groups.py``).
+or ``core/mock_groups.py``), or over its ep group for the expert MLP
+(``models/moe.py``: every rank of an ep group routes the same rows and runs
+its own experts' products).
 
 - :func:`copy_to` enters a region: the identity forward, an all-reduce of
   the gradient backward (each rank's branch adds its part of it);
@@ -10,13 +12,16 @@ or ``core/mock_groups.py``).
   forward, a reduce-scatter of the gradient backward (the norm scales the
   planner splits on ``embed``, the k and v projections where the planner's
   view cuts a kv head);
+- :func:`gather_whole` gathers a tp-split tensor that every rank then
+  uses whole and alike (the router's logits): an all-gather forward, and
+  backward this rank's part of a gradient that is already whole;
 - :func:`embed` and :func:`nll` are the vocab-parallel embedding and
   cross-entropy: the embedding masks the tokens outside this rank's rows
   and all-reduces, and the loss all-reduces the max, the sum of
   exponentials and the target's logit, so the full logits are never
   formed.
 
-With ``tp == 1`` every function is the identity on its input.
+Over a group of one rank every function is the identity on its input.
 """
 
 from __future__ import annotations
@@ -26,23 +31,23 @@ import torch
 
 class _CopyTo(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, groups):
-        ctx.groups = groups
+    def forward(ctx, x, groups, group):
+        ctx.groups, ctx.group = groups, group
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, dy):
-        return ctx.groups.all_reduce(dy, "tp"), None
+        return ctx.groups.all_reduce(dy, ctx.group), None, None
 
 
 class _ReduceFrom(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, groups):
-        return groups.all_reduce(x, "tp")
+    def forward(ctx, x, groups, group):
+        return groups.all_reduce(x, group)
 
     @staticmethod
     def backward(ctx, dy):
-        return dy, None
+        return dy, None, None
 
 
 class _GatherFrom(torch.autograd.Function):
@@ -56,16 +61,32 @@ class _GatherFrom(torch.autograd.Function):
         return ctx.groups.reduce_scatter(dy, "tp", ctx.dim), None, None
 
 
-def copy_to(x: torch.Tensor, groups) -> torch.Tensor:
-    return x if groups.tp == 1 else _CopyTo.apply(x, groups)
+class _GatherWhole(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, groups, dim):
+        ctx.groups, ctx.dim, ctx.part = groups, dim, x.shape[dim]
+        return groups.all_gather(x, "tp", dim)
+
+    @staticmethod
+    def backward(ctx, dy):
+        lo = ctx.groups.tp_rank * ctx.part
+        return dy.narrow(ctx.dim, lo, ctx.part).contiguous(), None, None
 
 
-def reduce_from(x: torch.Tensor, groups) -> torch.Tensor:
-    return x if groups.tp == 1 else _ReduceFrom.apply(x, groups)
+def copy_to(x: torch.Tensor, groups, group: str = "tp") -> torch.Tensor:
+    return x if groups.size(group) == 1 else _CopyTo.apply(x, groups, group)
+
+
+def reduce_from(x: torch.Tensor, groups, group: str = "tp") -> torch.Tensor:
+    return x if groups.size(group) == 1 else _ReduceFrom.apply(x, groups, group)
 
 
 def gather_from(x: torch.Tensor, groups, dim: int = -1) -> torch.Tensor:
     return x if groups.tp == 1 else _GatherFrom.apply(x, groups, dim)
+
+
+def gather_whole(x: torch.Tensor, groups, dim: int = -1) -> torch.Tensor:
+    return x if groups.tp == 1 else _GatherWhole.apply(x, groups, dim)
 
 
 def embed(tok: torch.Tensor, tokens: torch.Tensor, lo: int, dtype, groups) -> torch.Tensor:

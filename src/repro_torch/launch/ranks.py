@@ -4,8 +4,9 @@
     results = run_ranks(program, 4, *args, device="cuda")
 
 :func:`run_ranks` starts ``nproc`` processes (``torch.multiprocessing``,
-``spawn``), each joining one default group at ``tcp://127.0.0.1:<port>``
-(a free port), and calls ``program(rank, *args)`` in each; it returns the
+``spawn``), each joining one default group at a ``file://`` store in the
+call's own temporary directory, and calls ``program(rank, *args)`` in
+each; it returns the
 ranks' return values in rank order (saved with ``torch.save`` in the
 child and loaded here, so tensors cross as bytes). ``program`` must be a
 module-level function; its arguments cross to the ranks as one
@@ -17,6 +18,11 @@ every rank has a card of its own; on a card every rank of the pool maps to
 call raise and stops the others (each failing rank prints its traceback
 at once, and a stopped rank where its threads were); a call that outlasts
 ``timeout`` seconds stops every rank and raises ``TimeoutError``.
+
+No TCP port is chosen before the ranks start: the store is a file that
+only this call's ranks know, and gloo's (or nccl's) own connections bind
+the ports the system gives them, so worlds started at once on one host
+cannot take each other's rendezvous.
 """
 
 from __future__ import annotations
@@ -25,7 +31,6 @@ import faulthandler
 import io
 import os
 import signal
-import socket
 import sys
 import tempfile
 import time
@@ -36,14 +41,7 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
-__all__ = ["free_port", "rank_device", "run_ranks"]
-
-
-def free_port() -> int:
-    """A TCP port on 127.0.0.1 that nothing listens on now."""
-    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+__all__ = ["rank_device", "run_ranks"]
 
 
 def rank_device(device, rank: int) -> torch.device:
@@ -65,7 +63,7 @@ def _unblob(blob: bytes):
     return torch.load(io.BytesIO(blob), weights_only=False)
 
 
-def _entry(rank: int, program: Callable, nproc: int, port: int, device: str, threads: int, args: str, queue) -> None:
+def _entry(rank: int, program: Callable, nproc: int, store: str, device: str, threads: int, args: str, queue) -> None:
     torch.set_num_threads(threads)
     dev = rank_device(device, rank)
     if dev.type == "cuda":
@@ -73,7 +71,7 @@ def _entry(rank: int, program: Callable, nproc: int, port: int, device: str, thr
     backend = "nccl" if dev.type == "cuda" and nproc <= torch.cuda.device_count() else "gloo"
     # a rank stopped by its peers' failure prints where each of its threads was
     faulthandler.register(signal.SIGTERM, chain=True)
-    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}", rank=rank, world_size=nproc)
+    dist.init_process_group(backend, init_method=f"file://{store}", rank=rank, world_size=nproc)
     try:
         result = program(rank, *torch.load(args, weights_only=False))
         queue.put((rank, _blob(result)))
@@ -93,11 +91,11 @@ def run_ranks(program: Callable, nproc: int, *args, device="cpu", threads: int =
     values in rank order (the module docstring)."""
     ctx = mp.get_context("spawn")
     queue = ctx.SimpleQueue()
-    port = free_port()
     tmp = tempfile.TemporaryDirectory(prefix="ranks_")
     path = os.path.join(tmp.name, "args.pt")
     torch.save(args, path)
-    procs = mp.start_processes(_entry, args=(program, nproc, port, str(device), threads, path, queue),
+    store = os.path.join(tmp.name, "store")
+    procs = mp.start_processes(_entry, args=(program, nproc, store, str(device), threads, path, queue),
                                nprocs=nproc, join=False, start_method="spawn")
     results: dict[int, bytes] = {}
     t0 = time.monotonic()

@@ -40,13 +40,21 @@ resize may change the expert-parallel degree (``--resize 5:dp2,tp2,ep2``).
 (``launch/ranks.py``), each holding its shards of the state, under
 ``core/rank_controller.py::RankController``; a resize streams cells rank to
 rank. On the card every rank is ``cuda:0`` and the ranks talk through gloo
-via pinned host memory; ``--device cpu`` runs gloo on the CPU. dp x tp
-worlds of dense decoders only (no ``--pp``, ``--compression``,
-``--failstop`` or ``--ckpt-dir``); rank 0 prints.
+via pinned host memory; ``--device cpu`` runs gloo on the CPU. Decoders of
+attention blocks with dense or MoE MLPs, on dp x pp x ep x tp worlds
+(``--microbatches`` on every world: a pipeline world runs at least ``pp``,
+any other at most its rows a rank, which they must divide; an ep degree
+comes with a resize spec, ``--resize 4:ep2,tp2``, as in the JAX launcher,
+which has no ``--ep``);
+no ``--compression``, ``--failstop`` or ``--ckpt-dir``; rank 0 prints.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b --reduced \\
         --device cpu --nproc 8 --dp 2 --tp 2 --steps 12 --seq 32 --batch 8 \\
         --resize 4:dp2,tp4 --overlap stream --stream-k 2
+    PYTHONPATH=src python -m repro_torch.launch.train --reduced --device cpu --nproc 4 \\
+        --pp 2 --tp 2 --microbatches 4 --resize 4:dp2,tp2
+    PYTHONPATH=src python -m repro_torch.launch.train --arch mixtral-8x7b --reduced \\
+        --device cpu --nproc 4 --tp 4 --resize 4:ep2,tp2 --resize 8:ep4,tp1
 """
 
 from __future__ import annotations
@@ -97,8 +105,8 @@ def main() -> None:
     ap.add_argument("--out", default=None, help="write run record JSON here")
     args = ap.parse_args()
     if args.nproc:
-        if args.pp > 1 or args.compression != "none" or args.failstop or args.ckpt_dir:
-            ap.error("--nproc trains dp x tp worlds: no --pp, --compression, --failstop or --ckpt-dir")
+        if args.compression != "none" or args.failstop or args.ckpt_dir:
+            ap.error("--nproc trains per-rank worlds: no --compression, --failstop or --ckpt-dir")
         from repro_torch.launch.ranks import run_ranks
         from repro_torch.models.model import resolve_device
 

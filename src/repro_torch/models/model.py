@@ -190,27 +190,46 @@ def next_token_nll(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     return (logz - tgt_logit).mean()
 
 
-def _rank_loss(cfg: ModelConfig, params: dict, batch: dict, remat: str, groups):
-    """:func:`loss_fn` on one rank's shards of a per-rank world (a decoder
-    of attention and dense-MLP blocks): the vocab-parallel embedding, the
-    stack's tp regions, the final norm on the gathered scale and the
-    vocab-parallel cross-entropy over this rank's vocabulary rows of the
-    head (``distribution/tp.py``). The loss is this rank's dp rows' mean;
-    the full logits are never formed."""
+def rank_embed(cfg: ModelConfig, params: dict, tokens: torch.Tensor, groups) -> torch.Tensor:
+    """The vocab-parallel embedding of ``tokens`` on one rank's rows of the
+    table (``distribution/tp.py::embed``), in ``cfg.dtype``."""
     from repro_torch.core.resource_view import split_bounds
     from repro_torch.distribution import tp as TP
 
-    adt = _dtype(cfg.dtype)
-    tokens = batch["tokens"]
-    b, s = tokens.shape
-    positions = torch.arange(s, dtype=torch.int32, device=tokens.device).expand(b, s)
     lo = split_bounds(cfg.vocab_size, groups.tp, groups.tp_rank)[0]
-    x = TP.embed(params["embed"]["tok"], tokens, lo, adt, groups)
-    x, aux = T.stack_forward(params["blocks"], cfg, x, positions, causal=True, remat=remat, groups=groups)
+    return TP.embed(params["embed"]["tok"], tokens, lo, _dtype(cfg.dtype), groups)
+
+
+def rank_nll(cfg: ModelConfig, params: dict, x: torch.Tensor, tokens: torch.Tensor, groups) -> torch.Tensor:
+    """The final norm on the gathered scale and the vocab-parallel
+    cross-entropy of the stack's output ``x`` over this rank's vocabulary
+    rows of the head, against the next tokens of ``tokens``; the full
+    logits are never formed."""
+    from repro_torch.core.resource_view import split_bounds
+    from repro_torch.distribution import tp as TP
+
+    lo = split_bounds(cfg.vocab_size, groups.tp, groups.tp_rank)[0]
     h = L.rmsnorm_apply(params["final_norm"], TP.copy_to(x, groups), groups=groups)[:, :-1]
     w = params["embed"]["tok"].T if cfg.tie_embeddings else params["lm_head"]["w"]
-    nll = TP.nll((h @ w.to(h.dtype)).to(torch.float32), tokens[:, 1:].long(), lo, groups)
-    return nll, aux
+    return TP.nll((h @ w.to(h.dtype)).to(torch.float32), tokens[:, 1:].long(), lo, groups)
+
+
+def positions_of(tokens: torch.Tensor) -> torch.Tensor:
+    """Positions 0..s-1 of each row of ``tokens`` (b, s), int32."""
+    b, s = tokens.shape
+    return torch.arange(s, dtype=torch.int32, device=tokens.device).expand(b, s)
+
+
+def _rank_loss(cfg: ModelConfig, params: dict, batch: dict, remat: str, groups):
+    """:func:`loss_fn` on one rank's shards of a per-rank world without
+    pipeline stages (a decoder of attention blocks): the vocab-parallel
+    embedding, the stack's tp and ep regions, and :func:`rank_nll`. The
+    loss is this rank's dp rows' mean."""
+    tokens = batch["tokens"]
+    x = rank_embed(cfg, params, tokens, groups)
+    x, aux = T.stack_forward(params["blocks"], cfg, x, positions_of(tokens), causal=True, remat=remat,
+                             groups=groups)
+    return rank_nll(cfg, params, x, tokens, groups), aux
 
 
 def loss_fn(cfg: ModelConfig, params: dict, batch: dict, remat: str = "full", aux_weight: float = 0.01,

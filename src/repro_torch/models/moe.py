@@ -27,6 +27,19 @@ the activation dtype. The same pairs are dropped and the same products are
 summed; only the summation order differs. A gathered token row keeps its
 gradient path to ``x`` (the gathers' backward adds at most ``k`` rows into
 each token's gradient, in a fixed order).
+
+:func:`moe_apply_rank` is the layer on one rank of a per-rank world
+(``distribution/groups.py``), which holds ``e / ep`` experts (the ``ep``
+cut of the expert dimension), their ``ffn`` columns cut by tp, and the
+router's expert columns cut by tp. As in the JAX package the batch is cut
+over dp only, so every rank of an ep group sees the same rows: each routes
+all of them, with the whole router (its logits gathered over tp) and the
+same capacity and stable top-k, runs the products of its own experts only
+and combines only the pairs they took. The expert input and the gates
+enter through ``copy_to`` over ep and tp, and the combined output leaves
+through ``reduce_from`` over ep and tp (``distribution/tp.py``): the
+router's gradient is whole and alike on every rank, and the aux loss's
+gradient is counted once.
 """
 
 from __future__ import annotations
@@ -34,6 +47,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distribution import tp as TP
 from repro_torch.models.layers import MLP_AXES, _act, _dense_init, mlp_apply, mlp_init
 
 MOE_AXES = {
@@ -78,13 +92,14 @@ def top_k(probs: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     return probs.gather(-1, idx), idx
 
 
-def routing(params: dict, cfg: ModelConfig, x: torch.Tensor):
+def route(probs: torch.Tensor, cfg: ModelConfig):
     """(gates (b, s, k) float32, zero where dropped; expert index (b, s, k);
-    slot (b, s, k) in the expert's buffer; keep (b, s, k) bool; capacity)."""
-    b, s, _ = x.shape
+    slot (b, s, k) in the expert's buffer; keep (b, s, k) bool; capacity)
+    of the router's probabilities (b, s, e)."""
+    b, s, _ = probs.shape
     e, k = cfg.num_experts, cfg.experts_per_token
     capacity = max(1, int(cfg.moe_capacity_factor * k * s / e))
-    gate_vals, gate_idx = top_k(router_probs(params, x), k)
+    gate_vals, gate_idx = top_k(probs, k)
     gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp_min(1e-9)
     # the pairs routed to each expert before this one, over (s, k) with k inner
     onehot = torch.nn.functional.one_hot(gate_idx.reshape(b, s * k), e)  # (b, s*k, e)
@@ -94,42 +109,78 @@ def routing(params: dict, cfg: ModelConfig, x: torch.Tensor):
     return gate_vals * keep.to(gate_vals.dtype), gate_idx, slot, keep, capacity
 
 
+def routing(params: dict, cfg: ModelConfig, x: torch.Tensor):
+    """:func:`route` of ``x``'s router probabilities."""
+    return route(router_probs(params, x), cfg)
+
+
+def _experts(params: dict, cfg: ModelConfig, x: torch.Tensor, gates, gate_idx, slot, keep, c, e0: int = 0):
+    """The routed pairs of experts ``[e0, e0 + el)`` (``el`` the experts
+    ``params`` holds) through their products, each token's pairs summed
+    weighted by its gates; the pairs of other experts and dropped pairs
+    add nothing."""
+    b, s, d = x.shape
+    el, k = params["wi_gate"].shape[0], cfg.experts_per_token
+    mine = keep if el == cfg.num_experts else keep & (gate_idx >= e0) & (gate_idx < e0 + el)
+    # a buffer slot's source row: its token's, or the zero row b*s
+    rows = torch.arange(b * s, device=x.device).reshape(b, s, 1).expand(b, s, k)
+    flat = ((gate_idx - e0) * b + torch.arange(b, device=x.device).reshape(b, 1, 1)) * c + slot  # (el, b, c) order
+    # kept pairs have distinct slots; another's or a dropped pair writes the
+    # extra last slot, which is cut off: no boolean-mask index, so no host
+    # sync on the card and a form the meta device runs
+    src = torch.full((el * b * c + 1,), b * s, dtype=torch.long, device=x.device)
+    src[torch.where(mine, flat, el * b * c).reshape(-1)] = rows.reshape(-1)
+    src = src[: el * b * c]
+    x_rows = torch.cat([x.reshape(b * s, d), x.new_zeros(1, d)])
+    xin = x_rows[src].reshape(el, b * c, d)
+    gate = _act(cfg.act, torch.bmm(xin, params["wi_gate"].to(x.dtype)))
+    up = torch.bmm(xin, params["wi_up"].to(x.dtype))
+    yout = torch.bmm(gate * up, params["wo"].to(x.dtype)).reshape(el * b * c, d)
+    # each pair reads its slot's output; a pair not taken here reads the zero row
+    y_rows = torch.cat([yout, yout.new_zeros(1, d)])
+    picked = y_rows[torch.where(mine, flat, el * b * c)].reshape(b * s, k, d)
+    return torch.bmm(gates.to(x.dtype).reshape(b * s, 1, k), picked).reshape(b, s, d)
+
+
 def moe_apply(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     """x (b, s, d) -> (b, s, d): the routed experts' weighted sum, plus the
     shared expert where the config has one."""
-    b, s, d = x.shape
-    e, k = cfg.num_experts, cfg.experts_per_token
-    gates, gate_idx, slot, keep, c = routing(params, cfg, x)
-    # a buffer slot's source row: its token's, or the zero row b*s
-    rows = torch.arange(b * s, device=x.device).reshape(b, s, 1).expand(b, s, k)
-    flat = (gate_idx * b + torch.arange(b, device=x.device).reshape(b, 1, 1)) * c + slot  # (e, b, c) order
-    # kept pairs have distinct slots; a dropped pair writes the extra last
-    # slot, which is cut off: no boolean-mask index, so no host sync on
-    # the card and a form the meta device runs
-    src = torch.full((e * b * c + 1,), b * s, dtype=torch.long, device=x.device)
-    src[torch.where(keep, flat, e * b * c).reshape(-1)] = rows.reshape(-1)
-    src = src[: e * b * c]
-    x_rows = torch.cat([x.reshape(b * s, d), x.new_zeros(1, d)])
-    xin = x_rows[src].reshape(e, b * c, d)
-    gate = _act(cfg.act, torch.bmm(xin, params["wi_gate"].to(x.dtype)))
-    up = torch.bmm(xin, params["wi_up"].to(x.dtype))
-    yout = torch.bmm(gate * up, params["wo"].to(x.dtype)).reshape(e * b * c, d)
-    # each pair reads its slot's output; a dropped pair reads the zero row
-    y_rows = torch.cat([yout, yout.new_zeros(1, d)])
-    picked = y_rows[torch.where(keep, flat, e * b * c)].reshape(b * s, k, d)
-    y = torch.bmm(gates.to(x.dtype).reshape(b * s, 1, k), picked).reshape(b, s, d)
+    y = _experts(params, cfg, x, *routing(params, cfg, x))
     if cfg.moe_shared_expert:
         y = y + mlp_apply(params["shared"], x, cfg.act)
     return y
 
 
-def moe_aux_loss(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    """Load-balancing auxiliary loss (Switch-style), float32: ``e`` times
-    the dot of each expert's share of top-1 choices (the first maximum, as
-    ``jnp.argmax`` takes it) and its mean probability."""
-    probs = router_probs(params, x)
-    e = cfg.num_experts
+def moe_apply_rank(params: dict, cfg: ModelConfig, x: torch.Tensor, groups) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`moe_apply` on one rank's shards (the module docstring), inside
+    the tp region (``x`` whole and alike on every rank of the tp and ep
+    groups): returns (the layer's output, whole on every rank; the aux
+    loss of its router probabilities)."""
+    if cfg.moe_shared_expert:
+        raise ValueError(f"{cfg.name}: a shared expert is not ported to per-rank worlds")
+    logits = TP.gather_whole((x @ params["router"].to(x.dtype)).float(), groups)
+    probs = torch.softmax(logits, dim=-1)
+    gates, gate_idx, slot, keep, c = route(probs, cfg)
+    gates = TP.copy_to(TP.copy_to(gates, groups, "ep"), groups, "tp")
+    e0 = groups.ep_rank * params["wi_gate"].shape[0]
+    y = _experts(params, cfg, TP.copy_to(x, groups, "ep"), gates, gate_idx, slot, keep, c, e0)
+    return TP.reduce_from(TP.reduce_from(y, groups, "ep"), groups, "tp"), aux_loss(probs, cfg.num_experts, groups)
+
+
+def aux_loss(probs: torch.Tensor, e: int, groups=None) -> torch.Tensor:
+    """Load-balancing auxiliary loss (Switch-style) of router
+    probabilities (b, s, e), float32: ``e`` times the dot of each expert's
+    share of top-1 choices (the first maximum, as ``jnp.argmax`` takes it)
+    and its mean probability. ``groups``: the shares averaged over dp (the
+    module docstring)."""
     top1 = probs.argmax(dim=-1)
     frac_tokens = torch.nn.functional.one_hot(top1, e).float().mean(dim=(0, 1))
+    if groups is not None and groups.dp > 1:
+        frac_tokens = groups.all_reduce(frac_tokens, "dp") / groups.dp
     frac_probs = probs.mean(dim=(0, 1))
     return e * (frac_tokens * frac_probs).sum()
+
+
+def moe_aux_loss(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """:func:`aux_loss` of ``x``'s router probabilities."""
+    return aux_loss(router_probs(params, x), cfg.num_experts)

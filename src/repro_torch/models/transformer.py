@@ -12,10 +12,13 @@ decoder's blocks with cross attention (``cross=True``: ``ln_x`` and
 ``cross`` after the mixer); all train on the card and on the CPU.
 :func:`stack_chunk` runs one prompt chunk of a decoder-only model against
 the cache (chunked prefill). :func:`stack_forward` with ``groups`` runs
-one rank's shards of a per-rank dp x tp world: each sublayer's input
-enters the tp region (``distribution/tp.py::copy_to``) before its norm,
-and attention and the dense MLP leave it by an all-reduce; only
-attention mixers with dense MLPs take that path.
+one rank's shards of a per-rank world: each sublayer's input enters the
+tp region (``distribution/tp.py::copy_to``) before its norm, and
+attention, the dense MLP and the MoE MLP (``moe.moe_apply_rank``, its
+experts cut over ep) leave it by an all-reduce; only attention mixers
+take that path. Under pipeline stages the stack a rank holds is its
+stage's periods (the leaves' leading dimension, cut by pp), and the loop
+runs those.
 """
 
 from __future__ import annotations
@@ -65,6 +68,14 @@ def block_program(cfg: ModelConfig) -> list[tuple[str, str]]:
 
 def n_periods(cfg: ModelConfig) -> int:
     return cfg.num_layers // len(block_program(cfg))
+
+
+def _stacked(tree: dict) -> int:
+    """The periods a stack (or a stage's part of one) holds: its leaves'
+    leading dimension (or length, a leaf given as a list of periods)."""
+    while isinstance(tree, dict):
+        tree = next(iter(tree.values()))
+    return len(tree)
 
 
 def _period(tree: dict, i: int) -> dict:
@@ -132,17 +143,22 @@ def stack_axes(cfg: ModelConfig, cross: bool = False) -> dict:
 
 
 def _period_forward_tp(period: dict, cfg: ModelConfig, prog, x, positions, causal: bool, groups):
-    """One period's attention and dense-MLP blocks on one rank's shards:
-    returns (x, a zero aux loss)."""
+    """One period's attention blocks with dense or MoE MLPs on one rank's
+    shards: returns (x, the period's MoE aux loss)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for j, (mixer, mlp) in enumerate(prog):
         bp = period[f"pos{j}"]
-        if mixer != "attn" or mlp != "dense" or "cross" in bp:
-            raise ValueError(f"{cfg.name}: per-rank worlds run attention mixers with dense MLPs only")
+        if mixer != "attn" or mlp == "none" or "cross" in bp:
+            raise ValueError(f"{cfg.name}: per-rank worlds run attention mixers with dense or MoE MLPs only")
         h = rmsnorm_apply(bp["ln1"], TP.copy_to(x, groups), groups=groups)
         x = x + attn.attn_forward(bp["mixer"], cfg, h, positions, causal=causal, groups=groups)
         h = rmsnorm_apply(bp["ln2"], TP.copy_to(x, groups), groups=groups)
-        x = x + mlp_apply(bp["mlp"], h, cfg.act, groups=groups)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+        if mlp == "moe":
+            y, a = moe_mod.moe_apply_rank(bp["mlp"], cfg, h, groups)
+            x, aux = x + y, aux + a
+        else:
+            x = x + mlp_apply(bp["mlp"], h, cfg.act, groups=groups)
+    return x, aux
 
 
 def _period_forward(period: dict, cfg: ModelConfig, prog, x, positions, causal: bool, enc_out=None, groups=None):
@@ -185,12 +201,12 @@ def stack_forward(
     ``torch.utils.checkpoint`` without reentrancy keeps only each period's
     input. ``remat="none"`` keeps every activation; the JAX package's
     ``"dots"`` policy has no counterpart here and raises. ``groups`` runs
-    one rank's shards (the module docstring)."""
+    one rank's shards, of the periods they hold (the module docstring)."""
     if remat not in ("full", "none"):
         raise NotImplementedError(f"remat={remat!r}: only 'full' and 'none' are ported")
     prog = block_program(cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i in range(n_periods(cfg)):
+    for i in range(_stacked(params)):
         period = _period(params, i)
         if remat == "full" and torch.is_grad_enabled():
             x, a = torch.utils.checkpoint.checkpoint(

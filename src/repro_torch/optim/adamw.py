@@ -16,9 +16,12 @@ for the host.
 
 On one rank of a per-rank world (``groups``, ``distribution/groups.py``)
 the update runs on the rank's shards in place, as it does on whole
-tensors; only the clip's norm is the world's: the squares of the leaves
-split over tp (``sharded``) are summed over the tp group and those whole
-on every rank counted once, so the clip scale is the one-process run's.
+tensors; only the clip's norm is the world's, each element counted once
+across dp, pp, ep and tp: the squares of the leaves cut over ep or tp
+(``split``) are summed over those groups, a leaf whole on every rank of a
+group is counted once, and the stages' sums are added over pp (a stage
+holds its own periods, and the embedding and the head exist on one stage
+each), so the clip scale is the one-process run's.
 """
 
 from __future__ import annotations
@@ -79,35 +82,37 @@ def cosine_lr(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
     return cfg.learning_rate * warm * scale
 
 
-def global_norm(tree: dict, groups=None, sharded=frozenset()) -> torch.Tensor:
+def global_norm(tree: dict, groups=None, split=None) -> torch.Tensor:
     """sqrt of the float32 sum of squares over every leaf, summed leaf by
-    leaf in path order. With ``groups``, the leaves whose paths
-    ``sharded`` names are one rank's tp shards: their sum is all-reduced
-    over tp before the whole leaves' is added."""
+    leaf in path order. With ``groups``, ``split`` maps the paths of the
+    leaves cut over ep or tp to those groups (``distribution/step.py::
+    split_paths``): the sums of the leaves cut over tp (and over ep and tp)
+    are all-reduced over tp, then those cut over ep over ep, then the whole
+    sum over pp."""
     paths = tree_paths(tree)
     device = next(iter(paths.values())).device
-    sq, split = _f32(0.0, device), _f32(0.0, device)
+    sq = {(): _f32(0.0, device), ("tp",): _f32(0.0, device), ("ep",): _f32(0.0, device),
+          ("ep", "tp"): _f32(0.0, device)}
     for path, g in paths.items():
-        term = torch.sum(torch.square(g.to(torch.float32)))
-        if groups is not None and path in sharded:
-            split = split + term
-        else:
-            sq = sq + term
+        key = split.get(path, ()) if groups is not None and split else ()
+        sq[key] = sq[key] + torch.sum(torch.square(g.to(torch.float32)))
+    total = sq[()]
     if groups is not None:
-        sq = groups.all_reduce(split, "tp") + sq
-    return torch.sqrt(sq)
+        tp = groups.all_reduce(torch.stack([sq[("tp",)], sq[("ep", "tp")]]), "tp")
+        ep = groups.all_reduce(torch.stack([sq[("ep",)], tp[1]]), "ep")
+        total = groups.all_reduce(total + tp[0] + ep[0] + ep[1], "pp")
+    return torch.sqrt(total)
 
 
 @torch.no_grad()
-def adamw_update(cfg: AdamWConfig, grads: dict, opt_state: dict, params: dict, groups=None,
-                 sharded=frozenset()):
+def adamw_update(cfg: AdamWConfig, grads: dict, opt_state: dict, params: dict, groups=None, split=None):
     """One AdamW step, in place. Returns (params, opt_state, metrics): the
-    same tensors that came in, updated. ``groups`` and ``sharded`` as in
+    same tensors that came in, updated. ``groups`` and ``split`` as in
     :func:`global_norm`."""
     count = opt_state["count"].add_(1)
     lr = cosine_lr(cfg, count)
 
-    gnorm = global_norm(grads, groups, sharded)
+    gnorm = global_norm(grads, groups, split)
     clip_scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
 
     countf = count.to(torch.float32)

@@ -94,6 +94,19 @@ A layer's messages go out in one batched call, in waves whose summed wire
 bytes stay under the staging budget; the wave boundaries follow the plan
 order, the same on every rank, so no rank waits on a message its peer
 posts in a later wave.
+
+Replicas under a lossy wire. The ranks of a world that hold the same view
+of a tensor (its dp replicas, or an ep group's copies of a tensor without
+experts) must hold the same bytes, or their updates part. Where the wire
+rounds a collection and one replica's copy crosses it, every other copy of
+that view on this side takes the same rounding (:func:`wire_rounded`):
+a local cell goes through ``pack_quant_rows`` and ``dequant_scatter_rows``
+on this rank, and a view adopted in place is rounded in place once the
+commit's transfers are done (:meth:`RankExecutor.results`). The replicas' cells have the same bounds (the
+source views tile the tensor alike whichever replica sends), so they take
+the same scales, as long as a quantized cell keeps its dim-0 rows whole
+(``reshard/chunking.py`` splits it along dim 0 when its leading dimension
+has more than one row).
 """
 
 from __future__ import annotations
@@ -473,13 +486,48 @@ def _rows_contiguous(shape: tuple, box: tuple) -> bool:
     return tuple(box[1:]) == tuple(shape[1:])
 
 
+def wire_rounded(plan, specs, rank: int, wire_policy) -> frozenset:
+    """The tensors whose copies on ``rank`` (a destination rank of
+    ``plan``) that do not cross the wire take its rounding all the same:
+    those of a collection ``wire_policy`` rounds, where some rank with the
+    same view of the tensor receives a cell of it over the wire (the
+    module docstring)."""
+    cfg = plan.cfg_dst
+    if wire_policy is None or rank >= cfg.world_size:
+        return frozenset()
+    crossed = {(t.tensor, t.dst_rank) for t in plan.tasks
+               if t.kind == "remote" and wire_policy.format_for(t.collection) != "none"}
+    out = set()
+    for spec in specs:
+        view = view_of(spec, cfg, rank) if wire_policy.format_for(spec.collection) != "none" else None
+        if view is None:
+            continue
+        replicas = [r for r in range(cfg.world_size) if (v := view_of(spec, cfg, r)) is not None
+                    and v.bounds == view.bounds]
+        if any((spec.name, r) in crossed for r in replicas):
+            out.add(spec.name)
+    return frozenset(out)
+
+
+def round_in_place(t: torch.Tensor, fmt: str) -> None:
+    """``t`` through the wire's round trip in ``fmt``, one tile and scale a
+    dim-0 row, written back in place."""
+    rows = t.view(t.shape[0], -1)
+    idx = list(range(t.shape[0]))
+    q, scales = ops.pack_quant_rows(rows, idx, 1, fmt)
+    ops.dequant_scatter_rows(rows, q, scales, idx, 1)
+
+
 class RankExecutor:
     """Execute plan cells between per-rank shards (the module docstring).
 
     specs: {tensor name: TensorSpec}; src: this rank's source shards by
     name ({} for a rank outside the source world); transport: the pool's
     ``exchange(sends, recvs)``; dst_buffers: zeroed destination shards
-    allocated ahead (``core/shadow.py::rank_state_buffers``)."""
+    allocated ahead (``core/shadow.py::rank_state_buffers``); rounded: the
+    tensors whose local cells take the wire's rounding
+    (:func:`wire_rounded`; those adopted in place are rounded when the
+    results are taken)."""
 
     def __init__(
         self,
@@ -492,10 +540,13 @@ class RankExecutor:
         staging_bytes: int,
         wire_policy=None,
         dst_buffers: Optional[dict[str, torch.Tensor]] = None,
+        rounded=frozenset(),
     ):
         self.specs = specs
         self.src = src
         self.rank = rank
+        self.rounded = rounded
+        self._rounded_adopted: set[str] = set()
         self.cfg_dst = cfg_dst
         self.transport = transport
         self.device = torch.device(device)
@@ -645,6 +696,10 @@ class RankExecutor:
         ops.scatter_rows(view, tile.view(-1, view.shape[1]), starts, br)
 
     def _local(self, c: TransferTask) -> None:
+        if c.tensor in self.rounded:
+            self._unpack(c, self._pack(c))
+            self.executed_bytes += c.nbytes
+            return
         src, dst = self.src[c.tensor], self._dst_carry(c.tensor)
         box = c.shape()
         s_starts, s_run = cell_runs(tuple(src.shape), c.src_offset, box)
@@ -689,6 +744,12 @@ class RankExecutor:
 
     # -- results --------------------------------------------------------
     def results(self) -> dict[str, torch.Tensor]:
+        """The destination shards, the transfers done: a rounded view this
+        rank adopted in place takes the wire's rounding here, once."""
+        for name in self.rounded - self._rounded_adopted:
+            if name in self.dst and self.dst[name] is self.src.get(name):
+                round_in_place(self.dst[name], self.wire_policy.format_for(self.specs[name].collection))
+                self._rounded_adopted.add(name)
         return self.dst
 
     def block_until_ready(self) -> None:

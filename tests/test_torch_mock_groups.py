@@ -86,9 +86,20 @@ def test_mock_collectives_keep_shapes_and_record(dim):
 
 
 def test_mock_groups_refuse_pp_and_ep():
-    for bad in (ParallelConfig(pp=2), ParallelConfig(ep=2, tp=2)):
-        with pytest.raises(ValueError):
-            MockGroups(bad, 0)
+    """pp and ep mock groups: refused only below a degree of 1; a stage
+    rank's sends and receives over pp and an ep rank's all-reduces are
+    recorded with their bytes, and a receive returns a tensor of the shape
+    asked for."""
+    with pytest.raises(ValueError):
+        MockGroups(ParallelConfig(pp=0), 0)
+    g = MockGroups(ParallelConfig(dp=2, pp=2, ep=2, tp=2), 13)
+    assert (g.dp_rank, g.pp_rank, g.ep_rank, g.tp_rank) == (1, 1, 0, 1)
+    x = torch.empty((2, 8, 4), device="meta")
+    g.send(x, "pp", 0)
+    got = g.recv((2, 8, 4), torch.float32, "meta", "pp", 0)
+    assert got.shape == x.shape and got.device.type == "meta"
+    assert g.all_reduce(x, "ep").shape == x.shape
+    assert g.collectives == [("send", "pp", 256), ("recv", "pp", 256), ("all_reduce_sum", "ep", 256)]
 
 
 def test_mock_collectives_equal_a_real_worlds():

@@ -192,15 +192,70 @@ def test_views_are_the_shards(world):
     assert cfg.num_kv_heads % 4 and not cfg.num_kv_heads % 2
 
 
-@pytest.mark.parametrize("bad", [ParallelConfig(pp=2, tp=2), ParallelConfig(tp=2, ep=2), ParallelConfig(tp=3)])
-def test_rank_worlds_refuse_what_they_do_not_run(bad):
+def _refuse_tp3():
     from repro_torch.distribution.step import check_rank_model
 
+    check_rank_model(_cfg(), ParallelConfig(tp=3))
+
+
+def _refuse_mixtral_tp8():
+    """Reduced mixtral's 4 query heads and 4 router columns (experts) do
+    not split 8 ways."""
+    from repro_torch.distribution.step import check_rank_model
+
+    check_rank_model(get_config("mixtral-8x7b").reduced(), ParallelConfig(tp=8))
+
+
+def _refuse_compression():
+    """int8_ef has no per-rank update, nor does ``--nproc`` take it."""
+    from repro_torch.core.mock_groups import MockGroups
+    from repro_torch.distribution.step import make_update_fn
+
+    make_update_fn(OPT, "int8_ef", groups=MockGroups(ParallelConfig(dp=2, tp=2), 0))
+
+
+@pytest.mark.parametrize("bad", [_refuse_compression, _refuse_mixtral_tp8, _refuse_tp3],
+                         ids=["int8_ef", "mixtral-tp8", "tp3"])
+def test_rank_worlds_refuse_what_they_do_not_run(bad):
     with pytest.raises(ValueError):
-        check_rank_model(_cfg(), bad)
+        bad()
 
 
-@pytest.mark.parametrize("arch", ["mixtral-8x7b", "mamba2-2.7b", "seamless-m4t-large-v2"])
+@pytest.mark.parametrize("par,batch,mb,want", [
+    (ParallelConfig(dp=2, tp=2), 8, 2, 2),  # 4 rows a rank, in the 2 microbatches asked for
+    (ParallelConfig(dp=2, tp=2), 4, 4, 2),  # 2 rows a rank: at most 2 microbatches
+    (ParallelConfig(dp=4, tp=2), 4, 4, 1),  # 1 row a rank: one pass
+    (ParallelConfig(pp=2, tp=2), 4, 1, 2),  # a pipeline world runs at least pp
+], ids=["dp2tp2-mb2", "dp2tp2-rows2", "dp4tp2-rows1", "pp2tp2-mb1"])
+def test_rank_worlds_step_in_their_microbatches(monkeypatch, par, batch, mb, want):
+    """A per-rank world honours ``microbatches`` as far as its rows a rank
+    go: the microbatches its step cuts the batch into, seen in the mock
+    warm-up's one step on meta while the world is built."""
+    from repro_torch.core.mock_groups import MockGroups
+    from repro_torch.core.shadow import build_rank_world
+    from repro_torch.distribution import pipeline, step
+
+    seen, micro = [], step._micro
+    for mod in (step, pipeline):
+        monkeypatch.setattr(mod, "_micro", lambda b, n: seen.append(n) or micro(b, n))
+    build_rank_world(_cfg(), par, OPT, batch, SEQ, MockGroups(par, 0), "cpu", mb)
+    assert seen == ([want] if want > 1 else [])
+
+
+def test_rank_worlds_refuse_rows_that_microbatches_do_not_divide():
+    """6 rows a rank do not cut into 4 microbatches: the world is refused
+    before it is built, not cut unevenly."""
+    from repro_torch.core.mock_groups import MockGroups
+    from repro_torch.core.shadow import build_rank_world, world_microbatches
+
+    par = ParallelConfig(dp=2, tp=2)
+    with pytest.raises(ValueError, match="not a multiple of microbatches=4"):
+        world_microbatches(par, 4, 12)
+    with pytest.raises(ValueError, match="not a multiple of microbatches=4"):
+        build_rank_world(_cfg(), par, OPT, 12, SEQ, MockGroups(par, 0), "cpu", 4)
+
+
+@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "mamba2-2.7b", "seamless-m4t-large-v2"])
 def test_rank_worlds_refuse_other_families(arch):
     from repro_torch.distribution.step import check_rank_model
 
