@@ -340,7 +340,7 @@ non-zero without one. Phases, each printing one line or more:
    after phase 3, while this process holds the least of the card: 4 rank
    processes on the one card under gloo (their messages through pinned
    host memory; their allocators in expandable segments; started once for
-   phases 42 and 43, which they run one after the other), qwen3-1.7b at
+   phases 42, 43 and 44, which they run one after the other), qwen3-1.7b at
    full width (d_model 2048, 16/8 heads of 128, d_ff 6144, vocab 151936)
    cut to 2 of its 28 layers, fp32 params, batch 4 x 1024, TF32 off. Rank 0
    first computes, alone, the one-process world's first step in f32 and in
@@ -423,6 +423,41 @@ non-zero without one. Phases, each printing one line or more:
    a step and a commit, bytes by rank pair, the mock warm-up's seconds
    beside the first step's, and the peak memory per rank (each step's on
    rank 0) and on the card.
+44. the per-rank lifecycle (``core/rank_controller.py``), right after
+   phase 43 in the same rank processes and setting (qwen3-1.7b full width
+   at 2 of 28 layers, f32, batch 4 x 1024, TF32 off), in two parts. Part
+   A: ``ElasticScheduler`` -> ``WireEndpoint`` -> ``RankEndpoint`` on
+   rank 0, each command frame broadcast to every rank and handled there by
+   its ``ControllerEndpoint``, over a trace on fixed steps (phase 23's
+   clock of a step each 1000 trace seconds): on dp2tp2 a prefetch of
+   dp1tp4 into each rank's pool (``WorldPool(capacity=2)``), a streamed
+   resize to dp4tp1 (one layer a round, the moments on the int8 wire), a
+   step later its retarget to dp1tp4 (served by the pool; a carry is
+   adopted only where a rank's view is unchanged, none here), then
+   lossless: the way back to dp2tp2 on a window that fits only stop-copy,
+   a stream forced on it and escalated (``fell_back``), and a fail-stop of
+   ranks 0 and 1 into dp1tp2 fed by donors 2 and 3 (the lost ranks' state
+   poisoned and freed first). Each decision held to ``choose_mode`` of
+   the estimate rank 0 was answered; every rank handled the same frames
+   (a digest of them); each commit's cut held as phase 42 holds it, the
+   recovery's by the state's digests before the loss and after. Part B,
+   each case from a fresh state one step in: the parity spare (dp1tp4
+   refreshing its XOR word every step, rank 3 lost into dp1tp2, its shards
+   rebuilt from the word on rank 3), the fault matrix under the int8 wire
+   (idle, mid-stream and mid-commit of a stream of two layers a round to
+   dp1tp4, ranks 2 and 3 lost into dp1tp2), and the checkpoint rung (``checkpoint_now`` at step 1, rank 3
+   lost a step later without parity, restored and rolled back). Each
+   recovered state bit for bit the cut's (the checkpoint's), and the next
+   2 steps against a per-rank control that reached dp1tp2 by plain
+   stop-copy at the same step (phase 42's step gap within
+   ``RANK_STEP_TOL``, or bitwise). Prints each event's pause and its parts,
+   Prepare warm against cold, bytes by rank pair and host-staged bytes, the
+   parity refresh's seconds and bytes and where the word lives, the
+   checkpoint's save and restore seconds, ``met_deadline``, the goodput,
+   and the peak per rank and on the card. The launches of both parts,
+   summed over the ranks, are the path "rank_lifecycle": flash forward and
+   backward, pack, scatter and relayout nonzero, the quant pair nonzero in
+   part A and zero inside every recovery.
 The second-to-last line is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.
 
@@ -5478,7 +5513,7 @@ def _world_digests(named: dict, parallel, specs, rank: int, dev) -> list:
     return [tuple(d) for d in out.tolist()]
 
 
-def _checked_controller(dev, checks: list, cuts: list):
+def _checked_controller(dev, checks: list, cuts: list, gather: bool = True):
     """``RankController`` that holds each commit's cut, before any update:
     every tensor the wire does not round bit for bit, the old world's
     against the new world's (:func:`_world_digests`), and an int8 commit's
@@ -5487,7 +5522,8 @@ def _checked_controller(dev, checks: list, cuts: list):
     and, on rank 0, to ``cuts`` its step, the moments an int8 commit
     delivered, its params (assembled) and, for a lossless commit after an
     int8 one, its moments (``seat``: with the params, the whole state a
-    control is seated on)."""
+    control is seated on); with ``gather`` False, only the step and the
+    int8 moments."""
     from repro_torch.core.rank_controller import RankController, gather_each
 
     class Checked(RankController):
@@ -5507,11 +5543,11 @@ def _checked_controller(dev, checks: list, cuts: list):
             assert not unequal, f"not the cut's bytes: {unequal}"
             worst_q, nu_zeroed = 0.0, [0, 0]
             cut = {"step": self.step, "moments": {}, "params": {}}
-            params = [s for s in self._specs if s.collection == "params"]
+            params = [s for s in self._specs if s.collection == "params"] if gather else []
             for spec, b in gather_each(self.pool, named, new_par, params, "cpu"):
                 if b is not None:
                     cut["params"][spec.name] = b
-            if self.after_int8 and not quant:
+            if self.after_int8 and not quant and gather:
                 cut["seat"] = {spec.name: b for spec, b in gather_each(self.pool, named, new_par, moments, "cpu")
                                if b is not None}
             self.after_int8 = self.after_int8 or quant
@@ -5703,9 +5739,9 @@ def _gap_text(g: dict) -> str:
 
 
 def phase_rank_worlds() -> list[dict]:
-    """Starts the 4 rank processes once for phases 42 and 43 (see the
-    module docstring); each rank's results, logged and held by
-    ``phase_rank_train`` and ``phase_rank_pp_ep``."""
+    """Starts the 4 rank processes once for phases 42-44 (see the module
+    docstring); each rank's results, logged and held by
+    ``phase_rank_train``, ``phase_rank_pp_ep`` and ``phase_rank_lifecycle``."""
     import gc
     import os
 
@@ -5727,18 +5763,20 @@ def phase_rank_worlds() -> list[dict]:
         else:
             os.environ["PYTORCH_CUDA_ALLOC_CONF"] = conf
     t = ranks[0]["t"]
-    log("rank-worlds", f"{RANK_TRAIN['nproc']} rank processes on one card under gloo, started once for phases 42 and "
-                       f"43: {time.perf_counter() - t0:.1f}s in all, {min(r['t'][0] for r in ranks) - t0:.1f}-"
+    log("rank-worlds", f"{RANK_TRAIN['nproc']} rank processes on one card under gloo, started once for phases 42-44: "
+                       f"{time.perf_counter() - t0:.1f}s in all, {min(r['t'][0] for r in ranks) - t0:.1f}-"
                        f"{max(r['t'][0] for r in ranks) - t0:.1f}s to start them; on rank 0's clock phase 42 "
                        f"{t[1] - t[0]:.1f}s, "
-                       + ", ".join(f"{p['name']} {b - a:.1f}s" for p, a, b in zip(_pp_ep_parts(), t[1:], t[2:])))
+                       + ", ".join(f"{p['name']} {b - a:.1f}s" for p, a, b in zip(_pp_ep_parts(), t[1:], t[2:]))
+                       + f", phase 44 {t[-1] - t[-2]:.1f}s")
     gc.collect()
     torch.cuda.empty_cache()
     return ranks
 
 
 def _rank_worlds_program(rank: int) -> dict:
-    """One rank process: phase 42, then phase 43's parts, on one pool."""
+    """One rank process: phase 42, then phase 43's parts, then phase 44,
+    on one pool."""
     from repro_torch.distribution.groups import RankPool
     from repro_torch.launch.ranks import rank_device
 
@@ -5751,6 +5789,8 @@ def _rank_worlds_program(rank: int) -> dict:
     for part in _pp_ep_parts():
         out["parts"].append(_pp_ep_part(pool, rank, rank_device(RANK_PP_EP["device"], rank), part))
         t.append(time.perf_counter())
+    out["lifecycle"] = _rank_lifecycle_program(rank, pool)
+    t.append(time.perf_counter())
     return {**out, "t": t}
 
 
@@ -6126,6 +6166,426 @@ def phase_rank_pp_ep(ranks: list[dict]) -> dict:
     return launches
 
 
+# phase 44: the per-rank lifecycle under a warning window and fail-stop
+# recovery, in phase 42's setting and rank processes (see the module
+# docstring). Part B's steps before each loss (one each; the fault matrix's
+# stream of two layers a round is mid-stream a step later and mid-commit
+# two), so that its cases share their controls: dp1tp4 and dp2tp2 into
+# dp1tp2 after 1 step
+RANK_LIFE = dict(stream_k=1, pool=2, safety=1.25, after=2, matrix_before=1, matrix_stream_k=2, parity_before=1,
+                 ckpt_at=1)
+LIFE_KERNELS = ("flash_attention", "flash_attention_bwd", "pack_rows", "scatter_rows", "relayout_rows")
+QUANT = ("pack_quant_rows", "dequant_scatter_rows")
+
+
+def _life_digest(ctrl, dev) -> list:
+    """Every state tensor's digest over the controller's world (each view
+    once) and the agreed step count, on every rank of the pool."""
+    count = int(ctrl.pool.agree(int(ctrl.opt_state["count"]) if ctrl.opt_state is not None else 0, "max"))
+    return _world_digests(ctrl._named(), ctrl.world.parallel, ctrl._specs, ctrl.rank, dev) + [count]
+
+
+def _rank_specs():
+    from repro_torch.core.resource_view import build_tensor_specs
+
+    return build_tensor_specs(_rank_cfg(), include_optimizer=True, zero_sharding=False)
+
+
+def _life_controller(dev, checks: list):
+    """Phase 42's cut checker (digests only) that also counts each
+    recovery's launches and checks no cut inside it: a lost rank's shards
+    are gone, so a recovery's cut is held by the state's digests before the
+    loss and after."""
+    from repro_torch.core.rank_controller import RankController
+
+    Checked = _checked_controller(dev, checks, [], gather=False)
+
+    class Life(Checked):
+        recovering = False
+
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            self.recovery_launches: list = []
+            self.recovered: list = []  # each recovery's state digests, before the loss and after
+
+        def _install(self, moved, extras, world):
+            if self.recovering:
+                return RankController._install(self, moved, extras, world)
+            return super()._install(moved, extras, world)
+
+        def fail_stop_recover(self, *args, **kwargs):
+            cut = _life_digest(self, dev)  # every rank is here, before the loss
+            before = _all_counts()
+            self.recovering = True
+            try:
+                return super().fail_stop_recover(*args, **kwargs)
+            finally:
+                self.recovering = False
+                after = _all_counts()
+                self.recovery_launches.append({k: after[k] - before.get(k, 0) for k in after})
+                self.recovered.append((cut, _life_digest(self, dev)))
+
+    return Life
+
+
+def _life_rec(rec, commit) -> dict:
+    """A record's figures and this rank's commit's (None: a record that
+    committed nothing)."""
+    keys = ("mode", "outcome", "src", "dst", "prepare_source", "warm_hit", "prepare_s", "drain_s", "plan_s",
+            "transfer_s", "update_s", "switch_s", "total_pause_s", "precopy_s", "precopy_bytes", "resync_s",
+            "moved_bytes", "executed_bytes", "wire_bytes", "logical_bytes", "reused_layers", "donors",
+            "lost_devices", "parity_bytes", "plan_network_bytes")
+    if commit is None:
+        return {**{k: getattr(rec, k) for k in keys}, "sent": {}, "host_bytes": 0, "host_s": 0.0}
+    return {**{k: getattr(rec, k) for k in keys}, "sent": dict(commit.sent_bytes), "host_bytes": commit.host_bytes,
+            "host_s": commit.host_seconds}
+
+
+def _life_gap(run: dict, ctl: dict, start: dict, parallel, specs, rank: int, dev) -> tuple:
+    """Phase 42's step gap of two runs from one state ``start`` (this
+    rank's params by name in ``parallel``): ||(a1 - a0) - (c1 - c0)|| /
+    ||c1 - c0|| with a0 = c0, summed over the ranks' shards (each view
+    once; one all-reduce), the largest over leaves with its leaf."""
+    import torch.distributed as dist
+
+    from repro_torch.core.resource_view import view_of
+
+    sums = torch.zeros((len(specs), 2), dtype=torch.float64)
+    for i, spec in enumerate(specs):
+        view = view_of(spec, parallel, rank) if rank < parallel.world_size else None
+        if view is None or rank != min(r for r in range(parallel.world_size)
+                                       if (v := view_of(spec, parallel, r)) is not None and v == view):
+            continue
+        a1, c1, c0 = (x[spec.name].to(dev) for x in (run, ctl, start))
+        sums[i, 0] = float(torch.square(a1 - c1).sum(dtype=torch.float64))
+        sums[i, 1] = float(torch.square(c1 - c0).sum(dtype=torch.float64))
+    dist.all_reduce(sums)
+    return max((math.sqrt(n / d) if d else (0.0 if n == 0 else math.inf), s.name)
+               for (n, d), s in zip(sums.tolist(), specs))
+
+
+def _life_control(pool, dev, opt, src, target, cut: int, steps: int):
+    """A per-rank control: ``src`` from seed 0 by plain stop-copy into
+    ``target`` at the boundary after ``cut`` steps, then ``steps`` more;
+    its state's digest then, its losses and this rank's params by name."""
+    import gc
+
+    from repro_torch.core.rank_controller import RankController
+
+    c = RankController(_rank_cfg(), src, opt, RANK_TRAIN["seq"], RANK_TRAIN["batch"], pool, worlds=[target],
+                       device=dev)
+    c.train_steps(cut - 1)
+    c.request_resize(target, overlap="stop_copy")
+    c.wait_shadow_ready()
+    c.train_steps(1)  # the commit lands at this step's boundary
+    assert c.step == cut and c.world.parallel == target, (c.step, c.world.parallel)
+    losses = c.train_steps(steps)
+    out = (_life_digest(c, dev), losses, {n: x for n, x in c._named().items() if n.startswith("params/")})
+    del c
+    gc.collect()
+    torch.cuda.empty_cache() if dev.type == "cuda" else None
+    return out
+
+
+def _rank_lifecycle_program(rank: int, pool) -> dict:
+    """Phase 44 on one rank process (see the module docstring)."""
+    import gc
+    import os
+    import shutil
+
+    from repro_torch.core.events import FailStopEvent
+    from repro_torch.core.world_pool import WorldPool
+    from repro_torch.elastic import ControllerEndpoint, ElasticScheduler, FaultInjector, RankEndpoint, WireEndpoint
+    from repro_torch.elastic import choose_mode
+    from repro_torch.elastic import protocol as pr
+    from repro_torch.launch.ranks import rank_device
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.reshard import WirePolicy
+
+    L, R_ = RANK_LIFE, RANK_TRAIN
+    dev = rank_device(R_["device"], rank)
+    opt = AdamWConfig(learning_rate=1e-4, warmup_steps=2, total_steps=1000)
+    P = ParallelConfig
+    DP2TP2, DP4, DP1TP4, DP1TP2 = P(dp=2, tp=2), P(dp=4, tp=1), P(dp=1, tp=4), P(dp=1, tp=2)
+    inf = float("inf")
+    checks: list = []
+    Life = _life_controller(dev, checks)
+    out: dict = {"rank": rank, "checks": checks}
+    peaks: list = []
+
+    card: list = []
+
+    def peak():
+        peaks.append(_step_peak_gb(dev))
+        card.append(_card_used_gb())
+
+    def new(src, **kw):
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        return Life(_rank_cfg(), src, opt, R_["seq"], R_["batch"], pool, worlds=[DP2TP2, DP4, DP1TP4, DP1TP2],
+                    device=dev, **kw)
+
+    # ---- Part A: the scheduler on rank 0 drives every rank ----
+    t0 = time.perf_counter()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    a = new(DP2TP2, overlap="stream", stream_k=L["stream_k"], wire_policy=WirePolicy(),
+            world_pool=WorldPool(capacity=L["pool"]))
+    rank_ep = RankEndpoint(ControllerEndpoint(a), pool)
+    StepClock, Estimates = _schedule_endpoints()
+    _zero_counts()  # the path's counts start here ...
+    ep = Estimates(StepClock(WireEndpoint(rank_ep))) if rank == 0 else None
+    A: dict = {}
+
+    def drive(fn):
+        """``fn`` on rank 0 through the endpoint, the others serving its
+        frames; then every rank goes on together."""
+        if rank == 0:
+            try:
+                return fn()
+            finally:
+                rank_ep.close()
+        rank_ep.serve()
+        return None
+
+    def part1():
+        ep.handle(pr.PrefetchWorld(target=DP1TP4))
+        sched = ElasticScheduler(ep, sync_prepare=True, tail_steps=0)
+        rep = sched.run([ResizeEvent(STEP_CLOCK_S, DP4, inf), ResizeEvent(2 * STEP_CLOCK_S, DP1TP4, inf)])
+        return rep, list(ep.seen)
+
+    got = drive(part1)
+    if rank == 0:
+        rep, seen = got
+        A["s1"] = [(o.decision, o.outcome, o.met_deadline, o.pause_s) for o in rep.outcomes]
+        A["s1_modes"] = [choose_mode(e, inf, L["safety"], 1.0) for e in seen]
+        A["s1_prepare"] = [(e.prepare_s, e.warm) for e in seen]
+    peak()
+    a.wire_policy = None  # the way back and the recovery are lossless
+
+    def part2():
+        est = ep.handle(pr.QueryEstimate(target=DP2TP2)).estimate
+        lo, hi = L["safety"] * est.stop_copy_total_s, L["safety"] * est.stream_total_s
+        window = lo + 0.1 * (hi - lo)
+        forced = ElasticScheduler(ep, sync_prepare=True, tail_steps=0, mode_override="stream")
+        at = (ep.inner.steps + 1) * STEP_CLOCK_S
+        rep = forced.run([ResizeEvent(at, DP2TP2, window)])
+        return rep, ep.seen[-1], window, lo, hi
+
+    got = drive(part2)
+    if rank == 0:
+        rep, used, window, lo, hi = got
+        o = rep.outcomes[-1]
+        A["s2"] = dict(decision=o.decision, outcome=o.outcome, met=o.met_deadline, pause_s=o.pause_s, window=window,
+                       lo=lo, hi=hi, choose=choose_mode(used, window, L["safety"], 1.0), prepare_s=used.prepare_s,
+                       warm=used.warm, stream_total=used.stream_total_s, stop_copy_total=used.stop_copy_total_s)
+    peak()
+
+    def part3():
+        sched = ElasticScheduler(ep, sync_prepare=True, tail_steps=0)
+        at = (ep.inner.steps + 1) * STEP_CLOCK_S
+        rep = sched.run([FailStopEvent(at, lost_ranks=(0, 1), target=DP1TP2)])
+        ledger = ep.handle(pr.QueryLedger())
+        return rep, ledger.goodput, ledger.pause_seconds
+
+    got = drive(part3)
+    if rank == 0:
+        rep, goodput, pause_seconds = got
+        o = rep.outcomes[-1]
+        A["s3"] = (o.decision, o.outcome, o.pause_s)
+        A["goodput"], A["pause_seconds"] = goodput, pause_seconds
+    [(cut, recovered)] = a.recovered
+    A["recovered_bitwise"] = recovered == cut
+    A["launches"] = _all_counts()  # ... and are read here
+    A["recovery_launches"] = a.recovery_launches
+    A["frames"], A["digest"] = rank_ep.frames, rank_ep.digest
+    commits = iter(a.rank_commits)  # a retargeted record committed nothing
+    A["records"] = [_life_rec(r, next(commits) if r.outcome != "retargeted" else None) for r in a.records]
+    A["world"] = a.world.parallel.describe()
+    A["pool"] = a.world_pool.stats.to_dict()
+    A["seconds"] = time.perf_counter() - t0
+    peak()
+    out["A"] = A
+    del a, rank_ep, ep
+    _zero_counts()
+
+    # ---- Part B: the recovery rungs, each from a fresh state ----
+    t0 = time.perf_counter()
+    B: dict = {}
+    ckpt_dir = str(Path(__file__).resolve().parent / "_recovery_ckpt_ranks")
+    cases = [("parity", DP1TP4, L["parity_before"], (3,), dict(parity_every=1), None)]
+    for phase in ("idle", "mid_stream", "mid_commit"):
+        cases.append((phase, DP2TP2, L["matrix_before"], (2, 3),
+                      dict(overlap="stream", stream_k=L["matrix_stream_k"], wire_policy=WirePolicy()), phase))
+    cases.append(("checkpoint", DP1TP4, L["ckpt_at"], (3,), dict(ckpt_dir=ckpt_dir), None))
+    path: dict = {}
+    controls: dict = {}  # by (source, step of the cut)
+    pspecs = [s for s in _rank_specs() if s.collection == "params"]
+    for name, src, before, lost, kw, phase in cases:
+        t1 = time.perf_counter()
+        _zero_counts()  # the path's counts of this case start here ...
+        c = new(src, **kw)
+        inj = FaultInjector(c)
+        c.train_steps(before)
+        if phase in ("mid_stream", "mid_commit"):
+            c.request_resize(DP1TP4, overlap="stream")
+            c.wait_shadow_ready()
+            assert inj.run_until(phase), phase
+        case: dict = {}
+        if name == "checkpoint":
+            c.checkpoint_now()
+            case["save_s"] = (c._ckpt.last_snapshot_seconds, c._ckpt.last_save_seconds)
+        if c._parity is not None:
+            case["refresh"] = (c._parity.refreshed_bytes, c._parity.last_refresh_s, c._parity.word.is_pinned())
+        case["cut_step"] = c.step
+        want = _life_digest(c, dev)  # the checkpoint's state; the others' is taken inside the recovery
+        if name == "checkpoint":
+            c.train_steps(1)  # a step the rung rolls back
+        rep = inj.kill(DP1TP2, lost_ranks=lost, expect_phase=phase)
+        case["launches"] = c.recovery_launches[-1]
+        case["report"] = dataclasses.asdict(rep)
+        case["rec"] = _life_rec(c.records[-1], c.rank_commits[-1])
+        cut, recovered = c.recovered[-1]
+        case["bitwise"] = recovered == (want if name == "checkpoint" else cut)
+        peak()
+        start = {n: x.clone() for n, x in c._named().items() if n.startswith("params/")}
+        case["losses"] = c.train_steps(L["after"])
+        got_d, got_p = _life_digest(c, dev), {n: x for n, x in c._named().items() if n.startswith("params/")}
+        case["seconds"] = time.perf_counter() - t1
+        _take_counts(path)  # ... and are read here: the control is the comparison
+        del c, inj
+        key = (src, case["cut_step"])
+        if key not in controls:
+            controls[key] = _life_control(pool, dev, opt, src, DP1TP2, case["cut_step"], L["after"])
+        ctl_d, ctl_losses, ctl_p = controls[key]
+        case["control_bitwise"] = got_d == ctl_d
+        case["control_losses"] = ctl_losses
+        case["gap"] = _life_gap(got_p, ctl_p, start, DP1TP2, pspecs, rank, dev)
+        del start, got_p, ctl_p
+        if name == "checkpoint" and rank == 0:
+            shutil.rmtree(ckpt_dir, ignore_errors=True)
+        B[name] = case
+        peak()
+    del controls
+    B["seconds"] = time.perf_counter() - t0
+    B["launches"] = path
+    out["B"] = B
+    out["peaks"], out["card_gb"] = peaks, max(card)
+    return out
+
+
+def phase_rank_lifecycle(ranks: list[dict]) -> dict:
+    """The per-rank lifecycle (see the module docstring, 44), from the
+    ranks' results (``phase_rank_worlds``). Returns the ranks' summed
+    launches on the path, both parts."""
+    rs = [r["lifecycle"] for r in ranks]
+    r0, A, ph = rs[0], rs[0]["A"], "rank-lifecycle"
+    t = ranks[0]["t"]
+    cfg = _rank_cfg()
+    log(ph, f"{cfg.name} full width, {cfg.num_layers} of 28 layers, f32, batch {RANK_TRAIN['batch']} x "
+            f"{RANK_TRAIN['seq']}, {RANK_TRAIN['nproc']} rank processes on one card under gloo (phases 42-43's): "
+            f"{t[-1] - t[-2]:.1f}s on rank 0's clock, part A {A['seconds']:.1f}s, part B "
+            f"{r0['B']['seconds']:.1f}s")
+    # part A: the scheduler on rank 0, every rank handling its frames
+    assert [s[:2] for s in A["s1"]] == [("stream", "retargeted"), ("stream", "committed")], A["s1"]
+    assert A["s1_modes"] == ["stream", "stream"], A["s1_modes"]
+    s2 = A["s2"]
+    assert (s2["decision"], s2["outcome"], s2["choose"]) == ("stream", "fell_back", "stop_copy"), s2
+    assert A["s3"][:2] == ("peer_recover", "committed"), A["s3"]
+    assert all((r["A"]["frames"], r["A"]["digest"]) == (A["frames"], A["digest"]) for r in rs), "ranks saw other frames"
+    recs = A["records"]
+    assert [(r["mode"], r["outcome"], r["dst"]) for r in recs] == [
+        ("live_overlap", "retargeted", "dp4xpp1xtp1"), ("live_overlap", "committed", "dp1xpp1xtp4"),
+        ("live", "fell_back", "dp2xpp1xtp2"), ("peer_recover", "committed", "dp1xpp1xtp2")], recs
+    assert recs[1]["prepare_source"] in ("pool", "speculative_join"), recs[1]
+    assert recs[2]["precopy_bytes"] > 0 and recs[3]["donors"] == 2, recs
+    assert all(r["A"]["recovered_bitwise"] for r in rs), "the recovery did not deliver the cut"
+    for r in rs:
+        assert [c["int8"] for c in r["checks"][:2]] == [True, False], r["checks"]
+    log(ph, f"A: ElasticScheduler -> WireEndpoint -> RankEndpoint on rank 0, {A['frames']} command frames broadcast "
+            f"and handled on every rank (digest {A['digest'][:16]} on all {len(rs)}); prefetch of dp1tp4 into each "
+            f"rank's pool (WorldPool(capacity={RANK_LIFE['pool']}), {A['pool']}); decisions "
+            + "; ".join(f"{d}/{o} (choose_mode of rank 0's estimate {m}, Prepare est {p:.3f}s "
+                        f"{'warm' if w else 'cold'}, met_deadline {met})"
+                        for (d, o, met, _), m, (p, w) in zip(A["s1"], A["s1_modes"], A["s1_prepare"]))
+            + f"; the way back on a window of {s2['window']:.3f}s (stop-copy total x safety {s2['lo']:.3f}s, stream "
+              f"{s2['hi']:.3f}s: choose_mode {s2['choose']}), forced to stream: {s2['decision']}/{s2['outcome']}, "
+              f"met_deadline {s2['met']}; fail-stop of ranks 0 and 1: {A['s3'][0]}/{A['s3'][1]}; goodput "
+              f"{A['goodput']:.6f}, pause_seconds {A['pause_seconds']:.4f}")
+    checked = {1: 0, 2: 1}  # the commits the cut checker held, by record (phase 42's checks)
+    for i, rec in enumerate(recs):
+        pairs = {(k, int(d)): n for k, r in enumerate(rs) for d, n in r["A"]["records"][i]["sent"].items() if n}
+        host = sum(r["A"]["records"][i]["host_bytes"] for r in rs)
+        check_s = 0.0
+        if i in checked:  # the check runs inside the pause: rank 0's seconds and every rank's staging out
+            check_s = r0["checks"][checked[i]]["check_s"]
+            host -= sum(r["checks"][checked[i]]["host_bytes"] for r in rs)
+        split = rec["mode"] == "live_overlap"
+        log(ph, f"A{i + 1} {rec['mode']}/{rec['outcome']} {rec['src']} -> {rec['dst']}: pause_s "
+                f"{rec['total_pause_s'] - check_s:.4f} (the check's {check_s:.3f}s taken out; drain "
+                f"{rec['drain_s']:.4f}, plan {rec['plan_s']:.4f}, transfer "
+                f"{rec['transfer_s'] - (0 if split else check_s):.4f}, update "
+                f"{rec['update_s'] - (check_s if split else 0):.4f}, switch {rec['switch_s']:.4f}), prepare_s "
+                f"{rec['prepare_s']:.4f} [{rec['prepare_source']}], pre-copy "
+                f"{rec['precopy_bytes'] / 1e9:.4f} GB in {rec['precopy_s']:.4f}s, reused layers {rec['reused_layers']}; "
+                f"executed {rec['executed_bytes'] / 1e9:.4f} GB, wire {rec['wire_bytes'] / 1e9:.4f} GB of "
+                f"{rec['logical_bytes'] / 1e9:.4f} logical; host-staged {host / 1e9:.4f} GB over the ranks (the check's "
+                f"taken out); bytes by rank pair (GB) "
+                + ", ".join(f"{a}->{b} {n / 1e9:.4f}" for (a, b), n in sorted(pairs.items())))
+    senders = {k for k, r in enumerate(rs) if any(r["A"]["records"][3]["sent"].values())}
+    assert senders == {2, 3}, f"the recovery's donors are ranks {senders}"
+    for r in rs:
+        for launched in r["A"]["recovery_launches"]:
+            assert all(launched.get(q, 0) == 0 for q in QUANT), launched
+    path = {k: sum(r["A"]["launches"].get(k, 0) for r in rs) for k in rs[0]["A"]["launches"]}
+    for q in QUANT:
+        assert path[q] > 0, f"{q} was not launched in part A"
+    # part B: the recovery rungs
+    B = r0["B"]
+    for name in ("parity", "idle", "mid_stream", "mid_commit", "checkpoint"):
+        case = B[name]
+        rep, rec = case["report"], case["rec"]
+        want = ("fallback", "fell_back") if name == "checkpoint" else ("peer_recover", "committed")
+        assert (rep["mode"], rep["outcome"]) == want, (name, rep)
+        assert all(r["B"][name]["bitwise"] for r in rs), f"{name}: the recovered state is not the cut's"
+        assert all(all(r["B"][name]["launches"].get(q, 0) == 0 for q in QUANT) for r in rs), name
+        gap = case["gap"]
+        bitwise = all(r["B"][name]["control_bitwise"] for r in rs)
+        assert bitwise or gap[0] <= RANK_STEP_TOL, (name, gap)
+        host = sum(r["B"][name]["rec"]["host_bytes"] for r in rs)
+        pairs = {(k, int(d)): n for k, r in enumerate(rs) for d, n in r["B"][name]["rec"]["sent"].items() if n}
+        extra = ""
+        if name == "parity":
+            nbytes, secs, pinned = case["refresh"]
+            extra = (f"; the parity word {nbytes / 1e9:.4f} GB a rank, in {'pinned ' if pinned else ''}host memory on "
+                     f"every rank, its last refresh {secs:.4f}s; rebuilt {rec['parity_bytes'] / 1e9:.4f} GB")
+        if name == "checkpoint":
+            snap, save = case["save_s"]
+            extra = (f"; checkpoint_now {save:.4f}s (the shards to the host {snap:.4f}s), the restore "
+                     f"{rec['transfer_s']:.4f}s, rolled back {rep['step_before']} -> {rep['step_after']}")
+        log(ph, f"B {name}: {rep['phase']}, ranks {tuple(rep['lost_ranks'])} lost at step {rep['step_before']}, "
+                f"{rec['mode']}/{rec['outcome']} {rec['src']} -> {rec['dst']}: pause_s {rec['total_pause_s']:.4f} "
+                f"(drain {rec['drain_s']:.4f}, plan {rec['plan_s']:.4f}, transfer {rec['transfer_s']:.4f}, switch "
+                f"{rec['switch_s']:.4f}), prepare_s {rec['prepare_s']:.4f} [{rec['prepare_source']}]; executed "
+                f"{rec['executed_bytes'] / 1e9:.4f} GB, host-staged {host / 1e9:.4f} GB, bytes by rank pair (GB) "
+                + (", ".join(f"{a}->{b} {n / 1e9:.4f}" for (a, b), n in sorted(pairs.items())) or "none")
+                + f"; the state the cut's bit for bit; the next {RANK_LIFE['after']} steps against a control that "
+                  f"reached {rec['dst']} by plain stop-copy at step {case['cut_step']}: "
+                  + ("bitwise" if bitwise else f"{gap[0]:.3e} at {gap[1]} (limit {RANK_STEP_TOL:g})")
+                + f", losses {case['losses']} / {case['control_losses']}{extra}; {case['seconds']:.1f}s")
+    for r in rs:
+        for k, v in r["B"]["launches"].items():
+            path[k] = path.get(k, 0) + v
+    for k in LIFE_KERNELS:
+        assert path[k] > 0, f"{k} was not launched on the lifecycle path"
+    log(ph, "launches summed over the ranks, both parts: " + ", ".join(f"{k} {path[k]}" for k in RANK_KERNELS)
+        + "; none of the quant pair inside a recovery")
+    log(ph, "peak memory per rank " + ", ".join(f"{max(r['peaks']):.2f}" for r in rs)
+        + f" GB (torch allocator); card in use at most {max(r['card_gb'] for r in rs):.2f} GB (sampled)")
+    return path
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -6141,6 +6601,7 @@ def main() -> int:
     ranks = phase_rank_worlds()
     rank_train_launches, rank_bf16_launches = phase_rank_train(ranks)
     rank_pp_ep_launches = phase_rank_pp_ep(ranks)
+    rank_lifecycle_launches = phase_rank_lifecycle(ranks)
     del ranks
     phase_small_agreement()
     launches, serve_err = phase_serve()
@@ -6212,7 +6673,7 @@ def main() -> int:
              "chunked_mamba2": chunked_mamba2_launches, "chunked_mixtral": chunked_mixtral_launches,
              "train_pipeline": train_pp_launches, "train_int8_ef": train_ef_launches,
              "rank_train": rank_train_launches, "rank_train_bf16": rank_bf16_launches,
-             "rank_pp_ep": rank_pp_ep_launches}
+             "rank_pp_ep": rank_pp_ep_launches, "rank_lifecycle": rank_lifecycle_launches}
     records = [record, *rows, bwd, *quants, ssd, rms, ssd_bwd]
     for rec in records:
         rec["launches_by_path"] = {p: counts.get(rec["name"], 0) for p, counts in paths.items()}

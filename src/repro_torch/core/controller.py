@@ -259,7 +259,7 @@ class LiveRController:
         self.data = data or SyntheticLM(cfg.vocab_size, seq_len, global_batch, seed)
         self.ckpt_dir = ckpt_dir
         self.ckpt_interval = ckpt_interval
-        self._ckpt = AsyncCheckpointer(ckpt_dir) if ckpt_dir else None
+        self._ckpt = self._make_checkpointer(ckpt_dir) if ckpt_dir else None
         # transfer prewarm (DESIGN.md §15): (src, dst) pairs already planned
         # off the critical path, and their survivor-constrained plans by
         # (src, dst, survivors)
@@ -364,7 +364,7 @@ class LiveRController:
         are swallowed: speculation must never take down training (the same
         target requested for real rebuilds, and re-raises, on the normal
         path)."""
-        for key in [k for k, b in self._spec_builders.items() if b.ready]:
+        for key in self._ready_spec_keys():
             builder = self._spec_builders.pop(key)
             try:
                 handle = builder.result(0)
@@ -384,9 +384,8 @@ class LiveRController:
             return False
         key = self.pool_key(target)
         self._harvest_spec_builders()
-        if self.world_pool.contains(key) or key in self._spec_builders:
-            return False
-        if len(self._spec_builders) >= MAX_SPEC_BUILDS:
+        start = not (self.world_pool.contains(key) or key in self._spec_builders)
+        if not self._all(start and len(self._spec_builders) < MAX_SPEC_BUILDS):
             return False
         self._spec_builders[key] = ShadowBuilder(lambda: self._build_world(target), gen_id=-1).start()
         return True
@@ -429,13 +428,9 @@ class LiveRController:
             self._operating_point = operating_point
         gen = self.machine.begin_prepare(description=target.describe())
         src_parallel = self.world.parallel
-        warm = join = None
-        if self.world_pool is not None:
-            # take before any harvest, which could evict the entry; a
-            # ready but unharvested speculative build is caught by the join
-            warm = self.world_pool.take(self.pool_key(target))
-            if warm is None:
-                join = self._spec_builders.pop(self.pool_key(target), None)
+        # take before any harvest, which could evict the entry; a ready but
+        # unharvested speculative build is caught by the join
+        warm, join, source = self._take_pooled(target)
         self._orphans = [b for b in self._orphans if b.running]
         orphans = list(self._orphans)
 
@@ -445,9 +440,9 @@ class LiveRController:
             t0 = time.perf_counter()
             try:
                 if warm is not None:
-                    handle = self._refresh_pooled(warm)
+                    handle = self._refresh_pooled(warm, source=source)
                 elif join is not None:
-                    handle = self._refresh_pooled(join.result(), source="speculative_join")
+                    handle = self._refresh_pooled(join.result(), source=source)
             except Exception:
                 # speculation must never fail the real resize: a broken
                 # warm or joined world falls back to a cold build, and the
@@ -560,7 +555,7 @@ class LiveRController:
             # of the old session may still be in flight into them
             self._session.drain()
             carries, buffers = self._session_tensors()
-            reuse = (carries, dict(self._session.streamed_at))
+            reuse = (self._carries_for(carries, target), dict(self._session.streamed_at))
             rep = self._session.report
             if rec is not None:
                 rec.precopy_s = rep.precopy_seconds
@@ -594,7 +589,7 @@ class LiveRController:
         destination. Returns the commit's record (``fell_back``, with the
         pre-copy work it wasted), or None when nothing was ready to commit
         (the caller falls through to the checkpoint rung)."""
-        if self._builder is None or not self._builder.ready:
+        if self._builder is None or not self._all(self._builder.ready):
             return None
         if self.machine.state == GenState.PREPARE:
             self.machine.mark_ready(self._builder.gen_id, payload=self._builder.result())
@@ -624,7 +619,7 @@ class LiveRController:
         (its carries, its carries and unused buffers), leaving out any
         carry that shares storage with a live params or moment tensor (a
         resident tensor's carry is the live tensor itself)."""
-        live = list(named_state_leaves(self.params, self.opt_state)[0].values())
+        live = list(self._named_state()[0].values())
         ex = self._session.executor
         carries = {n: t for n, t in ex.dst.items() if not shares_storage(t, live)}
         return carries, {**ex.dst_buffers, **carries}
@@ -733,7 +728,7 @@ class LiveRController:
             self.cfg, src, target, source_policy=self.source_policy, allowed_src=survivors
         )
         lost_bytes = plan.lost_bytes
-        parity_ok = self._parity is not None and self._parity.covers(self.step)
+        parity_ok = self._all(self._parity is not None and self._parity.covers(self.step))
         covered = lost_bytes == 0 or parity_ok
         return covered, plan.network_bytes + (lost_bytes if parity_ok else 0)
 
@@ -749,7 +744,8 @@ class LiveRController:
         if self._session is not None:
             self._session.drain()
             _, buffers = self._session_tensors()
-        if self._builder is not None and self._builder.ready and self.machine.shadow is not None:
+        if (self._builder is not None and self._all(self._builder.ready)
+                and self.machine.shadow is not None):
             # its partially streamed state may predate this cut: only its
             # world and its tensors are kept, and the whole plan re-streams
             cand: WorldHandle = self._builder.result()
@@ -774,18 +770,16 @@ class LiveRController:
         t0 = time.perf_counter()
         world = residual
         rec.prepare_source = "residual" if residual is not None else "cold"
-        if world is None and self.world_pool is not None:
-            world = self.world_pool.take(self.pool_key(target))
-            if world is not None:
-                rec.prepare_source = "pool"
-            else:
-                join = self._spec_builders.pop(self.pool_key(target), None)
-                if join is not None:
-                    try:
-                        world = self._refresh_pooled(join.result(), source="speculative_join")
-                        rec.prepare_source = "speculative_join"
-                    except Exception:
-                        world = None
+        if world is None:
+            warm, join, source = self._take_pooled(target)
+            if warm is not None:
+                world, rec.prepare_source = warm, source
+            elif join is not None:
+                try:
+                    world = self._refresh_pooled(join.result(), source=source)
+                    rec.prepare_source = source
+                except Exception:
+                    world = None
         rec.warm_hit = world is not None and rec.prepare_source == "pool"
         if world is None:
             world = self._build_world(target)
@@ -869,7 +863,7 @@ class LiveRController:
         rec.plan_s = time.perf_counter() - t0
 
         lost_tasks = plan.lost_tasks()
-        parity_fresh = (
+        parity_fresh = self._all(
             self._parity is not None and self._parity.cfg == src_parallel and self._parity.covers(self.step)
         )
         if lost_tasks and not parity_fresh:
@@ -885,7 +879,7 @@ class LiveRController:
         self._sync()
         rec.drain_s = time.perf_counter() - t0
 
-        named, extras = named_state_leaves(self.params, self.opt_state)
+        named, extras = self._named_state()
         if lost_tasks:
             named, rec.parity_bytes = self._parity.repair(named, lost, self.step)
             plan, _ = heal_plan(plan, specs)
@@ -899,13 +893,11 @@ class LiveRController:
         # donor stream over the shared engine, always lossless: a lossy
         # wire would make the recovered state diverge from the survivors'
         t0 = time.perf_counter()
-        moved, stats = live_reshard_planned(
-            specs, plan, named, self.world.devices, world.devices,
-            staging_bytes=self.staging_bytes, wire_policy=None, dst_buffers=buffers,
-        )
-        del buffers
+        moved, stats = self._reshard(specs, plan, named, world, self.staging_bytes, wire_policy=None,
+                                     dst_buffers=buffers)
+        del buffers, named
         new_extras, rep_x = self._move_extras(extras, world, self.staging_bytes)
-        self.params, self.opt_state = rebuild_state(moved, self.params, self.opt_state, new_extras)
+        self.params, self.opt_state = self._install(moved, new_extras, world)
         rec.transfer_s = time.perf_counter() - t0
         rec.moved_bytes = stats.network_bytes + stats.local_bytes + rep_x.moved_bytes
         rec.skipped_bytes = stats.resident_bytes
@@ -957,15 +949,12 @@ class LiveRController:
         rec.lost_devices = lost_devices
         world = self._survivor_world(target, rec, residual)
         try:
-            state, step, load_s = load_checkpoint(
-                self.ckpt_dir, {"params": self.params, "opt": self.opt_state}, in_place=True
-            )
+            self.params, self.opt_state, step, load_s = self._load_checkpoint(world)
         except (OSError, KeyError, ValueError, RuntimeError) as e:
             raise RecoveryError(
                 f"fail-stop to {target.describe()} is unrecoverable: {reason or 'peers cannot cover the state'}, "
                 f"and no durable checkpoint could be loaded from {self.ckpt_dir}"
             ) from e
-        self.params, self.opt_state = state["params"], state["opt"]
         self.step = step
         t0 = time.perf_counter()
         self._switch_to(world, target, devices_failed)
@@ -1015,9 +1004,8 @@ class LiveRController:
         """Step-boundary XOR parity snapshot (spare-shard scheme, §15)."""
         if self._parity is None or self._parity.cfg != self.world.parallel:
             specs = build_tensor_specs(self.cfg, include_optimizer=True, zero_sharding=False)
-            self._parity = ParityStore(specs, self.world.parallel)
-        named, _ = named_state_leaves(self.params, self.opt_state)
-        self._parity.refresh(named, self.step)
+            self._parity = self._parity_store(specs, self.world.parallel)
+        self._parity.refresh(self._named_state()[0], self.step)
 
     def _batch(self) -> dict:
         tokens = torch.from_numpy(self.data.global_batch_at(self.step))
@@ -1038,7 +1026,7 @@ class LiveRController:
         """Iteration boundary = the consistent cut (invariant I3)."""
         if self._spec_builders:
             self._harvest_spec_builders()
-        if self._builder is None or not self._agree_ready(self._builder.ready):
+        if self._builder is None or not self._all(self._builder.ready):
             return
         if self.machine.state == GenState.PREPARE:
             handle = self._builder.result()
@@ -1295,9 +1283,45 @@ class LiveRController:
     # ------------------------------------------------------------------
     # What a per-rank world (core/rank_controller.py) does its own way
     # ------------------------------------------------------------------
-    def _agree_ready(self, ready: bool) -> bool:
-        """Whether the shadow world counts as ready at this boundary."""
-        return ready
+    def _all(self, flag: bool) -> bool:
+        """``flag``, decided: a host decision that changes what the state's
+        owners exchange (the shadow's readiness at a boundary, a pooled
+        world's use, the parity word's freshness)."""
+        return flag
+
+    def _ready_spec_keys(self) -> list:
+        """The speculative builds to harvest now: those that have ended."""
+        return [k for k, b in self._spec_builders.items() if b.ready]
+
+    def _take_pooled(self, target: ParallelConfig) -> tuple:
+        """(a warm world for ``target`` taken out of the pool, or None; an
+        in-flight speculative build of it, or None; the Prepare source the
+        record names for what was taken)."""
+        warm = join = None
+        if self.world_pool is not None:
+            warm = self.world_pool.take(self.pool_key(target))
+            if warm is None:
+                join = self._spec_builders.pop(self.pool_key(target), None)
+        return warm, join, "pool" if warm is not None else "speculative_join" if join is not None else "cold"
+
+    def _carries_for(self, carries: dict, target: ParallelConfig) -> dict:
+        """The drained session's carries that hold what ``target``'s world
+        wants at the same place: all of them (every carry is a global
+        tensor)."""
+        return carries
+
+    def _make_checkpointer(self, ckpt_dir: str):
+        return AsyncCheckpointer(ckpt_dir)
+
+    def _load_checkpoint(self, world: WorldHandle) -> tuple:
+        """(params, opt_state, step, seconds) of the latest durable
+        checkpoint, copied into the live tensors."""
+        state, step, load_s = load_checkpoint(self.ckpt_dir, {"params": self.params, "opt": self.opt_state},
+                                              in_place=True)
+        return state["params"], state["opt"], step, load_s
+
+    def _parity_store(self, specs, parallel: ParallelConfig) -> ParityStore:
+        return ParityStore(specs, parallel)
 
     def _named_state(self) -> tuple[dict, dict]:
         """(the state's leaves by tensor name, the extras outside the

@@ -16,7 +16,7 @@ active world idle through its steps and take part in the boundaries and
 the transfers.
 
 The lifecycle is ``LiveRController``'s, through its per-rank hooks
-(``_agree_ready``, ``_named_state``, ``_session_executor``, ``_reshard``,
+(``_all``, ``_named_state``, ``_session_executor``, ``_reshard``,
 ``_install``, and ``_initial_state`` / ``_dst_buffers`` at start and in
 Prepare): Prepare on the shadow thread
 (``core/shadow.py::build_rank_world``: the rank's functions, its step run
@@ -35,9 +35,39 @@ Every world's groups are created at start, on every process in one order
 of a process joining a world is the pool's agreed (MAX) count.
 ``gathered_params`` assembles the params on rank 0 (None elsewhere).
 
-Not on per-rank worlds yet (they raise): the warm pool and prefetch,
-retarget and escalation, fail-stop recovery and checkpoints, the transfer
-prewarms, ``compression="int8_ef"``.
+The rest of the lifecycle runs through the same hooks, each decision a
+rank takes on its own host agreed over the pool before it changes what the
+rank sends (``_all``, MIN of a flag):
+
+- the warm pool and ``prefetch_world``: a rank's pooled world holds its
+  own functions and no tensor; whether a prefetch starts, which ended
+  speculative builds are harvested, and whether a Prepare or a recovery
+  takes a pooled world or joins a build (``_take_pooled``: a world exists
+  on every rank or is used on none) are agreed, so every rank's pool keys,
+  evicts and invalidates alike;
+- ``retarget_resize``: the superseded session's carries are handed on
+  where their view in the new target is the one they hold
+  (``_carries_for``), its buffers as this rank's destination shards
+  (``core/shadow.py::rank_state_buffers(reuse=)``), and the layers the
+  successor adopts are agreed (``reshard/overlap.py::OverlapSession.adopt``);
+- ``escalate_commit``: the readiness is agreed, and the session's carries
+  and buffers are the stop-copy's destination;
+- ``fail_stop_recover``: the residual shadow, the parity word's freshness
+  and the checkpoint rung are agreed; the survivor-constrained,
+  donor-balanced plan streams rank to rank, lossless whatever
+  ``wire_policy`` is; a dead group is repaired from the XOR parity word on
+  the rank ``heal_plan`` makes its source (``elastic/redundancy.py::
+  RankParityStore``); the checkpoint rung reads each rank's view of the
+  target world from the files (``checkpoint/ckpt.py::RankCheckpointer``,
+  the one-process format, so the JAX loader reads it);
+- a lost rank's process stays up (gloo cannot lose a member without a new
+  rendezvous): ``lose_state`` poisons and frees all it held, and inside
+  the target world it comes back as a replacement that receives its shards;
+- ``prewarm_transfer`` and ``prewarm_failover_ahead`` plan on a thread and
+  issue no collective.
+
+Not on per-rank worlds yet: ``compression="int8_ef"`` (the constructor
+takes no ``compression``).
 """
 
 from __future__ import annotations
@@ -48,6 +78,7 @@ from typing import Any, Optional
 
 import torch
 
+from repro_torch.checkpoint import RankCheckpointer, load_rank_checkpoint
 from repro_torch.configs.base import ModelConfig, ParallelConfig
 from repro_torch.core.controller import LiveRController
 from repro_torch.core.intersection import TransferPlan
@@ -57,6 +88,7 @@ from repro_torch.core.shadow import WorldHandle, build_rank_world, rank_state_bu
 from repro_torch.data import SyntheticLM
 from repro_torch.distribution.groups import RankPool, make_world_groups
 from repro_torch.distribution.step import check_rank_model, init_opt_state, shard_params
+from repro_torch.elastic.redundancy import RankParityStore, survivors_for
 from repro_torch.optim import AdamWConfig
 from repro_torch.reshard.executors import RankExecutor, wire_rounded
 from repro_torch.utils.pytree import tree_from_paths, tree_map_with_path
@@ -130,6 +162,10 @@ class RankController(LiveRController):
         source_policy: str = "nearest",
         wire_policy=None,
         params: Optional[dict] = None,
+        world_pool=None,
+        ckpt_dir: Optional[str] = None,
+        ckpt_interval: int = 50,
+        parity_every: int = 0,
     ):
         for p in (parallel, *worlds):
             check_rank_model(cfg, p)
@@ -138,12 +174,14 @@ class RankController(LiveRController):
         self.rank = pool.rank
         self.groups = make_world_groups(pool, [parallel, *worlds])
         self._specs = build_tensor_specs(cfg, include_optimizer=True, zero_sharding=False)
+        self._spec_map = {s.name: s for s in self._specs}
         self.rank_commits: list[RankCommit] = []
         self._commit_execs: list[RankExecutor] = []
         super().__init__(
             cfg, parallel, opt_cfg, seq_len, global_batch, data=data, staging_bytes=staging_bytes, device=device,
             microbatches=microbatches, seed=seed, overlap=overlap, stream_k=stream_k, source_policy=source_policy,
-            wire_policy=wire_policy, params=params, devices=[device] * pool.size,
+            wire_policy=wire_policy, params=params, devices=[device] * pool.size, world_pool=world_pool,
+            ckpt_dir=ckpt_dir, ckpt_interval=ckpt_interval, parity_every=parity_every,
         )
 
     # ------------------------------------------------------------------
@@ -172,7 +210,7 @@ class RankController(LiveRController):
         return shards, init_opt_state(shards)
 
     def _dst_buffers(self, specs, plan, handle: WorldHandle, reuse: Optional[dict]) -> dict:
-        return rank_state_buffers(specs, plan, handle.parallel, self.rank, self.device)
+        return rank_state_buffers(specs, plan, handle.parallel, self.rank, self.device, reuse=reuse)
 
     def _named(self) -> dict[str, torch.Tensor]:
         """This rank's shards by tensor name ({} outside the world)."""
@@ -188,21 +226,103 @@ class RankController(LiveRController):
         tokens = torch.from_numpy(self.data.shard_at(self.step, g.dp_rank, g.dp))
         return {"tokens": tokens.to(device=self.device, dtype=torch.long)}
 
-    def request_resize(self, target: ParallelConfig, overlap: Optional[str] = None, operating_point=None) -> int:
-        """Call on every rank at the same step."""
+    def _check_target(self, target: ParallelConfig) -> None:
         check_rank_model(self.cfg, target)
         world_microbatches(target, self.microbatches, self.global_batch)
         if target not in self.groups:
             raise ValueError(f"{target.describe()}: its groups were not created at start (name it in worlds=)")
+
+    def request_resize(self, target: ParallelConfig, overlap: Optional[str] = None, operating_point=None) -> int:
+        """Call on every rank at the same step (as every verb below)."""
+        self._check_target(target)
         return super().request_resize(target, overlap, operating_point)
+
+    def retarget_resize(self, target: ParallelConfig, overlap: Optional[str] = None, operating_point=None) -> int:
+        self._check_target(target)
+        return super().retarget_resize(target, overlap, operating_point)
+
+    def prefetch_world(self, target: ParallelConfig) -> bool:
+        """As in one process, where ``target``'s groups were created at
+        start; False for any other world (the same on every rank)."""
+        try:
+            self._check_target(target)
+        except ValueError:
+            return False
+        return super().prefetch_world(target)
 
     # ------------------------------------------------------------------
     # The lifecycle's per-rank hooks (core/controller.py)
     # ------------------------------------------------------------------
-    def _agree_ready(self, ready: bool) -> bool:
-        """The consistent cut, agreed: every rank all-reduces (MIN) its
-        shadow's readiness, so all act on it at the same boundary."""
-        return self.pool.agree(1.0 if ready else 0.0, "min") >= 1.0
+    def _all(self, flag: bool) -> bool:
+        """``flag`` on every rank of the pool (an all-reduce MIN): the
+        consistent cut is agreed so, every rank acting on its shadow's
+        readiness at the same boundary."""
+        return self.pool.agree(1.0 if flag else 0.0, "min") >= 1.0
+
+    def _ready_spec_keys(self) -> list:
+        """The speculative builds every rank has ended (one all-reduce)."""
+        keys = list(self._spec_builders)
+        flags = self.pool.agree_all([1.0 if self._spec_builders[k].ready else 0.0 for k in keys], "min")
+        return [k for k, f in zip(keys, flags) if f >= 1.0]
+
+    def _take_pooled(self, target: ParallelConfig) -> tuple:
+        """The one-process take, agreed: what every rank has (a warm world
+        2, an in-flight build 1, nothing 0; MIN). Where some rank has
+        nothing, every rank puts back what it took and builds cold; else
+        each uses its own and all record the agreed source."""
+        warm, join, _ = super()._take_pooled(target)
+        have = 2 if warm is not None else 1 if join is not None else 0
+        agreed = int(self.pool.agree(have, "min"))
+        key = self.pool_key(target)
+        if agreed == 0:
+            if warm is not None:
+                self.world_pool.put(key, warm)
+            if join is not None:
+                self._spec_builders[key] = join
+            return None, None, "cold"
+        # a build of the same world left beside a warm one would part this
+        # rank's speculative builds from the others'
+        self._spec_builders.pop(key, None)
+        return warm, join, "pool" if agreed == 2 else "speculative_join"
+
+    def _carries_for(self, carries: dict, target: ParallelConfig) -> dict:
+        """The carries whose view in ``target`` on this rank is the view
+        they hold in the superseded session's target: the ones the
+        successor may adopt as streamed."""
+        old = self._session_plan.cfg_dst
+        out = {}
+        for name, t in carries.items():
+            spec = self._spec_map[name]
+            a = view_of(spec, old, self.rank) if self.rank < old.world_size else None
+            b = view_of(spec, target, self.rank) if self.rank < target.world_size else None
+            if a is not None and b is not None and a.bounds == b.bounds:
+                out[name] = t
+        return out
+
+    def _make_checkpointer(self, ckpt_dir: str) -> RankCheckpointer:
+        def state():
+            count = int(self.opt_state["count"]) if self.opt_state is not None else 0
+            return self._named(), int(self.pool.agree(count, "max")), self.world.parallel
+
+        return RankCheckpointer(ckpt_dir, self.pool, self._specs, state)
+
+    def _load_checkpoint(self, world: WorldHandle) -> tuple:
+        """Every rank's view of ``world`` read from the latest checkpoint,
+        into the live tensors whose view does not change; the rest of the
+        old state is let go first."""
+        old, new = self.world.parallel, world.parallel
+        keep = {n: t for n, t in self._named().items()
+                if self.rank < new.world_size and view_of(self._spec_map[n], new, self.rank) is not None
+                and view_of(self._spec_map[n], new, self.rank).bounds == view_of(self._spec_map[n], old, self.rank).bounds}
+        self.params = self.opt_state = None
+        named, count, step, load_s = load_rank_checkpoint(self.ckpt_dir, self._specs, new, self.pool, self.device,
+                                                          live=keep)
+        del keep
+        params, opt_state = self._state_from(named, count, world)
+        return params, opt_state, step, load_s
+
+    def _parity_store(self, specs, parallel: ParallelConfig) -> RankParityStore:
+        return RankParityStore(specs, parallel, self.pool, self.device)
 
     def _named_state(self) -> tuple[dict, dict]:
         # the step count is agreed at the install, not moved
@@ -228,7 +348,11 @@ class RankController(LiveRController):
         ``new_world``, (None, None) outside it; the step count is the
         pool's agreed (MAX) one."""
         count = int(self.opt_state["count"]) if self.opt_state is not None else 0
-        count = int(self.pool.agree(count, "max"))
+        return self._state_from(moved, int(self.pool.agree(count, "max")), new_world)
+
+    def _state_from(self, moved: dict, count: int, new_world: WorldHandle):
+        """(params, opt_state) of this rank on ``new_world`` from its shards
+        by name and the step count; (None, None) outside it."""
         if not new_world.member:
             return None, None
         paths = [s.name[len("params/"):] for s in self._specs
@@ -239,11 +363,11 @@ class RankController(LiveRController):
         return params, opt_state
 
     @contextmanager
-    def _counted(self, executors: list):
-        """Append this rank's ``RankCommit`` for the commit run inside:
-        what ``executors`` and the transfers run in it moved, and the host
-        staging from here to its end."""
-        gen_id = self._builder.gen_id
+    def _counted(self, executors: list, gen_id: Optional[int] = None):
+        """Append this rank's ``RankCommit`` for the commit (a recovery:
+        ``gen_id`` -1) run inside: what ``executors`` and the transfers run
+        in it moved, and the host staging from here to its end."""
+        gen_id = self._builder.gen_id if gen_id is None else gen_id
         host0 = (self.pool.staging.bytes, self.pool.staging.seconds)
         self._commit_execs = list(executors)
         yield
@@ -265,6 +389,74 @@ class RankController(LiveRController):
         with self._counted([self._session.executor]):
             return super()._split_step_commit(batch)
 
+    def fail_stop_recover(self, target: ParallelConfig, devices_failed: bool = True, lost_ranks: tuple = ()):
+        """Call on every rank at the same step (a lost rank's too: its
+        process stays up). Where ``devices_failed``, the lost ranks' state
+        goes first (``lose_state``)."""
+        self._check_target(target)
+        if devices_failed:
+            src = self.world.parallel
+            self.lose_state(frozenset(range(src.world_size))
+                            - survivors_for(src, lost_ranks, target=target, devices_failed=True))
+        with self._counted([], gen_id=-1):
+            return super().fail_stop_recover(target, devices_failed=devices_failed, lost_ranks=lost_ranks)
+
+    def _drop_reconfig(self, target: ParallelConfig) -> tuple:
+        """The one-process hand-on, less the tensors that are not this
+        rank's view in ``target`` (a session's carries of another target)."""
+        residual, buffers = super()._drop_reconfig(target)
+        keep = {}
+        for name, t in buffers.items():
+            spec = self._spec_map[name]
+            view = view_of(spec, target, self.rank) if self.rank < target.world_size else None
+            if view is not None and tuple(t.shape) == view.shape() and t.dtype == getattr(torch, spec.dtype):
+                keep[name] = t
+        return residual, keep
+
+    def lose_state(self, lost: frozenset) -> None:
+        """A fail-stop of ``lost``: on a lost rank every shard, moment,
+        carry, destination buffer and parity word this process holds is
+        overwritten with 0xFF bytes and its storage freed, and the
+        references dropped; the process stays in the pool. A survivor keeps
+        all it holds. Call on every rank (no collective)."""
+        if self.rank not in lost:
+            return
+        held = list(self._named().values())
+        if self.opt_state is not None:
+            held.append(self.opt_state["count"])
+        if self._session is not None:
+            self._session.drain()
+            ex = self._session.executor
+            held += [*ex.dst.values(), *ex.dst_buffers.values()]
+            ex.dst, ex.dst_buffers = {}, {}
+            ex.update_sources({})
+        if self._builder is not None and self._builder.ready and self.machine.shadow is not None:
+            shadow = self._builder.result()
+            held += list(shadow.buffers.values())
+            shadow.buffers = {}
+        if self._reuse is not None:
+            held += list(self._reuse[0].values())
+            self._reuse = None
+        if self._parity is not None:
+            held.append(self._parity.word)
+        self._sync()
+        freed = set()
+        for t in held:
+            st = t.untyped_storage()
+            if st.data_ptr() in freed or st.nbytes() == 0:
+                continue
+            freed.add(st.data_ptr())
+            torch.empty(0, dtype=torch.uint8, device=t.device).set_(st, 0, (st.nbytes(),)).fill_(0xFF)
+        self._sync()
+        for t in held:
+            st = t.untyped_storage()
+            if st.resizable() and st.nbytes():
+                st.resize_(0)
+        # the parity store keeps its step and groups: the survivors' words
+        # are the ones a repair reads
+        self.params = self.opt_state = None
+        del held
+
     # ------------------------------------------------------------------
     # Verification
     # ------------------------------------------------------------------
@@ -278,30 +470,3 @@ class RankController(LiveRController):
             if whole is not None:
                 out[spec.name[len("params/"):]] = whole.cpu().numpy()
         return tree_from_paths(out) if self.rank == 0 else None
-
-    # ------------------------------------------------------------------
-    # Not on per-rank worlds yet
-    # ------------------------------------------------------------------
-    def _not_yet(self, what: str):
-        raise NotImplementedError(f"{what} is not ported to per-rank worlds yet")
-
-    def prefetch_world(self, target):
-        self._not_yet("prefetch_world")
-
-    def retarget_resize(self, target, overlap=None, operating_point=None):
-        self._not_yet("retarget_resize")
-
-    def escalate_commit(self):
-        self._not_yet("escalate_commit")
-
-    def fail_stop_recover(self, *args, **kwargs):
-        self._not_yet("fail_stop_recover")
-
-    def prewarm_transfer(self, *args, **kwargs):
-        self._not_yet("prewarm_transfer")
-
-    def prewarm_failover_ahead(self):
-        self._not_yet("prewarm_failover_ahead")
-
-    def checkpoint_now(self):
-        self._not_yet("checkpoint_now")

@@ -18,7 +18,10 @@ functions only. A per-rank world (:func:`build_rank_world`, one process a
 rank over ``distribution/groups.py``) runs the rank's own step once on the
 meta device under the mock process groups (``core/mock_groups.py``), and
 plans and allocates only this rank's destination views
-(:func:`rank_state_buffers`).
+(:func:`rank_state_buffers`, which takes a retarget's or an escalation's
+hand-on as :func:`state_buffers` does). A per-rank world's build issues no
+collective, so speculative builds may end at different times on different
+ranks; the controller agrees their use.
 """
 
 from __future__ import annotations
@@ -412,15 +415,26 @@ def build_rank_world(
     return handle
 
 
-def rank_state_buffers(specs, plan, parallel: ParallelConfig, rank: int, device: torch.device) -> dict[str, torch.Tensor]:
+def rank_state_buffers(specs, plan, parallel: ParallelConfig, rank: int, device: torch.device,
+                       reuse: Optional[dict] = None) -> dict[str, torch.Tensor]:
     """Zeroed destination shards of rank ``rank`` of ``parallel`` (the
     plan's destination) for every tensor the plan moves bytes into on this
     rank; a tensor whose cells here are all resident is adopted at the
-    commit and gets none."""
+    commit and gets none. ``reuse``: this rank's tensors by name that may
+    serve as destinations, taken as :func:`state_buffers` takes them (the
+    same name, this rank's view shape, dtype and device)."""
     from repro_torch.core.resource_view import view_of
 
     moved = {t.tensor for t in plan.tasks if t.dst_rank == rank and t.kind != "resident"}
-    return {
-        s.name: torch.zeros(view_of(s, parallel, rank).shape(), dtype=getattr(torch, s.dtype), device=device)
-        for s in specs if s.name in moved
-    }
+    reuse = reuse or {}
+    out = {}
+    for s in specs:
+        if s.name not in moved:
+            continue
+        shape, dtype = view_of(s, parallel, rank).shape(), getattr(torch, s.dtype)
+        buf = reuse.get(s.name)
+        if buf is not None and tuple(buf.shape) == shape and buf.dtype == dtype and buf.device == device:
+            out[s.name] = buf
+        else:
+            out[s.name] = torch.zeros(shape, dtype=dtype, device=device)
+    return out

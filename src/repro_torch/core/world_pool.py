@@ -38,6 +38,14 @@ IN (eviction calls :meth:`WorldHandle.release`, dropping the executable,
 mesh and sharding references so device memory is reclaimable immediately
 rather than at GC's leisure). The pool is thread-safe: abandoned builders
 deposit from their daemon threads while the training loop takes/puts.
+
+On a per-rank world (``core/rank_controller.py``) every rank process has
+its own pool of its own handles, each with its functions and no tensor
+(the controller deposits a world without its destination shards). The
+keys are the same on every rank, and so are the puts, takes and
+invalidations: the controller agrees over the rank pool which speculative
+builds are harvested, whether a prefetch starts and whether a take is
+used (a world on every rank or on none), so the ranks' pools evict alike.
 """
 
 from __future__ import annotations

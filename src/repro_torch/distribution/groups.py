@@ -32,7 +32,14 @@ the ranks' compute and shards stay on the card.
 Every collective over a group of one rank is the identity and records
 nothing; the others append ``(op, group, bytes)`` to ``collectives``
 (``bytes`` what this rank puts in, or takes out of a ``recv``), as
-``core/mock_groups.py::MockGroups`` does without communicating.
+``core/mock_groups.py::MockGroups`` does without communicating. The pool
+records its own the same way, under the group ``"pool"``: the byte-frame
+broadcast from rank 0 (``broadcast_bytes``, the control plane's command
+frames, ``elastic/endpoint.py::RankEndpoint``) and the XOR reduction of
+``uint8`` words (``xor_reduce``, the parity word's and its repair's,
+``elastic/redundancy.py::RankParityStore``). Its agreements
+(``agree``, ``agree_all``) record nothing: they carry a flag a rank, not
+state.
 """
 
 from __future__ import annotations
@@ -56,6 +63,8 @@ __all__ = [
 ]
 
 _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX, "min": dist.ReduceOp.MIN}
+# a frame or a word crosses the pool in pieces of at most this many bytes
+POOL_CHUNK_BYTES = 1 << 28
 
 
 GROUPS = ("dp", "pp", "ep", "tp")
@@ -194,6 +203,7 @@ class RankPool:
         self.size = dist.get_world_size()
         self.backend = backend or dist.get_backend()
         self.staging = HostStaging(self.backend == "gloo")
+        self.collectives: list[tuple[str, str, int]] = []
 
     def exchange(self, sends: list[tuple[int, torch.Tensor]], recvs: list[tuple[int, torch.Tensor]]) -> None:
         """Post every send (``(peer, tensor)``) and receive (``(peer,
@@ -224,9 +234,50 @@ class RankPool:
     def agree(self, value: float, op: str = "min") -> float:
         """``value`` reduced over every rank of the pool (``min``, ``max``
         or ``sum``): what each rank's host decided, made one decision."""
-        t = torch.tensor([float(value)], dtype=torch.float64)
-        dist.all_reduce(t, op=_OPS[op])
-        return float(t.item())
+        return self.agree_all([value], op)[0]
+
+    def agree_all(self, values, op: str = "min") -> list[float]:
+        """Each of ``values`` reduced over every rank of the pool, in one
+        all-reduce (every rank passes as many)."""
+        t = torch.tensor([float(v) for v in values], dtype=torch.float64)
+        if t.numel():
+            dist.all_reduce(t, op=_OPS[op])
+        return t.tolist()
+
+    def broadcast_bytes(self, frame: Optional[bytes]) -> bytes:
+        """Rank 0's ``frame`` on every rank (the others pass None)."""
+        n = torch.tensor([len(frame) if self.rank == 0 else 0], dtype=torch.int64)
+        dist.broadcast(n, 0)
+        size = int(n.item())
+        buf = torch.frombuffer(bytearray(frame), dtype=torch.uint8) if self.rank == 0 and size else \
+            torch.empty(size, dtype=torch.uint8)
+        for lo in range(0, size, POOL_CHUNK_BYTES):
+            dist.broadcast(buf[lo:lo + POOL_CHUNK_BYTES], 0)
+        self.collectives.append(("broadcast_bytes", "pool", size))
+        return buf.numpy().tobytes()
+
+    def xor_reduce(self, word: torch.Tensor, dst: Optional[int] = None) -> torch.Tensor:
+        """The byte-wise XOR over every rank of the pool of its ``word``
+        (a contiguous ``uint8`` tensor, as long on every rank), written into
+        ``word``: on every rank (``dst`` None) or on rank ``dst`` only (the
+        others' words are left undefined). A word on the card goes through
+        a host copy (gloo reduces host memory); a pool over nccl, which has
+        no XOR, raises."""
+        if word.dtype != torch.uint8 or not word.is_contiguous():
+            raise ValueError("xor_reduce takes a contiguous uint8 tensor")
+        if self.backend != "gloo":
+            raise NotImplementedError(f"xor_reduce over {self.backend}: only gloo reduces by XOR")
+        host = self.staging.to_host(word) if word.is_cuda else word
+        for lo in range(0, host.numel(), POOL_CHUNK_BYTES):
+            piece = host[lo:lo + POOL_CHUNK_BYTES]
+            if dst is None:
+                dist.all_reduce(piece, op=dist.ReduceOp.BXOR)
+            else:
+                dist.reduce(piece, dst, op=dist.ReduceOp.BXOR)
+        self.collectives.append(("xor_reduce" if dst is None else f"xor_reduce_to_{dst}", "pool", host.numel()))
+        if host is not word:
+            self.staging.to_device(word, host)
+        return word
 
 
 class RankGroups(Collectives):

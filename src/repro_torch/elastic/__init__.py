@@ -13,7 +13,8 @@ when the window is gone but survivors still cover the state (DESIGN.md
 from each lifecycle phase.
 
 The port of the JAX package's ``elastic/``; it exports what the JAX
-package's ``elastic/__init__.py`` does, and ``PHASES`` besides.
+package's ``elastic/__init__.py`` does, and ``PHASES``, ``RankEndpoint``
+and ``RankParityStore`` (per-rank worlds) besides.
 """
 
 from repro_torch.elastic.endpoint import (
@@ -21,6 +22,7 @@ from repro_torch.elastic.endpoint import (
     DeadlineEstimator,
     Endpoint,
     PrefetchPolicy,
+    RankEndpoint,
     ServeEndpoint,
     SimEndpoint,
     WireEndpoint,
@@ -30,6 +32,7 @@ from repro_torch.elastic.faults import PHASES, FaultInjector, InjectionReport, c
 from repro_torch.elastic.protocol import ReconfigEstimate, RecordView
 from repro_torch.elastic.redundancy import (
     ParityStore,
+    RankParityStore,
     RecoveryError,
     RedundancyMap,
     balance_donors,
@@ -55,6 +58,8 @@ __all__ = [
     "InjectionReport",
     "ParityStore",
     "PrefetchPolicy",
+    "RankEndpoint",
+    "RankParityStore",
     "ReconfigEstimate",
     "RecordView",
     "RecoveryError",

@@ -19,7 +19,16 @@ every controller species:
 * :class:`WireEndpoint` — a transparent wrapper that forces every
   command *and* response through ``encode → JSON text → decode``, so a
   test or bench running through it has proven the whole conversation is
-  serializable (the local stand-in for a real RPC transport).
+  serializable (the local stand-in for a real RPC transport);
+* :class:`RankEndpoint` — a per-rank world's endpoint
+  (``core/rank_controller.py``): the driver (the ``ElasticScheduler``, its
+  ``WireEndpoint``) runs on rank 0, each command's frame is broadcast to
+  every rank of the pool before any rank acts on it, and every rank's
+  ``ControllerEndpoint`` handles the same command sequence, so the verbs'
+  collectives meet. Rank 0's response is the response; the other ranks'
+  are dropped, and so is what their ``DeadlineEstimator`` reads of their
+  own records and iteration times. ``PrefetchPolicy.tick`` runs on every
+  rank, and the controller agrees what it starts.
 
 The adapter contract: ``handle(cmd)`` always returns a protocol
 response, mapping :class:`RecoveryError` to ``ErrorResponse("recovery")``
@@ -407,7 +416,9 @@ class PrefetchPolicy:
         # cores and both slow down, and only the prewarm is on the
         # recovery-pause path
         thread = getattr(self.ctrl, "_prewarm_thread", None)
-        if thread is not None and thread.is_alive():
+        # a per-rank controller agrees the hold-off (``_all``): the builds
+        # it would start are agreed over its pool
+        if getattr(self.ctrl, "_all", bool)(thread is not None and thread.is_alive()):
             return 0
         if current != self._cands_for:
             self._cands_for = current
@@ -998,6 +1009,57 @@ class WireEndpoint(Endpoint):
         wire_back = p.dumps(resp)
         self.bytes_rx += len(wire_back)
         return p.loads(wire_back)
+
+
+class RankEndpoint(Endpoint):
+    """One rank's side of a per-rank world's control plane (the module
+    docstring): on rank 0 :meth:`handle` broadcasts the command's frame
+    (``protocol.dumps``) over ``pool`` and handles it; on the others
+    :meth:`serve` receives and handles frames until rank 0's :meth:`close`.
+    ``frames`` counts the frames handled and ``digest`` hashes them in
+    order, the same on every rank that handled the same sequence."""
+
+    def __init__(self, inner: Endpoint, pool):
+        import hashlib
+
+        self.inner = inner
+        self.kind = inner.kind
+        self.pool = pool
+        self.frames = 0
+        self._hash = hashlib.sha256()
+
+    @property
+    def prefetch(self):
+        return getattr(self.inner, "prefetch", None)
+
+    @property
+    def digest(self) -> str:
+        return self._hash.hexdigest()
+
+    def _run(self, frame: bytes) -> Any:
+        self.frames += 1
+        self._hash.update(len(frame).to_bytes(8, "little") + frame)
+        return self.inner.handle(p.loads(frame.decode()))
+
+    def handle(self, cmd: Any) -> Any:
+        if self.pool.rank != 0:
+            raise RuntimeError("only rank 0 drives a per-rank world; the other ranks serve()")
+        frame = p.dumps(cmd).encode()
+        self.pool.broadcast_bytes(frame)
+        return self._run(frame)
+
+    def serve(self) -> int:
+        """Handle rank 0's frames until it closes; returns how many."""
+        while True:
+            frame = self.pool.broadcast_bytes(None)
+            if not frame:
+                return self.frames
+            self._run(frame)
+
+    def close(self) -> None:
+        """Rank 0: end every other rank's :meth:`serve`."""
+        if self.pool.rank == 0:
+            self.pool.broadcast_bytes(b"")
 
 
 def as_endpoint(obj: Any, **kw) -> Endpoint:

@@ -16,6 +16,16 @@ The harness enforces that structurally rather than by trusting the
 transfer: it asserts the executed plan's remote tasks never name a dead
 rank as source (the survivor-constrained planner guarantees this by
 construction; the assertion catches regressions in that construction).
+
+On a per-rank world (``core/rank_controller.py``, one process a rank) the
+lost ranks' processes stay up (gloo cannot lose a member without a new
+rendezvous), but their state goes: ``kill`` fails them with
+``devices_failed=True``, and before the recovery begins each lost rank
+poisons every shard, moment, carry, destination buffer and parity word it
+holds (every byte set to 0xFF, a NaN in a float) and frees it
+(``RankController.fail_stop_recover`` -> ``lose_state``), so a read of a
+dead byte shows in the result. A lost rank inside the target world comes back as a replacement
+that holds nothing and receives its shards from the donors.
 """
 
 from __future__ import annotations

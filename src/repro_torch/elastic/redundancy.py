@@ -38,6 +38,21 @@ reconstructed bytes into the dead region of the live tensor, in place: a
 copy of the tensor (the JAX ``arr.at[sl].set``) would be a second set at
 full width, and the dead region's bytes are garbage after a loss.
 
+On a per-rank world (:class:`RankParityStore`) no process holds the whole
+tensor. The word is formed across the pool: each distinct shard image is
+contributed once, by the first rank of its replica group, zero-padded, and
+the pool XOR-reduces the contributions as ``uint8`` (gloo's ``BXOR``,
+``distribution/groups.py::RankPool.xor_reduce``). Every rank keeps the
+whole word in its host memory (pinned when its state is on the card): a
+loss takes the copies of the ranks it takes, never the survivors'. That
+costs every rank the word's bytes of host memory (qwen3-1.7b at dp1tp4,
+28 layers: 6.10 GB a rank, 24.4 GB over four), and each refresh one
+all-reduce of them. A repair is formed on the rank ``heal_plan`` makes the
+cell's source, the first owner of the dead group: the lowest surviving
+rank contributes its copy of the word, one surviving owner of every other
+group its image, and the pool XOR-reduces them to that rank, which keeps
+the reconstructed shard as its source. It reads nothing the loss took.
+
 ``RecoveryError`` (re-exported from :mod:`repro_torch.core.errors`) is the
 typed "no rung left" failure: no surviving replica, no fresh parity, no
 checkpoint directory.
@@ -62,6 +77,7 @@ __all__ = [
     "RecoveryError",
     "RedundancyMap",
     "ParityStore",
+    "RankParityStore",
     "survivors_for",
     "balance_donors",
     "heal_plan",
@@ -318,23 +334,10 @@ class ParityStore:
         group of the same tensor died (single-parity-word erasure limit),
         or a group the reconstruction needs died too.
         """
-        if not self.covers(step):
-            raise RecoveryError(
-                f"parity snapshot at step {self.step} cannot repair state at step {step}: stale or never refreshed"
-            )
-        by_tensor: dict[str, list] = {}
-        for name, bounds, owners in self.dead_groups(lost_ranks):
-            by_tensor.setdefault(name, []).append(bounds)
-        for name, dead in by_tensor.items():
-            if len(dead) > 1:
-                raise RecoveryError(
-                    f"{name}: {len(dead)} shard groups lost at once; single XOR parity can reconstruct at most one"
-                )
+        by_tensor = self._dead_by_tensor(lost_ranks, step)
+        for name in by_tensor:
             if named.get(name) is None:
                 raise RecoveryError(f"{name}: no live leaf to repair into")
-            for g_bounds, g_owners in self._groups[name]:
-                if g_bounds != dead[0] and all(r in lost_ranks for r in g_owners):
-                    raise RecoveryError(f"{name}: surviving group needed for parity repair also died")
         repaired = 0
         for name, [bounds] in by_tensor.items():
             spec, arr = self.specs[name], named[name]
@@ -350,6 +353,116 @@ class ParityStore:
             repaired += nbytes
         for device in {x.device for x in named.values() if x.device.type == "cuda"}:
             torch.cuda.current_stream(device).synchronize()  # the bytes are in place on return
+        return named, repaired
+
+
+    def _dead_by_tensor(self, lost_ranks: frozenset[int], step: int) -> dict[str, list]:
+        """The dead group's bounds by tensor, once every condition of a
+        repair holds; else :class:`RecoveryError`."""
+        if not self.covers(step):
+            raise RecoveryError(
+                f"parity snapshot at step {self.step} cannot repair state at step {step}: stale or never refreshed"
+            )
+        by_tensor: dict[str, list] = {}
+        for name, bounds, owners in self.dead_groups(lost_ranks):
+            by_tensor.setdefault(name, []).append(bounds)
+        for name, dead in by_tensor.items():
+            if len(dead) > 1:
+                raise RecoveryError(
+                    f"{name}: {len(dead)} shard groups lost at once; single XOR parity can reconstruct at most one"
+                )
+            for g_bounds, g_owners in self._groups[name]:
+                if g_bounds != dead[0] and all(r in lost_ranks for r in g_owners):
+                    raise RecoveryError(f"{name}: surviving group needed for parity repair also died")
+        return by_tensor
+
+
+def healed_owner(spec: TensorSpec, cfg: ParallelConfig, bounds) -> int:
+    """The rank :func:`heal_plan` sources a lost cell of ``bounds`` from."""
+    for r in replica_candidates(spec, cfg, bounds):
+        if view_of(spec, cfg, r) is not None:
+            return r
+    raise RecoveryError(f"{spec.name}: lost cell has no owner view")
+
+
+class RankParityStore(ParityStore):
+    """:class:`ParityStore` over a per-rank world, seen from process
+    ``pool.rank`` (the module docstring): ``named`` holds this rank's
+    shards only. ``refresh`` and ``repair`` are collective over the pool:
+    every rank calls them at the same step. ``word`` is the whole word in
+    host memory, each tensor's a slice of it (``_parity``); ``device`` is
+    where a repaired shard is put."""
+
+    def __init__(self, specs: Iterable[TensorSpec], cfg: ParallelConfig, pool, device):
+        super().__init__(specs, cfg)
+        self.pool = pool
+        self.rank = pool.rank
+        self.device = torch.device(device)
+        self._offset: dict[str, int] = {}
+        total = 0
+        for name in self.specs:
+            self._offset[name] = total
+            total += self._width[name]
+        self.word = torch.empty(total, dtype=torch.uint8, pin_memory=self.device.type == "cuda")
+
+    def _slice(self, name: str) -> torch.Tensor:
+        return self.word[self._offset[name]: self._offset[name] + self._width[name]]
+
+    def refresh(self, named: dict[str, torch.Tensor], step: int) -> int:
+        """Rebuild the word from every rank's shards at ``step``."""
+        t0 = time.perf_counter()
+        self.step = None
+        self.word.zero_()
+        for name in self.specs:
+            for _bounds, owners in self._groups[name]:
+                if owners[0] == self.rank:  # this rank's own view is the image
+                    img = named[name].reshape(-1).view(torch.uint8)
+                    self._slice(name)[: img.numel()].copy_(img)
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+        self.pool.xor_reduce(self.word)
+        self._parity = {name: self._slice(name) for name in self.specs}
+        self.step = step
+        self.refreshed_bytes = self.word.numel()
+        self.last_refresh_s = time.perf_counter() - t0
+        return self.refreshed_bytes
+
+    def repair(
+        self, named: dict[str, torch.Tensor], lost_ranks: frozenset[int], step: int
+    ) -> tuple[dict[str, torch.Tensor], int]:
+        """Reconstruct every dead group's image on its healed owner
+        (:func:`healed_owner`), into ``named`` there as a new tensor (or
+        into the rank's own, where it still holds one). Returns (``named``,
+        repaired bytes, the same on every rank); raises as
+        :meth:`ParityStore.repair`, on every rank, before anything moves."""
+        by_tensor = self._dead_by_tensor(lost_ranks, step)
+        survivors = [r for r in range(self.cfg.world_size) if r not in lost_ranks]
+        repaired = 0
+        for name in self.specs:
+            if name not in by_tensor:
+                continue
+            [bounds] = by_tensor[name]
+            spec = self.specs[name]
+            owner = healed_owner(spec, self.cfg, bounds)
+            buf = torch.zeros(self._width[name], dtype=torch.uint8)
+            if self.rank == survivors[0]:
+                buf.bitwise_xor_(self._parity[name])
+            for g_bounds, g_owners in self._groups[name]:
+                if g_bounds != bounds and min(r for r in g_owners if r not in lost_ranks) == self.rank:
+                    img = named[name].reshape(-1).view(torch.uint8)
+                    buf[: img.numel()].bitwise_xor_(img.cpu())
+            self.pool.xor_reduce(buf, dst=owner)
+            nbytes = _nbytes(spec, bounds)
+            if self.rank == owner:
+                shape = tuple(hi - lo for lo, hi in bounds)
+                img = buf[:nbytes].view(getattr(torch, spec.dtype)).reshape(shape)
+                if named.get(name) is not None:
+                    named[name].copy_(img)
+                else:
+                    named[name] = img.to(self.device, copy=True)
+            repaired += nbytes
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
         return named, repaired
 
 
@@ -370,15 +483,8 @@ def heal_plan(plan: TransferPlan, specs: Iterable[TensorSpec]) -> tuple[Transfer
             healed.append(t)
             continue
         spec = by_name[t.tensor]
-        owner = None
-        for r in replica_candidates(spec, plan.cfg_src, t.bounds):
-            v = view_of(spec, plan.cfg_src, r)
-            if v is not None:
-                owner = (r, v)
-                break
-        if owner is None:
-            raise RecoveryError(f"{t.tensor}: lost cell has no owner view")
-        r, v = owner
+        r = healed_owner(spec, plan.cfg_src, t.bounds)
+        v = view_of(spec, plan.cfg_src, r)
         healed.append(dataclasses.replace(
             t, kind="remote", src_rank=r, src_offset=tuple(b[0] - vb[0] for b, vb in zip(t.bounds, v.bounds))
         ))

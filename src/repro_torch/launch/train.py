@@ -46,7 +46,10 @@ attention blocks with dense or MoE MLPs, on dp x pp x ep x tp worlds
 any other at most its rows a rank, which they must divide; an ep degree
 comes with a resize spec, ``--resize 4:ep2,tp2``, as in the JAX launcher,
 which has no ``--ep``);
-no ``--compression``, ``--failstop`` or ``--ckpt-dir``; rank 0 prints.
+``--failstop STEP:SPEC`` loses the ranks beyond SPEC's world (their state
+poisoned and freed, ``RankController.lose_state``) and recovers onto SPEC
+from the survivors or from the per-rank checkpoint under ``--ckpt-dir``
+(the one-process format); no ``--compression``; rank 0 prints.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b --reduced \\
         --device cpu --nproc 8 --dp 2 --tp 2 --steps 12 --seq 32 --batch 8 \\
@@ -55,6 +58,9 @@ no ``--compression``, ``--failstop`` or ``--ckpt-dir``; rank 0 prints.
         --pp 2 --tp 2 --microbatches 4 --resize 4:dp2,tp2
     PYTHONPATH=src python -m repro_torch.launch.train --arch mixtral-8x7b --reduced \\
         --device cpu --nproc 4 --tp 4 --resize 4:ep2,tp2 --resize 8:ep4,tp1
+    PYTHONPATH=src python -m repro_torch.launch.train --reduced --device cpu --nproc 4 \\
+        --dp 2 --tp 2 --steps 12 --seq 16 --batch 4 --ckpt-dir /tmp/ck --ckpt-interval 5 \\
+        --failstop 8:dp1,tp2
 """
 
 from __future__ import annotations
@@ -105,8 +111,8 @@ def main() -> None:
     ap.add_argument("--out", default=None, help="write run record JSON here")
     args = ap.parse_args()
     if args.nproc:
-        if args.compression != "none" or args.failstop or args.ckpt_dir:
-            ap.error("--nproc trains per-rank worlds: no --compression, --failstop or --ckpt-dir")
+        if args.compression != "none":
+            ap.error("--nproc trains per-rank worlds: no --compression")
         from repro_torch.launch.ranks import run_ranks
         from repro_torch.models.model import resolve_device
 
@@ -166,8 +172,10 @@ def _controller(rank, args: dict, say):
     device = rank_device(args["device"], rank)
     pool = RankPool()
     say(f"{head} ranks={pool.size} backend={pool.backend} device={device}", flush=True)
-    worlds = [parse_parallel(s.split(":")[1]) for s in args["resize"]]
-    return RankController(cfg, parallel, opt, args["seq"], args["batch"], pool, worlds=worlds, device=device, **kw)
+    events = args["resize"] + ([args["failstop"]] if args["failstop"] else [])
+    worlds = [parse_parallel(s.split(":")[1]) for s in events]
+    return RankController(cfg, parallel, opt, args["seq"], args["batch"], pool, worlds=worlds, device=device,
+                          ckpt_dir=args["ckpt_dir"], ckpt_interval=args["ckpt_interval"], **kw)
 
 
 def _train(ctrl, args: dict, say) -> dict:
@@ -188,7 +196,7 @@ def _train(ctrl, args: dict, say) -> dict:
             ctrl.request_resize(target)
         if failstop and failstop[0] == ctrl.step:
             say(f"[event] step {ctrl.step}: FAIL-STOP -> {failstop[1].describe()}", flush=True)
-            rec = ctrl.fail_stop_recover(failstop[1])
+            rec = ctrl.fail_stop_recover(failstop[1])  # on ranks, the lost ranks' state goes first
             say(f"[event] recovered via {rec.mode} at step {ctrl.step} in {rec.total_pause_s:.2f}s "
                 f"(moved {rec.moved_bytes / 1e6:.1f}MB, donors {rec.donors})", flush=True)
             failstop = None

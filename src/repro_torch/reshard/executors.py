@@ -228,6 +228,20 @@ class LiveExecutor:
         self._home = torch.cuda.current_stream(self.device) if self.device.type == "cuda" else None
 
     # -- round protocol (reshard/overlap.py) ------------------------------
+    # -- retarget adoption (reshard/overlap.py::OverlapSession.adopt) ------
+    def carry_shape(self, name: str) -> Optional[tuple]:
+        """The shape a carry of ``name`` has here: the global tensor's."""
+        return tuple(self.specs[name].shape)
+
+    def layer_tensors(self, tasks) -> set[str]:
+        """The tensors a layer's ``tasks`` need carries of to count as
+        streamed: every tensor they touch."""
+        return {t.tensor for t in tasks}
+
+    def agree(self, flags: list[bool]) -> list[bool]:
+        """Per-layer decisions, decided: one process decides alone."""
+        return list(flags)
+
     def update_sources(self, src: dict[str, torch.Tensor]) -> None:
         """Swap in this boundary's source tensors; resident destinations
         re-adopt them."""
@@ -564,6 +578,23 @@ class RankExecutor:
         self._resident_done: set[str] = set()
         self._round_touched: set[str] = set()
         self._home = torch.cuda.current_stream(self.device) if self.device.type == "cuda" else None
+
+    # -- retarget adoption (reshard/overlap.py::OverlapSession.adopt) ------
+    def carry_shape(self, name: str) -> Optional[tuple]:
+        """This rank's view of ``name`` in the destination world (None
+        where it holds none)."""
+        view = view_of(self.specs[name], self.cfg_dst, self.rank) if self.rank < self.cfg_dst.world_size else None
+        return None if view is None else view.shape()
+
+    def layer_tensors(self, tasks) -> set[str]:
+        """The tensors whose cells ``tasks`` move into this rank: a tensor
+        this rank adopts in place needs no carry."""
+        return {t.tensor for t in tasks if t.dst_rank == self.rank and t.kind != "resident"}
+
+    def agree(self, flags: list[bool]) -> list[bool]:
+        """Per-layer decisions, agreed (MIN) over the pool: a layer one
+        rank would stream again streams on all."""
+        return [v >= 1.0 for v in self.transport.agree_all([1.0 if f else 0.0 for f in flags], "min")]
 
     # -- round protocol (reshard/overlap.py) ------------------------------
     def update_sources(self, src: dict[str, torch.Tensor]) -> None:

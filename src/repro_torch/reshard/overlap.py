@@ -37,6 +37,15 @@ tensor by aliasing the live source (``reshard/executors.py``), and a carry
 that shares storage with a live params or moment tensor must never be
 adopted, or the successor's scatters would write into the state that is
 training. Such a carry is left behind and its layers re-stream.
+
+On a per-rank world (``RankExecutor``) a carry is one rank's shard. The
+controller hands on only the carries whose view in the new target is the
+one they hold (``core/rank_controller.py``), a carry is taken where it has
+the rank's view shape under the same alias rule, a layer needs carries
+only of the tensors it moves into this rank (a tensor the rank adopts in
+place needs none), and a layer counts as reused only where every rank of
+the pool would reuse it (agreed, ``RankExecutor.agree``): otherwise the
+ranks would stream different layers and post mismatched messages.
 """
 
 from __future__ import annotations
@@ -158,10 +167,12 @@ class OverlapSession:
         ``carries``: the superseded executor's destination tensors by name;
         ``streamed_at``: its layers' stream steps; ``live``: the training
         state's params and moment tensors (``named_state_leaves``). A carry
-        of its spec's shape and dtype on this session's device becomes this
-        executor's destination as it is (no copy), unless it shares storage
-        with a live tensor. A layer counts as reused iff the old session
-        streamed it and every tensor its tasks touch has an adopted carry;
+        of the shape the executor holds the tensor in (``carry_shape``) and
+        its spec's dtype on this session's device becomes this executor's
+        destination as it is (no copy), unless it shares storage with a live
+        tensor. A layer counts as reused iff the old session streamed it and
+        every tensor it needs carries of (``layer_tensors``) has an adopted
+        one, on every rank (``agree``);
         it keeps its original ``streamed_at`` step, so the commit-time dirty
         re-sync still refreshes whatever the optimizer has since touched.
         Returns the number of reused layers.
@@ -173,16 +184,19 @@ class OverlapSession:
         adopted: set[str] = set()
         for name, leaf in carries.items():
             spec = self.spec_map.get(name)
-            if spec is None or tuple(leaf.shape) != tuple(spec.shape) or dtype_name(leaf.dtype) != spec.dtype:
+            if spec is None or dtype_name(leaf.dtype) != spec.dtype:
+                continue
+            if tuple(leaf.shape) != self.executor.carry_shape(name):
                 continue
             if leaf.device != self.executor.device or shares_storage(leaf, live_tensors):
                 continue
             self.executor.dst[name] = leaf
             self.executor.dst_buffers.pop(name, None)
             adopted.add(name)
-        reused = [
-            l for l in self.pending if l in streamed_at and {t.tensor for t in self.plan.by_layer(l)} <= adopted
-        ]
+        ex = self.executor
+        flags = ex.agree([l in streamed_at and ex.layer_tensors(self.plan.by_layer(l)) <= adopted
+                          for l in self.pending])
+        reused = [l for l, ok in zip(list(self.pending), flags) if ok]
         for l in reused:
             self.pending.remove(l)
             self.streamed_at[l] = streamed_at[l]
